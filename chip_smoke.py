@@ -8,12 +8,14 @@
 Phases (any failure raises, and the script exits nonzero):
   0. print the card (nvidia-smi name and power limit, torch's device name);
   1. build the CUDA kernels from semantic_dsp_map_tpu_torch/csrc;
-  2. check each kernel against its plain PyTorch version on the card at
-     VKITTI2 shapes, and time both with CUDA events;
-  3. check the CUDA path against the CPU path on the tiny dynamic scene;
-  4. drive the main path: SemanticDSPMap.update() on the VKITTI2 preset
-     (use_pallas_observe=False) for 3 warm-up + 10 synthetic frames, and
-     check that every kernel of the path ran once per frame.
+  2. check each of the five kernels against its plain PyTorch version on the
+     card, at VKITTI2 shapes and at ZED2 shapes (BOOST 640x360, R = 3,
+     K = 3), and time both with CUDA events;
+  3. check the CUDA path against the CPU path on the tiny dynamic scene and
+     on the tiny ZED2 scene (independent filter off and on), every kernel on;
+  4. drive the main paths: SemanticDSPMap.update() on the default VKITTI2
+     preset, then on the default ZED2 preset, each for 3 warm-up + 10
+     synthetic frames, and check that every kernel ran once per frame.
 Then one JSON line with the kernels' numbers, the card again, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no result.
@@ -86,6 +88,54 @@ def synth_vkitti2_frame(cfg, t, mask_cls, car_h_div=6, car_w_div=8):
     return depth, masks, pos, quat
 
 
+#: Runtime parameters of the ZED2 cell (cfg/options_zed2.yaml; the JAX
+#: package's bench.py uses the same).
+ZED2_PARAMS = dict(
+    detection_probability=0.8, noise_number=0.2, nb_ptc_num_per_point=1,
+    occupancy_threshold=0.15, max_observation_lost_time=20,
+    forgetting_rate=1.0, max_forget_count=5, id_transition_probability=0.5,
+    bayesian_movement_distance_threshold=0.2,
+    bayesian_movement_probability_threshold=0.3,
+    bayesian_movement_increment=0.2, bayesian_movement_decrement=0.05,
+    if_consider_depth_noise=True,
+    depth_noise_model_first_order=0.02, depth_noise_model_zero_order=0.3,
+)
+
+
+def synth_zed2_frame(cfg, t, mask_cls):
+    """ZED2-like frame at full sensor resolution (update() BOOST-resizes):
+    ground, a building above the horizon and a tracked person with 3D-bbox
+    corner keypoints (the JAX package's bench.synth_zed2_frame, without
+    JAX)."""
+    H, W = cfg.image_height, cfg.image_width
+    rng = np.random.RandomState(t)
+    v = np.arange(H, dtype=np.float32)[:, None]
+    depth = np.full((H, W), 9.0, np.float32)
+    ground = cfg.camera_fy * 1.2 / np.maximum(v - cfg.camera_cy, 1e-3)
+    depth = np.minimum(depth, np.where(v > cfg.camera_cy, ground, depth))
+    depth += rng.randn(H, W).astype(np.float32) * 0.03
+    static = np.full((H, W), 6, np.uint8)
+    static[: H // 2] = 5
+    person = np.zeros((H, W), np.uint8)
+    cx0 = int((0.15 + 0.015 * t) * W) % W
+    person[H // 3 : H // 3 + H // 4, cx0 : cx0 + W // 10] = 1
+    pz = 4.0
+    depth[person > 0] = pz
+    xl = (cx0 - cfg.camera_cx) / cfg.camera_fx * pz
+    kpts = np.array(
+        [[xl, -0.9, pz], [xl + 0.5, -0.9, pz], [xl, 0.9, pz], [xl + 0.5, 0.9, pz]],
+        np.float32,
+    )
+    masks = [
+        mask_cls(track_id=65535, label="static", mask=static),
+        mask_cls(track_id=7, label="Person", mask=person, kpts_current=kpts,
+                 kpts_previous=kpts - np.array([0.1, 0, 0], np.float32)),
+    ]
+    pos = np.array([0.02 * t, 0.0, 0.2 * t], np.float32)
+    quat = np.array([1.0, 0, 0, 0], np.float32)
+    return depth, masks, pos, quat
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs (after one warm-up)."""
     import torch
@@ -132,7 +182,7 @@ def assert_equal(name, got, want):
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: kernels vs their plain versions at VKITTI2 shapes
+# Phase 2: kernels vs their plain versions at VKITTI2 and ZED2 shapes
 # ---------------------------------------------------------------------------
 
 
@@ -198,20 +248,22 @@ def near_threshold(cfg, params, t, cloud):
     return near
 
 
-def check_phd(cfg, report):
+def check_phd(cfg, report, prefix=""):
+    """Passes A and B against the plain stencils; the numbers go into
+    ``report`` under ``prefix`` + max_abs_err / ms / plain_ms."""
     import torch
     from semantic_dsp_map_tpu_torch.config import FilterParams
     from semantic_dsp_map_tpu_torch.ops import phd, phd_cuda
 
     t, cloud, fill = phd_inputs(cfg)
     S, H, W = t.px.shape
-    print(f"[phd] table S={S} H={H} W={W} R={cfg.neighbor_half}, occupied share {fill:.4f}")
+    print(f"[phd] {prefix}table S={S} H={H} W={W} R={cfg.neighbor_half}, occupied share {fill:.4f}")
     for independent in (False, True):
         params = FilterParams(
             detection_probability=0.9, noise_number=0.1,
             if_use_independent_filter=independent, if_consider_depth_noise=True,
         )
-        tag = f"independent={independent}"
+        tag = f"{prefix}independent={independent}"
         ck_plain = phd.stencil_pass_a(cfg, params, t, cloud)
         ck_kern = phd.stencil_pass_a_any(cfg, params, t, cloud)
         torch.cuda.synchronize()
@@ -263,12 +315,14 @@ def check_phd(cfg, report):
         print(f"[phd] {tag}: pass B max abs {b_abs:.3e} rel {b_rel:.3e}, "
               f"kernel {ms_b:.3f} ms, plain {ms_b_plain:.3f} ms")
         if not independent:
-            report["phd_pass_a"].update(max_abs_err=a_abs, ms=ms_a, plain_ms=ms_a_plain)
-            report["phd_pass_b"].update(max_abs_err=b_abs, ms=ms_b, plain_ms=ms_b_plain)
+            report["phd_pass_a"].update(
+                {prefix + "max_abs_err": a_abs, prefix + "ms": ms_a, prefix + "plain_ms": ms_a_plain})
+            report["phd_pass_b"].update(
+                {prefix + "max_abs_err": b_abs, prefix + "ms": ms_b, prefix + "plain_ms": ms_b_plain})
 
 
 def random_render_state(cfg, seed=5):
-    """A seeded VKITTI2-size particle store with mixed status, stamps and
+    """A seeded full-size particle store with mixed status, stamps and
     tracks (the generator of tests/test_render_pallas.py at full size)."""
     import torch
     from semantic_dsp_map_tpu_torch.state import Particles
@@ -294,7 +348,7 @@ def random_render_state(cfg, seed=5):
     return p, ri(3, V), ri(2, V)
 
 
-def check_render(cfg, report):
+def check_render(cfg, report, prefix=""):
     import dataclasses
 
     import torch
@@ -317,15 +371,93 @@ def check_render(cfg, report):
     ms = cuda_ms(lambda: render_core_cuda(cfg, pk, vst, vax, thr), 10)
     ms_plain = cuda_ms(lambda: render_core_plain(cfg, p, vst, vax, thr), 3)
     occ = torch.bincount((r_k.occ + 1).long(), minlength=4).tolist()
-    print(f"[render] V={cfg.num_voxels} K={cfg.slots_per_voxel}: occ histogram "
+    print(f"[render] {prefix}V={cfg.num_voxels} K={cfg.slots_per_voxel}: occ histogram "
           f"(-1,0,1,2) {occ}; weight_sum max abs {e1[0]:.3e}, new weight max abs "
           f"{e2[0]:.3e}; kernel {ms:.3f} ms, plain {ms_plain:.3f} ms")
-    report["render"].update(max_abs_err=max(e1[0], e2[0]), ms=ms, plain_ms=ms_plain)
+    report["render"].update({prefix + "max_abs_err": max(e1[0], e2[0]), prefix + "ms": ms,
+                             prefix + "plain_ms": ms_plain})
+
+
+def check_observe(cfg, report, prefix=""):
+    """The observe candidate scan and the movable-voxel scan against their
+    plain versions, byte for byte, on a seeded full-size store (mixed
+    status, stamps and tracks) whose positions fill the map volume around
+    a rotated camera, so a real share of slots lies in the frustum."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import codecs
+    from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
+    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
+    from semantic_dsp_map_tpu_torch.ops.observe_cuda import (
+        front_candidates_cuda, movable_voxels_cuda,
+    )
+    from semantic_dsp_map_tpu_torch.state import init_scroll
+
+    dev = torch.device("cuda")
+    p, _, _ = random_render_state(cfg, seed=7)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    V, K = cfg.num_voxels, cfg.slots_per_voxel
+    n = V * K
+    hx, hy, hz = cfg.map_half_extent
+    u = lambda h: (torch.rand(n, generator=g, device=dev) * 2 - 1) * h
+    px, py, pz = u(hx), u(hy), u(hz)
+    # a scrolled map: per-axis stamps 0-1 against slot stamps 0-2
+    ri = lambda m: torch.randint(0, 2, (m,), generator=g, device=dev, dtype=torch.int32)
+    scroll = dataclasses.replace(init_scroll(cfg, dev), axis_stamp_x=ri(cfg.nx),
+                                 axis_stamp_y=ri(cfg.ny))
+    vax = codecs.axis_stamps_per_voxel(cfg, scroll)
+    # 20 degrees of yaw and 5 of pitch, off the origin
+    quat = torch.tensor([0.9833, 0.0428, 0.1737, 0.0076], device=dev)
+    quat = quat / quat.norm()
+    _, _, r_cw, t_cw = camera_matrices(torch.tensor([0.3, -0.2, 0.5], device=dev), quat)
+
+    args = (cfg, px, py, pz, p.status, p.stamp, vax, r_cw, t_cw)
+    ha_p, hc_p = front_candidates_plain(*args)
+    ha_k, hc_k = front_candidates_cuda(*args)
+    torch.cuda.synchronize()
+    assert_equal(f"{prefix}front has_alive", ha_k, ha_p)
+    assert_equal(f"{prefix}front has_cand", hc_k, hc_p)
+    alive_share = float(ha_p.float().mean())
+    cand_share = float(hc_p.float().mean())
+    if not 0.0 < cand_share < alive_share < 1.0:
+        raise AssertionError(f"{prefix}front: degenerate store (alive {alive_share}, cand {cand_share})")
+    ms_f = cuda_ms(lambda: front_candidates_cuda(*args), 10)
+    ms_f_plain = cuda_ms(lambda: front_candidates_plain(*args), 3)
+
+    max_movable = 1
+    margs = (cfg, p.track, p.status, p.stamp, vax, max_movable)
+    hm_p = movable_voxels_plain(*margs)
+    hm_k = movable_voxels_cuda(*margs)
+    torch.cuda.synchronize()
+    assert_equal(f"{prefix}movable", hm_k, hm_p)
+    mov_share = float(hm_p.float().mean())
+    if not 0.0 < mov_share < 1.0:
+        raise AssertionError(f"{prefix}movable: degenerate store (share {mov_share})")
+    ms_m = cuda_ms(lambda: movable_voxels_cuda(*margs), 10)
+    ms_m_plain = cuda_ms(lambda: movable_voxels_plain(*margs), 3)
+    print(f"[observe] {prefix}V={V} K={K}: voxel shares alive {alive_share:.4f}, "
+          f"candidate {cand_share:.4f}, movable {mov_share:.4f}; outputs byte-equal; "
+          f"front kernel {ms_f:.3f} ms, plain {ms_f_plain:.3f} ms; "
+          f"movable kernel {ms_m:.3f} ms, plain {ms_m_plain:.3f} ms")
+    report["front_candidates"].update(
+        {prefix + "max_abs_err": 0.0, prefix + "ms": ms_f, prefix + "plain_ms": ms_f_plain})
+    report["movable_voxels"].update(
+        {prefix + "max_abs_err": 0.0, prefix + "ms": ms_m, prefix + "plain_ms": ms_m_plain})
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: CUDA path vs CPU path on the tiny dynamic scene
+# Phase 3: CUDA path vs CPU path on the tiny scenes
 # ---------------------------------------------------------------------------
+
+#: Runtime parameters of the tiny scenes (tests/test_full_frame_oracle.py):
+#: no jitter, so both paths are deterministic.
+TINY_PARAMS = dict(if_consider_depth_noise=True, nb_ptc_num_per_point=1,
+                   depth_noise_model_zero_order=0.2, prediction_stddev=0.0)
+TINY_ZED2_PARAMS = dict(TINY_PARAMS, bayesian_movement_distance_threshold=0.2,
+                        bayesian_movement_increment=0.4, bayesian_movement_decrement=0.05,
+                        bayesian_movement_probability_threshold=0.3)
 
 
 def tiny_scene(cfg, t, mask_cls):
@@ -350,51 +482,89 @@ def tiny_scene(cfg, t, mask_cls):
     return depth, masks, cam_pos, np.array([1, 0, 0, 0], np.float32), 0.15 * t
 
 
-def check_tiny_scene():
-    import torch
-    from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, SemanticDSPMap, tiny_test_config
+def tiny_zed2_scene(cfg, t, mask_cls):
+    """The 10-frame ZED2 (bbox3d) scene of tests/test_full_frame_oracle.py:
+    a culled sky band, mask bleed onto a far wall that the bbox gate
+    demotes, a moving 4-corner-bbox car, 0.35 s frames."""
+    H, W = cfg.height, cfg.width
+    depth = np.full((H, W), 1.5873, np.float32)
+    depth[:3, :] = 9.5111
+    depth[:, 26:] = 3.0873
+    static = np.full((H, W), 6, np.uint8)
+    static[3:7, :] = 2
+    car = np.zeros((H, W), np.uint8)
+    car[9:16, 6 + t : 13 + t] = 1
+    car[9:16, 26:29] = 1
+    depth[9:16, 6 + t : 13 + t] = 1.2157
+    dx, dy = 0.05131, 0.01071
+    base = np.array([[0.0071, 0, 1.2157], [0.2184, 0, 1.2157], [0.0071, -0.2041, 1.2157],
+                     [0.2184, -0.2041, 1.2157]], np.float32)
+    kpts = (base + np.array([dx * t, dy * t, 0], np.float32)).astype(np.float32)
+    masks = [
+        mask_cls(track_id=65535, label="static", mask=static),
+        mask_cls(track_id=4, label="Car", mask=car, kpts_current=kpts,
+                 kpts_previous=kpts - np.array([dx, dy, 0], np.float32)),
+    ]
+    cam_pos = np.array([0.01133 * t, 0, 0.03177 * t], np.float32)
+    return depth, masks, cam_pos, np.array([1, 0, 0, 0], np.float32), 0.35 * t
 
-    params = FilterParams(if_consider_depth_noise=True, nb_ptc_num_per_point=1,
-                          depth_noise_model_zero_order=0.2, prediction_stddev=0.0)
-    cpu = SemanticDSPMap(tiny_test_config(), params, device="cpu")
-    gpu = SemanticDSPMap(tiny_test_config(use_pallas_observe=False), params, device="cuda")
-    for t in range(10):
-        rc, dc = cpu.update(*tiny_scene(cpu.cfg, t, MaskKpts))
-        rg, dg = gpu.update(*tiny_scene(gpu.cfg, t, MaskKpts))
+
+def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10):
+    """The same scene through a CPU map and a CUDA map (default flags, so
+    every kernel is on): counters equal, occ/label/track equal, weight_sum
+    close, and every kernel launched once per frame on the CUDA side."""
+    import torch
+    from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap
+
+    cpu = SemanticDSPMap(cfg, params, device="cpu")
+    gpu = SemanticDSPMap(cfg, params, device="cuda")
+    for fn in counters:
+        fn.launches = 0
+    moved = 0
+    for t in range(frames):
+        rc, dc = cpu.update(*scene(cfg, t, MaskKpts))
+        rg, dg = gpu.update(*scene(cfg, t, MaskKpts))
         dcd = {k: int(v) for k, v in dc._asdict().items()}
         dgd = {k: int(v) for k, v in dg._asdict().items()}
         if dcd != dgd:
-            raise AssertionError(f"tiny scene frame {t}: diagnostics {dgd} != CPU {dcd}")
-        for name in ("occ", "label", "track"):
-            assert_equal(f"tiny scene frame {t} {name}", getattr(rg, name).cpu(), getattr(rc, name))
+            raise AssertionError(f"{name} frame {t}: diagnostics {dgd} != CPU {dcd}")
+        for field in ("occ", "label", "track"):
+            assert_equal(f"{name} frame {t} {field}", getattr(rg, field).cpu(), getattr(rc, field))
         if not torch.allclose(rg.weight_sum.cpu(), rc.weight_sum, rtol=2e-4, atol=1e-6):
-            raise AssertionError(f"tiny scene frame {t}: weight_sum differs")
-    print(f"[tiny] 10 frames: CUDA path equal to the CPU path (last diag {dgd})")
+            raise AssertionError(f"{name} frame {t}: weight_sum differs")
+        moved += dgd["moved_count"]
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if any(c != frames for c in launches.values()):
+        raise AssertionError(f"{name}: launches {launches} in {frames} frames")
+    if moved == 0:
+        raise AssertionError(f"{name}: the rigid-move stage moved no particle")
+    print(f"[tiny] {name}, {frames} frames: CUDA path equal to the CPU path "
+          f"(moved {moved}, last diag {dgd}, launches {launches})")
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phase 4: the main paths
 # ---------------------------------------------------------------------------
 
 
-def drive_main_path(counters, card, warmup=3, frames=10):
+def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=10):
+    """SemanticDSPMap.update() on ``cfg`` for warm-up + timed frames, with
+    the launch counts set to 0 just before and read just after."""
     import torch
-    from semantic_dsp_map_tpu_torch import (
-        FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config,
-    )
+    from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap
 
-    cfg = virtual_kitti2_config(use_pallas_observe=False)
-    dsp = SemanticDSPMap(cfg, FilterParams(**VK_PARAMS), device="cuda")
+    dsp = SemanticDSPMap(cfg, params, device="cuda")
     n_slots = cfg.num_voxels * cfg.slots_per_voxel
-    print(f"[main] VKITTI2: grid {cfg.nx}x{cfg.ny}x{cfg.nz} = {cfg.num_voxels} voxels, "
+    print(f"[{name}] grid {cfg.nx}x{cfg.ny}x{cfg.nz} = {cfg.num_voxels} voxels, "
           f"K={cfg.slots_per_voxel}, {n_slots} slots, image {cfg.width}x{cfg.height}, "
-          f"R={cfg.neighbor_half}, S={cfg.phd_pixel_table_slots}")
-    scenes = [synth_vkitti2_frame(cfg, t, MaskKpts) for t in range(warmup + frames)]
+          f"R={cfg.neighbor_half}, S={cfg.phd_pixel_table_slots}, "
+          f"use_pallas_observe={cfg.use_pallas_observe}")
+    scenes = [synth(cfg, t, MaskKpts) for t in range(warmup + frames)]
     torch.cuda.synchronize()
 
     for fn in counters:
         fn.launches = 0
-    frame_ms, wall_ms, diags, moved_any = [], [], [], False
+    frame_ms, wall_ms, moved_any = [], [], False
     result = None
     for t, (depth, masks, pos, quat) in enumerate(scenes):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -406,10 +576,9 @@ def drive_main_path(counters, card, warmup=3, frames=10):
         wall_ms.append((time.perf_counter() - w0) * 1e3)
         frame_ms.append(a.elapsed_time(b))
         d = {k: int(v) for k, v in diag._asdict().items()}
-        diags.append(d)
         moved_any |= d["moved_count"] > 0
         tag = "warm-up" if t < warmup else "timed"
-        print(f"[main] frame {t} ({tag}): {frame_ms[-1]:.3f} ms (events), "
+        print(f"[{name}] frame {t} ({tag}): {frame_ms[-1]:.3f} ms (events), "
               f"{wall_ms[-1]:.3f} ms (host) on {card}; diag {d}")
     launches = {fn.__name__: fn.launches for fn in counters}
 
@@ -419,31 +588,31 @@ def drive_main_path(counters, card, warmup=3, frames=10):
     hist = {str(k - 1): int(c) for k, c in enumerate(torch.bincount((occ + 1).long(), minlength=4).tolist())}
     w = dsp.state.particles.weight
     n_nan = int(torch.isnan(w).sum())
-    print(f"[main] per-frame ms over the {frames} timed frames: median {np.median(timed):.3f}, "
+    print(f"[{name}] per-frame ms over the {frames} timed frames: median {np.median(timed):.3f}, "
           f"min {np.min(timed):.3f}, max {np.max(timed):.3f} ({card})")
-    print(f"[main] last frame occ histogram {hist}; NaN weights {n_nan}; launches {launches}")
-    for name, count in launches.items():
+    print(f"[{name}] last frame occ histogram {hist}; NaN weights {n_nan}; launches {launches}")
+    for fname, count in launches.items():
         if count != n:
-            raise AssertionError(f"{name} launched {count} times in {n} frames")
+            raise AssertionError(f"{name}: {fname} launched {count} times in {n} frames")
     if hist["1"] <= 0:
-        raise AssertionError("no occupied voxel after the last frame")
+        raise AssertionError(f"{name}: no occupied voxel after the last frame")
     if not moved_any:
-        raise AssertionError("the rigid-move stage moved no particle in any frame")
+        raise AssertionError(f"{name}: the rigid-move stage moved no particle in any frame")
     if n_nan:
-        raise AssertionError(f"{n_nan} NaN particle weights")
+        raise AssertionError(f"{name}: {n_nan} NaN particle weights")
     if occ.shape != (cfg.num_voxels,):
-        raise AssertionError(f"occ has shape {tuple(occ.shape)}")
+        raise AssertionError(f"{name}: occ has shape {tuple(occ.shape)}")
     return launches, float(np.median(timed)), dsp
 
 
-def profile_main_path(dsp, card, first_t=13, frames=3, out_dir=REPO / "chiprun_out"):
+def profile_main_path(dsp, synth, card, first_t=13, frames=3, out_dir=REPO / "chiprun_out"):
     """torch.profiler over a few more frames: device time by kernel, the
     device's busy share of the wall time, and a chrome trace."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts
     from torch.profiler import ProfilerActivity, profile
 
-    scenes = [synth_vkitti2_frame(dsp.cfg, t, MaskKpts) for t in range(first_t, first_t + frames)]
+    scenes = [synth(dsp.cfg, t, MaskKpts) for t in range(first_t, first_t + frames)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         w0 = time.perf_counter()
@@ -463,7 +632,7 @@ def profile_main_path(dsp, card, first_t=13, frames=3, out_dir=REPO / "chiprun_o
     n_launch = sum(e.count for e in events) // frames
     print(f"[profile] {n_launch} device launches per frame")
     out_dir.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "profile_trace.json"))
+    prof.export_chrome_trace(str(out_dir / f"profile_trace_{dsp.cfg.width}x{dsp.cfg.height}.json"))
 
 
 def main() -> int:
@@ -471,7 +640,7 @@ def main() -> int:
     ap.add_argument("--phase", choices=("all", "kernels"), default="all",
                     help="'kernels' stops after the per-kernel checks")
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, profile 3 more frames (trace in chiprun_out/)")
+                    help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     args = ap.parse_args()
 
     import torch
@@ -488,8 +657,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from semantic_dsp_map_tpu_torch import virtual_kitti2_config
-    from semantic_dsp_map_tpu_torch.ops import cuda_lib, phd_cuda, render_cuda
+    from semantic_dsp_map_tpu_torch import (
+        FilterParams, tiny_test_config, virtual_kitti2_config, zed2_config,
+    )
+    from semantic_dsp_map_tpu_torch.config import KEYPOINTS_BBOX3D
+    from semantic_dsp_map_tpu_torch.ops import cuda_lib, observe_cuda, phd_cuda, render_cuda
 
     card = card_line()
     print(f"[card] nvidia-smi: {card}")
@@ -502,7 +674,7 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "error" in line.lower():
             print(f"[build] {line.strip()}")
 
-    cfg = virtual_kitti2_config(use_pallas_observe=False)
+    vk_cfg, zed2_cfg = virtual_kitti2_config(), zed2_config()
     source = "semantic_dsp_map_tpu_torch/csrc/"
     report = {
         "phd_pass_a": dict(name="phd_pass_a", route="cuda", source=source + "phd.cu",
@@ -511,23 +683,53 @@ def main() -> int:
                            replaces="semantic_dsp_map_tpu/ops/phd_pallas.py:269"),
         "render": dict(name="render", route="cuda", source=source + "render.cu",
                        replaces="semantic_dsp_map_tpu/ops/render_pallas.py:71"),
+        "front_candidates": dict(name="front_candidates", route="cuda",
+                                 source=source + "observe.cu",
+                                 replaces="semantic_dsp_map_tpu/ops/observe_pallas.py:56"),
+        "movable_voxels": dict(name="movable_voxels", route="cuda", source=source + "observe.cu",
+                               replaces="semantic_dsp_map_tpu/ops/observe_pallas.py:104"),
     }
-    check_phd(cfg, report)
-    check_render(cfg, report)
+    # ms / plain_ms / max_abs_err at VKITTI2 shapes, zed2_* at ZED2 shapes
+    for cfg, prefix in ((vk_cfg, ""), (zed2_cfg, "zed2_")):
+        check_phd(cfg, report, prefix)
+        check_render(cfg, report, prefix)
+        check_observe(cfg, report, prefix)
     if args.phase == "kernels":
         print(json.dumps({"kernels": list(report.values())}))
         print(f"[card] {card}")
         return 0
 
-    check_tiny_scene()
-    counters = (phd_cuda.pass_a_cuda, phd_cuda.pass_b_cuda, render_cuda.render_core_cuda)
-    launches, median_ms, dsp = drive_main_path(counters, card)
-    if args.profile:
-        profile_main_path(dsp, card)
-    report["phd_pass_a"]["launches"] = launches["pass_a_cuda"]
-    report["phd_pass_b"]["launches"] = launches["pass_b_cuda"]
-    report["render"]["launches"] = launches["render_core_cuda"]
-    print(json.dumps({"kernels": list(report.values()), "frame_ms_median": median_ms,
+    counters = {
+        "phd_pass_a": phd_cuda.pass_a_cuda, "phd_pass_b": phd_cuda.pass_b_cuda,
+        "render": render_cuda.render_core_cuda,
+        "front_candidates": observe_cuda.front_candidates_cuda,
+        "movable_voxels": observe_cuda.movable_voxels_cuda,
+    }
+    fns = tuple(counters.values())
+    check_scene_cuda_vs_cpu("dynamic scene", tiny_test_config(), FilterParams(**TINY_PARAMS),
+                            tiny_scene, fns)
+    for independent in (False, True):
+        check_scene_cuda_vs_cpu(
+            f"ZED2 scene independent={independent}",
+            tiny_test_config(keypoint_mode=KEYPOINTS_BBOX3D),
+            FilterParams(**TINY_ZED2_PARAMS, if_use_independent_filter=independent),
+            tiny_zed2_scene, fns,
+        )
+
+    paths = (("vkitti2", vk_cfg, VK_PARAMS, synth_vkitti2_frame),
+             ("zed2", zed2_cfg, ZED2_PARAMS, synth_zed2_frame))
+    medians = {}
+    for name, cfg, params, synth in paths:
+        launches, medians[name], dsp = drive_main_path(
+            name, cfg, FilterParams(**params), synth, fns, card)
+        if args.profile:
+            profile_main_path(dsp, synth, card)
+        del dsp
+        for key, fn in counters.items():
+            report[key].setdefault("launches_by_path", {})[name] = launches[fn.__name__]
+    for key, entry in report.items():
+        entry["launches"] = entry["launches_by_path"]["vkitti2"]
+    print(json.dumps({"kernels": list(report.values()), "frame_ms_median": medians,
                       "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 It mirrors the module layout of the JAX package ``semantic_dsp_map_tpu``
 (the reference implementation) and imports neither JAX nor that package.
 The TPU's Pallas kernels on the main path are hand-written CUDA kernels
-here (``csrc/``, bound in ``ops/phd_cuda.py`` and ``ops/render_cuda.py``);
+here (``csrc/``, bound in ``ops/phd_cuda.py``, ``ops/render_cuda.py`` and
+``ops/observe_cuda.py``);
 on CPU tensors every op runs its plain PyTorch version.
 
 Key entry points:

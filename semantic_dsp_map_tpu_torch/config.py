@@ -241,10 +241,10 @@ class MapConfig:
     #: ops/render.py runs on the CPU and is the kernel's oracle.
     use_pallas_render: bool = True
 
-    #: Run observe's dense candidate pass and the movable-voxel scan as
-    #: kernels.  Those kernels are not ported yet: on a CUDA device this
-    #: flag raises NotImplementedError (ROADMAP.md, Queue 2); on the CPU the
-    #: plain passes run.
+    #: Run observe's dense candidate pass and the movable-voxel scan as the
+    #: CUDA kernels of ops/observe_cuda.py when the particle store is on a
+    #: CUDA device; the plain scans of ops/observe.py run on the CPU and are
+    #: the kernels' oracles.
     use_pallas_observe: bool = True
 
     #: Max per-frame newborn candidates actually considered is

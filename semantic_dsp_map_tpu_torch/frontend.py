@@ -8,9 +8,9 @@ and ``generateLabeledPointCloud`` fuses the masks into a per-pixel track-id
 raster (pointcloud_tools.h:116-215).  The device-side decode of the packed
 buffer is ``map.unpack_frame``.
 
-The dense per-track bbox tables of the ZED2/bbox3d mode are not built here:
-that mode is not ported yet (the packed buffer still carries the
-per-instance boxes, so its format is unchanged).
+In the ZED2/bbox3d mode ``build_frame_input`` also builds the dense
+per-track bbox tables of the bbox gate; ``pack_frame`` carries the boxes
+per instance and ``map.unpack_frame`` rebuilds the tables on the device.
 """
 
 from __future__ import annotations
@@ -56,6 +56,8 @@ class FrameInput(NamedTuple):
     kpts_curr: np.ndarray          # f32[I, Kp, 3]
     kpts_prev: np.ndarray          # f32[I, Kp, 3]
     kpts_count: np.ndarray         # i32[I]
+    inst_bbox_min: np.ndarray      # f32[65536, 3] (only used in bbox3d mode)
+    inst_bbox_max: np.ndarray      # f32[65536, 3]
     cam_pos: np.ndarray            # f32[3]
     cam_quat: np.ndarray           # f32[4] (w, x, y, z)
     time: np.ndarray               # f32 scalar (seconds, relative epoch)
@@ -196,11 +198,18 @@ def build_frame_input(
     depth, raster, inst = _ingest(cfg, registry, depth, masks)
 
     table = static_label_table(registry)
+    bbox_min = np.full((65536, 3), -np.inf, np.float32)
+    bbox_max = np.full((65536, 3), np.inf, np.float32)
     I = cfg.max_instances_per_frame
     for slot in range(I):
         tid = int(inst["track"][slot])
-        if tid >= 0 and inst["label"][slot] >= 0 and tid < 65536:
+        if tid < 0:
+            continue
+        if inst["label"][slot] >= 0 and tid < 65536:
             table[tid] = inst["label"][slot]
+        if inst["has_bbox"][slot]:
+            bbox_min[tid] = inst["bbox_min"][slot]
+            bbox_max[tid] = inst["bbox_max"][slot]
 
     return FrameInput(
         depth=depth,
@@ -212,6 +221,8 @@ def build_frame_input(
         kpts_curr=inst["kpts_curr"],
         kpts_prev=inst["kpts_prev"],
         kpts_count=inst["kpts_count"],
+        inst_bbox_min=bbox_min,
+        inst_bbox_max=bbox_max,
         cam_pos=np.asarray(cam_pos, np.float32).reshape(3),
         cam_quat=np.asarray(cam_quat, np.float32).reshape(4),
         time=np.float32(time),

@@ -8,9 +8,9 @@ moves), visibility + PHD weight update, birth + resampling, occupancy
 render.  Every capacity cap is counted in :class:`StepDiagnostics`; the step
 has fixed shapes and makes no data-dependent host sync.
 
-Not ported yet (ROADMAP.md): template matching, the ZED2/bbox3d keypoint
-mode, the smoothed render, and the observe/movable kernels (so on a CUDA
-device the config must set ``use_pallas_observe=False``).
+Both keypoint modes run: superpoint (the VKITTI2 preset) and ZED2/bbox3d,
+with its sky cull and bbox gate.  Not ported yet (ROADMAP.md): template
+matching and the smoothed render.
 """
 
 from __future__ import annotations
@@ -24,19 +24,18 @@ import torch
 from .config import FilterParams, KEYPOINTS_BBOX3D, MapConfig
 from .frontend import FrameInput, pack_frame, static_label_table
 from .labels import LabelRegistry
-from .objects import RANSAC_ITERS, ObservedInstances, expire_objects, object_level_update
+from .objects import ObservedInstances, expire_objects, object_level_update, ransac_draw_shape
 from .ops import codecs
 from .ops.birth import Candidates, _insert_core, birth_and_resample
 from .ops.blocks import (
     block_layout,
     gather_rows_flat,
-    mask_to_block_mask,
     row_valid,
     scatter_rows_flat,
     select_blocks,
 )
 from .ops.geometry import camera_matrices
-from .ops.observe import OBSERVE_KERNELS_TODO, observe_and_update
+from .ops.observe import movable_voxels_plain, observe_and_update, use_observe_kernels
 from .ops.projection import generate_labeled_cloud
 from .ops.render import render_occupancy
 from .state import MapState, Particles, STATUS_INVALID, clear_map_state, init_map_state
@@ -79,10 +78,7 @@ def _move_and_cleanup(
     (:672-693; operations.h:321-362).  All work runs on the working set of
     blocks holding movable particles; ``particles`` is updated in place.
     Returns (particles, moved_count, overflow)."""
-    if cfg.use_pallas_observe and particles.px.is_cuda:
-        raise NotImplementedError(OBSERVE_KERNELS_TODO)
     K = cfg.slots_per_voxel
-    V = cfg.num_voxels
     bv, nb, spb = block_layout(cfg)
     A = min(cfg.max_moving_blocks, nb)
     flat = particles
@@ -90,11 +86,12 @@ def _move_and_cleanup(
     vox_axis = codecs.axis_stamps_per_voxel(cfg, scroll)
     mv_obj = objects.valid & objects.has_moved_record & objects.moving & objects.has_tmatrix
 
-    alive = codecs.particle_alive(flat.status.view(V, K), flat.stamp.view(V, K), vox_axis)
-    track = flat.track.view(V, K)
-    movable_p = alive & (track >= 0) & (track <= max_movable)
-    blocks = select_blocks(mask_to_block_mask(movable_p, bv), A)
-    del alive, movable_p
+    scan = movable_voxels_plain
+    if use_observe_kernels(cfg, flat.track):
+        from .ops.observe_cuda import movable_voxels_cuda as scan
+    hm = scan(cfg, flat.track, flat.status, flat.stamp, vox_axis, max_movable)
+    blocks = select_blocks((hm.view(nb, bv) != 0).any(dim=1), A)
+    del hm
     rv = row_valid(blocks)
 
     g = lambda f: gather_rows_flat(f, blocks, spb)
@@ -152,8 +149,8 @@ def _move_and_cleanup(
 
 def unpack_frame(cfg: MapConfig, static_table: torch.Tensor, buf: torch.Tensor) -> FrameInput:
     """Device-side decode of the packed frame buffer (frontend.pack_frame),
-    rebuilding the dense track -> label table from the per-instance arrays.
-    ``buf`` is int32 on the target device."""
+    rebuilding the dense track -> label and track -> bbox tables from the
+    per-instance arrays.  ``buf`` is int32 on the target device."""
     H, W = cfg.height, cfg.width
     HW = H * W
     I, Kp = cfg.max_instances_per_frame, cfg.max_keypoints
@@ -171,16 +168,24 @@ def unpack_frame(cfg: MapConfig, static_table: torch.Tensor, buf: torch.Tensor) 
     inst_track = buf[o : o + I]; o += I
     inst_label = buf[o : o + I]; o += I
     kpts_count = buf[o : o + I]; o += I
-    o += I + 6 * I  # has_bbox, bbox_min, bbox_max: ZED2 mode only
+    has_bbox = buf[o : o + I]; o += I
+    bbox_min_i = f32(buf[o : o + 3 * I]).view(I, 3); o += 3 * I
+    bbox_max_i = f32(buf[o : o + 3 * I]).view(I, 3); o += 3 * I
     kc = f32(buf[o : o + I * Kp * 3]).view(I, Kp, 3); o += I * Kp * 3
     kp = f32(buf[o : o + I * Kp * 3]).view(I, Kp, 3)
 
     valid = inst_track >= 0
-    # Label overlay: valid instances with a known label write the table;
-    # index 65536 is the drop slot.
+    # Overlays: valid instances with a known label write the label table,
+    # those with a box the bbox tables; row 65536 is the drop row.
     tid = torch.where(valid & (inst_label >= 0) & (inst_track < 65536), inst_track, 65536)
     table = torch.cat([static_table, static_table[:1]])
     table[tid.long()] = torch.clamp(inst_label, min=0)
+    tid_b = torch.where(valid & (has_bbox == 1) & (inst_track < 65536), inst_track, 65536).long()
+    dev = buf.device
+    bbox_min = torch.full((65537, 3), float("-inf"), dtype=torch.float32, device=dev)
+    bbox_max = torch.full((65537, 3), float("inf"), dtype=torch.float32, device=dev)
+    bbox_min[tid_b] = bbox_min_i
+    bbox_max[tid_b] = bbox_max_i
     return FrameInput(
         depth=depth,
         track_raster=raster,
@@ -191,6 +196,8 @@ def unpack_frame(cfg: MapConfig, static_table: torch.Tensor, buf: torch.Tensor) 
         kpts_curr=kc,
         kpts_prev=kp,
         kpts_count=kpts_count,
+        inst_bbox_min=bbox_min[:65536],
+        inst_bbox_max=bbox_max[:65536],
         cam_pos=head[0:3],
         cam_quat=head[3:7],
         time=head[7],
@@ -205,9 +212,12 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
         raise NotImplementedError("template matching is not ported yet (ROADMAP.md)")
     if params.if_use_neighbor_smoothed_occupancy:
         raise NotImplementedError("the smoothed render is not ported yet (ROADMAP.md)")
-    if cfg.keypoint_mode == KEYPOINTS_BBOX3D:
-        raise NotImplementedError("the ZED2/bbox3d mode is not ported yet (ROADMAP.md)")
     max_movable = registry.max_movable_instance_id
+    bbox3d = cfg.keypoint_mode == KEYPOINTS_BBOX3D
+    # ZED2 only: sky cull (pointcloud_tools.h:234-241) and bbox gate.
+    sky_instance = registry.static_label_to_instance.get(
+        "Sky", registry.static_label_to_instance.get("sky", -1)
+    ) if bbox3d else -1
 
     def step(state: MapState, f: FrameInput):
         gt = state.global_time + 1
@@ -221,16 +231,18 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
                 valid=f.inst_valid, track=f.inst_track, label=f.inst_label,
                 kpts_curr=f.kpts_curr, kpts_prev=f.kpts_prev, kpts_count=f.kpts_count,
             )
-            draws = gumbel(
-                (cfg.max_instances_per_frame, RANSAC_ITERS, cfg.max_keypoints), state.rng, dev
-            )
+            draws = gumbel(ransac_draw_shape(cfg), state.rng, dev)
             objects = object_level_update(
-                cfg, params, objects, obs, f.cam_pos, f.time, state.prev_frame_time, gt, draws,
+                cfg, params, objects, obs, f.cam_pos, r_cw, t_cw, f.time,
+                state.prev_frame_time, gt, draws,
             )
 
         # 2. Labeled point cloud.
         cloud = generate_labeled_cloud(
-            cfg, params, f.depth, f.track_raster, f.track_label_table, r_wc, t_wc
+            cfg, params, f.depth, f.track_raster, f.track_label_table, r_wc, t_wc,
+            max_movable, sky_instance_id=sky_instance,
+            inst_bbox_min=f.inst_bbox_min if bbox3d else None,
+            inst_bbox_max=f.inst_bbox_max if bbox3d else None,
         )
 
         # 3. Prediction: scroll, expiry, cleanup, rigid moves.
@@ -280,8 +292,7 @@ class SemanticDSPMap:
 
     Typical use::
 
-        dsp = SemanticDSPMap(virtual_kitti2_config(use_pallas_observe=False),
-                             FilterParams(...), device="cuda")
+        dsp = SemanticDSPMap(virtual_kitti2_config(), FilterParams(...), device="cuda")
         for frame in frames:
             result, diag = dsp.update(depth, masks, cam_pos, cam_quat, t)
     """

@@ -3,11 +3,12 @@ transform windows and constant-velocity prediction (counterpart of
 ``semantic_dsp_map_tpu/objects.py``; semantic_dsp_map.h:306-566,
 object_layer.h:57-648).
 
-Only the superpoint keypoint mode is ported; the ZED2/bbox3d branch is
-queued in ROADMAP.md.  The reference quirks listed in the JAX module's
-docstring are kept: pre-clamp threshold compare, the default dt of 0.15 s,
-the divide-by-(window-1) velocity, translation-only prediction and the
-Chebyshev range gate for new objects.
+Both keypoint modes are ported: superpoint (matched keypoint pairs) and
+ZED2/bbox3d (4 box corners against the stored last-frame corners).  The
+reference quirks listed in the JAX module's docstring are kept: pre-clamp
+threshold compare, the default dt of 0.15 s, the divide-by-(window-1)
+velocity, translation-only prediction, the last-keypoint-only out-of-FOV
+test of the bbox3d mode and the Chebyshev range gate for new objects.
 """
 
 from __future__ import annotations
@@ -33,6 +34,18 @@ DEFAULT_PREDICT_DT = 0.2
 
 #: RANSAC hypotheses per instance in superpoint mode (semantic_dsp_map.h:381).
 RANSAC_ITERS = 100
+
+#: RANSAC hypotheses per instance in bbox3d mode, over the 4 box corners,
+#: without refit (as ``semantic_dsp_map_tpu/objects.py`` runs them).
+RANSAC_ITERS_BBOX3D = 2
+
+
+def ransac_draw_shape(cfg: MapConfig):
+    """Shape of the Gumbel draws object_level_update takes: [I, iterations,
+    points] (the points are the Kp keypoints, or the 4 box corners)."""
+    if cfg.keypoint_mode == KEYPOINTS_BBOX3D:
+        return (cfg.max_instances_per_frame, RANSAC_ITERS_BBOX3D, 4)
+    return (cfg.max_instances_per_frame, RANSAC_ITERS, cfg.max_keypoints)
 
 
 class ObservedInstances(NamedTuple):
@@ -149,18 +162,17 @@ def object_level_update(
     objects: ObjectTable,
     obs: ObservedInstances,
     cam_pos,
+    r_cw,
+    t_cw,
     time_now,
     prev_frame_time,
     global_time,
     gumbel: torch.Tensor,
 ) -> ObjectTable:
-    """One frame of objectLevelUpdate (semantic_dsp_map.h:306-566),
-    superpoint mode.  ``gumbel`` f32[I, RANSAC_ITERS, Kp] holds the RANSAC
-    triple draws (see ops.transforms.ransac_transform)."""
-    if cfg.keypoint_mode == KEYPOINTS_BBOX3D:
-        raise NotImplementedError(
-            "bbox3d (ZED2) keypoint mode is not ported yet (ROADMAP.md, Queue 1)"
-        )
+    """One frame of objectLevelUpdate (semantic_dsp_map.h:306-566).
+    ``gumbel`` (shape :func:`ransac_draw_shape`) holds the RANSAC triple
+    draws (see ops.transforms.ransac_transform)."""
+    bbox3d = cfg.keypoint_mode == KEYPOINTS_BBOX3D
     I = obs.valid.shape[0]
     Kp = obs.kpts_curr.shape[1]
     O = objects.valid.shape[0]
@@ -213,16 +225,55 @@ def object_level_update(
     has, oidx = _match_objects(objects, obs.track)
 
     # ---------------- Case 2: keypoint transform update ----------------
-    exist_obs = relevant & has & ~new_mask & (obs.kpts_count >= 5)
-    T2, _inl, n_inl, mse, first_inl = ransac_transform(
-        gumbel, obs.kpts_prev, obs.kpts_curr, kmask, 0.5, True
-    )
-    ratio = n_inl.to(torch.float32) / torch.clamp(obs.kpts_count, min=1)
-    tf_ok = (mse <= 0.2) & (n_inl >= 5) & (ratio >= 0.5)
-    success2 = exist_obs & tf_ok
-    ref_pt = obs.kpts_prev[torch.arange(I, device=dev), first_inl]
-    moved_obs = torch.full((I,), -1, dtype=torch.int32, device=dev)
-    dt_window = torch.full((I,), DEFAULT_TIME_INTERVAL, dtype=torch.float32, device=dev)
+    exist_obs = relevant & has & ~new_mask & (obs.kpts_count >= (4 if bbox3d else 5))
+    if bbox3d:
+        # ZED2: transform from the stored last-frame corners to the current
+        # ones (semantic_dsp_map.h:408-481).
+        last_k = objects.last_kpts[oidx]
+        has_last = objects.has_last_kpts[oidx]
+        key_k = objects.key_kpts[oidx]
+        last_idx = torch.clamp(obs.kpts_count - 1, min=0)
+        last_pt = obs.kpts_curr[torch.arange(I, device=dev), last_idx]
+        out_fov = _point_out_of_fov(cfg, r_cw, t_cw, last_pt, margin=5)
+        T2 = ransac_transform(
+            gumbel, last_k, k4, torch.ones((I, 4), dtype=torch.bool, device=dev), 0.5, False
+        )[0]
+
+        width = torch.linalg.vector_norm(k4[:, 1] - k4[:, 0], dim=-1)
+        key_thr = torch.clamp(width, min=params.bayesian_movement_distance_threshold)
+        drift = torch.linalg.vector_norm(k4[:, 0] - key_k[:, 0], dim=-1)
+        moved_obs = (drift > key_thr).to(torch.int32)
+        success2 = exist_obs & ~out_fov & has_last
+        ref_pt = last_k[:, 0]
+        dt_window = time_now - objects.last_kpts_time[oidx]
+
+        # Corner caches: the last corners of every stored observation, and
+        # the key corners when missing or older than 2 s
+        # (semantic_dsp_map.h:431-478).
+        store = exist_obs & ~out_fov
+        set_key = store & (~has_last | ((time_now - objects.key_kpts_time[oidx]) > 2.0))
+        tgt2 = torch.where(store, oidx, O)
+        tgt_key = torch.where(set_key, oidx, O)
+        objects = dataclasses.replace(
+            objects,
+            last_kpts=_scatter(objects.last_kpts, tgt2, k4),
+            last_kpts_time=_scatter(objects.last_kpts_time, tgt2, time_now),
+            has_last_kpts=_scatter(objects.has_last_kpts, tgt2, True),
+            key_kpts=_scatter(objects.key_kpts, tgt_key, k4),
+            key_kpts_time=_scatter(objects.key_kpts_time, tgt_key, time_now),
+        )
+    else:
+        # Superpoint: matched keypoint pairs, RANSAC with refit and the
+        # mse/inlier gate (semantic_dsp_map.h:381-407).
+        T2, _inl, n_inl, mse, first_inl = ransac_transform(
+            gumbel, obs.kpts_prev, obs.kpts_curr, kmask, 0.5, True
+        )
+        ratio = n_inl.to(torch.float32) / torch.clamp(obs.kpts_count, min=1)
+        tf_ok = (mse <= 0.2) & (n_inl >= 5) & (ratio >= 0.5)
+        success2 = exist_obs & tf_ok
+        ref_pt = obs.kpts_prev[torch.arange(I, device=dev), first_inl]
+        moved_obs = torch.full((I,), -1, dtype=torch.int32, device=dev)
+        dt_window = torch.full((I,), DEFAULT_TIME_INTERVAL, dtype=torch.float32, device=dev)
 
     # ---------------- updateObject (object_layer.h:470-539) ------------
     disp = torch.einsum("iab,ib->ia", T2[:, :3, :3], ref_pt) + T2[:, :3, 3] - ref_pt
@@ -274,27 +325,28 @@ def object_level_update(
     ref_o = _scatter(torch.zeros(O, 3, dtype=torch.float32, device=dev), tgt4, ref_pt)
     objects = _window_push_and_estimate(objects, push_mask, T_o, dt_o, ref_o, gt)
 
-    # ---------------- Case 3: rematch / coast --------------------------
-    fail = relevant & has & ~new_mask & ~success2
-    fail &= objects.has_moved_record[oidx] & objects.moving[oidx]
-    can_predict = objects.vel_valid[oidx]
+    # ---------------- Case 3 (superpoint): rematch / coast -------------
+    if not bbox3d:
+        fail = relevant & has & ~new_mask & ~success2
+        fail &= objects.has_moved_record[oidx] & objects.moving[oidx]
+        can_predict = objects.vel_valid[oidx]
 
-    coast = fail & can_predict
-    T_pred = _translation_matrix(objects.velocity[oidx] * DEFAULT_PREDICT_DT)
-    tgt5 = torch.where(coast, oidx, O)
-    objects = dataclasses.replace(
-        objects,
-        tmatrix=_scatter(objects.tmatrix, tgt5, T_pred),
-        has_tmatrix=_scatter(objects.has_tmatrix, tgt5, True),
-        to_match_previous=_scatter(objects.to_match_previous, tgt5, False),
-    )
-    tgt6 = torch.where(fail & ~can_predict, oidx, O)
-    objects = dataclasses.replace(
-        objects,
-        last_obs_step=_scatter(objects.last_obs_step, tgt6, gt),
-        to_match_previous=_scatter(objects.to_match_previous, tgt6, True),
-        to_match_templates=_scatter(objects.to_match_templates, tgt6, False),
-    )
+        coast = fail & can_predict
+        T_pred = _translation_matrix(objects.velocity[oidx] * DEFAULT_PREDICT_DT)
+        tgt5 = torch.where(coast, oidx, O)
+        objects = dataclasses.replace(
+            objects,
+            tmatrix=_scatter(objects.tmatrix, tgt5, T_pred),
+            has_tmatrix=_scatter(objects.has_tmatrix, tgt5, True),
+            to_match_previous=_scatter(objects.to_match_previous, tgt5, False),
+        )
+        tgt6 = torch.where(fail & ~can_predict, oidx, O)
+        objects = dataclasses.replace(
+            objects,
+            last_obs_step=_scatter(objects.last_obs_step, tgt6, gt),
+            to_match_previous=_scatter(objects.to_match_previous, tgt6, True),
+            to_match_templates=_scatter(objects.to_match_templates, tgt6, False),
+        )
 
     # ---------------- Unobserved objects: coasting prediction ----------
     observed = _scatter(
@@ -311,6 +363,17 @@ def object_level_update(
         has_tmatrix=objects.has_tmatrix | upd_T,
         to_match_previous=torch.where(unobs, False, objects.to_match_previous),
     )
+
+
+def _point_out_of_fov(cfg: MapConfig, r_cw, t_cw, pts, margin: int):
+    """isPointOutOfFOV (semantic_dsp_map.h:1421-1442) for points [..., 3]."""
+    cam = pts @ r_cw.T + t_cw
+    z = cam[..., 2]
+    zs = torch.where(z == 0, 1e-9, z)
+    u = cfg.fx * cam[..., 0] / zs + cfg.cx
+    v = cfg.fy * cam[..., 1] / zs + cfg.cy
+    outside = (u < margin) | (u >= cfg.width - margin) | (v < margin) | (v >= cfg.height - margin)
+    return (z <= 0) | outside
 
 
 def expire_objects(params: FilterParams, objects: ObjectTable, global_time):

@@ -49,11 +49,6 @@ def select_blocks(block_mask: torch.Tensor, capacity: int) -> ActiveBlocks:
     return ActiveBlocks(ids=ids, count=torch.clamp(count, max=capacity), overflow=overflow)
 
 
-def mask_to_block_mask(mask: torch.Tensor, block_voxels: int) -> torch.Tensor:
-    """any() of a per-slot ``[V, K]`` or per-voxel ``[V]`` mask per block."""
-    return mask.reshape(mask.shape[0] // block_voxels, -1).any(dim=1)
-
-
 def row_valid(blocks: ActiveBlocks) -> torch.Tensor:
     """bool[A]: which rows of a gathered working set are real."""
     return torch.arange(blocks.ids.shape[0], device=blocks.ids.device) < blocks.count

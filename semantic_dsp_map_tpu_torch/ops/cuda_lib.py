@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("phd.cu", "render.cu")
+SOURCES = ("phd.cu", "render.cu", "observe.cu")
 
 #: Precise math on purpose: pass B's "rightly updated" flag is compared bit
 #: for bit with the plain version, and a contracted FMA or a fast exp can
@@ -47,6 +47,10 @@ SIGNATURES = {
     # 7 inputs (weight and status updated in place), 4 outputs; V, K;
     # threshold, newborn weight; stream
     "dsp_render": [_P] * 11 + [ctypes.c_longlong, _I, _F, _F, _P],
+    # 7 inputs, 2 outputs; V, K; fx, fy, cx, cy; h, w; dmin, dmax; stream
+    "dsp_front_candidates": [_P] * 9 + [ctypes.c_longlong, _I] + [_F] * 4 + [_I, _I, _F, _F, _P],
+    # 4 inputs, 1 output; V, K, max_movable; stream
+    "dsp_movable_voxels": [_P] * 5 + [ctypes.c_longlong, _I, _I, _P],
 }
 
 

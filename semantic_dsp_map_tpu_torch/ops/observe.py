@@ -13,6 +13,11 @@ Reference semantics kept: stale-slot pruning on visit (operations.h:1374),
 far-depth free-space weight reset (:1389-1395), one-sigma occlusion slack
 (:1397-1400), voxel stamps incl. the empty-voxel corner rule (:1414-1431).
 Capacity caps are all counted in :class:`ObserveDiag`.
+
+The dense [V, K] candidate pass is ``front_candidates_plain`` here and the
+CUDA kernel of ops/observe_cuda.py on a CUDA device when
+``cfg.use_pallas_observe`` is set; ``movable_voxels_plain`` is the same
+pair for the move's movable-voxel scan (map._move_and_cleanup).
 """
 
 from __future__ import annotations
@@ -27,7 +32,6 @@ from . import codecs
 from .blocks import (
     block_layout,
     gather_rows_flat,
-    mask_to_block_mask,
     row_valid,
     scatter_rows_flat,
     segment_start_index,
@@ -38,13 +42,6 @@ from .geometry import project_to_image, project_to_image_xyz
 from .phd import stencil_passes, table_from_entries
 from .projection import LabeledCloud
 
-#: Where the next kernels of the port are queued.
-OBSERVE_KERNELS_TODO = (
-    "the observe candidate scan and the movable-voxel scan have no CUDA "
-    "kernel yet (ROADMAP.md, Queue 2: front_candidates and movable_voxels); "
-    "run with MapConfig(use_pallas_observe=False)"
-)
-
 
 class ObserveDiag(NamedTuple):
     visible_count: torch.Tensor    # particles in the pixel table domain
@@ -52,6 +49,34 @@ class ObserveDiag(NamedTuple):
     entry_overflow: torch.Tensor   # candidate entries beyond capacity
     table_dropped: torch.Tensor    # visible entries that lost slot competition
     corner_overflow: torch.Tensor  # empty-voxel blocks beyond capacity
+
+
+def front_candidates_plain(cfg: MapConfig, px, py, pz, status, stamp, vox_axis, r_cw, t_cw):
+    """Per voxel: (has_alive u8[V], has_cand u8[V]), whether any slot is
+    alive, and whether any live slot projects into the image inside the
+    depth range.  Flat [V*K] inputs; the oracle of
+    ops.observe_cuda.front_candidates_cuda."""
+    V = vox_axis.shape[0]
+    K = px.shape[0] // V
+    alive = codecs.particle_alive(status.view(V, K), stamp.view(V, K), vox_axis)
+    _, _, _, ok = project_to_image_xyz(cfg, r_cw, t_cw, px.view(V, K), py.view(V, K), pz.view(V, K))
+    return alive.any(dim=1).to(torch.uint8), (ok & alive).any(dim=1).to(torch.uint8)
+
+
+def movable_voxels_plain(cfg: MapConfig, track, status, stamp, vox_axis, max_movable: int):
+    """Per voxel: any(alive & 0 <= track <= max_movable) as u8[V]; the
+    oracle of ops.observe_cuda.movable_voxels_cuda."""
+    V = vox_axis.shape[0]
+    K = track.shape[0] // V
+    alive = codecs.particle_alive(status.view(V, K), stamp.view(V, K), vox_axis)
+    trk = track.view(V, K)
+    return (alive & (trk >= 0) & (trk <= max_movable)).any(dim=1).to(torch.uint8)
+
+
+def use_observe_kernels(cfg: MapConfig, t: torch.Tensor) -> bool:
+    """The observe/movable scans run as CUDA kernels when the flag is set
+    and the store is on a CUDA device; otherwise as the plain scans."""
+    return cfg.use_pallas_observe and t.is_cuda
 
 
 def observe_and_update(
@@ -68,12 +93,9 @@ def observe_and_update(
 ):
     """Returns (particles, voxel_stamp, ObserveDiag); ``particles`` and
     ``voxel_stamp`` are updated in place."""
-    if cfg.use_pallas_observe and depth.is_cuda:
-        raise NotImplementedError(OBSERVE_KERNELS_TODO)
     H, W, S = cfg.height, cfg.width, cfg.phd_pixel_table_slots
     HW = H * W
     K = cfg.slots_per_voxel
-    V = cfg.num_voxels
     bv, nb, spb = block_layout(cfg)
     A = min(cfg.max_active_blocks, nb)
     C = min(cfg.max_table_entries, A * spb)
@@ -82,13 +104,13 @@ def observe_and_update(
 
     # ---- dense [V, K] pass: who can project into the image ----
     vox_axis = codecs.axis_stamps_per_voxel(cfg, scroll)
-    alive = codecs.particle_alive(flat.status.view(V, K), flat.stamp.view(V, K), vox_axis)
-    _, _, _, proj_ok = project_to_image_xyz(
-        cfg, r_cw, t_cw, flat.px.view(V, K), flat.py.view(V, K), flat.pz.view(V, K)
-    )
-    has_alive = alive.any(dim=1)
-    blocks = select_blocks(mask_to_block_mask(proj_ok & alive, bv), A)
-    del alive, proj_ok
+    front = front_candidates_plain
+    if use_observe_kernels(cfg, flat.px):
+        from .observe_cuda import front_candidates_cuda as front
+    ha, hc = front(cfg, flat.px, flat.py, flat.pz, flat.status, flat.stamp, vox_axis, r_cw, t_cw)
+    has_alive = ha != 0
+    blocks = select_blocks((hc.view(nb, bv) != 0).any(dim=1), A)
+    del hc
     rv = row_valid(blocks)
 
     # ---- active-block working set ----

@@ -1,0 +1,80 @@
+"""Wrappers of the hand-written CUDA observe kernels (csrc/observe.cu).
+
+``front_candidates_cuda`` replaces ``front_candidates`` and
+``movable_voxels_cuda`` replaces ``movable_voxels`` of
+``semantic_dsp_map_tpu/ops/observe_pallas.py`` (the TPU kernels ``_kernel``
+and ``_movable_kernel``).  On CUDA tensors they launch the kernel; on CPU
+tensors they run the plain scans of ops/observe.py, their oracles, which
+take the same arguments.  Bound and design: see the note at the top of
+csrc/observe.cu.
+
+``front_candidates_cuda.launches`` / ``movable_voxels_cuda.launches``
+count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..config import MapConfig
+from . import cuda_lib
+from .observe import front_candidates_plain, movable_voxels_plain
+
+
+def _slots(cfg: MapConfig, vox_axis: torch.Tensor):
+    V = vox_axis.shape[0]
+    return V, cfg.slots_per_voxel, (V * cfg.slots_per_voxel,)
+
+
+def front_candidates_cuda(cfg: MapConfig, px, py, pz, status, stamp, vox_axis, r_cw, t_cw):
+    """(has_alive u8[V], has_cand u8[V]); see
+    ops.observe.front_candidates_plain."""
+    if not px.is_cuda:
+        return front_candidates_plain(cfg, px, py, pz, status, stamp, vox_axis, r_cw, t_cw)
+    V, K, n = _slots(cfg, vox_axis)
+    f32 = torch.float32
+    pose = torch.cat([r_cw.reshape(-1), t_cw.reshape(-1)])
+    ptrs = [cuda_lib.require(t, name, f32, n) for t, name in ((px, "px"), (py, "py"), (pz, "pz"))]
+    ptrs += [
+        cuda_lib.require(status, "status", torch.uint8, n),
+        cuda_lib.require(stamp, "stamp", torch.int32, n),
+        cuda_lib.require(vox_axis, "vox_axis", torch.int32, (V,)),
+        cuda_lib.require(pose, "pose", f32, (12,)),
+    ]
+    ha = torch.empty(V, dtype=torch.uint8, device=px.device)
+    hc = torch.empty(V, dtype=torch.uint8, device=px.device)
+    F = ctypes.c_float
+    err = cuda_lib.library().dsp_front_candidates(
+        *ptrs, ha.data_ptr(), hc.data_ptr(), V, K,
+        F(cfg.fx), F(cfg.fy), F(cfg.cx), F(cfg.cy), cfg.height, cfg.width,
+        F(cfg.depth_range_min), F(cfg.depth_range_max), cuda_lib.stream_ptr(px.device),
+    )
+    cuda_lib.check(err, "dsp_front_candidates")
+    front_candidates_cuda.launches += 1
+    return ha, hc
+
+
+def movable_voxels_cuda(cfg: MapConfig, track, status, stamp, vox_axis, max_movable: int):
+    """u8[V]; see ops.observe.movable_voxels_plain."""
+    if not track.is_cuda:
+        return movable_voxels_plain(cfg, track, status, stamp, vox_axis, max_movable)
+    V, K, n = _slots(cfg, vox_axis)
+    ptrs = [
+        cuda_lib.require(track, "track", torch.int32, n),
+        cuda_lib.require(status, "status", torch.uint8, n),
+        cuda_lib.require(stamp, "stamp", torch.int32, n),
+        cuda_lib.require(vox_axis, "vox_axis", torch.int32, (V,)),
+    ]
+    hm = torch.empty(V, dtype=torch.uint8, device=track.device)
+    err = cuda_lib.library().dsp_movable_voxels(
+        *ptrs, hm.data_ptr(), V, K, int(max_movable), cuda_lib.stream_ptr(track.device),
+    )
+    cuda_lib.check(err, "dsp_movable_voxels")
+    movable_voxels_cuda.launches += 1
+    return hm
+
+
+front_candidates_cuda.launches = 0
+movable_voxels_cuda.launches = 0

@@ -1,7 +1,6 @@
 """Depth back-projection into the labeled point cloud (counterpart of
 ``semantic_dsp_map_tpu/ops/projection.py``; generateLabeledPointCloud,
-pointcloud_tools.h:217-307).  The ZED2-only sky cull and bbox gate are not
-ported yet (ROADMAP.md)."""
+pointcloud_tools.h:217-307), with the ZED2-mode sky cull and bbox gate."""
 
 from __future__ import annotations
 
@@ -10,6 +9,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import FilterParams, MapConfig
+from ..labels import BACKGROUND_INSTANCE_ID
 
 
 class LabeledCloud(NamedTuple):
@@ -30,9 +30,19 @@ def generate_labeled_cloud(
     track_label_table: torch.Tensor,  # i32[65536]
     r_wc: torch.Tensor,
     t_wc: torch.Tensor,
+    max_movable_instance_id: int,
+    sky_instance_id: int = -1,
+    inst_bbox_min: torch.Tensor | None = None,  # f32[65536, 3]
+    inst_bbox_max: torch.Tensor | None = None,
 ) -> LabeledCloud:
     """K^-1 back-projection, camera -> world, per-pixel label lookup and the
-    depth-noise model."""
+    depth-noise model.
+
+    ZED2-mode extras, enabled by the optional arguments: sky pixels are
+    culled (pointcloud_tools.h:234-241), and a movable-track pixel whose
+    point lies outside its track's box (dense tables indexed by track id,
+    margin included) is demoted to Background before the label lookup
+    (pointcloud_tools.h:254-273)."""
     H, W = depth.shape
     dev = depth.device
     rows = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
@@ -44,11 +54,19 @@ def generate_labeled_cloud(
         & (depth <= cfg.depth_range_max)
     )
     track = track_raster.to(torch.int32)
+    if sky_instance_id >= 0:
+        valid &= track != sky_instance_id
 
     x_cam = (cols - cfg.cx) / cfg.fx * depth
     y_cam = (rows - cfg.cy) / cfg.fy * depth
     cam = torch.stack([x_cam, y_cam, depth], dim=-1)
     pos = cam @ r_wc.T + t_wc
+
+    if inst_bbox_min is not None:
+        tid = torch.clamp(track, 0, inst_bbox_min.shape[0] - 1).long()
+        outside = ((pos < inst_bbox_min[tid]) | (pos > inst_bbox_max[tid])).any(dim=-1)
+        demote = (track <= max_movable_instance_id) & outside
+        track = torch.where(demote, BACKGROUND_INSTANCE_ID, track)
 
     label = track_label_table[torch.clamp(track, 0, track_label_table.shape[0] - 1).long()]
 

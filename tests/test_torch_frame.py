@@ -35,7 +35,7 @@ from semantic_dsp_map_tpu_torch.frontend import static_label_table as t_static_t
 from semantic_dsp_map_tpu_torch.map import unpack_frame as t_unpack
 from semantic_dsp_map_tpu_torch.state import map_state_to_numpy
 
-from torch_parity import dynamic_scene, jax_state_to_numpy
+from torch_parity import assert_states_match, dynamic_scene, jax_state_to_numpy
 
 torch.set_num_threads(2)
 
@@ -48,23 +48,6 @@ SCENE_PARAMS = dict(
     depth_noise_model_zero_order=0.2,
     prediction_stddev=0.0,  # determinism: no rigid-move jitter
 )
-
-#: Object-layer floats come out of a 3x3 f32 SVD (Kabsch refit), whose
-#: LAPACK routines differ between the two frameworks by a few ulp of the
-#: largest entry; a velocity that is ~0 in one can be ~1e-6 in the other.
-OBJECT_ATOL = 1e-5
-
-
-def _compare_state(js, ts, msg):
-    for key, a in js.items():
-        b = ts[key]
-        if a.dtype.kind == "f":
-            atol = OBJECT_ATOL if key.startswith("objects.") else 1e-6
-            np.testing.assert_allclose(b, a, rtol=2e-4, atol=atol, err_msg=f"{key} {msg}")
-        else:
-            np.testing.assert_array_equal(
-                b.astype(np.int64), a.astype(np.int64), err_msg=f"{key} {msg}"
-            )
 
 
 def test_dynamic_scene_matches_jax():
@@ -89,7 +72,7 @@ def test_dynamic_scene_matches_jax():
             tr.weight_sum.numpy(), np.asarray(jr.weight_sum), rtol=2e-4, atol=1e-6,
             err_msg=f"weight_sum {msg}",
         )
-        _compare_state(jax_state_to_numpy(jm.state), map_state_to_numpy(tm.state), msg)
+        assert_states_match(jax_state_to_numpy(jm.state), map_state_to_numpy(tm.state), msg)
         moved += int(td.moved_count)
     # the tracked car must actually have been moved by the rigid-move stage
     assert moved > 0

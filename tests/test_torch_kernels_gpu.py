@@ -15,12 +15,18 @@ import numpy as np
 import pytest
 import torch
 
-from semantic_dsp_map_tpu_torch import FilterParams, SemanticDSPMap, tiny_test_config
+from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, SemanticDSPMap, tiny_test_config
+from semantic_dsp_map_tpu_torch.config import KEYPOINTS_BBOX3D
 from semantic_dsp_map_tpu_torch.ops import codecs, phd
+from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
+from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
+from semantic_dsp_map_tpu_torch.ops.observe_cuda import front_candidates_cuda, movable_voxels_cuda
 from semantic_dsp_map_tpu_torch.ops.projection import LabeledCloud
 from semantic_dsp_map_tpu_torch.ops.render import render_core_plain
 from semantic_dsp_map_tpu_torch.ops.render_cuda import render_core_cuda
 from semantic_dsp_map_tpu_torch.state import init_map_state
+
+from torch_parity import zed2_scene
 
 CASES = [(False, False, 0.4), (True, False, 0.4), (False, True, 0.12)]
 
@@ -62,9 +68,10 @@ def _phd_inputs(cfg, device, seed=0, fill=0.4, front_fill=False):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("R", [5, 3])  # VKITTI2 and BOOST-mode (ZED2) half-widths
 @pytest.mark.parametrize("independent,front_fill,fill", CASES)
-def test_phd_kernels_match_plain(cuda, independent, front_fill, fill):
-    cfg = tiny_test_config(phd_pixel_table_slots=4)
+def test_phd_kernels_match_plain(cuda, independent, front_fill, fill, R):
+    cfg = tiny_test_config(phd_pixel_table_slots=4, phd_neighbor_half=R)
     params = FilterParams(detection_probability=0.9, noise_number=0.1,
                           if_use_independent_filter=independent, if_consider_depth_noise=True)
     t, c = _phd_inputs(cfg, cuda, fill=fill, front_fill=front_fill)
@@ -105,9 +112,10 @@ def _render_state(cfg, device, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("slots_n", [2, 3])  # K = 3 (ZED2, tiny) and K = 7 (VKITTI2)
 @pytest.mark.parametrize("seed", [5, 17])
-def test_render_kernel_matches_plain(cuda, seed):
-    cfg = tiny_test_config()
+def test_render_kernel_matches_plain(cuda, seed, slots_n):
+    cfg = tiny_test_config(max_particle_num_per_voxel_n=slots_n)
     s = _render_state(cfg, cuda, seed)
     vax = codecs.axis_stamps_per_voxel(cfg, s.scroll)
     new, want = render_core_plain(cfg, s.particles, s.voxel_stamp, vax, 0.4)
@@ -120,10 +128,65 @@ def test_render_kernel_matches_plain(cuda, seed):
 
 
 @pytest.mark.gpu
-def test_observe_kernel_flag_raises_on_cuda(cuda):
-    """The observe/movable kernels are not ported: the default config must
-    raise on a CUDA device instead of running the plain scans silently."""
-    dsp = SemanticDSPMap(tiny_test_config(), FilterParams(), device=cuda)
-    depth = np.full((dsp.cfg.height, dsp.cfg.width), 2.0, np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dsp.update(depth, [], np.zeros(3, np.float32), np.array([1, 0, 0, 0], np.float32))
+@pytest.mark.parametrize("slots_n", [2, 3])
+@pytest.mark.parametrize("quat", [[1.0, 0, 0, 0], [0.9622502, 0.0544331, 0.2613872, 0.0555144]])
+def test_observe_kernels_match_plain(cuda, quat, slots_n):
+    """Both observe kernels byte for byte against their plain scans, on a
+    seeded store with mixed status, stamps and tracks and a scrolled map."""
+    cfg = tiny_test_config(max_particle_num_per_voxel_n=slots_n)
+    s = _render_state(cfg, cuda, seed=9)
+    rng = np.random.RandomState(9)
+    n = cfg.num_voxels * cfg.slots_per_voxel
+    T = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    px, py, pz = T(rng.randn(n) * 2), T(rng.randn(n) * 2), T(rng.rand(n) * 10 - 1)
+    p = s.particles
+    vax = codecs.axis_stamps_per_voxel(cfg, s.scroll)
+    _, _, r_cw, t_cw = camera_matrices(torch.tensor([0.4, -0.2, 0.7], device=cuda),
+                                       torch.tensor(quat, device=cuda))
+    args = (cfg, px, py, pz, p.status, p.stamp, vax, r_cw, t_cw)
+    want = front_candidates_plain(*args)
+    before = front_candidates_cuda.launches
+    got = front_candidates_cuda(*args)
+    assert front_candidates_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.uint8 and torch.equal(g, w)
+    assert 0 < int(want[1].sum()) < int(want[0].sum())
+
+    max_movable = 2
+    args = (cfg, p.track, p.status, p.stamp, vax, max_movable)
+    want = movable_voxels_plain(*args)
+    before = movable_voxels_cuda.launches
+    got = movable_voxels_cuda(*args)
+    assert movable_voxels_cuda.launches == before + 1
+    assert torch.equal(got, want) and 0 < int(want.sum()) < cfg.num_voxels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("independent", [False, True])
+def test_zed2_scene_cuda_matches_cpu(cuda, independent):
+    """The tiny ZED2 (bbox3d) scene through the default config, every kernel
+    on, against the same map on the CPU: counters and renders equal."""
+    params = FilterParams(
+        if_consider_depth_noise=True, nb_ptc_num_per_point=1,
+        depth_noise_model_zero_order=0.2, prediction_stddev=0.0,
+        if_use_independent_filter=independent,
+        bayesian_movement_distance_threshold=0.2, bayesian_movement_increment=0.4,
+        bayesian_movement_decrement=0.05, bayesian_movement_probability_threshold=0.3,
+    )
+    cfg = tiny_test_config(keypoint_mode=KEYPOINTS_BBOX3D)
+    cpu = SemanticDSPMap(cfg, params, device="cpu")
+    gpu = SemanticDSPMap(cfg, params, device=cuda)
+    launches = front_candidates_cuda.launches
+    moved = 0
+    for t in range(10):
+        rc, dc = cpu.update(*zed2_scene(cfg, t, MaskKpts))
+        rg, dg = gpu.update(*zed2_scene(cfg, t, MaskKpts))
+        assert {k: int(v) for k, v in dg._asdict().items()} == {
+            k: int(v) for k, v in dc._asdict().items()
+        }, f"frame {t}"
+        for name in ("occ", "label", "track"):
+            assert torch.equal(getattr(rg, name).cpu(), getattr(rc, name)), f"{name} frame {t}"
+        torch.testing.assert_close(rg.weight_sum.cpu(), rc.weight_sum, rtol=2e-4, atol=1e-6)
+        moved += int(dg.moved_count)
+    assert moved > 0
+    assert front_candidates_cuda.launches == launches + 10

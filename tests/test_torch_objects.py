@@ -151,7 +151,8 @@ def test_object_level_update_matches_jax(shift):
         )
         to = object_level_update(
             cfg_t, pt, to, ObservedInstances(**{k: torch.from_numpy(v) for k, v in d.items()}),
-            torch.from_numpy(cam_pos), torch.tensor(time_now, dtype=torch.float32),
+            torch.from_numpy(cam_pos), torch.from_numpy(np.array(r_cw)),
+            torch.from_numpy(np.array(t_cw)), torch.tensor(time_now, dtype=torch.float32),
             torch.tensor(prev_time, dtype=torch.float32), torch.tensor(gt, dtype=torch.int32),
             torch.from_numpy(np.array(draws)),
         )

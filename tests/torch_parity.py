@@ -1,10 +1,30 @@
 """Helpers shared by the tests that hold the PyTorch port against the JAX
-package: state conversion through numpy, and the tiny dynamic scene of
-tests/test_full_frame_oracle.py."""
+package: state conversion through numpy, and the tiny dynamic scenes of
+tests/test_full_frame_oracle.py (superpoint and ZED2 mode)."""
 
 import dataclasses
 
 import numpy as np
+
+
+#: Object-layer floats come out of a 3x3 f32 SVD (Kabsch refit), whose
+#: LAPACK routines differ between the two frameworks by a few ulp of the
+#: largest entry; a velocity that is ~0 in one can be ~1e-6 in the other.
+OBJECT_ATOL = 1e-5
+
+
+def assert_states_match(js: dict, ts: dict, msg: str):
+    """All integer leaves equal; float leaves at rtol 2e-4 with atol 1e-6,
+    object floats at atol OBJECT_ATOL."""
+    for key, a in js.items():
+        b = ts[key]
+        if a.dtype.kind == "f":
+            atol = OBJECT_ATOL if key.startswith("objects.") else 1e-6
+            np.testing.assert_allclose(b, a, rtol=2e-4, atol=atol, err_msg=f"{key} {msg}")
+        else:
+            np.testing.assert_array_equal(
+                b.astype(np.int64), a.astype(np.int64), err_msg=f"{key} {msg}"
+            )
 
 
 def jax_state_to_numpy(state) -> dict:
@@ -53,3 +73,41 @@ def dynamic_scene(cfg, t, masks_cls):
     cam_pos = np.array([0.02133 * t, 0, 0.26177 * t], np.float32)
     cam_quat = np.array([1, 0, 0, 0], np.float32)
     return depth, masks, cam_pos, cam_quat, 0.15 * t
+
+
+def zed2_scene(cfg, t, masks_cls):
+    """Frame t of the 10-frame ZED2 (bbox3d) scene of
+    test_full_frame_oracle.py: a sky band (culled), mask bleed onto a far
+    wall (bbox-gated to Background), a moving 4-corner-bbox car, 0.35 s
+    frames so the 2 s key-corner refresh fires mid-sequence.  Returns
+    (depth, masks, cam_pos, cam_quat, time)."""
+    H, W = cfg.height, cfg.width
+    depth = np.full((H, W), 1.5873, np.float32)
+    depth[:3, :] = 9.5111
+    depth[:, 26:] = 3.0873
+    static = np.full((H, W), 6, np.uint8)
+    static[3:7, :] = 2
+    car = np.zeros((H, W), np.uint8)
+    car[9:16, 6 + t : 13 + t] = 1
+    car[9:16, 26:29] = 1
+    depth[9:16, 6 + t : 13 + t] = 1.2157
+    dx, dy = 0.05131, 0.01071
+    kpts = np.array(
+        [
+            [0.0071 + dx * t, dy * t, 1.2157],
+            [0.2184 + dx * t, dy * t, 1.2157],
+            [0.0071 + dx * t, -0.2041 + dy * t, 1.2157],
+            [0.2184 + dx * t, -0.2041 + dy * t, 1.2157],
+        ],
+        np.float32,
+    )
+    masks = [
+        masks_cls(track_id=65535, label="static", mask=static),
+        masks_cls(
+            track_id=4, label="Car", mask=car, kpts_current=kpts,
+            kpts_previous=kpts - np.array([dx, dy, 0], np.float32),
+        ),
+    ]
+    cam_pos = np.array([0.01133 * t, 0, 0.03177 * t], np.float32)
+    cam_quat = np.array([1, 0, 0, 0], np.float32)
+    return depth, masks, cam_pos, cam_quat, 0.35 * t
