@@ -11,11 +11,18 @@ Phases (any failure raises, and the script exits nonzero):
   2. check each of the five kernels against its plain PyTorch version on the
      card, at VKITTI2 shapes and at ZED2 shapes (BOOST 640x360, R = 3,
      K = 3), and time both with CUDA events;
-  3. check the CUDA path against the CPU path on the tiny dynamic scene and
-     on the tiny ZED2 scene (independent filter off and on), every kernel on;
+  3. check the CUDA path against the CPU path on the tiny dynamic scene, on
+     the tiny ZED2 scene (independent filter off and on) and on the small
+     template scene (a template birth fires), every kernel on; and the
+     neighbour-smoothed render at VKITTI2 and ZED2 shapes, on a random
+     state, timed on the card;
   4. drive the main paths: SemanticDSPMap.update() on the default VKITTI2
-     preset, then on the default ZED2 preset, each for 3 warm-up + 10
-     synthetic frames, and check that every kernel ran once per frame.
+     preset, on the default ZED2 preset, and on the VKITTI2 preset with
+     template matching (vkitti2_template: the data/templates bank, a car
+     inside the template-birth window), each for 3 warm-up + 10 synthetic
+     frames; check that every kernel ran once per frame and that the
+     template birth swept, scored and made guessed particles; time the
+     birth's sweep alone.
 Then one JSON line with the kernels' numbers, the card again, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no result.
@@ -86,6 +93,26 @@ def synth_vkitti2_frame(cfg, t, mask_cls, car_h_div=6, car_w_div=8):
     pos = np.array([0.0, 0.0, 0.35 * t], np.float32)
     quat = np.array([1.0, 0, 0, 0], np.float32)
     return depth, masks, pos, quat
+
+
+#: Runtime parameters of the vkitti2_template cell (the JAX package's
+#: bench.py:337-343): VKITTI2 with template matching on.
+TPL_PARAMS = dict(
+    detection_probability=0.98, noise_number=0.001, nb_ptc_num_per_point=1,
+    occupancy_threshold=0.5, max_observation_lost_time=5, if_consider_depth_noise=True,
+    depth_noise_model_first_order=0.01, depth_noise_model_zero_order=0.2,
+    if_use_template_matching=True, match_score_threshold=0.2,
+)
+
+TEMPLATES = REPO / "data" / "templates"
+
+
+def synth_template_frame(cfg, t, mask_cls):
+    """The VKITTI2 frame with the car 1/5 of the image high: 6,600 points
+    over 1.44 x 1.22 m, inside the template-birth window (> 1,500 points,
+    both extents >= 1 m).  The JAX bench's car_h_div=8 car is 0.74 m high
+    and never eligible."""
+    return synth_vkitti2_frame(cfg, t, mask_cls, car_h_div=5, car_w_div=14)
 
 
 #: Runtime parameters of the ZED2 cell (cfg/options_zed2.yaml; the JAX
@@ -509,15 +536,58 @@ def tiny_zed2_scene(cfg, t, mask_cls):
     return depth, masks, cam_pos, np.array([1, 0, 0, 0], np.float32), 0.35 * t
 
 
-def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10):
+#: The small template scene (tests/torch_parity.py): a 96 x 72 camera over
+#: a 16 x 8 x 32 grid and a match grid of 32^3 cells.
+TINY_TPL_CFG = dict(image_width=96, image_height=72, camera_fx=60, camera_fy=60,
+                    camera_cx=48, camera_cy=36, voxel_num_axis_z_n=5)
+TINY_TPL_GRID = dict(grid_n=32, max_source_points=4096, max_template_points=2048, fs_ray_steps=96)
+TINY_TPL_PARAMS = dict(if_use_template_matching=True, match_score_threshold=0.2,
+                       nb_ptc_num_per_point=1, prediction_stddev=0.0)
+
+
+def tiny_template_scene(cfg, t, mask_cls):
+    """Frame t of the small template scene of tests/torch_parity.py: a wall,
+    a static Car of 2,940 mask pixels, a camera drifting a quarter pixel per
+    frame."""
+    H, W = cfg.height, cfg.width
+    depth = np.full((H, W), 3.5117, np.float32)
+    car = np.zeros((H, W), np.uint8)
+    car[20:62, 10:80] = 1
+    depth[car > 0] = 3.0123
+    kpts = np.array([[-1.2, 0, 3], [1.0, 0, 3], [-1.2, -0.6, 3], [1.0, -0.6, 3],
+                     [-1.2, 0, 3.4]], np.float32)
+    masks = [
+        mask_cls(track_id=65535, label="static", mask=np.full((H, W), 6, np.uint8)),
+        mask_cls(track_id=3, label="Car", mask=car, kpts_current=kpts, kpts_previous=kpts),
+    ]
+    cam_pos = np.array([0.01313 * t, 0.00517 * t, 0.0], np.float32)
+    return depth, masks, cam_pos, np.array([1, 0, 0, 0], np.float32), 0.1 * t
+
+
+def tiny_template_setup(dsp):
+    """The small scene's match grid and the committed bank."""
+    from semantic_dsp_map_tpu_torch.ops.templates import MatchGridConfig
+
+    dsp._templates.grid = MatchGridConfig(**TINY_TPL_GRID)
+    if dsp.set_template_path(str(TEMPLATES)) != 1:
+        raise AssertionError("the template bank did not load")
+
+
+def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10, setup=None,
+                            need_moved=True):
     """The same scene through a CPU map and a CUDA map (default flags, so
     every kernel is on): counters equal, occ/label/track equal, weight_sum
-    close, and every kernel launched once per frame on the CUDA side."""
+    close, and every kernel launched once per frame on the CUDA side.
+    ``setup`` runs on each map before the first frame.  Returns the last
+    (CPU map, CUDA map)."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap
 
     cpu = SemanticDSPMap(cfg, params, device="cpu")
     gpu = SemanticDSPMap(cfg, params, device="cuda")
+    if setup is not None:
+        setup(cpu)
+        setup(gpu)
     for fn in counters:
         fn.launches = 0
     moved = 0
@@ -536,10 +606,99 @@ def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10):
     launches = {fn.__name__: fn.launches for fn in counters}
     if any(c != frames for c in launches.values()):
         raise AssertionError(f"{name}: launches {launches} in {frames} frames")
-    if moved == 0:
+    if need_moved and moved == 0:
         raise AssertionError(f"{name}: the rigid-move stage moved no particle")
     print(f"[tiny] {name}, {frames} frames: CUDA path equal to the CPU path "
           f"(moved {moved}, last diag {dgd}, launches {launches})")
+    return cpu, gpu
+
+
+def check_template_scene(counters):
+    """The small template scene CUDA vs CPU for 3 frames with the birth
+    jitter off (the two devices draw different normals): the birth sweeps
+    on frame 0 on both devices with equal gate rows and scores, and the
+    GUESSED_BORN particles agree."""
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, template_engine, tiny_test_config
+    from semantic_dsp_map_tpu_torch.state import STATUS_GUESSED_BORN
+
+    noise = template_engine.GUESSED_BIRTH_NOISE
+    template_engine.GUESSED_BIRTH_NOISE = 0.0
+    try:
+        cpu, gpu = check_scene_cuda_vs_cpu(
+            "template scene", tiny_test_config(**TINY_TPL_CFG), FilterParams(**TINY_TPL_PARAMS),
+            tiny_template_scene, counters, frames=3, setup=tiny_template_setup, need_moved=False)
+    finally:
+        template_engine.GUESSED_BIRTH_NOISE = noise
+    sc, sg = list(cpu._templates.sweeps), list(gpu._templates.sweeps)
+    if not sg or [s.stage for s in sg] != [s.stage for s in sc] or sg[0].stage != "birth":
+        raise AssertionError(f"template scene: sweeps CUDA {sg} CPU {sc}")
+    for a, b in zip(sc, sg):
+        assert_equal("template scene gate row", torch.from_numpy(b.gate_row), torch.from_numpy(a.gate_row))
+        assert_equal("template scene score", b.score.cpu(), a.score)
+    pc, pg = cpu.state.particles, gpu.state.particles
+    assert_equal("template scene status", pg.status.cpu(), pc.status)
+    for f in ("px", "py", "pz", "weight"):
+        assert_close(f"template scene {f}", getattr(pg, f).cpu(), getattr(pc, f))
+    n_guessed = int((pc.status == STATUS_GUESSED_BORN).sum())
+    if n_guessed == 0:
+        raise AssertionError("template scene: no GUESSED_BORN particle")
+    print(f"[tiny] template scene: birth sweep gate row {sg[0].gate_row.tolist()}, score "
+          f"{float(sg[0].score):.6f} on both devices; {n_guessed} GUESSED_BORN particles "
+          f"after 3 frames on both")
+
+
+def random_map_state(cfg, seed=5):
+    """random_render_state as a MapState on the card, with a scrolled map
+    (axis stamps 0-1 against slot stamps 0-2)."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch.state import init_map_state
+
+    p, vst, _ = random_render_state(cfg, seed)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    ri = lambda m: torch.randint(0, 2, (m,), generator=g, device="cuda", dtype=torch.int32)
+    st = init_map_state(cfg, device="cuda")
+    scroll = dataclasses.replace(st.scroll, axis_stamp_x=ri(cfg.nx), axis_stamp_y=ri(cfg.ny),
+                                 axis_stamp_z=ri(cfg.nz))
+    return dataclasses.replace(st, particles=p, voxel_stamp=vst, scroll=scroll)
+
+
+def check_smoothed_render(cfg, label):
+    """The neighbour-smoothed render (plain PyTorch, no kernel) on the card
+    against the same code on the CPU, at full shapes; returns its ms."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.render import render_occupancy_smoothed
+
+    state = random_map_state(cfg)
+    cpu_state = dataclasses.replace(
+        state,
+        particles=dataclasses.replace(state.particles, **{
+            f.name: getattr(state.particles, f.name).cpu()
+            for f in dataclasses.fields(state.particles)}),
+        voxel_stamp=state.voxel_stamp.cpu(),
+        scroll=dataclasses.replace(state.scroll, **{
+            f.name: getattr(state.scroll, f.name).cpu() for f in dataclasses.fields(state.scroll)}),
+    )
+    thr = 0.4
+    pg, rg = render_occupancy_smoothed(cfg, state, thr)
+    torch.cuda.synchronize()
+    pc, rc = render_occupancy_smoothed(cfg, cpu_state, thr)
+    for name in ("occ", "label", "track"):
+        assert_equal(f"smoothed {label} {name}", getattr(rg, name).cpu(), getattr(rc, name))
+    assert_equal(f"smoothed {label} new status", pg.status.cpu(), pc.status)
+    assert_close(f"smoothed {label} weight_sum", rg.weight_sum.cpu(), rc.weight_sum)
+    assert_close(f"smoothed {label} new weight", pg.weight.cpu(), pc.weight)
+    err = max(max_err(rg.weight_sum.cpu(), rc.weight_sum)[0], max_err(pg.weight.cpu(), pc.weight)[0])
+    ms = cuda_ms(lambda: render_occupancy_smoothed(cfg, state, thr), 3)
+    occ = torch.bincount((rg.occ + 1).long(), minlength=4).tolist()
+    print(f"[smoothed] {label} V={cfg.num_voxels} K={cfg.slots_per_voxel}: CUDA equal to CPU "
+          f"(occ histogram (-1,0,1,2) {occ}, max abs {err:.3e}); {ms:.3f} ms on the card")
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -547,13 +706,25 @@ def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10):
 # ---------------------------------------------------------------------------
 
 
-def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=10):
+def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=10,
+                    template_path=None):
     """SemanticDSPMap.update() on ``cfg`` for warm-up + timed frames, with
-    the launch counts set to 0 just before and read just after."""
+    the launch counts set to 0 just before and read just after.  With
+    ``template_path`` the map loads that bank and every template sweep is
+    printed with its frame.  Returns (launches, median ms, map, per-frame
+    ms, [(frame, sweep, GUESSED_BORN count after it)])."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap
+    from semantic_dsp_map_tpu_torch.state import STATUS_GUESSED_BORN
 
     dsp = SemanticDSPMap(cfg, params, device="cuda")
+    if template_path is not None:
+        n_tpl = dsp.set_template_path(str(template_path))
+        print(f"[{name}] {n_tpl} template(s) from {Path(template_path).relative_to(REPO)}, "
+              f"match grid {dsp._templates.grid}")
+        if n_tpl == 0:
+            raise AssertionError(f"{name}: no template loaded")
+    sweeps = []
     n_slots = cfg.num_voxels * cfg.slots_per_voxel
     print(f"[{name}] grid {cfg.nx}x{cfg.ny}x{cfg.nz} = {cfg.num_voxels} voxels, "
           f"K={cfg.slots_per_voxel}, {n_slots} slots, image {cfg.width}x{cfg.height}, "
@@ -567,6 +738,7 @@ def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=1
     frame_ms, wall_ms, moved_any = [], [], False
     result = None
     for t, (depth, masks, pos, quat) in enumerate(scenes):
+        n_sweeps = dsp._templates.n_sweeps if dsp._templates else 0
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         w0 = time.perf_counter()
         a.record()
@@ -580,6 +752,14 @@ def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=1
         tag = "warm-up" if t < warmup else "timed"
         print(f"[{name}] frame {t} ({tag}): {frame_ms[-1]:.3f} ms (events), "
               f"{wall_ms[-1]:.3f} ms (host) on {card}; diag {d}")
+        new = dsp._templates.n_sweeps - n_sweeps if dsp._templates else 0
+        if new:
+            guessed = int((dsp.state.particles.status == STATUS_GUESSED_BORN).sum())
+            for sw in list(dsp._templates.sweeps)[-new:]:
+                sweeps.append((t, sw, guessed))
+                print(f"[{name}] frame {t}: {sw.stage} sweep, gate row {sw.gate_row.tolist()} "
+                      "(valid, rematch, birth, track, label, points, x mm, y mm), "
+                      f"score {float(sw.score):.6f}; {guessed} GUESSED_BORN particles after the frame")
     launches = {fn.__name__: fn.launches for fn in counters}
 
     n = warmup + frames
@@ -602,7 +782,39 @@ def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=1
         raise AssertionError(f"{name}: {n_nan} NaN particle weights")
     if occ.shape != (cfg.num_voxels,):
         raise AssertionError(f"{name}: occ has shape {tuple(occ.shape)}")
-    return launches, float(np.median(timed)), dsp
+    return launches, float(np.median(timed)), dsp, frame_ms, sweeps
+
+
+def time_template_sweep(dsp, synth, t):
+    """The birth sweep of frame ``t`` alone: the car's cloud rebuilt from the
+    frame, compacted and swept against the bank (template_match_bank, FS
+    variant), timed on the card; its score must equal the main path's."""
+    import torch
+    from semantic_dsp_map_tpu_torch import MaskKpts
+    from semantic_dsp_map_tpu_torch.frontend import pack_frame
+    from semantic_dsp_map_tpu_torch.map import unpack_frame
+    from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
+    from semantic_dsp_map_tpu_torch.ops.projection import generate_labeled_cloud
+    from semantic_dsp_map_tpu_torch.ops.templates import template_match_bank
+    from semantic_dsp_map_tpu_torch.template_engine import _extract_track_points
+
+    cfg, eng = dsp.cfg, dsp._templates
+    depth, masks, pos, quat = synth(cfg, t, MaskKpts)
+    buf = torch.from_numpy(pack_frame(cfg, dsp.registry, depth, masks, pos, quat, 0.0)).cuda()
+    f = unpack_frame(cfg, dsp._static_table, buf)
+    r_wc, t_wc, _, _ = camera_matrices(f.cam_pos, f.cam_quat)
+    cloud = generate_labeled_cloud(cfg, dsp.params, f.depth, f.track_raster, f.track_label_table,
+                                   r_wc, t_wc, dsp.registry.max_movable_instance_id)
+    tpls, tvalids = eng.bank.of_label(dsp.registry.label_to_id["Car"])
+    tpls, tvalids = torch.from_numpy(tpls).cuda(), torch.from_numpy(tvalids).cuda()
+    car = next(m.track_id for m in masks if m.label == "Car")
+
+    def sweep():
+        pts, ok = _extract_track_points(eng.grid.max_source_points, cloud, car)
+        return template_match_bank(eng.grid, True, pts, ok, f.cam_pos, tpls, tvalids)
+
+    _, score, _ = sweep()
+    return cuda_ms(sweep, 5), float(score)
 
 
 def profile_main_path(dsp, synth, card, first_t=13, frames=3, out_dir=REPO / "chiprun_out"):
@@ -715,13 +927,32 @@ def main() -> int:
             FilterParams(**TINY_ZED2_PARAMS, if_use_independent_filter=independent),
             tiny_zed2_scene, fns,
         )
+    check_template_scene(fns)
+    smoothed_ms = {label: check_smoothed_render(cfg, label)
+                   for cfg, label in ((vk_cfg, "vkitti2"), (zed2_cfg, "zed2"))}
 
-    paths = (("vkitti2", vk_cfg, VK_PARAMS, synth_vkitti2_frame),
-             ("zed2", zed2_cfg, ZED2_PARAMS, synth_zed2_frame))
-    medians = {}
-    for name, cfg, params, synth in paths:
-        launches, medians[name], dsp = drive_main_path(
-            name, cfg, FilterParams(**params), synth, fns, card)
+    paths = (("vkitti2", vk_cfg, VK_PARAMS, synth_vkitti2_frame, None),
+             ("zed2", zed2_cfg, ZED2_PARAMS, synth_zed2_frame, None),
+             ("vkitti2_template", vk_cfg, TPL_PARAMS, synth_template_frame, TEMPLATES))
+    medians, template = {}, {}
+    for name, cfg, params, synth, tpl_path in paths:
+        launches, medians[name], dsp, frame_ms, sweeps = drive_main_path(
+            name, cfg, FilterParams(**params), synth, fns, card, template_path=tpl_path)
+        if tpl_path is not None:
+            births = [(t, sw, n) for t, sw, n in sweeps if sw.stage == "birth"]
+            if not births:
+                raise AssertionError(f"{name}: no template birth was attempted")
+            t_birth, sw, guessed = births[0]
+            if guessed == 0:
+                raise AssertionError(f"{name}: the template birth made no GUESSED_BORN particle")
+            sweep_ms, score = time_template_sweep(dsp, synth, t_birth)
+            if score != float(sw.score):
+                raise AssertionError(f"{name}: the sweep alone scored {score}, the path {float(sw.score)}")
+            template = dict(birth_frame=t_birth, gate_row=sw.gate_row.tolist(), score=score,
+                            guessed_born=guessed, birth_frame_ms=frame_ms[t_birth],
+                            sweep_ms=sweep_ms, sweeps=len(sweeps))
+            print(f"[{name}] birth on frame {t_birth}: frame {frame_ms[t_birth]:.3f} ms, the sweep "
+                  f"alone {sweep_ms:.3f} ms (score {score:.6f}), {guessed} GUESSED_BORN ({card})")
         if args.profile:
             profile_main_path(dsp, synth, card)
         del dsp
@@ -730,7 +961,7 @@ def main() -> int:
     for key, entry in report.items():
         entry["launches"] = entry["launches_by_path"]["vkitti2"]
     print(json.dumps({"kernels": list(report.values()), "frame_ms_median": medians,
-                      "card": card}))
+                      "template": template, "smoothed_render_ms": smoothed_ms, "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,10 @@ render.  Every capacity cap is counted in :class:`StepDiagnostics`; the step
 has fixed shapes and makes no data-dependent host sync.
 
 Both keypoint modes run: superpoint (the VKITTI2 preset) and ZED2/bbox3d,
-with its sky cull and bbox gate.  Not ported yet (ROADMAP.md): template
-matching and the smoothed render.
+with its sky cull and bbox gate; so do template matching
+(``template_engine``, after ``set_template_path``) and the
+neighbour-smoothed render.  Template mode reads one small gate array to the
+host per frame; without it the step makes no data-dependent host sync.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ from .ops.blocks import (
 from .ops.geometry import camera_matrices
 from .ops.observe import movable_voxels_plain, observe_and_update, use_observe_kernels
 from .ops.projection import generate_labeled_cloud
-from .ops.render import render_occupancy
+from .ops.render import render_occupancy, render_occupancy_smoothed
 from .state import MapState, Particles, STATUS_INVALID, clear_map_state, init_map_state
+from .template_engine import TemplateEngine
 
 
 class StepDiagnostics(NamedTuple):
@@ -85,6 +88,10 @@ def _move_and_cleanup(
 
     vox_axis = codecs.axis_stamps_per_voxel(cfg, scroll)
     mv_obj = objects.valid & objects.has_moved_record & objects.moving & objects.has_tmatrix
+    if params.if_use_template_matching:
+        # Objects flagged for cloud re-matching skip the rigid move; the
+        # rematch stage re-seeds their particles (semantic_dsp_map.h:616-669).
+        mv_obj = mv_obj & ~objects.to_match_previous
 
     scan = movable_voxels_plain
     if use_observe_kernels(cfg, flat.track):
@@ -204,20 +211,25 @@ def unpack_frame(cfg: MapConfig, static_table: torch.Tensor, buf: torch.Tensor) 
     )
 
 
-def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegistry):
+def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
+                     template_stages=None):
     """The per-frame update: (MapState, FrameInput of device tensors) ->
     (MapState, RenderResult, StepDiagnostics).  The state's particle store
-    and voxel stamps are updated in place."""
-    if params.if_use_template_matching:
-        raise NotImplementedError("template matching is not ported yet (ROADMAP.md)")
-    if params.if_use_neighbor_smoothed_occupancy:
-        raise NotImplementedError("the smoothed render is not ported yet (ROADMAP.md)")
+    and voxel stamps are updated in place.
+
+    ``template_stages`` (a template_engine.TemplateStages) runs template
+    matching where the JAX step does: the gate and the rematch after object
+    expiry, before the rigid moves (semantic_dsp_map.h:616-669); the
+    template birth after regular birth, before the render (:806-894).  Their
+    insert overflow is added to ``birth_overflow``."""
     max_movable = registry.max_movable_instance_id
     bbox3d = cfg.keypoint_mode == KEYPOINTS_BBOX3D
     # ZED2 only: sky cull (pointcloud_tools.h:234-241) and bbox gate.
     sky_instance = registry.static_label_to_instance.get(
         "Sky", registry.static_label_to_instance.get("sky", -1)
     ) if bbox3d else -1
+    render_fn = (render_occupancy_smoothed if params.if_use_neighbor_smoothed_occupancy
+                 else render_occupancy)
 
     def step(state: MapState, f: FrameInput):
         gt = state.global_time + 1
@@ -245,11 +257,18 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
             inst_bbox_max=f.inst_bbox_max if bbox3d else None,
         )
 
-        # 3. Prediction: scroll, expiry, cleanup, rigid moves.
+        # 3. Prediction: scroll, expiry, template rematch, cleanup, rigid moves.
         scroll = codecs.update_ego_center(cfg, state.scroll, f.cam_pos, gt)
         objects, _expired = expire_objects(params, objects, gt)
+        particles = state.particles
+        tmpl_overflow = 0
+        if template_stages is not None:
+            # The one host read of template mode: which rows have work.
+            gate = template_stages.gate(objects, cloud).cpu().numpy()
+            particles, rm_ov = template_stages.rematch(particles, scroll, cloud, f.cam_pos, gate, gt)
+            tmpl_overflow = tmpl_overflow + rm_ov
         particles, moved, move_overflow = _move_and_cleanup(
-            cfg, params, state.particles, scroll, objects, state.rng, max_movable
+            cfg, params, particles, scroll, objects, state.rng, max_movable
         )
 
         # 4+5. Visibility + PHD weight update.
@@ -257,17 +276,22 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
             cfg, params, particles, scroll, state.voxel_stamp, cloud, f.depth, r_cw, t_cw, gt,
         )
 
-        # 6. Birth + resampling.
+        # 6. Birth + resampling, then template birth.
         particles, born, birth_overflow, _cand = birth_and_resample(
             cfg, params, particles, scroll, cloud, gt, state.rng
         )
+        if template_stages is not None:
+            particles, objects, tb_ov = template_stages.birth(
+                particles, scroll, objects, cloud, f.cam_pos, gate, gt, state.rng
+            )
+            tmpl_overflow = tmpl_overflow + tb_ov
 
         # 7. Occupancy render (with its in-reduction GC side effects).
         state = dataclasses.replace(
             state, particles=particles, voxel_stamp=voxel_stamp, scroll=scroll,
             objects=objects, global_time=gt, prev_frame_time=f.time,
         )
-        particles, result = render_occupancy(cfg, state, params.occupancy_threshold)
+        particles, result = render_fn(cfg, state, params.occupancy_threshold)
         state = dataclasses.replace(state, particles=particles)
 
         diag = StepDiagnostics(
@@ -279,7 +303,7 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
             table_dropped=odiag.table_dropped,
             corner_overflow=odiag.corner_overflow,
             move_overflow=move_overflow,
-            birth_overflow=birth_overflow,
+            birth_overflow=birth_overflow + tmpl_overflow,
         )
         return state, result, diag
 
@@ -304,26 +328,53 @@ class SemanticDSPMap:
         registry: Optional[LabelRegistry] = None,
         seed: int = 0,
         device=None,
+        log_diagnostics: bool = False,
     ):
         self.cfg = cfg
         self.params = params or FilterParams()
         self.registry = registry or LabelRegistry.default()
         self.device = torch.device(device if device is not None else "cpu")
         self.state = init_map_state(cfg, seed, self.device)
-        self._step = build_frame_step(cfg, self.params, self.registry)
+        self.log_diagnostics = log_diagnostics
         self._static_table = torch.from_numpy(static_label_table(self.registry)).to(self.device)
         self._time_origin: Optional[float] = None
+        self._templates = None
+        # Built on first use: in template mode the stages close over the bank,
+        # which set_template_path loads after construction.
+        self._step = None
+        if self.params.if_use_template_matching:
+            self._templates = TemplateEngine(cfg, self.params, self.registry)
+
+    def set_template_path(self, folder: str) -> int:
+        """setTemplatePath (semantic_dsp_map.h:163-166): load the CAD
+        template bank (.pcd files grouped by label-id directory); returns
+        the number of templates."""
+        if self._templates is None:
+            raise ValueError(
+                "set_template_path requires FilterParams(if_use_template_matching=True)"
+            )
+        n = self._templates.set_template_path(folder)
+        self._step = None
+        return n
 
     def clear(self):
         """semantic_dsp_map.h:74-81."""
         self.state = clear_map_state(self.state, self.cfg)
 
+    def _run(self, f: FrameInput):
+        if self._step is None:
+            stages = self._templates.stages(self.device) if self._templates else None
+            self._step = build_frame_step(self.cfg, self.params, self.registry, stages)
+        self.state, result, diag = self._step(self.state, f)
+        if self.log_diagnostics:
+            d = {k: int(v) for k, v in diag._asdict().items()}
+            print(f"[dsp] t={int(self.state.global_time)} {d}", flush=True)
+        return result, diag
+
     def update_from_frame(self, frame: FrameInput):
         """Run one frame from a host FrameInput (frontend.build_frame_input);
         returns (RenderResult, StepDiagnostics)."""
-        f = FrameInput(*(torch.as_tensor(np.asarray(a)).to(self.device) for a in frame))
-        self.state, result, diag = self._step(self.state, f)
-        return result, diag
+        return self._run(FrameInput(*(torch.as_tensor(np.asarray(a)).to(self.device) for a in frame)))
 
     def update(self, depth: np.ndarray, masks, cam_pos, cam_quat, time: float = 0.0):
         """Reference-parity entry (semantic_dsp_map.h:170): depth image,
@@ -334,7 +385,4 @@ class SemanticDSPMap:
         t = float(time) - self._time_origin
         buf = pack_frame(self.cfg, self.registry, depth, masks, cam_pos, cam_quat, t)
         buf_t = torch.from_numpy(buf).to(self.device, non_blocking=False)
-        f = unpack_frame(self.cfg, self._static_table, buf_t)
-        self.state, result, diag = self._step(self.state, f)
-        return result, diag
-
+        return self._run(unpack_frame(self.cfg, self._static_table, buf_t))

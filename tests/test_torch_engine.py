@@ -133,3 +133,20 @@ def test_ego_translation_index_shift_equivalence():
     assert len(key_b) == cfg.num_voxels
     assert not mismatches, mismatches[:5]
     assert {0, 1, -1} <= set(key_a.values())
+
+
+def test_log_diagnostics_prints_each_frame(capsys):
+    """log_diagnostics=True prints one ``[dsp] t=<frame> {counters}`` line
+    per frame, the JAX engine's format; off by default."""
+    cfg = tiny_test_config()
+    quiet = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1))
+    loud = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1), log_diagnostics=True)
+    pos = np.zeros(3, np.float32)
+    for t in range(2):
+        quiet.update(_wall(cfg, 1.5), [_static_mask(cfg)], pos, QUAT, t * 0.1)
+    assert capsys.readouterr().out == ""
+    diags = [loud.update(_wall(cfg, 1.5), [_static_mask(cfg)], pos, QUAT, t * 0.1)[1] for t in range(2)]
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == [f"[dsp] t={t + 1} {({k: int(v) for k, v in d._asdict().items()})}"
+                     for t, d in enumerate(diags)]
+    assert int(diags[0].born_count) > 0

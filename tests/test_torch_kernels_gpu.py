@@ -190,3 +190,57 @@ def test_zed2_scene_cuda_matches_cpu(cuda, independent):
         moved += int(dg.moved_count)
     assert moved > 0
     assert front_candidates_cuda.launches == launches + 10
+
+
+def _box_cloud(rng, n, size, center):
+    """Points on the faces of a box, jittered off cell boundaries (the
+    generator of tests/test_templates.py)."""
+    pts = (rng.rand(n, 3) - 0.5) * size
+    axis = rng.randint(0, 3, n)
+    pts[np.arange(n), axis] = (rng.randint(0, 2, n) * 2 - 1) * size[axis] / 2
+    return (pts + rng.randn(n, 3) * 0.004 + center).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_fs", [False, True])
+def test_template_sweep_cuda_matches_cpu(cuda, use_fs):
+    """The template sweep at the default match grid on the card gives the
+    CPU's cells bit for bit: equal scores, transforms and aligned clouds."""
+    from semantic_dsp_map_tpu_torch.ops.templates import (
+        MatchGridConfig, center_cloud, template_match_bank,
+    )
+
+    rng = np.random.RandomState(3)
+    size = np.array([4.31, 1.52, 1.73])
+    g = MatchGridConfig()
+    src = np.zeros((g.max_source_points, 3), np.float32)
+    src[:3000] = _box_cloud(rng, 3000, size, np.array([1.03, 0.47, 9.11]))
+    tpls = np.zeros((2, g.max_template_points, 3), np.float32)
+    tpls[0, :1500] = center_cloud(_box_cloud(rng, 1500, size, np.zeros(3)))
+    tpls[1, :1500] = center_cloud(_box_cloud(rng, 1500, size * 0.6, np.zeros(3)))
+    sv = np.arange(g.max_source_points) < 3000
+    tv = np.broadcast_to(np.arange(g.max_template_points) < 1500, (2, g.max_template_points))
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (src, sv, np.array([0.2, -0.1, 0.0], np.float32), tpls, tv)]
+    want = template_match_bank(g, use_fs, *args)
+    got = template_match_bank(g, use_fs, *(a.to(cuda) for a in args))
+    for w, gt in zip(want, got):
+        assert torch.equal(gt.cpu(), w)
+    assert int(want[0]) == 0 and float(want[1]) > 0.3
+
+
+@pytest.mark.gpu
+def test_smoothed_render_cuda_matches_cpu(cuda):
+    """The neighbour-smoothed render (plain PyTorch) gives the same bytes on
+    the card as on the CPU."""
+    from semantic_dsp_map_tpu_torch.ops.render import render_occupancy_smoothed
+
+    cfg = tiny_test_config(max_particle_num_per_voxel_n=3)
+    want_p, want = render_occupancy_smoothed(cfg, _render_state(cfg, "cpu", seed=2), 0.3)
+    gstate = _render_state(cfg, cuda, seed=2)
+    got_p, got = render_occupancy_smoothed(cfg, gstate, 0.3)
+    for name in ("occ", "label", "track", "weight_sum"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    assert torch.equal(got_p.status.cpu(), want_p.status)
+    assert torch.equal(got_p.weight.cpu(), want_p.weight)
+    assert (want.occ == 1).any() and (want.occ == -1).any()

@@ -111,3 +111,33 @@ def zed2_scene(cfg, t, masks_cls):
     cam_pos = np.array([0.01133 * t, 0, 0.03177 * t], np.float32)
     cam_quat = np.array([1, 0, 0, 0], np.float32)
     return depth, masks, cam_pos, cam_quat, 0.35 * t
+
+
+#: The small template scene: a 96 x 72 camera over a 16 x 8 x 32 grid, a
+#: wall and a Car large enough for template birth (2,940 mask pixels, a
+#: 3.5 x 2.1 m box).  Depths are off the 0.25 m voxel boundaries.
+TEMPLATE_SCENE_CFG = dict(image_width=96, image_height=72, camera_fx=60, camera_fy=60,
+                          camera_cx=48, camera_cy=36, voxel_num_axis_z_n=5)
+TEMPLATE_SCENE_GRID = dict(grid_n=32, max_source_points=4096, max_template_points=2048,
+                           fs_ray_steps=96)
+
+
+def template_scene(cfg, t, masks_cls):
+    """Frame t of the small template scene: a static car; the camera drifts
+    a quarter pixel per frame, so particles born on one frame do not
+    reproject onto pixel boundaries on the next (where 1-ulp differences of
+    the backprojection would decide the pixel).  Returns (depth, masks,
+    cam_pos, cam_quat, time)."""
+    H, W = cfg.height, cfg.width
+    depth = np.full((H, W), 3.5117, np.float32)
+    car = np.zeros((H, W), np.uint8)
+    car[20:62, 10:80] = 1
+    depth[car > 0] = 3.0123
+    kpts = np.array([[-1.2, 0, 3], [1.0, 0, 3], [-1.2, -0.6, 3], [1.0, -0.6, 3],
+                     [-1.2, 0, 3.4]], np.float32)
+    masks = [
+        masks_cls(track_id=65535, label="static", mask=np.full((H, W), 6, np.uint8)),
+        masks_cls(track_id=3, label="Car", mask=car, kpts_current=kpts, kpts_previous=kpts),
+    ]
+    cam_pos = np.array([0.01313 * t, 0.00517 * t, 0.0], np.float32)
+    return depth, masks, cam_pos, np.array([1, 0, 0, 0], np.float32), 0.1 * t
