@@ -8,21 +8,30 @@
 Phases (any failure raises, and the script exits nonzero):
   0. print the card (nvidia-smi name and power limit, torch's device name);
   1. build the CUDA kernels from semantic_dsp_map_tpu_torch/csrc;
-  2. check each of the five kernels against its plain PyTorch version on the
-     card, at VKITTI2 shapes and at ZED2 shapes (BOOST 640x360, R = 3,
-     K = 3), and time both with CUDA events;
+  2. check each of the seven kernels against its plain PyTorch version on
+     the card and time both with CUDA events, beside the kernel's bound
+     (bytes over the memory rate or operations over their peak rate,
+     whichever is larger, from this run's inputs): the five frame kernels at
+     VKITTI2 shapes and at ZED2 shapes (BOOST 640x360, R = 3, K = 3), the
+     gather and x2 probe kernels at the probes' shapes, beside the PyTorch
+     call that computes the same function;
   3. check the CUDA path against the CPU path on the tiny dynamic scene, on
      the tiny ZED2 scene (independent filter off and on) and on the small
      template scene (a template birth fires), every kernel on; and the
-     neighbour-smoothed render at VKITTI2 and ZED2 shapes, on a random
-     state, timed on the card;
+     neighbour-smoothed render on a random state, against the CPU at ZED2
+     shapes and timed on the card at VKITTI2 and ZED2 shapes;
   4. drive the main paths: SemanticDSPMap.update() on the default VKITTI2
      preset, on the default ZED2 preset, and on the VKITTI2 preset with
      template matching (vkitti2_template: the data/templates bank, a car
-     inside the template-birth window), each for 3 warm-up + 10 synthetic
+     inside the template-birth window), each for 3 warm-up + 5 synthetic
      frames; check that every kernel ran once per frame and that the
      template birth swept, scored and made guessed particles; time the
-     birth's sweep alone.
+     birth's sweep alone.  Then the replay path: 13 VKITTI2 frames written
+     as npz files and replayed by ``replay.main`` on the default device
+     (11 mapped frames, PLY clouds read back); the KITTI-360 soak
+     (``tools.soak``: the largest preset, a checkpoint and a restore); the
+     stage profiler's table at VKITTI2; and the two primitive-op probe
+     modules, which launch the gather and x2 kernels.
 Then one JSON line with the kernels' numbers, the card again, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no result.
@@ -32,8 +41,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -44,6 +53,17 @@ REPO = Path(__file__).resolve().parent
 #: Tolerances of the kernel checks: float outputs vs the plain version.
 RTOL, ATOL = 2e-5, 1e-6
 
+#: Peak rates of one H100 SXM that the kernels' bounds are reckoned against:
+#: device memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s; special
+#: function units (one ex2 per expf) 132 SMs x 16 lanes x 1.98 GHz.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+#: f32 operations of one PHD term around its expf: three differences, three
+#: scalings, the squared norm (5), the -0.5 factor, the exp's range
+#: reduction (about 3), the coefficient, the weight or factor, the sum.
+PHD_FLOPS_PER_TERM = 17
+
 #: Runtime parameters of the VKITTI2 cell (cfg/options.yaml semantics with
 #: depth noise on; the JAX package's bench uses the same).
 VK_PARAMS = dict(
@@ -53,14 +73,6 @@ VK_PARAMS = dict(
     if_consider_depth_noise=True,
     depth_noise_model_first_order=0.01, depth_noise_model_zero_order=0.2,
 )
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
 
 
 def synth_vkitti2_frame(cfg, t, mask_cls, car_h_div=6, car_w_div=8):
@@ -177,6 +189,33 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, op_seconds: float = 0.0) -> dict:
+    """The least time the card could take: bytes over the memory rate or the
+    operations' time at their peak rate, whichever is larger."""
+    byte_s = n_bytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(byte_s, op_seconds),
+            "bound_by": "bytes" if byte_s >= op_seconds else "operations"}
+
+
+def phd_op_seconds(terms: int) -> float:
+    """Time of ``terms`` PHD terms (one expf each) at the peak rates."""
+    return max(terms / SFU_OPS_PER_S, terms * PHD_FLOPS_PER_TERM / F32_FLOPS_PER_S)
+
+
+def window_counts(flags, R: int):
+    """Per pixel, how many pixels of its (2R+1)^2 window have ``flags`` set
+    (outside the image counts as unset); f64[H, W]."""
+    import torch
+
+    c = torch.nn.functional.pad(flags.double(), (R + 1, R, R + 1, R)).cumsum(0).cumsum(1)
+    side = 2 * R + 1
+    return c[side:, side:] - c[:-side, side:] - c[side:, :-side] + c[:-side, :-side]
 
 
 def max_err(a, b):
@@ -342,10 +381,30 @@ def check_phd(cfg, report, prefix=""):
         print(f"[phd] {tag}: pass B max abs {b_abs:.3e} rel {b_rel:.3e}, "
               f"kernel {ms_b:.3f} ms, plain {ms_b_plain:.3f} ms")
         if not independent:
+            # Bounds from these inputs.  Pass A needs one term per table
+            # entry with weight and observation pixel of its window inside
+            # the image; pass B one per occupied entry and valid observation
+            # pixel of its window.  Every input is read once, every output
+            # written once.
+            R = cfg.neighbor_half
+            weff = torch.where(occupied, t.weight, 0.0)
+            inside = torch.ones((H, W), dtype=torch.bool, device=weff.device)
+            terms_a = int(((weff != 0).sum(0).double() * window_counts(inside, R)).sum())
+            terms_b = int((occupied.sum(0).double() * window_counts(cloud.valid, R)).sum())
+            bytes_a = nbytes(t.px, t.py, t.pz, weff, t.meta, ox, oy, oz, isg, cloud.track, ck_kern)
+            bytes_b = nbytes(t.px, t.py, t.pz, trk_eff, ff_eff, isg, ox, oy, oz, cloud.valid,
+                             cloud.track, ck_plain, acc_k, right_k)
+            bound_a = bound(bytes_a, phd_op_seconds(terms_a))
+            bound_b = bound(bytes_b, phd_op_seconds(terms_b))
+            print(f"[phd] {prefix}bounds: pass A {bytes_a} bytes, {terms_a} terms -> "
+                  f"{bound_a['bound_ms']:.4f} ms by {bound_a['bound_by']}; pass B {bytes_b} bytes, "
+                  f"{terms_b} terms -> {bound_b['bound_ms']:.4f} ms by {bound_b['bound_by']}")
             report["phd_pass_a"].update(
-                {prefix + "max_abs_err": a_abs, prefix + "ms": ms_a, prefix + "plain_ms": ms_a_plain})
+                {prefix + "max_abs_err": a_abs, prefix + "ms": ms_a, prefix + "plain_ms": ms_a_plain,
+                 **{prefix + k: v for k, v in bound_a.items()}})
             report["phd_pass_b"].update(
-                {prefix + "max_abs_err": b_abs, prefix + "ms": ms_b, prefix + "plain_ms": ms_b_plain})
+                {prefix + "max_abs_err": b_abs, prefix + "ms": ms_b, prefix + "plain_ms": ms_b_plain,
+                 **{prefix + k: v for k, v in bound_b.items()}})
 
 
 def random_render_state(cfg, seed=5):
@@ -395,14 +454,31 @@ def check_render(cfg, report, prefix=""):
     assert_close("render new weight", pk.weight, new_p.weight)
     e1 = max_err(r_k.weight_sum, r_p.weight_sum)
     e2 = max_err(pk.weight, new_p.weight)
+    alive = (p.status != 0) & (p.stamp >= vax.repeat_interleave(cfg.slots_per_voxel))
+    n_alive = int(alive.sum())
+    n_clamped = int((pk.weight != p.weight).sum())
+    n_collected = int((pk.status != p.status).sum())
     ms = cuda_ms(lambda: render_core_cuda(cfg, pk, vst, vax, thr), 10)
     ms_plain = cuda_ms(lambda: render_core_plain(cfg, p, vst, vax, thr), 3)
     occ = torch.bincount((r_k.occ + 1).long(), minlength=4).tolist()
     print(f"[render] {prefix}V={cfg.num_voxels} K={cfg.slots_per_voxel}: occ histogram "
           f"(-1,0,1,2) {occ}; weight_sum max abs {e1[0]:.3e}, new weight max abs "
           f"{e2[0]:.3e}; kernel {ms:.3f} ms, plain {ms_plain:.3f} ms")
+    # Bound from this store, reckoned as the observe bounds are: status and
+    # stamp of every slot (5 B), both voxel stamps and the four outputs; the
+    # weight, track and label (9 B) only of the slots that are alive; written
+    # back only the weights that the clamp changed and the collected statuses.
+    b = bound(nbytes(p.status, p.stamp, vax, vst, r_k.occ, r_k.label, r_k.track, r_k.weight_sum)
+              + 9 * n_alive + 4 * n_clamped + n_collected)
+    b_all = bound(nbytes(p.weight, p.stamp, p.status, p.track, p.label, vax, vst,
+                         pk.weight, pk.status, r_k.occ, r_k.label, r_k.track, r_k.weight_sum))
+    print(f"[render] {prefix}{n_alive} of {p.status.numel()} slots alive, {n_clamped} weights "
+          f"clamped, {n_collected} slots collected; bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']} (every slot read whole, weight and status of all written back: "
+          f"{b_all['bound_ms']:.4f} ms)")
     report["render"].update({prefix + "max_abs_err": max(e1[0], e2[0]), prefix + "ms": ms,
-                             prefix + "plain_ms": ms_plain})
+                             prefix + "plain_ms": ms_plain,
+                             **{prefix + k: v for k, v in b.items()}})
 
 
 def check_observe(cfg, report, prefix=""):
@@ -468,10 +544,72 @@ def check_observe(cfg, report, prefix=""):
           f"candidate {cand_share:.4f}, movable {mov_share:.4f}; outputs byte-equal; "
           f"front kernel {ms_f:.3f} ms, plain {ms_f_plain:.3f} ms; "
           f"movable kernel {ms_m:.3f} ms, plain {ms_m_plain:.3f} ms")
+    # Bounds from this store: status and stamp of every slot (5 B), the
+    # voxel stamps and the outputs; the positions (12 B) or the track (4 B)
+    # only of the slots that are alive, since a dead slot's are not needed.
+    alive = (p.status != 0) & (p.stamp >= vax.repeat_interleave(K))
+    n_alive = int(alive.sum())
+    b_f = bound(nbytes(p.status, p.stamp, vax, r_cw, t_cw, ha_k, hc_k) + 12 * n_alive)
+    b_m = bound(nbytes(p.status, p.stamp, vax, hm_k) + 4 * n_alive)
+    print(f"[observe] {prefix}{n_alive} of {n} slots alive; bounds: front "
+          f"{b_f['bound_ms']:.4f} ms (all {n} slots' positions read: "
+          f"{bound(nbytes(px, py, pz, p.status, p.stamp, vax, ha_k, hc_k))['bound_ms']:.4f} ms), "
+          f"movable {b_m['bound_ms']:.4f} ms (all tracks read: "
+          f"{bound(nbytes(p.track, p.status, p.stamp, vax, hm_k))['bound_ms']:.4f} ms), by bytes")
     report["front_candidates"].update(
-        {prefix + "max_abs_err": 0.0, prefix + "ms": ms_f, prefix + "plain_ms": ms_f_plain})
+        {prefix + "max_abs_err": 0.0, prefix + "ms": ms_f, prefix + "plain_ms": ms_f_plain,
+         **{prefix + k: v for k, v in b_f.items()}})
     report["movable_voxels"].update(
-        {prefix + "max_abs_err": 0.0, prefix + "ms": ms_m, prefix + "plain_ms": ms_m_plain})
+        {prefix + "max_abs_err": 0.0, prefix + "ms": ms_m, prefix + "plain_ms": ms_m_plain,
+         **{prefix + k: v for k, v in b_m.items()}})
+
+
+def check_probes(report):
+    """The gather and x2 probe kernels against their plain versions on the
+    card, byte for byte (both only move or double f32 values), at the
+    probes' shapes; timed over runs of 50 launches beside the plain version
+    and the one PyTorch call that computes the same function."""
+    import torch
+    from semantic_dsp_map_tpu_torch.benchmarks import prim_bench7
+    from semantic_dsp_map_tpu_torch.ops.probes import gather_plain, scale2_plain
+    from semantic_dsp_map_tpu_torch.ops.probes_cuda import gather_cuda, scale2_cuda
+    from semantic_dsp_map_tpu_torch.timing import bench
+
+    dev = torch.device("cuda")
+    run_ms = lambda fn, reps=50: bench(fn, dev, reps)["device_ms"]
+    depth, rc = prim_bench7.make_inputs(dev)
+    flat = depth.reshape(-1)
+    got, want = gather_cuda(depth, rc), gather_plain(depth, rc)
+    torch.cuda.synchronize()
+    assert_equal("gather", got.view(torch.int32), want.view(torch.int32))
+    assert_equal("gather vs index_select", got, torch.index_select(flat, 0, rc))
+    entry = dict(max_abs_err=0.0, ms=run_ms(lambda: gather_cuda(depth, rc)),
+                 plain_ms=run_ms(lambda: gather_plain(depth, rc)),
+                 library_ms=run_ms(lambda: torch.index_select(flat, 0, rc)),
+                 **bound(nbytes(depth, rc, got)))
+    report["gather"].update(entry)
+    print(f"[probes] gather {rc.numel()} lookups from {tuple(depth.shape)} f32: bytes equal; "
+          f"kernel {entry['ms']:.4f} ms, plain (indexing) {entry['plain_ms']:.4f} ms, "
+          f"torch.index_select {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"by {entry['bound_by']}")
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x = torch.randn((8, 128), generator=g, device=dev)
+    got, want = scale2_cuda(x), scale2_plain(x)
+    torch.cuda.synchronize()
+    assert_equal("scale2", got.view(torch.int32), want.view(torch.int32))
+    small = torch.ones(8, device=dev)
+    noop_ms = run_ms(lambda: small + 1.0, 200)
+    entry = dict(max_abs_err=0.0, ms=run_ms(lambda: scale2_cuda(x), 200),
+                 plain_ms=run_ms(lambda: scale2_plain(x), 200),
+                 library_ms=run_ms(lambda: torch.mul(x, 2.0), 200),
+                 **bound(nbytes(x, got)))
+    report["scale2"].update(entry)
+    print(f"[probes] scale2 on {tuple(x.shape)} f32: bytes equal; per launch in a run of 200: "
+          f"kernel {entry['ms']:.5f} ms (the launch floor of a ctypes-bound kernel), plain "
+          f"{entry['plain_ms']:.5f} ms, torch.mul {entry['library_ms']:.5f} ms, x + 1 on 8 floats "
+          f"{noop_ms:.5f} ms; bound {entry['bound_ms']:.7f} ms by {entry['bound_by']}")
 
 
 # ---------------------------------------------------------------------------
@@ -603,7 +741,7 @@ def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10, setup
         if not torch.allclose(rg.weight_sum.cpu(), rc.weight_sum, rtol=2e-4, atol=1e-6):
             raise AssertionError(f"{name} frame {t}: weight_sum differs")
         moved += dgd["moved_count"]
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_launches(counters)
     if any(c != frames for c in launches.values()):
         raise AssertionError(f"{name}: launches {launches} in {frames} frames")
     if need_moved and moved == 0:
@@ -666,15 +804,25 @@ def random_map_state(cfg, seed=5):
     return dataclasses.replace(st, particles=p, voxel_stamp=vst, scroll=scroll)
 
 
-def check_smoothed_render(cfg, label):
-    """The neighbour-smoothed render (plain PyTorch, no kernel) on the card
-    against the same code on the CPU, at full shapes; returns its ms."""
+def check_smoothed_render(cfg, label, against_cpu=True):
+    """The neighbour-smoothed render (plain PyTorch, no kernel) at full
+    shapes on the card, timed, and with ``against_cpu`` held against the
+    same code on the CPU; returns its ms."""
     import dataclasses
 
     import torch
     from semantic_dsp_map_tpu_torch.ops.render import render_occupancy_smoothed
 
     state = random_map_state(cfg)
+    thr = 0.4
+    if not against_cpu:
+        _, rg = render_occupancy_smoothed(cfg, state, thr)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: render_occupancy_smoothed(cfg, state, thr), 3)
+        occ = torch.bincount((rg.occ + 1).long(), minlength=4).tolist()
+        print(f"[smoothed] {label} V={cfg.num_voxels} K={cfg.slots_per_voxel}: occ histogram "
+              f"(-1,0,1,2) {occ}; {ms:.3f} ms on the card (not compared with the CPU)")
+        return ms
     cpu_state = dataclasses.replace(
         state,
         particles=dataclasses.replace(state.particles, **{
@@ -684,7 +832,6 @@ def check_smoothed_render(cfg, label):
         scroll=dataclasses.replace(state.scroll, **{
             f.name: getattr(state.scroll, f.name).cpu() for f in dataclasses.fields(state.scroll)}),
     )
-    thr = 0.4
     pg, rg = render_occupancy_smoothed(cfg, state, thr)
     torch.cuda.synchronize()
     pc, rc = render_occupancy_smoothed(cfg, cpu_state, thr)
@@ -706,7 +853,7 @@ def check_smoothed_render(cfg, label):
 # ---------------------------------------------------------------------------
 
 
-def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=10,
+def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=5,
                     template_path=None):
     """SemanticDSPMap.update() on ``cfg`` for warm-up + timed frames, with
     the launch counts set to 0 just before and read just after.  With
@@ -760,7 +907,7 @@ def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=1
                 print(f"[{name}] frame {t}: {sw.stage} sweep, gate row {sw.gate_row.tolist()} "
                       "(valid, rematch, birth, track, label, points, x mm, y mm), "
                       f"score {float(sw.score):.6f}; {guessed} GUESSED_BORN particles after the frame")
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_launches(counters)
 
     n = warmup + frames
     timed = frame_ms[warmup:]
@@ -817,7 +964,7 @@ def time_template_sweep(dsp, synth, t):
     return cuda_ms(sweep, 5), float(score)
 
 
-def profile_main_path(dsp, synth, card, first_t=13, frames=3, out_dir=REPO / "chiprun_out"):
+def profile_main_path(dsp, synth, card, first_t=8, frames=3, out_dir=REPO / "chiprun_out"):
     """torch.profiler over a few more frames: device time by kernel, the
     device's busy share of the wall time, and a chrome trace."""
     import torch
@@ -847,6 +994,125 @@ def profile_main_path(dsp, synth, card, first_t=13, frames=3, out_dir=REPO / "ch
     prof.export_chrome_trace(str(out_dir / f"profile_trace_{dsp.cfg.width}x{dsp.cfg.height}.json"))
 
 
+def read_launches(counters):
+    return {fn.__name__: fn.launches for fn in counters}
+
+
+def drive_replay(counters, card, n_frames=13, drop_first=2):
+    """The replay path: ``n_frames`` VKITTI2 frames written with
+    datasets.save_npz_frame, then replay.main on them with the default
+    device (the card) and default runtime parameters, PLY clouds every 5
+    mapped frames.  Every mapped frame must launch each frame kernel once;
+    the PLY files must read back; the last frame must leave occupied voxels.
+    Returns (launches, ms per mapped frame)."""
+    import torch
+    from semantic_dsp_map_tpu_torch import MaskKpts, replay, virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch.datasets import Frame, NpzSequence, save_npz_frame
+    from semantic_dsp_map_tpu_torch.frontend import pack_frame
+    from semantic_dsp_map_tpu_torch.io import read_ply
+    from semantic_dsp_map_tpu_torch.labels import LabelRegistry
+
+    cfg = virtual_kitti2_config()
+    mapped = n_frames - drop_first
+    with tempfile.TemporaryDirectory(prefix="replay_") as tmp:
+        data, out = Path(tmp) / "frames", Path(tmp) / "out"
+        frames = []
+        for t in range(n_frames):
+            depth, masks, pos, quat = synth_vkitti2_frame(cfg, t, MaskKpts)
+            frames.append(Frame(depth, masks, pos, quat, 0.1 * t, t))
+            save_npz_frame(str(data), t, frames[-1])
+        # a frame that went through the files packs to the same bytes
+        reg = LabelRegistry.default()
+        back = list(NpzSequence(str(data)))
+        for a, b in ((frames[0], back[0]), (frames[-1], back[-1])):
+            pa = pack_frame(cfg, reg, a.depth, a.masks, a.cam_pos, a.cam_quat, a.time)
+            pb = pack_frame(cfg, reg, b.depth, b.masks, b.cam_pos, b.cam_quat, b.time)
+            if pa.tobytes() != pb.tobytes():
+                raise AssertionError(f"replay: frame {a.index} packs differently after the npz files")
+
+        for fn in counters:
+            fn.launches = 0
+        summary, result = replay.main([
+            "--dataset", "npz", "--data", str(data), "--preset", "vkitti2", "--out", str(out),
+            "--ply-every", "5", "--drop-first", str(drop_first)])
+        launches = read_launches(counters)
+
+        if result.occ.device.type != "cuda":
+            raise AssertionError(f"replay: the default device gave a result on {result.occ.device}")
+        if summary["frames"] != mapped:
+            raise AssertionError(f"replay: mapped {summary['frames']} frames, expected {mapped}")
+        for fname, count in launches.items():
+            if count != mapped:
+                raise AssertionError(f"replay: {fname} launched {count} times in {mapped} frames")
+        occupied = int((result.occ == 1).sum())
+        if occupied <= 0:
+            raise AssertionError("replay: no occupied voxel after the last frame")
+        plys = sorted(q.name for q in out.glob("*.ply"))
+        # mapped frames 5 and 10 are sequence frames 6 and 11
+        want = ["final_occupied.ply", "frame_000006_occupied.ply", "frame_000011_occupied.ply"]
+        if plys != want:
+            raise AssertionError(f"replay: PLY files {plys}, expected {want}")
+        xyz, rgb = read_ply(str(out / "final_occupied.ply"))
+        if xyz.shape[0] <= 0 or xyz.shape[1] != 3 or rgb is None or rgb.shape != xyz.shape:
+            raise AssertionError(f"replay: final PLY holds xyz {xyz.shape}")
+        if not np.isfinite(xyz).all():
+            raise AssertionError("replay: non-finite PLY vertices")
+    ms = 1e3 / summary["fps"]
+    print(f"[replay] {mapped} mapped frames of {n_frames} at VKITTI2 width on the default device: "
+          f"{ms:.3f} ms per frame (host clock to occ on the host, frame 2 is the map's first), "
+          f"{occupied} occupied voxels, final PLY {xyz.shape[0]} vertices, PLY files {plys}, "
+          f"launches {launches} ({card})")
+    return launches, ms
+
+
+def drive_soak(counters, card, frames=40):
+    """The KITTI-360 soak (tools.soak.main: kitti360_config, nothing cut but
+    the frame count) on the default device.  All three checks must be true;
+    every frame, the five after the restore included, launches each frame
+    kernel once.  Returns (launches, report)."""
+    from semantic_dsp_map_tpu_torch.tools import soak
+
+    out = REPO / "chiprun_out" / "SOAK_KITTI360.json"
+    for fn in counters:
+        fn.launches = 0
+    report = soak.main(["--frames", str(frames), "--out", str(out)])
+    launches = read_launches(counters)
+    n = frames + soak.RESUME_FRAMES
+    for fname, count in launches.items():
+        if count != n:
+            raise AssertionError(f"soak: {fname} launched {count} times in {n} frames")
+    for key in ("occupied_in_ego_window", "behind_region_unknown", "resumed_occ_equal"):
+        if report[key] is not True:
+            raise AssertionError(f"soak: {key} is {report[key]}")
+    if report["occupied_final"] <= 0:
+        raise AssertionError("soak: no occupied voxel after the last frame")
+    print(f"[soak] kitti360, {frames} frames + {soak.RESUME_FRAMES} after the restore: "
+          f"{1e3 * report['sec_per_frame']:.1f} ms per frame (host clock, frame synthesis and the "
+          f"checkpoint included), update() alone median {report['frame_ms_median']:.3f} ms, "
+          f"state {report['state_bytes']} bytes, checkpoint {report['checkpoint_mb']} MB, peak "
+          f"device memory {report['peak_memory_bytes']} bytes, launches {launches} ({card})")
+    return launches, report
+
+
+def run_probe_modules(probe_counters, card, iters=10):
+    """The two primitive-op probe modules, whose tables carry the card on
+    every line; they are the path of the gather and x2 kernels.  Returns
+    (launches, rows of both)."""
+    from semantic_dsp_map_tpu_torch.benchmarks import prim_bench1, prim_bench7
+
+    for fn in probe_counters:
+        fn.launches = 0
+    argv = ["--iters", str(iters)]
+    rows = {"prim_bench1": prim_bench1.main(argv), "prim_bench7": prim_bench7.main(argv)}
+    launches = read_launches(probe_counters)
+    # each module holds one line for its kernel: a warm-up and ``iters`` timed calls
+    for fname, count in launches.items():
+        if count != iters + 1:
+            raise AssertionError(f"probes: {fname} launched {count} times, expected {iters + 1}")
+    print(f"[probes] launches {launches} ({card})")
+    return launches, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels"), default="all",
@@ -873,9 +1139,13 @@ def main() -> int:
         FilterParams, tiny_test_config, virtual_kitti2_config, zed2_config,
     )
     from semantic_dsp_map_tpu_torch.config import KEYPOINTS_BBOX3D
-    from semantic_dsp_map_tpu_torch.ops import cuda_lib, observe_cuda, phd_cuda, render_cuda
+    from semantic_dsp_map_tpu_torch import profiling
+    from semantic_dsp_map_tpu_torch.ops import (
+        cuda_lib, observe_cuda, phd_cuda, probes_cuda, render_cuda,
+    )
+    from semantic_dsp_map_tpu_torch.timing import card_line
 
-    card = card_line()
+    card = card_line(torch.device("cuda"))
     print(f"[card] nvidia-smi: {card}")
     print(f"[card] torch: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
@@ -900,12 +1170,20 @@ def main() -> int:
                                  replaces="semantic_dsp_map_tpu/ops/observe_pallas.py:56"),
         "movable_voxels": dict(name="movable_voxels", route="cuda", source=source + "observe.cu",
                                replaces="semantic_dsp_map_tpu/ops/observe_pallas.py:104"),
+        "gather": dict(name="gather", route="cuda", source=source + "probes.cu",
+                       replaces="benchmarks/prim_bench7.py:28"),
+        "scale2": dict(name="scale2", route="cuda", source=source + "probes.cu",
+                       replaces="benchmarks/prim_bench1.py:63"),
     }
+    # No single PyTorch call computes a frame kernel's function.
+    for key in ("phd_pass_a", "phd_pass_b", "render", "front_candidates", "movable_voxels"):
+        report[key]["library_ms"] = None
     # ms / plain_ms / max_abs_err at VKITTI2 shapes, zed2_* at ZED2 shapes
     for cfg, prefix in ((vk_cfg, ""), (zed2_cfg, "zed2_")):
         check_phd(cfg, report, prefix)
         check_render(cfg, report, prefix)
         check_observe(cfg, report, prefix)
+    check_probes(report)
     if args.phase == "kernels":
         print(json.dumps({"kernels": list(report.values())}))
         print(f"[card] {card}")
@@ -928,8 +1206,8 @@ def main() -> int:
             tiny_zed2_scene, fns,
         )
     check_template_scene(fns)
-    smoothed_ms = {label: check_smoothed_render(cfg, label)
-                   for cfg, label in ((vk_cfg, "vkitti2"), (zed2_cfg, "zed2"))}
+    smoothed_ms = {"vkitti2": check_smoothed_render(vk_cfg, "vkitti2", against_cpu=False),
+                   "zed2": check_smoothed_render(zed2_cfg, "zed2")}
 
     paths = (("vkitti2", vk_cfg, VK_PARAMS, synth_vkitti2_frame, None),
              ("zed2", zed2_cfg, ZED2_PARAMS, synth_zed2_frame, None),
@@ -958,10 +1236,30 @@ def main() -> int:
         del dsp
         for key, fn in counters.items():
             report[key].setdefault("launches_by_path", {})[name] = launches[fn.__name__]
-    for key, entry in report.items():
-        entry["launches"] = entry["launches_by_path"]["vkitti2"]
+    torch.cuda.empty_cache()
+
+    replay_launches, replay_ms = drive_replay(fns, card)
+    soak_launches, soak_report = drive_soak(fns, card)
+    for key, fn in counters.items():
+        report[key]["launches_by_path"]["replay"] = replay_launches[fn.__name__]
+        report[key]["launches_by_path"]["kitti360_soak"] = soak_launches[fn.__name__]
+        report[key]["launches"] = report[key]["launches_by_path"]["vkitti2"]
+    torch.cuda.empty_cache()
+
+    print(f"[profiling] the stage profiler at vkitti2, 3 frames per prefix ({card})")
+    stage_rows = profiling.main(["--config", "vkitti2", "--iters", "3"])
+    torch.cuda.empty_cache()
+
+    probe_counters = {"gather": probes_cuda.gather_cuda, "scale2": probes_cuda.scale2_cuda}
+    probe_launches, probe_rows = run_probe_modules(tuple(probe_counters.values()), card)
+    for key, fn in probe_counters.items():
+        report[key]["launches"] = probe_launches[fn.__name__]
+        report[key]["launches_by_path"] = {"probes": probe_launches[fn.__name__]}
+
     print(json.dumps({"kernels": list(report.values()), "frame_ms_median": medians,
-                      "template": template, "smoothed_render_ms": smoothed_ms, "card": card}))
+                      "template": template, "smoothed_render_ms": smoothed_ms,
+                      "replay_ms_per_frame": replay_ms, "soak": soak_report,
+                      "stage_profile": stage_rows, "probes": probe_rows, "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,6 +31,7 @@ from .state import (
     init_scroll,
     map_state_from_numpy,
     map_state_to_numpy,
+    resolve_device,
 )
 
 _GROUPS = {"particles": Particles, "scroll": ScrollState, "objects": ObjectTable}
@@ -79,7 +80,9 @@ def save_checkpoint(path: str, state: MapState, step: Optional[int] = None):
 
 def load_checkpoint(path: str, cfg: MapConfig, device=None) -> MapState:
     """Restore a map state saved by :func:`save_checkpoint`; ``cfg`` must
-    match the saved configuration."""
+    match the saved configuration.  ``device=None`` means the card
+    (state.resolve_device)."""
+    device = resolve_device(device)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     if meta.get("format") != "torch":

@@ -40,8 +40,28 @@ from .ops.geometry import camera_matrices
 from .ops.observe import movable_voxels_plain, observe_and_update, use_observe_kernels
 from .ops.projection import generate_labeled_cloud
 from .ops.render import render_occupancy, render_occupancy_smoothed
-from .state import MapState, Particles, STATUS_INVALID, clear_map_state, init_map_state
+from .state import (
+    MapState,
+    Particles,
+    STATUS_INVALID,
+    clear_map_state,
+    init_map_state,
+    resolve_device,
+)
 from .template_engine import TemplateEngine
+
+
+#: The stages of the frame step, in order (the reference's VERBOSE_MODE
+#: chrono spans, semantic_dsp_map.h:916-952).  ``build_frame_step``'s
+#: ``stop_after`` indexes this tuple.
+STAGES = (
+    "objects",
+    "labeled_cloud",
+    "prediction",
+    "observe_phd",
+    "birth_resample",
+    "render",
+)
 
 
 class StepDiagnostics(NamedTuple):
@@ -212,7 +232,7 @@ def unpack_frame(cfg: MapConfig, static_table: torch.Tensor, buf: torch.Tensor) 
 
 
 def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
-                     template_stages=None):
+                     template_stages=None, stop_after: Optional[int] = None):
     """The per-frame update: (MapState, FrameInput of device tensors) ->
     (MapState, RenderResult, StepDiagnostics).  The state's particle store
     and voxel stamps are updated in place.
@@ -221,7 +241,16 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
     matching where the JAX step does: the gate and the rematch after object
     expiry, before the rigid moves (semantic_dsp_map.h:616-669); the
     template birth after regular birth, before the render (:806-894).  Their
-    insert overflow is added to ``birth_overflow``."""
+    insert overflow is added to ``birth_overflow``.
+
+    ``stop_after`` (an index into :data:`STAGES`) truncates the step after
+    that stage, for the per-stage timing of ``profiling``: the step then
+    returns (the state as far as it got, None, None).  ``None`` and the last
+    index run the whole step."""
+    last = len(STAGES) - 1
+    stop_after = last if stop_after is None else stop_after
+    if not 0 <= stop_after <= last:
+        raise ValueError(f"stop_after must be in [0, {last}], got {stop_after}")
     max_movable = registry.max_movable_instance_id
     bbox3d = cfg.keypoint_mode == KEYPOINTS_BBOX3D
     # ZED2 only: sky cull (pointcloud_tools.h:234-241) and bbox gate.
@@ -248,6 +277,8 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
                 cfg, params, objects, obs, f.cam_pos, r_cw, t_cw, f.time,
                 state.prev_frame_time, gt, draws,
             )
+        if stop_after == 0:
+            return dataclasses.replace(state, objects=objects), None, None
 
         # 2. Labeled point cloud.
         cloud = generate_labeled_cloud(
@@ -256,6 +287,8 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
             inst_bbox_min=f.inst_bbox_min if bbox3d else None,
             inst_bbox_max=f.inst_bbox_max if bbox3d else None,
         )
+        if stop_after == 1:
+            return dataclasses.replace(state, objects=objects), None, None
 
         # 3. Prediction: scroll, expiry, template rematch, cleanup, rigid moves.
         scroll = codecs.update_ego_center(cfg, state.scroll, f.cam_pos, gt)
@@ -270,11 +303,19 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
         particles, moved, move_overflow = _move_and_cleanup(
             cfg, params, particles, scroll, objects, state.rng, max_movable
         )
+        state = dataclasses.replace(
+            state, particles=particles, scroll=scroll, objects=objects, global_time=gt,
+        )
+        if stop_after == 2:
+            return state, None, None
 
         # 4+5. Visibility + PHD weight update.
         particles, voxel_stamp, odiag = observe_and_update(
             cfg, params, particles, scroll, state.voxel_stamp, cloud, f.depth, r_cw, t_cw, gt,
         )
+        state = dataclasses.replace(state, particles=particles, voxel_stamp=voxel_stamp)
+        if stop_after == 3:
+            return state, None, None
 
         # 6. Birth + resampling, then template birth.
         particles, born, birth_overflow, _cand = birth_and_resample(
@@ -285,12 +326,13 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
                 particles, scroll, objects, cloud, f.cam_pos, gate, gt, state.rng
             )
             tmpl_overflow = tmpl_overflow + tb_ov
+        state = dataclasses.replace(
+            state, particles=particles, objects=objects, prev_frame_time=f.time,
+        )
+        if stop_after == 4:
+            return state, None, None
 
         # 7. Occupancy render (with its in-reduction GC side effects).
-        state = dataclasses.replace(
-            state, particles=particles, voxel_stamp=voxel_stamp, scroll=scroll,
-            objects=objects, global_time=gt, prev_frame_time=f.time,
-        )
         particles, result = render_fn(cfg, state, params.occupancy_threshold)
         state = dataclasses.replace(state, particles=particles)
 
@@ -316,9 +358,12 @@ class SemanticDSPMap:
 
     Typical use::
 
-        dsp = SemanticDSPMap(virtual_kitti2_config(), FilterParams(...), device="cuda")
+        dsp = SemanticDSPMap(virtual_kitti2_config(), FilterParams(...))
         for frame in frames:
             result, diag = dsp.update(depth, masks, cam_pos, cam_quat, t)
+
+    ``device=None`` means the card; without a CUDA device it raises, and
+    ``device="cpu"`` asks for the CPU by name (state.resolve_device).
     """
 
     def __init__(
@@ -333,7 +378,7 @@ class SemanticDSPMap:
         self.cfg = cfg
         self.params = params or FilterParams()
         self.registry = registry or LabelRegistry.default()
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.state = init_map_state(cfg, seed, self.device)
         self.log_diagnostics = log_diagnostics
         self._static_table = torch.from_numpy(static_label_table(self.registry)).to(self.device)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources have a plain C interface and are compiled by ``nvcc`` into one
-shared library, loaded with ctypes.  The build runs at first use and is
+The sources have a plain C interface and are compiled by ``nvcc`` (one
+process per source, in parallel) and linked into one shared library, loaded
+with ctypes.  The build runs at first use and is
 keyed on a hash of the sources and flags, under ``build/kernels/`` at the
 repository root (a cache, listed in .gitignore).  Nothing here runs at
 import time: the CPU tests import every module on a machine without nvcc.
@@ -23,14 +24,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("phd.cu", "render.cu", "observe.cu")
+SOURCES = ("phd.cu", "render.cu", "observe.cu", "probes.cu")
 
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: Precise math on purpose: pass B's "rightly updated" flag is compared bit
 #: for bit with the plain version, and a contracted FMA or a fast exp can
 #: flip it at an ulp boundary.
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    *_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -51,6 +52,10 @@ SIGNATURES = {
     "dsp_front_candidates": [_P] * 9 + [ctypes.c_longlong, _I] + [_F] * 4 + [_I, _I, _F, _F, _P],
     # 4 inputs, 1 output; V, K, max_movable; stream
     "dsp_movable_voxels": [_P] * 5 + [ctypes.c_longlong, _I, _I, _P],
+    # table, index, output; number of lookups; stream
+    "dsp_gather": [_P] * 3 + [ctypes.c_longlong, _P],
+    # input, output; number of elements; stream
+    "dsp_scale2": [_P] * 2 + [ctypes.c_longlong, _P],
 }
 
 
@@ -79,12 +84,24 @@ def build() -> tuple[Path, float, str]:
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        # One nvcc per source, all started together, then one link.
+        nvcc = _nvcc()
+        objects = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objects)
+        ]
+        output = "".join(proc.communicate()[0] for proc in procs)
+        failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{output}")
         tmp_lib = Path(tmp) / lib.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib), *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        output = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{output}")
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp_lib), *objects],
+                              capture_output=True, text=True)
+        output += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{output}")
         log.write_text(output)
         os.replace(tmp_lib, lib)
     return lib, time.perf_counter() - t0, output

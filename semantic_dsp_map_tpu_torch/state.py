@@ -100,7 +100,22 @@ class MapState:
     rng: torch.Generator
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device rule of the package: ``None`` means the card
+    (``torch.device("cuda")``); the CPU is used only when asked for by name.
+    Without a CUDA device ``None`` raises: there is no silent step down."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device found and no device given: the map runs on the card by '
+            'default; pass device="cpu" to run on the CPU'
+        )
+    return torch.device("cuda")
+
+
 def init_particles(cfg: MapConfig, device=None) -> Particles:
+    device = resolve_device(device)
     n = cfg.num_voxels * cfg.slots_per_voxel
     z = lambda dtype: torch.zeros(n, dtype=dtype, device=device)
     return Particles(
@@ -111,6 +126,7 @@ def init_particles(cfg: MapConfig, device=None) -> Particles:
 
 
 def init_scroll(cfg: MapConfig, device=None) -> ScrollState:
+    device = resolve_device(device)
     z = lambda n, dtype: torch.zeros(n, dtype=dtype, device=device)
     return ScrollState(
         ego_pos=z(3, torch.float32),
@@ -124,6 +140,7 @@ def init_scroll(cfg: MapConfig, device=None) -> ScrollState:
 
 
 def init_objects(cfg: MapConfig, device=None) -> ObjectTable:
+    device = resolve_device(device)
     O, W = cfg.max_objects, cfg.transform_window
     f32, i32 = torch.float32, torch.int32
     z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
@@ -158,13 +175,15 @@ def init_objects(cfg: MapConfig, device=None) -> ObjectTable:
 
 
 def make_generator(seed: int, device=None) -> torch.Generator:
-    g = torch.Generator(device=device if device is not None else "cpu")
+    g = torch.Generator(device=resolve_device(device))
     g.manual_seed(seed)
     return g
 
 
 def init_map_state(cfg: MapConfig, seed: int = 0, device=None) -> MapState:
-    """A cleared map (operations.h:684-767 initialize/clear analog)."""
+    """A cleared map (operations.h:684-767 initialize/clear analog).
+    ``device=None`` means the card (:func:`resolve_device`)."""
+    device = resolve_device(device)
     return MapState(
         particles=init_particles(cfg, device),
         voxel_stamp=torch.zeros(cfg.num_voxels, dtype=torch.int32, device=device),
@@ -228,7 +247,9 @@ def map_state_to_numpy(state: MapState) -> Dict[str, np.ndarray]:
 def map_state_from_numpy(d: Dict[str, np.ndarray], device=None, seed: int = 0) -> MapState:
     """Inverse of :func:`map_state_to_numpy`.  Accepts the JAX package's
     leaf dtypes (u16 track, bool masks) and converts to this package's; the
-    generator is seeded from ``seed``."""
+    generator is seeded from ``seed``.  ``device=None`` means the card
+    (:func:`resolve_device`)."""
+    device = resolve_device(device)
 
     def tensor(name, dtype=None):
         # A copy: the step updates the state in place, and the arrays given

@@ -55,7 +55,7 @@ from .ops.templates import (
     template_match,
     template_match_bank,
 )
-from .state import STATUS_GUESSED_BORN, STATUS_INVALID
+from .state import STATUS_GUESSED_BORN, STATUS_INVALID, resolve_device
 
 #: Per-frame slot capacities (see module docstring).
 RM_MAX = 2
@@ -229,7 +229,7 @@ def build_template_stages(
     they run."""
     car_label = registry.label_to_id.get("Car", -1)
     Pt = grid.max_template_points
-    dev = torch.device(device if device is not None else "cpu")
+    dev = resolve_device(device)
     thr = torch.tensor(params.match_score_threshold, dtype=torch.float32, device=dev)
 
     have_bank = False

@@ -57,7 +57,7 @@ def _assert_particles(tp, jp):
 
 def test_resample_matches_jax():
     js = _state(3)
-    ts = map_state_from_numpy(jax_state_to_numpy(js))
+    ts = map_state_from_numpy(jax_state_to_numpy(js), device="cpu")
     target = np.random.RandomState(9).rand(CFG_J.num_voxels) > 0.3
     jp = jbirth.resample_voxels(CFG_J, js.particles, jnp.asarray(target))
     tp = tbirth.resample_voxels(CFG_T, ts.particles, torch.from_numpy(target))
@@ -89,7 +89,7 @@ def test_insert_core_matches_jax(resample, cap):
     """Crowded voxels (more candidates than vacancies), stale slots, and
     with ``cap`` a target-block capacity that overflows."""
     js = _state(5)
-    ts = map_state_from_numpy(jax_state_to_numpy(js))
+    ts = map_state_from_numpy(jax_state_to_numpy(js), device="cpu")
     jc, tc = _candidates(np.random.RandomState(6), 300, np.array([0.3, -0.1, 0.6]))
     jr = jbirth._insert_core(CFG_J, js.particles, js.scroll, jc, resample_targets=resample,
                              need_src=False, max_target_blocks=cap)
@@ -106,7 +106,7 @@ def test_birth_and_resample_matches_jax():
     rng = np.random.RandomState(8)
     H, W = CFG_J.height, CFG_J.width
     js = _state(7)
-    ts = map_state_from_numpy(jax_state_to_numpy(js))
+    ts = map_state_from_numpy(jax_state_to_numpy(js), device="cpu")
     cloud = dict(
         pos=(rng.randn(H, W, 3) * 0.8 + np.array([0.3, -0.1, 0.6])).astype(np.float32),
         sigma=np.full((H, W), 0.2, np.float32),

@@ -47,7 +47,7 @@ def test_scroll_and_codecs_match_jax():
     position -> voxel, voxel -> position and the per-voxel axis stamps
     agree with the JAX package at every step."""
     rng = np.random.RandomState(1)
-    js, ts = j_init_scroll(JCFG), t_init_scroll(TCFG)
+    js, ts = j_init_scroll(JCFG), t_init_scroll(TCFG, device="cpu")
     pos = np.zeros(3)
     for t in range(1, 30):
         step = rng.uniform(-4, 6, 3) if t % 7 == 0 else rng.uniform(-0.4, 0.6, 3)

@@ -32,7 +32,7 @@ def _voxel_positions(dsp):
 
 def test_smoke_static_wall():
     cfg = tiny_test_config()
-    dsp = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1))
+    dsp = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1), device="cpu")
     pos = np.zeros(3, np.float32)
     for t in range(5):
         result, _ = dsp.update(_wall(cfg, 1.5), [_static_mask(cfg)], pos, QUAT, t * 0.1)
@@ -45,7 +45,7 @@ def test_smoke_static_wall():
 
 def test_smoke_freespace_unknown_and_clear():
     cfg = tiny_test_config()
-    dsp = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1))
+    dsp = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1), device="cpu")
     pos = np.zeros(3, np.float32)
     for t in range(3):
         result, _ = dsp.update(_wall(cfg, 1.5), [_static_mask(cfg)], pos, QUAT, t * 0.1)
@@ -63,7 +63,7 @@ def test_smoke_freespace_unknown_and_clear():
 def _run_slanted_wall(cfg, n_frames=3):
     """Slanted wall (depth 1.0..2.0 across rows); returns the last frame's
     diagnostics and the per-counter peak over the frames."""
-    dsp = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1))
+    dsp = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1), device="cpu")
     H, W = cfg.height, cfg.width
     depth = (1.0 + np.arange(H, dtype=np.float32)[:, None] / H) * np.ones((1, W), np.float32)
     mask = MaskKpts(track_id=65535, label="static", mask=np.full((H, W), 5, np.uint8))
@@ -101,7 +101,7 @@ def test_overflow_counter_fires(override, counter, frames):
 
 def test_static_scene_occupancy_fixed_point():
     cfg = tiny_test_config()
-    dsp = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1))
+    dsp = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1), device="cpu")
     renders = []
     for t in range(18):
         result, _ = dsp.update(_wall(cfg, 1.37), [_static_mask(cfg)], np.zeros(3, np.float32),
@@ -123,7 +123,7 @@ def test_ego_translation_index_shift_equivalence():
     delta = np.array([shift_vox * cfg.voxel_size, 0.0, 0.0], np.float32)
     runs = []
     for cam in (np.zeros(3, np.float32), delta):
-        dsp = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1))
+        dsp = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1), device="cpu")
         for t in range(6):
             result, _ = dsp.update(_wall(cfg, 1.37), [_static_mask(cfg)], cam, QUAT, t * 0.1)
         keys = np.round(_voxel_positions(dsp) / cfg.voxel_size).astype(np.int64)
@@ -139,8 +139,9 @@ def test_log_diagnostics_prints_each_frame(capsys):
     """log_diagnostics=True prints one ``[dsp] t=<frame> {counters}`` line
     per frame, the JAX engine's format; off by default."""
     cfg = tiny_test_config()
-    quiet = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1))
-    loud = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1), log_diagnostics=True)
+    quiet = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1), device="cpu")
+    loud = SemanticDSPMap(cfg, FilterParams(nb_ptc_num_per_point=1), device="cpu",
+                          log_diagnostics=True)
     pos = np.zeros(3, np.float32)
     for t in range(2):
         quiet.update(_wall(cfg, 1.5), [_static_mask(cfg)], pos, QUAT, t * 0.1)
@@ -150,3 +151,27 @@ def test_log_diagnostics_prints_each_frame(capsys):
     assert lines == [f"[dsp] t={t + 1} {({k: int(v) for k, v in d._asdict().items()})}"
                      for t, d in enumerate(diags)]
     assert int(diags[0].born_count) > 0
+
+
+def test_default_device_is_the_card(monkeypatch, tmp_path):
+    """``device=None`` means the card everywhere: without a CUDA device the
+    map, the state builders and the checkpoint loader raise and name
+    ``device="cpu"``; with one they resolve to ``cuda``.  No step down."""
+    from semantic_dsp_map_tpu_torch import state as tstate
+    from semantic_dsp_map_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = tiny_test_config()
+    save_checkpoint(str(tmp_path / "ck"), tstate.init_map_state(cfg, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (
+        lambda: SemanticDSPMap(cfg),
+        lambda: tstate.init_map_state(cfg),
+        lambda: tstate.make_generator(0),
+        lambda: tstate.map_state_from_numpy({}),
+        lambda: load_checkpoint(str(tmp_path / "ck"), cfg),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+    assert tstate.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tstate.resolve_device(None) == torch.device("cuda")

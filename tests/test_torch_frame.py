@@ -52,7 +52,7 @@ SCENE_PARAMS = dict(
 
 def test_dynamic_scene_matches_jax():
     jm = J.SemanticDSPMap(J.config.tiny_test_config(), J.FilterParams(**SCENE_PARAMS))
-    tm = T.SemanticDSPMap(T.tiny_test_config(), T.FilterParams(**SCENE_PARAMS))
+    tm = T.SemanticDSPMap(T.tiny_test_config(), T.FilterParams(**SCENE_PARAMS), device="cpu")
     moved = 0
     for t in range(10):
         d, m, p, q, tt = dynamic_scene(jm.cfg, t, J.MaskKpts)
@@ -85,7 +85,7 @@ def test_committed_replay_matches_expected():
     with open(os.path.join(DATA, "EXPECTED.json")) as f:
         expected = json.load(f)
     params = T.FilterParams(**dataclasses.asdict(replay_params()))
-    dsp = T.SemanticDSPMap(T.tiny_test_config(), params)
+    dsp = T.SemanticDSPMap(T.tiny_test_config(), params, device="cpu")
     seq = NpzSequence(DATA)
     assert len(seq) == expected["n_frames"]
 

@@ -101,14 +101,14 @@ CKPT_PARAMS = dict(if_consider_depth_noise=True, nb_ptc_num_per_point=3,
 
 def test_checkpoint_roundtrip(tmp_path):
     cfg = T.tiny_test_config()
-    dsp = T.SemanticDSPMap(cfg, T.FilterParams(**CKPT_PARAMS), seed=4)
+    dsp = T.SemanticDSPMap(cfg, T.FilterParams(**CKPT_PARAMS), seed=4, device="cpu")
     for t in range(3):
         dsp.update(*dynamic_scene(cfg, t, T.MaskKpts))
     save_checkpoint(str(tmp_path / "ck"), dsp.state, step=3)
     assert json.loads((tmp_path / "ck" / "meta.json").read_text())["step"] == 3
 
-    dsp2 = T.SemanticDSPMap(cfg, T.FilterParams(**CKPT_PARAMS), seed=9)
-    dsp2.state = load_checkpoint(str(tmp_path / "ck"), cfg)
+    dsp2 = T.SemanticDSPMap(cfg, T.FilterParams(**CKPT_PARAMS), seed=9, device="cpu")
+    dsp2.state = load_checkpoint(str(tmp_path / "ck"), cfg, device="cpu")
     dsp2._time_origin = dsp._time_origin
     a, b = map_state_to_numpy(dsp.state), map_state_to_numpy(dsp2.state)
     assert a.keys() == b.keys()
@@ -124,7 +124,7 @@ def test_checkpoint_roundtrip(tmp_path):
     np.testing.assert_array_equal(dsp2.state.particles.px.numpy(), dsp.state.particles.px.numpy())
 
     with pytest.raises(ValueError, match="shape"):
-        load_checkpoint(str(tmp_path / "ck"), T.tiny_test_config(voxel_num_axis_z_n=5))
+        load_checkpoint(str(tmp_path / "ck"), T.tiny_test_config(voxel_num_axis_z_n=5), device="cpu")
 
 
 def test_jax_checkpoint_converts(tmp_path, monkeypatch):
@@ -144,7 +144,7 @@ def test_jax_checkpoint_converts(tmp_path, monkeypatch):
 
     with np.load(tmp_path / "jck" / "state.npz") as z:
         leaves = [z[f"leaf_{i}"] for i in range(meta["num_leaves"])]
-    ts = map_state_from_numpy(jax_leaves_to_numpy(leaves))
+    ts = map_state_from_numpy(jax_leaves_to_numpy(leaves), device="cpu")
     want = jax_state_to_numpy(jm.state)
     got = map_state_to_numpy(ts)
     assert got.keys() == want.keys()
@@ -153,7 +153,7 @@ def test_jax_checkpoint_converts(tmp_path, monkeypatch):
     conv = jax_leaves_to_numpy([np.asarray(x) for x in jax.tree_util.tree_leaves(jm.state)])
     assert conv.keys() == want.keys()
 
-    tm = T.SemanticDSPMap(T.tiny_test_config(), T.FilterParams(**params))
+    tm = T.SemanticDSPMap(T.tiny_test_config(), T.FilterParams(**params), device="cpu")
     tm.state, tm._time_origin = ts, jm._time_origin
     jr, jd = jm.update(*dynamic_scene(cfg_j, 3, J.MaskKpts))
     tr, td = tm.update(*dynamic_scene(tm.cfg, 3, T.MaskKpts))
@@ -161,4 +161,4 @@ def test_jax_checkpoint_converts(tmp_path, monkeypatch):
     np.testing.assert_array_equal(tr.occ.numpy(), np.asarray(jr.occ))
 
     with pytest.raises(ValueError, match="jax_leaves_to_numpy"):
-        load_checkpoint(str(tmp_path / "jck"), T.tiny_test_config())
+        load_checkpoint(str(tmp_path / "jck"), T.tiny_test_config(), device="cpu")

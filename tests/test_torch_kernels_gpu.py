@@ -244,3 +244,51 @@ def test_smoothed_render_cuda_matches_cpu(cuda):
     assert torch.equal(got_p.status.cpu(), want_p.status)
     assert torch.equal(got_p.weight.cpu(), want_p.weight)
     assert (want.occ == 1).any() and (want.occ == -1).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h, w, n", [(384, 1248, 1 << 22), (37, 53, 100_003)])
+def test_gather_kernel_matches_plain(cuda, h, w, n):
+    """The gather probe kernel against its plain version, byte for byte, at
+    the probe's shape and at an odd one (a length that is no multiple of the
+    block, a table that is no multiple of anything)."""
+    from semantic_dsp_map_tpu_torch.benchmarks.prim_bench7 import make_inputs
+    from semantic_dsp_map_tpu_torch.ops.probes import gather_plain
+    from semantic_dsp_map_tpu_torch.ops.probes_cuda import gather_cuda
+
+    depth, rc = make_inputs(cuda, h, w, n)
+    before = gather_cuda.launches
+    got = gather_cuda(depth, rc)
+    torch.cuda.synchronize()
+    assert gather_cuda.launches == before + 1
+    assert got.shape == (n,) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), gather_plain(depth, rc).view(torch.int32))
+    # the first and the last table entry are reachable
+    ends = torch.tensor([0, h * w - 1], dtype=torch.int32, device=cuda)
+    assert torch.equal(gather_cuda(depth, ends), depth.reshape(-1)[[0, -1]])
+    with pytest.raises(ValueError):
+        gather_cuda(depth, rc.long())
+    with pytest.raises(ValueError):
+        gather_cuda(depth.t(), rc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 128), (58_720_256,), (1001,)])
+def test_scale2_kernel_matches_plain(cuda, shape):
+    """The x2 probe kernel against its plain version, byte for byte, at the
+    probe's shape, at the size of the VKITTI2 particle store and at an odd
+    length."""
+    from semantic_dsp_map_tpu_torch.ops.probes import scale2_plain
+    from semantic_dsp_map_tpu_torch.ops.probes_cuda import scale2_cuda
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    x = torch.randn(shape, generator=g, device=cuda)
+    before = scale2_cuda.launches
+    got = scale2_cuda(x)
+    torch.cuda.synchronize()
+    assert scale2_cuda.launches == before + 1
+    assert got.shape == x.shape
+    assert torch.equal(got.view(torch.int32), scale2_plain(x).view(torch.int32))
+    with pytest.raises(ValueError):
+        scale2_cuda(x.double())

@@ -34,7 +34,7 @@ def test_jittered_birth_distribution():
     H, W = cfg.height, cfg.width
     zs, xs = [], []
     for seed in range(6):
-        dsp = T.SemanticDSPMap(cfg, params, seed=seed)
+        dsp = T.SemanticDSPMap(cfg, params, seed=seed, device="cpu")
         depth = np.zeros((H, W), np.float32)  # 0 < depth_range_min: invalid
         depth[::4, ::4] = wall_z
         masks = [T.MaskKpts(track_id=65535, label="static", mask=np.full((H, W), 6, np.uint8))]
@@ -67,7 +67,7 @@ def test_move_prediction_jitter_distribution():
 
     res = []
     for seed in range(8):
-        state = init_map_state(cfg, seed=seed)
+        state = init_map_state(cfg, seed=seed, device="cpu")
         p = state.particles
         vox, _, _, _, ok = codecs.global_pos_to_voxel(cfg, state.scroll, torch.from_numpy(pos))
         slot = vox[ok].long() * K  # slot 0 of the voxel (lattice: no collisions)
@@ -86,7 +86,7 @@ def test_move_prediction_jitter_distribution():
                           ("tmatrix", Tm), ("last_obs_step", 2)):
             getattr(o, name)[0] = val
         particles, moved, _ovf = _move_and_cleanup(
-            cfg, params, p, state.scroll, o, make_generator(100 + seed), max_movable)
+            cfg, params, p, state.scroll, o, make_generator(100 + seed, "cpu"), max_movable)
         assert int(moved) > 40
 
         vax = codecs.axis_stamps_per_voxel(cfg, state.scroll).numpy()
@@ -105,8 +105,9 @@ def test_move_prediction_jitter_distribution():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the template path included, imports
-    without loading JAX or the JAX package."""
+    """Every module of the port, the template path, the replay entry
+    points, the tools and the probes included, imports without loading JAX or
+    the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import semantic_dsp_map_tpu_torch as pkg\n"
@@ -114,6 +115,9 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert 'semantic_dsp_map_tpu_torch.template_engine' in sys.modules\n"
         "assert 'semantic_dsp_map_tpu_torch.ops.templates' in sys.modules\n"
+        "for n in ('datasets', 'replay', 'profiling', 'timing', 'tools.soak', 'ops.probes',\n"
+        "          'ops.probes_cuda', 'benchmarks.prim_bench1', 'benchmarks.prim_bench7'):\n"
+        "    assert 'semantic_dsp_map_tpu_torch.' + n in sys.modules, n\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'semantic_dsp_map_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -122,4 +126,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25
+    assert int(out.stdout.split()[-1]) >= 36

@@ -131,7 +131,7 @@ def test_object_level_update_matches_jax(shift):
     pj, pt = JFilterParams(**KW), FilterParams(**KW)
     rng = np.random.RandomState(2)
     kpts = rng.randn(8, 3).astype(np.float32) * 0.3 + np.array([0, 0, 1.5], np.float32)
-    jo, to = j_init_objects(cfg_j), init_objects(cfg_t)
+    jo, to = j_init_objects(cfg_j), init_objects(cfg_t, device="cpu")
     cam_pos = np.zeros(3, np.float32)
     _, _, r_cw, t_cw = j_cam(jnp.asarray(cam_pos), jnp.asarray([1.0, 0, 0, 0], jnp.float32))
     cur = kpts

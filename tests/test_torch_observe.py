@@ -66,7 +66,7 @@ def _jax_inputs(cfg, d):
 
 def _torch_inputs(cfg, d):
     scroll = dataclasses.replace(
-        init_scroll(cfg), **{f"axis_stamp_{a}": torch.from_numpy(v) for a, v in zip("xyz", d["axis"])}
+        init_scroll(cfg, device="cpu"), **{f"axis_stamp_{a}": torch.from_numpy(v) for a, v in zip("xyz", d["axis"])}
     )
     t = {k: torch.from_numpy(d[k]) for k in ("px", "py", "pz", "status", "stamp", "track")}
     return t, codecs.axis_stamps_per_voxel(cfg, scroll)

@@ -171,7 +171,7 @@ def test_observe_update_matches_jax():
                     jnp.asarray(f.track_label_table), r_wc, t_wc, 65523)
     state = jm.state
     gt = state.global_time + 1
-    ts = map_state_from_numpy(jax_state_to_numpy(state))
+    ts = map_state_from_numpy(jax_state_to_numpy(state), device="cpu")
     jp, jv, jd = j_observe(jm.cfg, jm.params, state.particles, state.scroll,
                            state.voxel_stamp, cloud, jnp.asarray(f.depth), r_cw, t_cw, gt)
 

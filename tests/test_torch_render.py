@@ -70,7 +70,7 @@ def _dumped_jax_state(n_frames):
 def test_render_matches_jax(source, thr):
     js = _dumped_jax_state(6) if source == "frames6" else _random_jax_state(int(source[6:]))
     cfg = tiny_test_config()
-    ts = map_state_from_numpy(jax_state_to_numpy(js))
+    ts = map_state_from_numpy(jax_state_to_numpy(js), device="cpu")
 
     jp, jr = j_render(J.config.tiny_test_config(), js, thr)
     tp, tr = render_occupancy(cfg, ts, thr)
@@ -88,7 +88,7 @@ def test_render_wrapper_in_place_on_cpu():
     """On CPU tensors the kernel wrapper runs the plain reduction and, like
     the kernel, writes the new weight and status into the store."""
     cfg = tiny_test_config()
-    ts = map_state_from_numpy(jax_state_to_numpy(_random_jax_state(5)))
+    ts = map_state_from_numpy(jax_state_to_numpy(_random_jax_state(5)), device="cpu")
     vax = codecs.axis_stamps_per_voxel(cfg, ts.scroll)
     new, want = render_core_plain(cfg, ts.particles, ts.voxel_stamp, vax, 0.3)
     before = render_core_cuda.launches

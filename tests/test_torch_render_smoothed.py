@@ -45,7 +45,7 @@ def _states(n, seed, scrolled):
             axis_stamp_y=(rng.rand(cfg_j.ny) < 0.2).astype(np.int32) * 2,
         )
         js = js.replace(scroll=sc)
-    return cfg_j, cfg_t, js, map_state_from_numpy(jax_state_to_numpy(js))
+    return cfg_j, cfg_t, js, map_state_from_numpy(jax_state_to_numpy(js), device="cpu")
 
 
 @pytest.mark.parametrize("scrolled", [False, True])
@@ -128,7 +128,7 @@ SCENE_PARAMS = dict(if_consider_depth_noise=True, nb_ptc_num_per_point=1,
 
 def test_smoothed_frame_matches_jax():
     jm = J.SemanticDSPMap(J.config.tiny_test_config(), J.FilterParams(**SCENE_PARAMS))
-    tm = T.SemanticDSPMap(T.tiny_test_config(), T.FilterParams(**SCENE_PARAMS))
+    tm = T.SemanticDSPMap(T.tiny_test_config(), T.FilterParams(**SCENE_PARAMS), device="cpu")
     for t in range(3):
         jr, jd = jm.update_from_frame(j_build(jm.cfg, jm.registry, *dynamic_scene(jm.cfg, t, J.MaskKpts)))
         tr, td = tm.update_from_frame(t_build(tm.cfg, tm.registry, *dynamic_scene(tm.cfg, t, T.MaskKpts)))

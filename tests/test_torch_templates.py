@@ -193,7 +193,7 @@ def _stage_setup():
     # one UPDATED particle per voxel, in slot 0.
     st = {k: np.array(v) for k, v in jax_state_to_numpy(j_init_state(cfg_j)).items()}
     pts = cloud.pos[(cloud.track == 3) & cloud.valid] + torch.tensor([0.3, 0.0, 0.1])
-    scroll = map_state_from_numpy(st).scroll
+    scroll = map_state_from_numpy(st, device="cpu").scroll
     vox, _, _, _, ok = tcodecs.global_pos_to_voxel(cfg_t, scroll, pts)
     vox, first = np.unique(vox[ok].numpy(), return_index=True)
     pts = pts[ok].numpy()[first]
@@ -237,10 +237,10 @@ def test_template_stages_match_jax():
     jst = jte.build_template_stages(cfg_j, J.FilterParams(**params), J.LabelRegistry.default(),
                                     jgrid, jtm.TemplateBank.from_folder(TEMPLATES, jgrid))
     tst = tte.build_template_stages(cfg_t, T.FilterParams(**params), registry, tgrid,
-                                    ttm.TemplateBank.from_folder(TEMPLATES, tgrid))
+                                    ttm.TemplateBank.from_folder(TEMPLATES, tgrid), device="cpu")
     js = _j_state(cfg_j, st)
     tobjects = _to_t_objects(st["objects"])
-    ts = dataclasses.replace(map_state_from_numpy(st), objects=tobjects)
+    ts = dataclasses.replace(map_state_from_numpy(st, device="cpu"), objects=tobjects)
     jcloud = _j_cloud(cloud)
     cam = np.zeros(3, np.float32)
     gt = 2
@@ -287,7 +287,7 @@ def test_move_skips_to_match_previous(template_mode):
     grid = np.arange(-1.2, 1.21, 0.8, dtype=np.float32)
     gx, gy, gz = np.meshgrid(grid, grid * 0.5, grid + 0.2)
     pos = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], -1)
-    scroll = map_state_from_numpy(st).scroll
+    scroll = map_state_from_numpy(st, device="cpu").scroll
     vox, _, _, _, ok = tcodecs.global_pos_to_voxel(cfg_t, scroll, torch.from_numpy(pos))
     slot = vox[ok].numpy() * K
     for name, val in (("px", pos[ok.numpy(), 0]), ("py", pos[ok.numpy(), 1]),
@@ -306,7 +306,7 @@ def test_move_skips_to_match_previous(template_mode):
     jp, jmoved, _ = jax.jit(j_move, static_argnums=(0, 1, 7))(
         cfg_j, J.FilterParams(**params), js.particles, js.scroll, js.objects, jnp.int32(2),
         jax.random.PRNGKey(0), max_movable)
-    ts = dataclasses.replace(map_state_from_numpy(st), objects=_to_t_objects(objs))
+    ts = dataclasses.replace(map_state_from_numpy(st, device="cpu"), objects=_to_t_objects(objs))
     tp, tmoved, _ = t_move(cfg_t, T.FilterParams(**params), ts.particles, ts.scroll,
                            ts.objects, ts.rng, max_movable)
     assert int(tmoved) == int(jmoved)
@@ -326,7 +326,7 @@ def test_template_scene_matches_jax(monkeypatch):
     params = dict(if_use_template_matching=True, match_score_threshold=0.2,
                   nb_ptc_num_per_point=1, prediction_stddev=0.0)
     jm = J.SemanticDSPMap(J.config.tiny_test_config(**TEMPLATE_SCENE_CFG), J.FilterParams(**params))
-    tm = T.SemanticDSPMap(T.tiny_test_config(**TEMPLATE_SCENE_CFG), T.FilterParams(**params))
+    tm = T.SemanticDSPMap(T.tiny_test_config(**TEMPLATE_SCENE_CFG), T.FilterParams(**params), device="cpu")
     jm._templates.grid = jtm.MatchGridConfig(**TEMPLATE_SCENE_GRID)
     tm._templates.grid = ttm.MatchGridConfig(**TEMPLATE_SCENE_GRID)
     assert jm.set_template_path(TEMPLATES) == tm.set_template_path(TEMPLATES) == 1

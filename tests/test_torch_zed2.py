@@ -152,7 +152,7 @@ def test_bbox3d_object_level_update_matches_jax():
     box = np.array([[0.0, 0.0, 1.5], [0.2, 0.0, 1.5], [0.0, -0.2, 1.5], [0.2, -0.2, 1.5]],
                    np.float32)
     (_, _, jr, jt), (_, _, tr, tt) = _pose([1.0, 0, 0, 0], [0, 0, 0])
-    jo, to = j_init_objects(cfg_j), init_objects(cfg_t)
+    jo, to = j_init_objects(cfg_j), init_objects(cfg_t, device="cpu")
     I = cfg_t.max_instances_per_frame
     assert ransac_draw_shape(cfg_t) == (I, 2, 4)
     refreshed = False
@@ -192,7 +192,7 @@ def test_zed2_scene_matches_jax(independent):
     params = dict(ZED2_PARAMS, if_use_independent_filter=independent)
     cfg_j, cfg_t = _cfgs()
     jm = J.SemanticDSPMap(cfg_j, J.FilterParams(**params))
-    tm = T.SemanticDSPMap(cfg_t, T.FilterParams(**params))
+    tm = T.SemanticDSPMap(cfg_t, T.FilterParams(**params), device="cpu")
     moved = 0
     for t in range(10):
         d, m, p, q, tt = zed2_scene(jm.cfg, t, J.MaskKpts)
