@@ -4,6 +4,9 @@
     python3 chip_smoke.py            # all phases, as a check of a checkout
     python3 chip_smoke.py --phase kernels   # build + per-kernel checks only
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
+    python3 chip_smoke.py --against DIR     # also time pass B and the front scan built
+                                            # from DIR's phd.cu / observe.cu (another
+                                            # version of csrc/), in turns, in this call
 
 Phases (any failure raises, and the script exits nonzero):
   0. print the card (nvidia-smi name and power limit, torch's device name);
@@ -26,7 +29,11 @@ Phases (any failure raises, and the script exits nonzero):
      inside the template-birth window), each for 3 warm-up + 5 synthetic
      frames; check that every kernel ran once per frame and that the
      template birth swept, scored and made guessed particles; time the
-     birth's sweep alone.  Then the replay path: 13 VKITTI2 frames written
+     birth's sweep alone.  After the vkitti2 frames, one more frame's own
+     pixel table, cloud and particle store go through pass B and the
+     candidate scan alone (against their plain versions, then timed): a
+     frame's data is patchy where the checked inputs are uniform.  Then the
+     replay path: 13 VKITTI2 frames written
      as npz files and replayed by ``replay.main`` on the default device
      (11 mapped frames, PLY clouds read back); the KITTI-360 soak
      (``tools.soak``: the largest preset, a checkpoint and a restore); the
@@ -40,6 +47,7 @@ without the package beside it, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import tempfile
@@ -59,6 +67,11 @@ RTOL, ATOL = 2e-5, 1e-6
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
+#: The card's L2 cache.  The kernel timings re-run on the same tensors, so
+#: inputs that fit it are read from L2, not from device memory, after the
+#: first launch: such a time is a warm-cache time held against a bound
+#: reckoned at the device-memory rate, and is printed and recorded as one.
+L2_BYTES = 50e6
 #: f32 operations of one PHD term around its expf: three differences, three
 #: scalings, the squared norm (5), the -0.5 factor, the exp's range
 #: reduction (about 3), the coefficient, the weight or factor, the sum.
@@ -175,14 +188,22 @@ def synth_zed2_frame(cfg, t, mask_cls):
     return depth, masks, pos, quat
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs (after one warm-up)."""
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs (after one warm-up).
+    The events bracket the call, so with an idle device the time holds what
+    the host takes to make the launch (a kernel wrapper's checks and
+    allocations, tens of microseconds) as well as the kernel.  With
+    ``queued`` a device-side spin of about a millisecond is enqueued first:
+    the launch is already waiting when the device gets to the first event,
+    and the time is the device's alone."""
     import torch
 
     fn()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -193,6 +214,48 @@ def cuda_ms(fn, reps: int) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def cache_note(report_entry, prefix, *inputs) -> str:
+    """Record under ``prefix`` + warm_cache whether a kernel's inputs fit the
+    L2 cache (its timed launches then read them from there) and return the
+    words that say so on its line."""
+    n = nbytes(*inputs)
+    report_entry[prefix + "warm_cache"] = n < L2_BYTES
+    return f" [inputs {n / 1e6:.1f} MB fit the L2: warm-cache time]" if n < L2_BYTES else ""
+
+
+@contextlib.contextmanager
+def using_library(lib):
+    """Inside the block the kernel wrappers launch from ``lib``, a build of
+    another version of the sources, instead of the package's own library."""
+    from semantic_dsp_map_tpu_torch.ops import cuda_lib
+
+    own = cuda_lib.library
+    cuda_lib.library = lambda: lib
+    try:
+        yield
+    finally:
+        cuda_lib.library = own
+
+
+def ms_in_turns(fn, other, reps=10):
+    """Times of ``fn`` launched from the other library, the package's, the
+    package's, the other; each as (ms, ms with the launch queued).  Returns
+    ([other, other], [own, own])."""
+    both = lambda: (cuda_ms(fn, reps), cuda_ms(fn, reps, queued=True))
+    with using_library(other):
+        o1 = both()
+    n1, n2 = both(), both()
+    with using_library(other):
+        o2 = both()
+    return [o1, o2], [n1, n2]
+
+
+def turns_line(other, own) -> str:
+    f = lambda t: f"{t[0]:.4f} ({t[1]:.4f})"
+    return (f"other {f(other[0])} own {f(own[0])} own {f(own[1])} other {f(other[1])} ms "
+            "(in brackets: with the launch queued behind a device-side spin)")
 
 
 def bound(n_bytes: float, op_seconds: float = 0.0) -> dict:
@@ -286,32 +349,103 @@ def phd_inputs(cfg, seed=0, fill=0.12):
     return t, cloud, float(occ.mean())
 
 
-def near_threshold(cfg, params, t, cloud):
-    """bool[S, H, W]: entries with a valid same-track neighbour whose
-    COEF^3 * exp(...) lies within 1e-6 of the 0.1 "rightly updated"
-    threshold, where float rounding may decide the flag either way."""
+def pass_b_inputs(cfg, params, t, cloud, ck_kappa):
+    """The arguments ops.phd._pass_b hands to pass B for this table, cloud
+    and ck_kappa (those of pass_b_raw and pass_b_cuda)."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import phd
+
+    occupied = t.meta >= 0
+    trk_eff = torch.where(occupied, t.meta >> 8, -2)
+    ff = phd.forgetting_factor(t.meta & 0xFF, params.forgetting_rate, params.max_forget_count)
+    ff_eff = occupied.float() if params.if_use_independent_filter else torch.where(occupied, ff, 0.0)
+    isg = 1.0 / torch.clamp(cloud.sigma, min=1e-6)
+    ox, oy, oz = (cloud.pos[..., i].contiguous() for i in range(3))
+    return (cfg, params, t.px, t.py, t.pz, trk_eff, ff_eff, isg, ox, oy, oz,
+            cloud.valid, cloud.track, ck_kappa)
+
+
+def window_census(args):
+    """From pass B's arguments, by the plain version's arithmetic: (bool[S, H,
+    W] of entries with a valid same-track neighbour whose COEF^3 * exp(...)
+    lies within 1e-6 of the 0.1 "rightly updated" threshold, where float
+    rounding may decide the flag either way; shares of the terms that are
+    exactly zero, denormal, and that give a denormal quotient: the ones the
+    hardware's division takes its slow path for)."""
     import torch
     from semantic_dsp_map_tpu_torch.config import MIN_RIGHTLY_UPDATED_PDF
     from semantic_dsp_map_tpu_torch.ops.phd import _COEF3, _pad_hw
 
-    S, H, W = t.px.shape
+    cfg, params, px, py, pz, trk, ff, isg, ox, oy, oz, valid, otrk, ck = args
+    S, H, W = px.shape
     R = cfg.neighbor_half
-    occupied = t.meta >= 0
-    trk = torch.where(occupied, t.meta >> 8, -2)
-    isg = (1.0 / torch.clamp(cloud.sigma, min=1e-6))[None]
-    pads = [_pad_hw(cloud.pos[..., i].contiguous(), R, 0.0) for i in range(3)]
-    pv, pt = _pad_hw(cloud.valid, R, False), _pad_hw(cloud.track, R, -1)
-    near = torch.zeros((S, H, W), dtype=torch.bool, device=t.px.device)
+    occupied = trk != -2
+    isg = isg[None]
+    pads = [_pad_hw(o, R, 0.0) for o in (ox, oy, oz)]
+    pv, pt, pck = _pad_hw(valid, R, False), _pad_hw(otrk, R, -1), _pad_hw(ck, R, 1.0)
+    near = torch.zeros((S, H, W), dtype=torch.bool, device=px.device)
+    counts = torch.zeros(4, dtype=torch.int64, device=px.device)  # terms, zero, denormal, quotient
+    tiny = torch.finfo(torch.float32).tiny
     for dm in range(2 * R + 1):
         for dn in range(2 * R + 1):
             win = lambda a: a[dm : dm + H, dn : dn + W][None]
-            zx = (t.px - win(pads[0])) * isg
-            zy = (t.py - win(pads[1])) * isg
-            zz = (t.pz - win(pads[2])) * isg
+            zx = (px - win(pads[0])) * isg
+            zy = (py - win(pads[1])) * isg
+            zz = (pz - win(pads[2])) * isg
             g = _COEF3 * torch.exp(-0.5 * (zx * zx + zy * zy + zz * zz))
-            hit = occupied & win(pv) & (win(pt) == trk)
-            near |= hit & ((g - MIN_RIGHTLY_UPDATED_PDF).abs() < 1e-6)
-    return near
+            term = occupied & win(pv)
+            same = win(pt) == trk
+            near |= term & same & ((g - MIN_RIGHTLY_UPDATED_PDF).abs() < 1e-6)
+            gk = torch.where(same, g, g * params.id_transition_probability) * ff
+            q = gk / win(pck)
+            counts += torch.stack([term.sum(), (term & (gk == 0)).sum(),
+                                   (term & (gk > 0) & (gk < tiny)).sum(),
+                                   (term & (q > 0) & (q < tiny)).sum()])
+    n, zero, denormal, quotient = counts.tolist()
+    shares = {"terms": n, "zero": zero / max(n, 1), "denormal": denormal / max(n, 1),
+              "denormal_quotient": quotient / max(n, 1)}
+    return near, shares
+
+
+def check_pass_b(tag, args):
+    """Pass B's kernel against the plain version on ``args``: acc within the
+    tolerance, flags equal away from the threshold.  Returns (kernel's acc
+    and right, (max abs, max rel) error, entries near the threshold)."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import phd, phd_cuda
+
+    acc_p, right_p = phd.pass_b_raw(*args)
+    acc_k, right_k = phd_cuda.pass_b_cuda(*args)
+    torch.cuda.synchronize()
+    assert_close(f"pass B acc {tag}", acc_k, acc_p)
+    n_near = 0
+    if not args[1].if_use_independent_filter:
+        near, shares = window_census(args)
+        n_near = int(near.sum())
+        print(f"[phd] {tag}: of {shares['terms']} terms {shares['zero']:.5f} are zero, "
+              f"{shares['denormal']:.5f} denormal, {shares['denormal_quotient']:.5f} give a "
+              "denormal quotient")
+        differ = right_k != right_p
+        if bool((differ & ~near).any()):
+            raise AssertionError(
+                f"pass B right {tag}: {int((differ & ~near).sum())} flags differ "
+                "away from the threshold"
+            )
+        print(f"[phd] {tag}: right flags differing {int(differ.sum())}, "
+              f"entries within 1e-6 of the threshold {n_near}")
+    else:
+        assert_equal(f"pass B right {tag}", right_k, right_p)
+    return acc_k, right_k, max_err(acc_k, acc_p), n_near
+
+
+def pass_b_bound(args, acc, right):
+    """(bound dict, bytes, terms) of pass B on ``args``: one term per occupied
+    entry and valid observation pixel of its window; every input read once,
+    every output written once."""
+    cfg, _, px, py, pz, trk_eff, ff_eff, isg, ox, oy, oz, valid, otrk, ck = args
+    terms = int(((trk_eff != -2).sum(0).double() * window_counts(valid, cfg.neighbor_half)).sum())
+    n = nbytes(px, py, pz, trk_eff, ff_eff, isg, ox, oy, oz, valid, otrk, ck, acc, right)
+    return bound(n, phd_op_seconds(terms)), n, terms
 
 
 def check_phd(cfg, report, prefix=""):
@@ -338,48 +472,28 @@ def check_phd(cfg, report, prefix=""):
 
         # pass B on identical inputs (the plain pass A's ck_kappa)
         occupied = t.meta >= 0
-        trk_eff = torch.where(occupied, t.meta >> 8, -2)
-        ff = phd.forgetting_factor(t.meta & 0xFF, params.forgetting_rate, params.max_forget_count)
-        ff_eff = occupied.float() if independent else torch.where(occupied, ff, 0.0)
-        isg = 1.0 / torch.clamp(cloud.sigma, min=1e-6)
-        ox, oy, oz = (cloud.pos[..., i].contiguous() for i in range(3))
-        args = (cfg, params, t.px, t.py, t.pz, trk_eff, ff_eff, isg, ox, oy, oz,
-                cloud.valid, cloud.track, ck_plain)
-        acc_p, right_p = phd.pass_b_raw(*args)
-        acc_k, right_k = phd_cuda.pass_b_cuda(*args)
-        torch.cuda.synchronize()
-        assert_close(f"pass B acc {tag}", acc_k, acc_p)
-        b_abs, b_rel = max_err(acc_k, acc_p)
-        n_near = 0
-        if not independent:
-            near = near_threshold(cfg, params, t, cloud)
-            n_near = int(near.sum())
-            differ = right_k != right_p
-            if bool((differ & ~near).any()):
-                raise AssertionError(
-                    f"pass B right {tag}: {int((differ & ~near).sum())} flags differ "
-                    "away from the threshold"
-                )
-            print(f"[phd] {tag}: right flags differing {int(differ.sum())}, "
-                  f"entries within 1e-6 of the threshold {n_near}")
+        args = pass_b_inputs(cfg, params, t, cloud, ck_plain)
+        isg, ox, oy, oz = args[7:11]
+        acc_k, right_k, (b_abs, b_rel), n_near = check_pass_b(tag, args)
         nw_p, nf_p = phd.stencil_pass_b(cfg, params, t, cloud, ck_plain)
         nw_k, nf_k = phd.stencil_pass_b_any(cfg, params, t, cloud, ck_plain)
         assert_close(f"new weight {tag}", nw_k, nw_p)
         if n_near == 0:
             assert_equal(f"new forget {tag}", nf_k, nf_p)
 
-        ms_a = cuda_ms(lambda: phd_cuda.pass_a_cuda(
-            cfg, params, t.px, t.py, t.pz, torch.where(occupied, t.weight, 0.0),
-            t.meta >> 8, ox, oy, oz, isg, cloud.track), 10)
-        ms_a_plain = cuda_ms(lambda: phd.pass_a_raw(
-            cfg, params, t.px, t.py, t.pz, torch.where(occupied, t.weight, 0.0),
-            t.meta >> 8, ox, oy, oz, isg, cloud.track), 3)
-        ms_b = cuda_ms(lambda: phd_cuda.pass_b_cuda(*args), 10)
+        # pass A timed as since its first version: with the two elementwise
+        # ops that make its weight and track planes
+        a_args = lambda: (cfg, params, t.px, t.py, t.pz, torch.where(occupied, t.weight, 0.0),
+                          t.meta >> 8, ox, oy, oz, isg, cloud.track)
+        run_a, run_b = lambda: phd_cuda.pass_a_cuda(*a_args()), lambda: phd_cuda.pass_b_cuda(*args)
+        ms_a, q_a = cuda_ms(run_a, 10), cuda_ms(run_a, 10, queued=True)
+        ms_a_plain = cuda_ms(lambda: phd.pass_a_raw(*a_args()), 3)
+        ms_b, q_b = cuda_ms(run_b, 10), cuda_ms(run_b, 10, queued=True)
         ms_b_plain = cuda_ms(lambda: phd.pass_b_raw(*args), 3)
         print(f"[phd] {tag}: pass A max abs {a_abs:.3e} rel {a_rel:.3e}, "
-              f"kernel {ms_a:.3f} ms, plain {ms_a_plain:.3f} ms")
+              f"kernel {ms_a:.3f} ms ({q_a:.3f} with the launch queued), plain {ms_a_plain:.3f} ms")
         print(f"[phd] {tag}: pass B max abs {b_abs:.3e} rel {b_rel:.3e}, "
-              f"kernel {ms_b:.3f} ms, plain {ms_b_plain:.3f} ms")
+              f"kernel {ms_b:.3f} ms ({q_b:.3f} with the launch queued), plain {ms_b_plain:.3f} ms")
         if not independent:
             # Bounds from these inputs.  Pass A needs one term per table
             # entry with weight and observation pixel of its window inside
@@ -390,20 +504,23 @@ def check_phd(cfg, report, prefix=""):
             weff = torch.where(occupied, t.weight, 0.0)
             inside = torch.ones((H, W), dtype=torch.bool, device=weff.device)
             terms_a = int(((weff != 0).sum(0).double() * window_counts(inside, R)).sum())
-            terms_b = int((occupied.sum(0).double() * window_counts(cloud.valid, R)).sum())
-            bytes_a = nbytes(t.px, t.py, t.pz, weff, t.meta, ox, oy, oz, isg, cloud.track, ck_kern)
-            bytes_b = nbytes(t.px, t.py, t.pz, trk_eff, ff_eff, isg, ox, oy, oz, cloud.valid,
-                             cloud.track, ck_plain, acc_k, right_k)
+            in_a = (t.px, t.py, t.pz, weff, t.meta, ox, oy, oz, isg, cloud.track)
+            bytes_a = nbytes(*in_a, ck_kern)
             bound_a = bound(bytes_a, phd_op_seconds(terms_a))
-            bound_b = bound(bytes_b, phd_op_seconds(terms_b))
+            bound_b, bytes_b, terms_b = pass_b_bound(args, acc_k, right_k)
+            note_a = cache_note(report["phd_pass_a"], prefix, *in_a)
+            note_b = cache_note(report["phd_pass_b"], prefix, *args[2:])
             print(f"[phd] {prefix}bounds: pass A {bytes_a} bytes, {terms_a} terms -> "
-                  f"{bound_a['bound_ms']:.4f} ms by {bound_a['bound_by']}; pass B {bytes_b} bytes, "
-                  f"{terms_b} terms -> {bound_b['bound_ms']:.4f} ms by {bound_b['bound_by']}")
+                  f"{bound_a['bound_ms']:.4f} ms by {bound_a['bound_by']}{note_a}; pass B "
+                  f"{bytes_b} bytes, {terms_b} terms -> {bound_b['bound_ms']:.4f} ms by "
+                  f"{bound_b['bound_by']}{note_b}")
             report["phd_pass_a"].update(
-                {prefix + "max_abs_err": a_abs, prefix + "ms": ms_a, prefix + "plain_ms": ms_a_plain,
+                {prefix + "max_abs_err": a_abs, prefix + "ms": ms_a, prefix + "queued_ms": q_a,
+                 prefix + "plain_ms": ms_a_plain,
                  **{prefix + k: v for k, v in bound_a.items()}})
             report["phd_pass_b"].update(
-                {prefix + "max_abs_err": b_abs, prefix + "ms": ms_b, prefix + "plain_ms": ms_b_plain,
+                {prefix + "max_abs_err": b_abs, prefix + "ms": ms_b, prefix + "queued_ms": q_b,
+                 prefix + "plain_ms": ms_b_plain,
                  **{prefix + k: v for k, v in bound_b.items()}})
 
 
@@ -458,12 +575,13 @@ def check_render(cfg, report, prefix=""):
     n_alive = int(alive.sum())
     n_clamped = int((pk.weight != p.weight).sum())
     n_collected = int((pk.status != p.status).sum())
-    ms = cuda_ms(lambda: render_core_cuda(cfg, pk, vst, vax, thr), 10)
+    run = lambda: render_core_cuda(cfg, pk, vst, vax, thr)
+    ms, q_ms = cuda_ms(run, 10), cuda_ms(run, 10, queued=True)
     ms_plain = cuda_ms(lambda: render_core_plain(cfg, p, vst, vax, thr), 3)
     occ = torch.bincount((r_k.occ + 1).long(), minlength=4).tolist()
     print(f"[render] {prefix}V={cfg.num_voxels} K={cfg.slots_per_voxel}: occ histogram "
           f"(-1,0,1,2) {occ}; weight_sum max abs {e1[0]:.3e}, new weight max abs "
-          f"{e2[0]:.3e}; kernel {ms:.3f} ms, plain {ms_plain:.3f} ms")
+          f"{e2[0]:.3e}; kernel {ms:.3f} ms ({q_ms:.3f} with the launch queued), plain {ms_plain:.3f} ms")
     # Bound from this store, reckoned as the observe bounds are: status and
     # stamp of every slot (5 B), both voxel stamps and the four outputs; the
     # weight, track and label (9 B) only of the slots that are alive; written
@@ -472,37 +590,35 @@ def check_render(cfg, report, prefix=""):
               + 9 * n_alive + 4 * n_clamped + n_collected)
     b_all = bound(nbytes(p.weight, p.stamp, p.status, p.track, p.label, vax, vst,
                          pk.weight, pk.status, r_k.occ, r_k.label, r_k.track, r_k.weight_sum))
+    note = cache_note(report["render"], prefix, p.weight, p.stamp, p.status, p.track, p.label,
+                      vax, vst)
     print(f"[render] {prefix}{n_alive} of {p.status.numel()} slots alive, {n_clamped} weights "
           f"clamped, {n_collected} slots collected; bound {b['bound_ms']:.4f} ms by "
           f"{b['bound_by']} (every slot read whole, weight and status of all written back: "
-          f"{b_all['bound_ms']:.4f} ms)")
+          f"{b_all['bound_ms']:.4f} ms){note}")
     report["render"].update({prefix + "max_abs_err": max(e1[0], e2[0]), prefix + "ms": ms,
+                             prefix + "queued_ms": q_ms,
                              prefix + "plain_ms": ms_plain,
                              **{prefix + k: v for k, v in b.items()}})
 
 
-def check_observe(cfg, report, prefix=""):
-    """The observe candidate scan and the movable-voxel scan against their
-    plain versions, byte for byte, on a seeded full-size store (mixed
-    status, stamps and tracks) whose positions fill the map volume around
-    a rotated camera, so a real share of slots lies in the frustum."""
+def observe_inputs(cfg):
+    """A seeded full-size store (mixed status, stamps and tracks) whose
+    positions fill the map volume around a rotated camera, so a real share
+    of slots lies in the frustum.  Returns (the candidate scan's arguments,
+    the store, the per-voxel scroll stamps)."""
     import dataclasses
 
     import torch
     from semantic_dsp_map_tpu_torch.ops import codecs
     from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
-    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
-    from semantic_dsp_map_tpu_torch.ops.observe_cuda import (
-        front_candidates_cuda, movable_voxels_cuda,
-    )
     from semantic_dsp_map_tpu_torch.state import init_scroll
 
     dev = torch.device("cuda")
     p, _, _ = random_render_state(cfg, seed=7)
     g = torch.Generator(device=dev)
     g.manual_seed(11)
-    V, K = cfg.num_voxels, cfg.slots_per_voxel
-    n = V * K
+    n = cfg.num_voxels * cfg.slots_per_voxel
     hx, hy, hz = cfg.map_half_extent
     u = lambda h: (torch.rand(n, generator=g, device=dev) * 2 - 1) * h
     px, py, pz = u(hx), u(hy), u(hz)
@@ -515,8 +631,39 @@ def check_observe(cfg, report, prefix=""):
     quat = torch.tensor([0.9833, 0.0428, 0.1737, 0.0076], device=dev)
     quat = quat / quat.norm()
     _, _, r_cw, t_cw = camera_matrices(torch.tensor([0.3, -0.2, 0.5], device=dev), quat)
+    return (cfg, px, py, pz, p.status, p.stamp, vax, r_cw, t_cw), p, vax
 
-    args = (cfg, px, py, pz, p.status, p.stamp, vax, r_cw, t_cw)
+
+def front_bound(args, ha, hc):
+    """(bound dict, alive slots, [bound with every slot's stamp read, bound
+    with every slot's stamp and position read]) of the candidate scan on
+    ``args``: the status of every slot (1 B), the voxel stamps, the pose and
+    the outputs; the stamp (4 B) only of the slots with a status set and
+    the positions (12 B) only of the alive ones, since an empty slot's
+    stamp and a dead slot's position decide nothing."""
+    cfg, px, py, pz, status, stamp, vax, r_cw, t_cw = args
+    has_status = status != 0
+    alive = has_status & (stamp >= vax.repeat_interleave(cfg.slots_per_voxel))
+    n_alive = int(alive.sum())
+    fixed = nbytes(status, vax, r_cw, t_cw, ha, hc)
+    b = bound(fixed + 4 * int(has_status.sum()) + 12 * n_alive)
+    looser = [bound(fixed + nbytes(stamp) + 12 * n_alive)["bound_ms"],
+              bound(nbytes(px, py, pz, status, stamp, vax, ha, hc))["bound_ms"]]
+    return b, n_alive, looser
+
+
+def check_observe(cfg, report, prefix=""):
+    """The observe candidate scan and the movable-voxel scan against their
+    plain versions, byte for byte, on the store of observe_inputs."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
+    from semantic_dsp_map_tpu_torch.ops.observe_cuda import (
+        front_candidates_cuda, movable_voxels_cuda,
+    )
+
+    args, p, vax = observe_inputs(cfg)
+    V, K = cfg.num_voxels, cfg.slots_per_voxel
+    n = V * K
     ha_p, hc_p = front_candidates_plain(*args)
     ha_k, hc_k = front_candidates_cuda(*args)
     torch.cuda.synchronize()
@@ -526,7 +673,8 @@ def check_observe(cfg, report, prefix=""):
     cand_share = float(hc_p.float().mean())
     if not 0.0 < cand_share < alive_share < 1.0:
         raise AssertionError(f"{prefix}front: degenerate store (alive {alive_share}, cand {cand_share})")
-    ms_f = cuda_ms(lambda: front_candidates_cuda(*args), 10)
+    run_f = lambda: front_candidates_cuda(*args)
+    ms_f, q_f = cuda_ms(run_f, 10), cuda_ms(run_f, 10, queued=True)
     ms_f_plain = cuda_ms(lambda: front_candidates_plain(*args), 3)
 
     max_movable = 1
@@ -538,30 +686,73 @@ def check_observe(cfg, report, prefix=""):
     mov_share = float(hm_p.float().mean())
     if not 0.0 < mov_share < 1.0:
         raise AssertionError(f"{prefix}movable: degenerate store (share {mov_share})")
-    ms_m = cuda_ms(lambda: movable_voxels_cuda(*margs), 10)
+    run_m = lambda: movable_voxels_cuda(*margs)
+    ms_m, q_m = cuda_ms(run_m, 10), cuda_ms(run_m, 10, queued=True)
     ms_m_plain = cuda_ms(lambda: movable_voxels_plain(*margs), 3)
     print(f"[observe] {prefix}V={V} K={K}: voxel shares alive {alive_share:.4f}, "
           f"candidate {cand_share:.4f}, movable {mov_share:.4f}; outputs byte-equal; "
-          f"front kernel {ms_f:.3f} ms, plain {ms_f_plain:.3f} ms; "
-          f"movable kernel {ms_m:.3f} ms, plain {ms_m_plain:.3f} ms")
-    # Bounds from this store: status and stamp of every slot (5 B), the
-    # voxel stamps and the outputs; the positions (12 B) or the track (4 B)
-    # only of the slots that are alive, since a dead slot's are not needed.
-    alive = (p.status != 0) & (p.stamp >= vax.repeat_interleave(K))
-    n_alive = int(alive.sum())
-    b_f = bound(nbytes(p.status, p.stamp, vax, r_cw, t_cw, ha_k, hc_k) + 12 * n_alive)
+          f"front kernel {ms_f:.3f} ms ({q_f:.3f} with the launch queued), plain "
+          f"{ms_f_plain:.3f} ms; movable kernel {ms_m:.3f} ms ({q_m:.3f} queued), plain "
+          f"{ms_m_plain:.3f} ms")
+    # Bounds from this store (front_bound); the movable scan as reckoned
+    # since it was written: status and stamp of every slot, the track (4 B)
+    # of the alive slots.
+    b_f, n_alive, (b_f_stamps, b_f_all) = front_bound(args, ha_k, hc_k)
     b_m = bound(nbytes(p.status, p.stamp, vax, hm_k) + 4 * n_alive)
+    note_f = cache_note(report["front_candidates"], prefix, *args[1:])
+    note_m = cache_note(report["movable_voxels"], prefix, p.track, p.status, p.stamp, vax)
     print(f"[observe] {prefix}{n_alive} of {n} slots alive; bounds: front "
-          f"{b_f['bound_ms']:.4f} ms (all {n} slots' positions read: "
-          f"{bound(nbytes(px, py, pz, p.status, p.stamp, vax, ha_k, hc_k))['bound_ms']:.4f} ms), "
+          f"{b_f['bound_ms']:.4f} ms (every slot's stamp read: {b_f_stamps:.4f} ms; all {n} "
+          f"slots' positions too: {b_f_all:.4f} ms){note_f}, "
           f"movable {b_m['bound_ms']:.4f} ms (all tracks read: "
-          f"{bound(nbytes(p.track, p.status, p.stamp, vax, hm_k))['bound_ms']:.4f} ms), by bytes")
+          f"{bound(nbytes(p.track, p.status, p.stamp, vax, hm_k))['bound_ms']:.4f} ms){note_m}, by bytes")
     report["front_candidates"].update(
-        {prefix + "max_abs_err": 0.0, prefix + "ms": ms_f, prefix + "plain_ms": ms_f_plain,
+        {prefix + "max_abs_err": 0.0, prefix + "ms": ms_f, prefix + "queued_ms": q_f,
+         prefix + "plain_ms": ms_f_plain,
          **{prefix + k: v for k, v in b_f.items()}})
     report["movable_voxels"].update(
-        {prefix + "max_abs_err": 0.0, prefix + "ms": ms_m, prefix + "plain_ms": ms_m_plain,
+        {prefix + "max_abs_err": 0.0, prefix + "ms": ms_m, prefix + "queued_ms": q_m,
+         prefix + "plain_ms": ms_m_plain,
          **{prefix + k: v for k, v in b_m.items()}})
+
+
+def compare_versions(other, cfg, label, card):
+    """Pass B and the candidate scan from the package's library and from
+    ``other`` (a build of another version of the sources) on the inputs of
+    check_phd and check_observe: the other's results must agree too, and the
+    two are timed in turns (other, own, own, other).  Returns the times."""
+    import torch
+    from semantic_dsp_map_tpu_torch.config import FilterParams
+    from semantic_dsp_map_tpu_torch.ops import phd, phd_cuda
+    from semantic_dsp_map_tpu_torch.ops.observe_cuda import front_candidates_cuda
+
+    params = FilterParams(detection_probability=0.9, noise_number=0.1,
+                          if_consider_depth_noise=True)
+    t, cloud, _ = phd_inputs(cfg)
+    args = pass_b_inputs(cfg, params, t, cloud, phd.stencil_pass_a(cfg, params, t, cloud))
+    acc_n, right_n = phd_cuda.pass_b_cuda(*args)
+    with using_library(other):
+        acc_o, right_o = phd_cuda.pass_b_cuda(*args)
+    torch.cuda.synchronize()
+    assert_close(f"{label} pass B acc, other version", acc_o, acc_n)
+    same_bits = torch.equal(acc_o.view(torch.int32), acc_n.view(torch.int32))
+    assert_equal(f"{label} pass B right, other version", right_o, right_n)
+    b_other, b_own = ms_in_turns(lambda: phd_cuda.pass_b_cuda(*args), other)
+    print(f"[against] {label} pass B: {turns_line(b_other, b_own)}; acc bits equal: {same_bits}, "
+          f"flags equal ({card})")
+    del t, cloud, args, acc_n, acc_o
+
+    fargs, _, _ = observe_inputs(cfg)
+    got_n = front_candidates_cuda(*fargs)
+    with using_library(other):
+        got_o = front_candidates_cuda(*fargs)
+    torch.cuda.synchronize()
+    for name, o, n in zip(("has_alive", "has_cand"), got_o, got_n):
+        assert_equal(f"{label} front {name}, other version", o, n)
+    f_other, f_own = ms_in_turns(lambda: front_candidates_cuda(*fargs), other)
+    print(f"[against] {label} front scan: {turns_line(f_other, f_own)}; bytes equal ({card})")
+    return {"pass_b": {"other_ms": b_other, "own_ms": b_own},
+            "front_candidates": {"other_ms": f_other, "own_ms": f_own}}
 
 
 def check_probes(report):
@@ -932,6 +1123,102 @@ def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=5
     return launches, float(np.median(timed)), dsp, frame_ms, sweeps
 
 
+class CallRecorder:
+    """Stands in for a kernel wrapper in its module for one frame: keeps a
+    copy of each call's tensor arguments (the frame step updates the store in
+    place afterwards) and passes the call on.  The wrapper adds its launch to
+    the ``launches`` of whatever its module holds under its name: here."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.calls, self.launches = [], 0
+
+    def __call__(self, *args):
+        import torch
+
+        self.calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return self.fn(*args)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def check_real_frame(dsp, synth, t, card, other=None):
+    """One more frame through ``dsp``; the arguments its step hands to pass B
+    (the frame's pixel table, cloud and ck_kappa) and to the candidate scan
+    (the particle store before the frame) then go through the two kernels
+    alone: against the plain version once, then timed.  With ``other`` (a
+    build of another version of the sources) the two versions are timed in
+    turns.  Returns the numbers."""
+    import torch
+    from semantic_dsp_map_tpu_torch import MaskKpts
+    from semantic_dsp_map_tpu_torch.ops import observe_cuda, phd_cuda
+    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain
+
+    depth, masks, pos, quat = synth(dsp.cfg, t, MaskKpts)
+    with (CallRecorder(phd_cuda, "pass_b_cuda") as rec_b,
+          CallRecorder(observe_cuda, "front_candidates_cuda") as rec_f):
+        dsp.update(depth, masks, pos, quat, 0.1 * t)
+    torch.cuda.synchronize()
+    if (len(rec_b.calls), rec_b.launches, len(rec_f.calls), rec_f.launches) != (1, 1, 1, 1):
+        raise AssertionError(f"real frame: pass B called {len(rec_b.calls)}, front {len(rec_f.calls)} times")
+    out = {"frame": t}
+
+    args = rec_b.calls[0]
+    trk_eff = args[5]
+    S, H, W = trk_eff.shape
+    occupied = trk_eff != -2
+    occ_share = float(occupied.float().mean())
+    # entries per block of the kernel (B_TH x B_TW = 4 x 32 pixels in csrc/phd.cu)
+    per_tile = torch.nn.functional.avg_pool2d(
+        occupied.sum(0).float()[None, None], (4, 32), ceil_mode=True, divisor_override=1).flatten()
+    acc_k, right_k, (b_abs, _), _ = check_pass_b(f"real frame {t}", args)
+    b, n_bytes, terms = pass_b_bound(args, acc_k, right_k)
+    run_b = lambda: phd_cuda.pass_b_cuda(*args)
+    ms, q_ms = cuda_ms(run_b, 10), cuda_ms(run_b, 10, queued=True)
+    out["pass_b"] = {"ms": ms, "queued_ms": q_ms, "occupied_share": occ_share, "entries": int(occupied.sum()),
+                     "terms": terms, "max_abs_err": b_abs, **b}
+    print(f"[real] frame {t} pass B: table S={S} H={H} W={W}, {int(occupied.sum())} occupied "
+          f"entries (share {occ_share:.4f}; per 32 x 4 tile mean {float(per_tile.mean()):.1f}, "
+          f"max {int(per_tile.max())}, empty tiles {int((per_tile == 0).sum())} of "
+          f"{per_tile.numel()}), {terms} terms; equal to the plain version (max abs {b_abs:.3e}); "
+          f"kernel {ms:.4f} ms ({q_ms:.4f} with the launch queued), bound {b['bound_ms']:.4f} ms "
+          f"by {b['bound_by']} ({card})")
+    if other is not None:
+        o, n = ms_in_turns(run_b, other)
+        out["pass_b"].update(other_ms=o, own_ms=n)
+        print(f"[against] real frame pass B: {turns_line(o, n)} ({card})")
+    del args, acc_k, right_k
+
+    fargs = rec_f.calls[0]
+    ha_p, hc_p = front_candidates_plain(*fargs)
+    ha_k, hc_k = observe_cuda.front_candidates_cuda(*fargs)
+    torch.cuda.synchronize()
+    assert_equal(f"real frame {t} front has_alive", ha_k, ha_p)
+    assert_equal(f"real frame {t} front has_cand", hc_k, hc_p)
+    b, n_alive, (b_stamps, b_all) = front_bound(fargs, ha_k, hc_k)
+    n = fargs[4].numel()
+    run_f = lambda: observe_cuda.front_candidates_cuda(*fargs)
+    ms, q_ms = cuda_ms(run_f, 10), cuda_ms(run_f, 10, queued=True)
+    out["front_candidates"] = {"ms": ms, "queued_ms": q_ms, "alive_share": n_alive / n, "alive_slots": n_alive,
+                               "alive_voxels": int(ha_k.sum()), "candidate_voxels": int(hc_k.sum()),
+                               **b}
+    print(f"[real] frame {t} front scan: {n_alive} of {n} slots alive (share {n_alive / n:.4f}), "
+          f"{int(ha_k.sum())} voxels with a live slot, {int(hc_k.sum())} candidate voxels; bytes "
+          f"equal to the plain version; kernel {ms:.4f} ms ({q_ms:.4f} with the launch queued), "
+          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (every slot's stamp read: "
+          f"{b_stamps:.4f} ms; all slots' positions too: {b_all:.4f} ms) ({card})")
+    if other is not None:
+        o, n2 = ms_in_turns(run_f, other)
+        out["front_candidates"].update(other_ms=o, own_ms=n2)
+        print(f"[against] real frame front scan: {turns_line(o, n2)} ({card})")
+    return out
+
+
 def time_template_sweep(dsp, synth, t):
     """The birth sweep of frame ``t`` alone: the car's cloud rebuilt from the
     frame, compacted and swept against the bank (template_match_bank, FS
@@ -1119,6 +1406,10 @@ def main() -> int:
                     help="'kernels' stops after the per-kernel checks")
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
+    ap.add_argument("--against", metavar="DIR", type=Path,
+                    help="a directory holding another version of csrc/'s sources: pass B and "
+                         "the candidate scan are also built from it and timed in turns with "
+                         "the package's own, on the checked inputs and on the real frame")
     args = ap.parse_args()
 
     import torch
@@ -1184,6 +1475,14 @@ def main() -> int:
         check_render(cfg, report, prefix)
         check_observe(cfg, report, prefix)
     check_probes(report)
+    other, against = None, {}
+    if args.against is not None:
+        other_path, other_s, _ = cuda_lib.build(args.against.resolve())
+        print(f"[against] {args.against} built into {other_path.relative_to(REPO)} in {other_s:.1f} s")
+        other = cuda_lib.load(other_path)
+        for cfg, label in ((vk_cfg, "vkitti2 shapes"), (zed2_cfg, "zed2 shapes")):
+            against[label] = compare_versions(other, cfg, label, card)
+        torch.cuda.empty_cache()
     if args.phase == "kernels":
         print(json.dumps({"kernels": list(report.values())}))
         print(f"[card] {card}")
@@ -1212,10 +1511,12 @@ def main() -> int:
     paths = (("vkitti2", vk_cfg, VK_PARAMS, synth_vkitti2_frame, None),
              ("zed2", zed2_cfg, ZED2_PARAMS, synth_zed2_frame, None),
              ("vkitti2_template", vk_cfg, TPL_PARAMS, synth_template_frame, TEMPLATES))
-    medians, template = {}, {}
+    medians, template, real_frame = {}, {}, {}
     for name, cfg, params, synth, tpl_path in paths:
         launches, medians[name], dsp, frame_ms, sweeps = drive_main_path(
             name, cfg, FilterParams(**params), synth, fns, card, template_path=tpl_path)
+        if name == "vkitti2":
+            real_frame = check_real_frame(dsp, synth, len(frame_ms), card, other)
         if tpl_path is not None:
             births = [(t, sw, n) for t, sw, n in sweeps if sw.stage == "birth"]
             if not births:
@@ -1258,6 +1559,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": list(report.values()), "frame_ms_median": medians,
                       "template": template, "smoothed_render_ms": smoothed_ms,
+                      "real_frame": real_frame, "against": against,
                       "replay_ms_per_frame": replay_ms, "soak": soak_report,
                       "stage_profile": stage_rows, "probes": probe_rows, "card": card}))
     print(f"[card] {card}")

@@ -17,15 +17,39 @@
 //                           the image
 //   movable: movable[v]   = any_k alive & 0 <= track <= max_movable
 //
-// What bounds them: device memory.  The front reads status and stamp of
-// every slot and the three coordinates of the live ones, 17 B per slot at
-// most (about 1.0 GB per frame at VKITTI2 scale); the movable scan reads
-// 9 B per slot at most.  A few flops per byte.  The design is the simple
-// one: one thread per voxel loops over its K slots in registers (K is a
-// template parameter) and writes two or one bytes; neighbouring threads
-// take neighbouring voxels, so a warp's loads cover one contiguous span of
-// each array.  No cross-thread reduction is needed, and the TPU kernel's
-// one-hot MXU reduction has no counterpart here.
+// What bounds them: device memory.  The front reads the status of every
+// slot, the stamp of those with a status set and the three coordinates of
+// the live ones, 17 B per slot at most (about 1.0 GB per frame at VKITTI2
+// scale) and little more than 1 B in a map that is mostly empty; the
+// movable scan reads 9 B per slot at most.  A few flops per byte, so the work is to keep the
+// load units streaming whole lines.
+//
+// Front (one thread per group of four neighbouring slots): with a thread per
+// voxel, a warp's load of slot k touches addresses K * 4 bytes apart, K
+// cache lines for 128 useful bytes, again for every k and every field: the
+// bytes come from device memory once, but the load units handle K times the
+// sectors.  Here a block owns FRONT_SPAN neighbouring voxels, hence one
+// contiguous span of FRONT_SPAN * K slots, and
+//   1. stages the span's voxel stamps in shared memory, and has every
+//      thread ask for the status words of all its K groups before it waits
+//      for any (in a map that is mostly empty that is nearly all it reads,
+//      and what limits it is how many loads are in flight);
+//   2. walks the slots four a thread, neighbouring threads on neighbouring
+//      addresses: status as one 4-byte load, stamp as one 16-byte load only
+//      where one of the four has a status set and, only where one of the
+//      four is alive, each coordinate as one 16-byte load; the slot's voxel is its index divided by the constant K.  Each
+//      slot's two flags go into one byte of a shared array;
+//   3. ORs the flag bytes per voxel, four voxels a thread (K words of shared
+//      memory at a stride of K words: K is odd, so no bank conflict), and
+//      writes has_alive and has_cand as 4-byte stores.
+// A span in which no slot has a status set, as most spans of a map, writes
+// its zeros after step 1 and is done.
+// The last block's span and the last group of the store may be ragged; both
+// are masked.  The store's arrays must be 16-byte aligned (whole tensors
+// are).  The TPU kernel's one-hot MXU reduction has no counterpart here.
+//
+// Movable (one thread per voxel looping over its K slots in registers):
+// above half of its bound as it is.
 //
 // Pixel truncation decides has_cand and is compared bit for bit with the
 // plain version, so the projection keeps its expression order: camera
@@ -45,44 +69,181 @@ struct Camera {
   int h, w;
 };
 
+constexpr int FRONT_NT = 256;
+constexpr int FRONT_SPAN = 4 * FRONT_NT;  // voxels a block; a multiple of 4
+
+// Bit 0 of a slot's flag byte: alive; bit 1: candidate.
+__device__ __forceinline__ unsigned slot_flags(
+    bool alive, float x, float y, float z, const float* __restrict__ pose,
+    const Camera& cam) {
+  if (!alive) return 0u;
+  const float cxc = pose[0] * x + pose[1] * y + pose[2] * z + pose[9];
+  const float cyc = pose[3] * x + pose[4] * y + pose[5] * z + pose[10];
+  const float czc = pose[6] * x + pose[7] * y + pose[8] * z + pose[11];
+  const bool in_depth = czc >= cam.dmin && czc <= cam.dmax;
+  const float zsafe = czc == 0.f ? 1e-6f : czc;
+  const float u = cam.fx * cxc / zsafe + cam.cx0;
+  const float vv = cam.fy * cyc / zsafe + cam.cy0;
+  const int col = (int)u;
+  const int row = (int)vv;
+  const bool in_image = row >= 0 && row < cam.h && col >= 0 && col < cam.w;
+  return (in_depth && in_image) ? 3u : 1u;
+}
+
 template <int K>
-__global__ void front_kernel(
+__global__ void __launch_bounds__(FRONT_NT) front_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const uint8_t* __restrict__ status,
     const int* __restrict__ stamp, const int* __restrict__ vax,
-    const float* __restrict__ pose,  // r_cw row-major (9), t_cw (3)
+    const float* __restrict__ pose_g,  // r_cw row-major (9), t_cw (3)
     uint8_t* __restrict__ ha, uint8_t* __restrict__ hc, long long V,
     Camera cam) {
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  const float r00 = pose[0], r01 = pose[1], r02 = pose[2];
-  const float r10 = pose[3], r11 = pose[4], r12 = pose[5];
-  const float r20 = pose[6], r21 = pose[7], r22 = pose[8];
-  const float t0 = pose[9], t1 = pose[10], t2 = pose[11];
-  const long long base = v * K;
-  const int va = vax[v];
-  bool any_alive = false, any_cand = false;
+  __shared__ int s_vax[FRONT_SPAN];
+  __shared__ unsigned s_flag[FRONT_SPAN * K / 4];  // a byte per slot
+  const int tid = threadIdx.x;
+  const long long v0 = (long long)blockIdx.x * FRONT_SPAN;
+  const int nv = (int)(V - v0 < FRONT_SPAN ? V - v0 : FRONT_SPAN);
+  // The span's slots, four a thread: FRONT_NT * K groups, K a thread.
+  // v0 * K is a multiple of 4, so every whole group is 16-byte aligned in
+  // the 4-byte arrays.
+  const long long slot0 = v0 * K;
+  const int nslots = nv * K;
+  const int ngroups = (nslots + 3) / 4;
+
+  // All of a thread's first loads at once, before anything waits for one:
+  // its voxel stamps and the status words of its K groups (0 = INVALID in
+  // every byte beyond the store).
+  int va[FRONT_SPAN / FRONT_NT];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const long long i = base + k;
-    const bool alive = status[i] != STATUS_INVALID && stamp[i] >= va;
-    if (!alive) continue;
-    any_alive = true;
-    const float x = px[i], y = py[i], z = pz[i];
-    const float cxc = r00 * x + r01 * y + r02 * z + t0;
-    const float cyc = r10 * x + r11 * y + r12 * z + t1;
-    const float czc = r20 * x + r21 * y + r22 * z + t2;
-    const bool in_depth = czc >= cam.dmin && czc <= cam.dmax;
-    const float zsafe = czc == 0.f ? 1e-6f : czc;
-    const float u = cam.fx * cxc / zsafe + cam.cx0;
-    const float vv = cam.fy * cyc / zsafe + cam.cy0;
-    const int col = (int)u;
-    const int row = (int)vv;
-    const bool in_image = row >= 0 && row < cam.h && col >= 0 && col < cam.w;
-    any_cand = any_cand || (in_depth && in_image);
+  for (int i = 0; i < FRONT_SPAN / FRONT_NT; ++i) {
+    const int lv = tid + i * FRONT_NT;
+    va[i] = lv < nv ? vax[v0 + lv] : 0;
   }
-  ha[v] = any_alive;
-  hc[v] = any_cand;
+  unsigned st[K];
+#pragma unroll
+  for (int it = 0; it < K; ++it) {
+    const int li = 4 * (tid + it * FRONT_NT);
+    st[it] = 0u;
+    if (li + 3 < nslots) {
+      st[it] = *reinterpret_cast<const unsigned*>(status + slot0 + li);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (li + j < nslots) st[it] |= (unsigned)status[slot0 + li + j] << (8 * j);
+    }
+  }
+  float pose[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) pose[i] = pose_g[i];
+#pragma unroll
+  for (int i = 0; i < FRONT_SPAN / FRONT_NT; ++i) s_vax[tid + i * FRONT_NT] = va[i];
+  unsigned any_status = 0u;
+#pragma unroll
+  for (int it = 0; it < K; ++it) any_status |= st[it];
+  const long long vq = v0 + 4 * tid;  // this thread's four voxels of the output
+  if (!__syncthreads_or(any_status != 0u)) {
+    // A span without a single slot in use, as most of a map is: all flags 0.
+    if (4 * tid + 3 < nv) {
+      *reinterpret_cast<unsigned*>(ha + vq) = 0u;
+      *reinterpret_cast<unsigned*>(hc + vq) = 0u;
+    } else {
+      for (int u = 0; 4 * tid + u < nv; ++u) ha[vq + u] = hc[vq + u] = 0;
+    }
+    return;
+  }
+
+#pragma unroll
+  for (int it = 0; it < K; ++it) {
+    const int g = tid + it * FRONT_NT;
+    if (g >= ngroups) break;
+    // The stamps only where a status is set: a map is mostly empty slots,
+    // and an empty slot's stamp decides nothing.
+    if (st[it] == 0u) {
+      s_flag[g] = 0u;
+      continue;
+    }
+    const int li = 4 * g;
+    const long long i0 = slot0 + li;
+    const bool whole = li + 3 < nslots;
+    int sp[4] = {0, 0, 0, 0};
+    if (whole) {
+      const int4 q = *reinterpret_cast<const int4*>(stamp + i0);
+      sp[0] = q.x; sp[1] = q.y; sp[2] = q.z; sp[3] = q.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (li + j < nslots) sp[j] = stamp[i0 + j];
+    }
+    bool alive[4];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int lv = li + j < nslots ? (li + j) / K : 0;
+      alive[j] = ((st[it] >> (8 * j)) & 0xffu) != STATUS_INVALID && sp[j] >= s_vax[lv];
+      any = any || alive[j];
+    }
+    unsigned flags = 0u;
+    if (any) {
+      float x[4], y[4], z[4];
+      if (whole) {
+        const float4 a = *reinterpret_cast<const float4*>(px + i0);
+        const float4 b = *reinterpret_cast<const float4*>(py + i0);
+        const float4 c = *reinterpret_cast<const float4*>(pz + i0);
+        x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+        y[0] = b.x; y[1] = b.y; y[2] = b.z; y[3] = b.w;
+        z[0] = c.x; z[1] = c.y; z[2] = c.z; z[3] = c.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool in = li + j < nslots;
+          x[j] = in ? px[i0 + j] : 0.f;
+          y[j] = in ? py[i0 + j] : 0.f;
+          z[j] = in ? pz[i0 + j] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        flags |= slot_flags(alive[j], x[j], y[j], z[j], pose, cam) << (8 * j);
+    }
+    s_flag[g] = flags;
+  }
+  __syncthreads();
+
+  // Four voxels a thread: their 4 * K flag bytes are K whole words.
+  const int q = tid;
+  if (4 * q < nv) {
+    unsigned words[K];
+    unsigned any_flag = 0u;
+#pragma unroll
+    for (int w = 0; w < K; ++w) {
+      // words past the last group were never written: read them as 0
+      words[w] = q * K + w < ngroups ? s_flag[q * K + w] : 0u;
+      any_flag |= words[w];
+    }
+    unsigned f[4] = {0u, 0u, 0u, 0u};
+    if (any_flag != 0u) {
+#pragma unroll
+      for (int w = 0; w < K; ++w) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) f[(4 * w + j) / K] |= (words[w] >> (8 * j)) & 0xffu;
+      }
+    }
+    unsigned a4 = 0u, c4 = 0u;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      a4 |= (f[u] & 1u) << (8 * u);
+      c4 |= ((f[u] >> 1) & 1u) << (8 * u);
+    }
+    if (4 * q + 3 < nv) {
+      *reinterpret_cast<unsigned*>(ha + vq) = a4;
+      *reinterpret_cast<unsigned*>(hc + vq) = c4;
+    } else {
+      for (int u = 0; 4 * q + u < nv; ++u) {
+        ha[vq + u] = (a4 >> (8 * u)) & 0xffu;
+        hc[vq + u] = (c4 >> (8 * u)) & 0xffu;
+      }
+    }
+  }
 }
 
 template <int K>
@@ -114,8 +275,9 @@ int launch_front(const float* px, const float* py, const float* pz,
                  const uint8_t* status, const int* stamp, const int* vax,
                  const float* pose, uint8_t* ha, uint8_t* hc, long long V,
                  Camera cam, cudaStream_t s) {
-  front_kernel<K><<<grid_for(V), BLOCK, 0, s>>>(px, py, pz, status, stamp, vax,
-                                                pose, ha, hc, V, cam);
+  const unsigned grid = (unsigned)((V + FRONT_SPAN - 1) / FRONT_SPAN);
+  front_kernel<K><<<grid, FRONT_NT, 0, s>>>(px, py, pz, status, stamp, vax,
+                                            pose, ha, hc, V, cam);
   return (int)cudaGetLastError();
 }
 
@@ -136,6 +298,10 @@ extern "C" int dsp_front_candidates(
     uint8_t* hc, long long V, int K, float fx, float fy, float cx0, float cy0,
     int h, int w, float dmin, float dmax, void* stream) {
   if (V <= 0) return (int)cudaErrorInvalidValue;
+  // the kernel loads four slots and stores four voxels at a time
+  const uintptr_t wide = (uintptr_t)px | (uintptr_t)py | (uintptr_t)pz | (uintptr_t)stamp;
+  const uintptr_t narrow = (uintptr_t)status | (uintptr_t)ha | (uintptr_t)hc;
+  if (wide % 16 != 0 || narrow % 4 != 0) return (int)cudaErrorMisalignedAddress;
   const Camera cam{fx, fy, cx0, cy0, dmin, dmax, h, w};
   cudaStream_t s = (cudaStream_t)stream;
   switch (K) {

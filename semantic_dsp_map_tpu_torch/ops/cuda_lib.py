@@ -66,17 +66,19 @@ def _nvcc() -> str:
     return found
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> tuple[Path, float, str]:
+def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
     """Compile the kernels if the cached library is missing.  Returns
-    (library path, seconds spent building, nvcc's output)."""
-    out_dir = BUILD_ROOT / _source_hash()
+    (library path, seconds spent building, nvcc's output).  ``csrc`` is the
+    package's own sources; a measurement that holds them against another
+    version of the same sources names that version's directory."""
+    out_dir = BUILD_ROOT / _source_hash(csrc)
     lib = out_dir / "libdsp_kernels.so"
     log = out_dir / "nvcc.log"
     if lib.exists():
@@ -88,7 +90,7 @@ def build() -> tuple[Path, float, str]:
         nvcc = _nvcc()
         objects = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(csrc / src)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(SOURCES, objects)
         ]
@@ -107,10 +109,8 @@ def build() -> tuple[Path, float, str]:
     return lib, time.perf_counter() - t0, output
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    path, _, _ = build()
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its entry points."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -119,6 +119,12 @@ def library() -> ctypes.CDLL:
     lib.dsp_error_string.argtypes = [_I]
     lib.dsp_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The package's kernel library (built on first call)."""
+    return load(build()[0])
 
 
 def check(err: int, name: str) -> None:

@@ -30,7 +30,9 @@ def _slots(cfg: MapConfig, vox_axis: torch.Tensor):
 
 def front_candidates_cuda(cfg: MapConfig, px, py, pz, status, stamp, vox_axis, r_cw, t_cw):
     """(has_alive u8[V], has_cand u8[V]); see
-    ops.observe.front_candidates_plain."""
+    ops.observe.front_candidates_plain.  The kernel loads 16 bytes a thread:
+    the store's arrays must start on a 16-byte boundary (whole tensors do),
+    and a store that does not raises."""
     if not px.is_cuda:
         return front_candidates_plain(cfg, px, py, pz, status, stamp, vox_axis, r_cw, t_cw)
     V, K, n = _slots(cfg, vox_axis)

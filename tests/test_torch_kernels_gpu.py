@@ -17,7 +17,7 @@ import torch
 
 from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, SemanticDSPMap, tiny_test_config
 from semantic_dsp_map_tpu_torch.config import KEYPOINTS_BBOX3D
-from semantic_dsp_map_tpu_torch.ops import codecs, phd
+from semantic_dsp_map_tpu_torch.ops import codecs, phd, phd_cuda
 from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
 from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
 from semantic_dsp_map_tpu_torch.ops.observe_cuda import front_candidates_cuda, movable_voxels_cuda
@@ -26,7 +26,9 @@ from semantic_dsp_map_tpu_torch.ops.render import render_core_plain
 from semantic_dsp_map_tpu_torch.ops.render_cuda import render_core_cuda
 from semantic_dsp_map_tpu_torch.state import init_map_state
 
-from torch_parity import zed2_scene
+from torch_parity import (
+    PHD_EDGE_TABLES, STORE_EDGES, ZERO_FF_ENTRY, particle_store, phd_table_cloud, zed2_scene,
+)
 
 CASES = [(False, False, 0.4), (True, False, 0.4), (False, True, 0.12)]
 
@@ -38,33 +40,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _phd_inputs(cfg, device, seed=0, fill=0.4, front_fill=False):
-    """The table/cloud generator of tests/test_phd_pallas.py."""
-    rng = np.random.RandomState(seed)
-    H, W, S = cfg.height, cfg.width, cfg.phd_pixel_table_slots
-    if front_fill:
-        occ = np.arange(S)[:, None, None] < rng.poisson(fill * S, (1, H, W))
-    else:
-        occ = rng.rand(S, H, W) < fill
-    track = rng.randint(0, 5, (S, H, W)).astype(np.int32)
-    forget = rng.randint(0, 6, (S, H, W)).astype(np.int32)
+def _phd_inputs(cfg, device, seed=0, fill=0.4, front_fill=False, kind=None):
+    """The table/cloud generator of tests/test_phd_pallas.py, on ``device``."""
+    table, cloud = phd_table_cloud(cfg.phd_pixel_table_slots, cfg.height, cfg.width,
+                                   seed, fill, front_fill, kind)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    t = phd.PixelTable(
-        px=T(np.where(occ, rng.randn(S, H, W), 0).astype(np.float32)),
-        py=T(np.where(occ, rng.randn(S, H, W), 0).astype(np.float32)),
-        pz=T(np.where(occ, rng.rand(S, H, W) * 4 + 1, 0).astype(np.float32)),
-        weight=T(np.where(occ, rng.rand(S, H, W), 0).astype(np.float32)),
-        meta=T(np.where(occ, (track << 8) | forget, -1).astype(np.int32)),
-        dropped=torch.zeros((), dtype=torch.int64, device=device),
-    )
-    cloud = LabeledCloud(
-        pos=T((rng.randn(H, W, 3) + np.array([0, 0, 2.5])).astype(np.float32)),
-        sigma=T((0.2 + rng.rand(H, W) * 0.2).astype(np.float32)),
-        label=T(rng.randint(0, 10, (H, W)).astype(np.int32)),
-        track=T(rng.randint(0, 5, (H, W)).astype(np.int32)),
-        valid=T(rng.rand(H, W) < 0.85),
-    )
-    return t, cloud
+    t = phd.PixelTable(**{k: T(v) for k, v in table.items()},
+                       dropped=torch.zeros((), dtype=torch.int64, device=device))
+    return t, LabeledCloud(**{k: T(v) for k, v in cloud.items()})
 
 
 @pytest.mark.gpu
@@ -82,6 +65,119 @@ def test_phd_kernels_match_plain(cuda, independent, front_fill, fill, R):
     nw_k, nf_k = phd.stencil_pass_b_any(cfg, params, t, c, ck_p)
     torch.testing.assert_close(nw_k, nw_p, rtol=2e-5, atol=1e-6)
     assert torch.equal(nf_k, nf_p)
+
+
+def _pass_b_args(cfg, params, t, c):
+    """The arguments ops.phd._pass_b hands to pass B, with the plain ck."""
+    ck = phd.stencil_pass_a(cfg, params, t, c)
+    occupied = t.meta >= 0
+    ff = phd.forgetting_factor(t.meta & 0xFF, params.forgetting_rate, params.max_forget_count)
+    ff_eff = occupied.float() if params.if_use_independent_filter else torch.where(occupied, ff, 0.0)
+    return ck, (cfg, params, t.px, t.py, t.pz, torch.where(occupied, t.meta >> 8, -2), ff_eff,
+                1.0 / torch.clamp(c.sigma, min=1e-6),
+                *(c.pos[..., i].contiguous() for i in range(3)), c.valid, c.track, ck)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [5, 3])
+@pytest.mark.parametrize("kind,independent",
+                         [(kind, False) for kind in (*PHD_EDGE_TABLES, None)] + [(None, True)])
+def test_pass_b_kernel_at_the_edges(cuda, kind, independent, R):
+    """Pass B on an image that is no multiple of the tile (37 x 53), an odd
+    slot count, and the tables its work list has to get right: every entry
+    occupied (the list is full), none (nothing but zeros to write), one
+    patch (most blocks idle), and an occupied entry with forgetting factor 0
+    whose flag must be set.  acc at rtol 2e-5 / atol 1e-6, flags equal."""
+    cfg = tiny_test_config(image_width=53, image_height=37, phd_pixel_table_slots=5,
+                           phd_neighbor_half=R)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1,
+                          if_use_independent_filter=independent, if_consider_depth_noise=True)
+    t, c = _phd_inputs(cfg, cuda, seed=4, fill=0.3, front_fill=True, kind=kind)
+    ck, args = _pass_b_args(cfg, params, t, c)
+    acc_p, right_p = phd.pass_b_raw(*args)
+    before = phd_cuda.pass_b_cuda.launches
+    acc_k, right_k = phd_cuda.pass_b_cuda(*args)
+    torch.cuda.synchronize()
+    assert phd_cuda.pass_b_cuda.launches == before + 1
+    torch.testing.assert_close(acc_k, acc_p, rtol=2e-5, atol=1e-6)
+    assert right_k.dtype == torch.bool and torch.equal(right_k, right_p)
+    occupied = t.meta >= 0
+    assert not acc_k[~occupied].any() and not right_k[~occupied].any()
+    if kind == "zero_ff":
+        assert acc_k[ZERO_FF_ENTRY] == 0 and right_k[ZERO_FF_ENTRY]
+    if kind == "full":
+        assert occupied.all()
+    nw_p, nf_p = phd.stencil_pass_b(cfg, params, t, c, ck)
+    nw_k, nf_k = phd.stencil_pass_b_any(cfg, params, t, c, ck)
+    torch.testing.assert_close(nw_k, nw_p, rtol=2e-5, atol=1e-6)
+    assert torch.equal(nf_k, nf_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [5, 3])
+def test_pass_b_kernel_tiny_terms_bit_equal(cuda, R):
+    """Terms that underflow: particles up to 9.3 sigma per axis from a flat
+    observation plane, inside the plain version's 9.9-sigma clip, so no term
+    is dropped by either side, and a share of them is zero, denormal, or
+    gives a denormal quotient.  The kernel divides such terms without the
+    hardware's slow path and must give the division's bits: acc is compared
+    bit for bit.  Some ck_kappa lie outside the range that shortcut takes
+    (zero, negative, denormal, huge, infinite, NaN)."""
+    cfg = tiny_test_config(image_width=53, image_height=37, phd_pixel_table_slots=5,
+                           phd_neighbor_half=R)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True)
+    t, c = _phd_inputs(cfg, cuda, seed=8, fill=0.5, front_fill=True)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(8)
+    centre = torch.tensor([0.0, 0.0, 2.5], device=cuda)
+    off = lambda: (torch.rand(t.px.shape, generator=g, device=cuda) * 2 - 1) * 2.8
+    t = t._replace(px=off(), py=off(), pz=off() + 2.5)
+    # the odd ck_kappa sit on valid pixels (an invalid pixel's is never read)
+    odd_at = torch.arange(48, device=cuda) * (cfg.height * cfg.width // 64)
+    valid = c.valid.clone()
+    valid.view(-1)[odd_at] = True
+    c = c._replace(pos=centre.expand(cfg.height, cfg.width, 3).contiguous(),
+                   sigma=torch.full_like(c.sigma, 0.3), valid=valid)
+    ck, args = _pass_b_args(cfg, params, t, c)
+    for odd in (False, True):
+        if odd:
+            ck = ck.clone()
+            special = torch.tensor([0.0, -1.0, 1e-40, 1e38, float("inf"), float("nan"), 1e-7, 3e6],
+                                   device=cuda)
+            ck.view(-1)[odd_at] = special.repeat(6)
+            args = (*args[:-1], ck)
+        acc_p, right_p = phd.pass_b_raw(*args)
+        acc_k, right_k = phd_cuda.pass_b_cuda(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(right_k, right_p)
+        same = (acc_k.view(torch.int32) == acc_p.view(torch.int32)) | (acc_k.isnan() & acc_p.isnan())
+        # an empty entry's sum is 0 in the kernel; the plain version divides its
+        # masked zeros too, and 0 / 0 or 0 / NaN is NaN there (the caller drops both)
+        same |= args[5] == -2
+        assert bool(same.all()), f"{int((~same).sum())} sums differ in their bits (odd ck: {odd})"
+        fin = acc_p[acc_p.isfinite()]
+        assert (fin > 0).any() and ((fin > 0) & (fin < 1.1754944e-38)).any()
+
+
+@pytest.mark.gpu
+def test_pass_b_kernel_large_shared_memory(cuda):
+    """The widest stencil the kernels take (R = 8) with 40 slots needs more
+    than 48 KB of shared memory for the halo and the work list; a wider
+    stencil raises."""
+    cfg = tiny_test_config(image_width=53, image_height=37, phd_pixel_table_slots=40,
+                           phd_neighbor_half=phd_cuda.MAX_R)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True)
+    t, c = _phd_inputs(cfg, cuda, seed=6, fill=0.1, front_fill=True)
+    _, args = _pass_b_args(cfg, params, t, c)
+    acc_p, right_p = phd.pass_b_raw(*args)
+    acc_k, right_k = phd_cuda.pass_b_cuda(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(acc_k, acc_p, rtol=2e-5, atol=1e-6)
+    assert torch.equal(right_k, right_p)
+    wide = tiny_test_config(image_width=53, image_height=37, phd_pixel_table_slots=40,
+                            phd_neighbor_half=phd_cuda.MAX_R + 1)
+    with pytest.raises(ValueError):
+        phd_cuda.pass_b_cuda(wide, *args[1:])
 
 
 def _render_state(cfg, device, seed):
@@ -159,6 +255,59 @@ def test_observe_kernels_match_plain(cuda, quat, slots_n):
     got = movable_voxels_cuda(*args)
     assert movable_voxels_cuda.launches == before + 1
     assert torch.equal(got, want) and 0 < int(want.sum()) < cfg.num_voxels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [1, 1023, 4099, 3 * 1024 + 1])
+@pytest.mark.parametrize("slots_n", [1, 2, 3, 4])  # K = 1, 3, 7, 15
+@pytest.mark.parametrize("kind", STORE_EDGES)
+def test_front_kernel_at_the_edges(cuda, kind, slots_n, V):
+    """The candidate scan with every K it is built for, voxel counts that
+    are no multiple of a block's span (1024) or of the four voxels a thread
+    writes, slot counts that are no multiple of the four slots a thread
+    loads, and stores with every slot dead, every slot alive and all but one
+    stretch of slots empty (whole spans then end early); bytes equal."""
+    cfg = tiny_test_config(max_particle_num_per_voxel_n=slots_n)
+    K = cfg.slots_per_voxel
+    d = particle_store(V * K, (V, 1, 1), seed=V + slots_n, max_movable=2, kind=kind)
+    T = lambda a: torch.from_numpy(a).to(cuda)
+    _, _, r_cw, t_cw = camera_matrices(
+        torch.tensor([0.4, -0.2, 0.7], device=cuda),
+        torch.tensor([0.9622502, 0.0544331, 0.2613872, 0.0555144], device=cuda))
+    args = (cfg, T(d["px"]), T(d["py"]), T(d["pz"]), T(d["status"]), T(d["stamp"]),
+            T(d["axis"][0]), r_cw, t_cw)
+    want = front_candidates_plain(*args)
+    before = front_candidates_cuda.launches
+    got = front_candidates_cuda(*args)
+    torch.cuda.synchronize()
+    assert front_candidates_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == (V,) and g.dtype == torch.uint8 and torch.equal(g, w)
+    if kind == "all_dead":
+        assert not want[0].any()
+    elif kind == "all_alive":
+        assert want[0].all()
+    elif kind == "sparse" and V > 1000:
+        assert 0 < int(want[0].sum()) < V // 20
+    if V > 1000 and kind in ("mixed", "all_alive"):
+        assert 0 < int(want[1].sum()) < V
+
+
+@pytest.mark.gpu
+def test_front_kernel_refuses_a_misaligned_store(cuda):
+    """The scan loads 16 bytes a thread: a store that starts off a 16-byte
+    boundary raises, it is not read askew."""
+    cfg = tiny_test_config()
+    K, V = cfg.slots_per_voxel, 64
+    d = particle_store(V * K + 1, (V, 1, 1), seed=1, max_movable=2)
+    T = lambda a: torch.from_numpy(a).to(cuda)
+    _, _, r_cw, t_cw = camera_matrices(torch.zeros(3, device=cuda),
+                                       torch.tensor([1.0, 0, 0, 0], device=cuda))
+    px = T(d["px"])[1:]
+    assert px.is_contiguous() and px.data_ptr() % 16 != 0
+    with pytest.raises(RuntimeError):
+        front_candidates_cuda(cfg, px, T(d["py"])[1:], T(d["pz"])[1:], T(d["status"])[1:],
+                              T(d["stamp"])[1:], T(d["axis"][0]), r_cw, t_cw)
 
 
 @pytest.mark.gpu

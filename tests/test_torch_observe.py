@@ -2,8 +2,10 @@
 kernels (interpret mode on the CPU): the dense candidate scan
 (front_candidates) and the movable-voxel scan (movable_voxels), on
 numpy-seeded stores with mixed status, stamps and tracks, a scrolled map and
-an identity or rotated pose.  Outputs are u8 flags and must be equal.  Also:
-the CUDA wrappers run the plain scans on CPU tensors and count no launch."""
+an identity or rotated pose, and on stores with every slot dead, every slot
+alive and all but one stretch of slots empty, at K = 3 and K = 7.  Outputs are u8 flags and must be equal.
+Also: the CUDA wrappers run the plain scans on CPU tensors and count no
+launch."""
 
 import dataclasses
 
@@ -25,6 +27,8 @@ from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movab
 from semantic_dsp_map_tpu_torch.ops.observe_cuda import front_candidates_cuda, movable_voxels_cuda
 from semantic_dsp_map_tpu_torch.state import init_scroll
 
+from torch_parity import particle_store
+
 torch.set_num_threads(2)
 
 POSES = {
@@ -35,23 +39,10 @@ POSES = {
 MAX_MOVABLE = LabelRegistry.default().max_movable_instance_id
 
 
-def _store(cfg, seed):
-    """Flat particle fields and axis stamps as numpy: positions spread over
-    and around the frustum, status 0-3, stamps 0-3 against scroll stamps
-    0-2, tracks on both sides of max_movable."""
-    rng = np.random.RandomState(seed)
-    n = cfg.num_voxels * cfg.slots_per_voxel
-    track = rng.randint(0, 12, n)
-    track = np.where(rng.rand(n) < 0.3, MAX_MOVABLE + rng.randint(-2, 12, n), track)
-    return dict(
-        px=(rng.randn(n) * 2).astype(np.float32),
-        py=(rng.randn(n) * 2).astype(np.float32),
-        pz=(rng.rand(n) * 10 - 1).astype(np.float32),
-        status=rng.randint(0, 4, n).astype(np.uint8),
-        stamp=rng.randint(0, 4, n).astype(np.int32),
-        track=track.astype(np.int32),
-        axis=[rng.randint(0, 3, k).astype(np.int32) for k in (cfg.nx, cfg.ny, cfg.nz)],
-    )
+def _store(cfg, seed, kind="mixed"):
+    """Flat particle fields and axis stamps as numpy (torch_parity.particle_store)."""
+    return particle_store(cfg.num_voxels * cfg.slots_per_voxel, (cfg.nx, cfg.ny, cfg.nz),
+                          seed, MAX_MOVABLE, kind)
 
 
 def _jax_inputs(cfg, d):
@@ -97,6 +88,36 @@ def test_front_candidates_plain_matches_pallas(pose, seed):
     ha_w, hc_w = front_candidates_cuda(*args)
     assert front_candidates_cuda.launches == before
     assert torch.equal(ha_w, ha) and torch.equal(hc_w, hc)
+
+
+@pytest.mark.parametrize("slots_n", [2, 3])  # K = 3 and K = 7
+@pytest.mark.parametrize("kind", ["all_dead", "all_alive", "sparse"])
+def test_front_candidates_plain_matches_pallas_at_the_edges(kind, slots_n):
+    """Stores with no live slot, with only live slots and with one stretch of
+    slots in use: what the CUDA
+    kernel's per-voxel OR is held against on the card is itself held to the
+    Pallas kernel here, byte for byte."""
+    cfg_j = j_tiny(max_particle_num_per_voxel_n=slots_n)
+    cfg_t = tiny_test_config(max_particle_num_per_voxel_n=slots_n)
+    d = _store(cfg_t, 5, kind)
+    pos, quat = (np.asarray(a, np.float32) for a in POSES["rotated"])
+    _, _, jr, jt = j_cam(jnp.asarray(pos), jnp.asarray(quat))
+    _, _, tr, tt = camera_matrices(torch.from_numpy(pos), torch.from_numpy(quat))
+    jp, jsc = _jax_inputs(cfg_j, d)
+    ha_j, hc_j = front_candidates(cfg_j, jp, jsc, jr, jt, True)
+
+    t, vax = _torch_inputs(cfg_t, d)
+    ha, hc = front_candidates_plain(
+        cfg_t, t["px"], t["py"], t["pz"], t["status"], t["stamp"], vax, tr, tt)
+    np.testing.assert_array_equal(ha.numpy(), np.asarray(ha_j))
+    np.testing.assert_array_equal(hc.numpy(), np.asarray(hc_j))
+    V = cfg_t.num_voxels
+    if kind == "all_dead":
+        assert int(ha.sum()) == 0 and int(hc.sum()) == 0
+    elif kind == "all_alive":
+        assert int(ha.sum()) == V and 0 < int(hc.sum()) < V
+    else:
+        assert 0 < int(ha.sum()) < V // 20
 
 
 @pytest.mark.parametrize("seed", [3, 8])

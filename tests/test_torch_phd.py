@@ -4,8 +4,13 @@ The cases of tests/test_phd_pallas.py go through the port's plain passes
 and its dispatching ``stencil_passes`` (on the CPU both run the plain
 stencils) and are held against the JAX package's XLA stencils: ck and the
 new weight at rtol 2e-5 / atol 1e-6 (float association differs), the
-forget counts equal.  The CUDA kernels are held against the plain stencils
-in tests/test_torch_kernels_gpu.py.
+forget counts equal.  The plain pass B, which the CUDA kernel is held
+against on the card (tests/test_torch_kernels_gpu.py), is also held against
+the Pallas kernel in interpret mode at the edges the CUDA kernel's design
+has: an image that is no multiple of any tile (37 x 53) with R = 5 and 3,
+a table with every slot occupied, an empty one, one occupied in a single
+patch, and an occupied entry with forgetting factor 0 whose "rightly
+updated" flag must still be set.
 """
 
 import dataclasses
@@ -18,6 +23,7 @@ import torch
 from semantic_dsp_map_tpu.config import FilterParams as JFilterParams
 from semantic_dsp_map_tpu.config import tiny_test_config as j_tiny
 from semantic_dsp_map_tpu.ops import phd as jphd
+from semantic_dsp_map_tpu.ops.phd_pallas import pass_b_pallas
 from semantic_dsp_map_tpu.ops.projection import LabeledCloud as JCloud
 
 from semantic_dsp_map_tpu_torch.config import FilterParams, tiny_test_config
@@ -25,36 +31,17 @@ from semantic_dsp_map_tpu_torch.ops import phd as tphd
 from semantic_dsp_map_tpu_torch.ops import phd_cuda
 from semantic_dsp_map_tpu_torch.ops.projection import LabeledCloud
 
+from torch_parity import PHD_EDGE_TABLES, ZERO_FF_ENTRY, phd_table_cloud
+
 torch.set_num_threads(2)
 
 CASES = [(False, False, 0.4), (True, False, 0.4), (False, True, 0.12)]
 
 
-def _inputs(cfg, seed=0, fill=0.4, front_fill=False):
-    """numpy table + cloud (the generator of tests/test_phd_pallas.py)."""
-    rng = np.random.RandomState(seed)
-    H, W, S = cfg.height, cfg.width, cfg.phd_pixel_table_slots
-    if front_fill:
-        occ = np.arange(S)[:, None, None] < rng.poisson(fill * S, (1, H, W))
-    else:
-        occ = rng.rand(S, H, W) < fill
-    track = rng.randint(0, 5, (S, H, W)).astype(np.int32)
-    forget = rng.randint(0, 6, (S, H, W)).astype(np.int32)
-    table = dict(
-        px=np.where(occ, rng.randn(S, H, W), 0).astype(np.float32),
-        py=np.where(occ, rng.randn(S, H, W), 0).astype(np.float32),
-        pz=np.where(occ, rng.rand(S, H, W) * 4 + 1, 0).astype(np.float32),
-        weight=np.where(occ, rng.rand(S, H, W), 0).astype(np.float32),
-        meta=np.where(occ, (track << 8) | forget, -1).astype(np.int32),
-    )
-    cloud = dict(
-        pos=(rng.randn(H, W, 3) + np.array([0, 0, 2.5])).astype(np.float32),
-        sigma=(0.2 + rng.rand(H, W) * 0.2).astype(np.float32),
-        label=rng.randint(0, 10, (H, W)).astype(np.int32),
-        track=rng.randint(0, 5, (H, W)).astype(np.int32),
-        valid=rng.rand(H, W) < 0.85,
-    )
-    return table, cloud
+def _inputs(cfg, seed=0, fill=0.4, front_fill=False, kind=None):
+    """numpy table + cloud (torch_parity.phd_table_cloud)."""
+    return phd_table_cloud(cfg.phd_pixel_table_slots, cfg.height, cfg.width,
+                           seed, fill, front_fill, kind)
 
 
 def _jax(table, cloud):
@@ -98,6 +85,53 @@ def test_phd_passes_match_jax(independent, front_fill, fill, entry):
     np.testing.assert_allclose(ck_t.numpy(), np.asarray(ck_j), rtol=2e-5, atol=1e-6)
     np.testing.assert_allclose(nw_t.numpy(), np.asarray(nw_j), rtol=2e-5, atol=1e-6)
     np.testing.assert_array_equal(nf_t.numpy(), np.asarray(nf_j))
+
+
+EDGE_CASES = [(kind, False) for kind in (*PHD_EDGE_TABLES, None)] + [(None, True)]
+
+
+@pytest.mark.parametrize("R", [5, 3])
+@pytest.mark.parametrize("kind,independent", EDGE_CASES)
+def test_pass_b_plain_matches_pallas_at_the_edges(kind, independent, R):
+    """pass_b_raw against the Pallas pass B (interpret mode) on identical
+    inputs: acc at rtol 2e-5 / atol 1e-6 (the Pallas kernel multiplies by a
+    reciprocal and folds COEF^3 into the forgetting plane), flags equal."""
+    shape = dict(image_width=53, image_height=37, phd_pixel_table_slots=5, phd_neighbor_half=R)
+    cfg_j, cfg_t = j_tiny(**shape), tiny_test_config(**shape)
+    pj, pt = _params(independent)
+    table, cloud = _inputs(cfg_t, seed=4, fill=0.3, front_fill=True, kind=kind)
+    t, c = _torch(table, cloud)
+
+    ck = tphd.stencil_pass_a(cfg_t, pt, t, c)
+    occupied = t.meta >= 0
+    ff = tphd.forgetting_factor(t.meta & 0xFF, pt.forgetting_rate, pt.max_forget_count)
+    ff_eff = occupied.float() if independent else torch.where(occupied, ff, 0.0)
+    args = (t.px, t.py, t.pz, torch.where(occupied, t.meta >> 8, -2), ff_eff,
+            1.0 / torch.clamp(c.sigma, min=1e-6), *(c.pos[..., i].contiguous() for i in range(3)),
+            c.valid, c.track, ck)
+    acc_t, right_t = tphd.pass_b_raw(cfg_t, pt, *args)
+    acc_j, right_j = pass_b_pallas(cfg_j, pj, *(jnp.asarray(a.numpy()) for a in args),
+                                   interpret=True, th=8, tw=32)
+
+    np.testing.assert_allclose(acc_t.numpy(), np.asarray(acc_j), rtol=2e-5, atol=1e-6)
+    np.testing.assert_array_equal(right_t.numpy(), np.asarray(right_j) > 0.0)
+    # an empty entry has neither a sum nor a flag
+    assert not acc_t[~occupied].any() and not right_t[~occupied].any()
+    if kind == "empty":
+        assert not occupied.any()
+    elif kind == "full":
+        assert occupied.all() and (acc_t > 0).any()
+    elif kind == "patch":
+        assert 0 < int(occupied.any(0).sum()) < 0.2 * occupied[0].numel()
+    elif kind == "zero_ff":
+        assert ff_eff[ZERO_FF_ENTRY] == 0 and occupied[ZERO_FF_ENTRY]
+        assert acc_t[ZERO_FF_ENTRY] == 0 and right_t[ZERO_FF_ENTRY]
+        _, new_forget = tphd.stencil_pass_b(cfg_t, pt, t, c, ck)
+        assert new_forget[ZERO_FF_ENTRY] == 0
+    if independent:
+        assert not right_t.any()
+    elif kind != "empty":
+        assert right_t.any()
 
 
 def test_table_from_entries_matches_jax():

@@ -141,3 +141,98 @@ def template_scene(cfg, t, masks_cls):
     ]
     cam_pos = np.array([0.01313 * t, 0.00517 * t, 0.0], np.float32)
     return depth, masks, cam_pos, np.array([1, 0, 0, 0], np.float32), 0.1 * t
+
+
+# ---------------------------------------------------------------------------
+# Seeded inputs of the PHD passes and the observe scans, as numpy, for the
+# CPU tests (port's plain versions against the JAX package) and the GPU tests
+# (CUDA kernels against the plain versions): both see the same edge cases.
+# ---------------------------------------------------------------------------
+
+#: Occupancy patterns of the pixel table beside the random ones: every slot
+#: of every pixel, none, one rectangular patch, and a random table with one
+#: planted entry whose forgetting factor is 0 (see phd_table_cloud).
+PHD_EDGE_TABLES = ("full", "empty", "patch", "zero_ff")
+
+#: The planted entry of the "zero_ff" table: slot, row, column.
+ZERO_FF_ENTRY = (0, 7, 9)
+
+
+def phd_table_cloud(S, H, W, seed=0, fill=0.4, front_fill=False, kind=None):
+    """Pixel table and observation cloud as dicts of numpy arrays (the
+    generator of tests/test_phd_pallas.py).  ``kind`` picks an occupancy of
+    PHD_EDGE_TABLES instead of the random one.  "zero_ff" plants at
+    ZERO_FF_ENTRY an occupied entry with forget count 5 (forgetting factor 0
+    at the default max_forget_count) that sits exactly on its own pixel's
+    valid same-track observation: its weight sum is 0 and its "rightly
+    updated" flag must still be set."""
+    rng = np.random.RandomState(seed)
+    if kind == "full":
+        occ = np.ones((S, H, W), bool)
+    elif kind == "empty":
+        occ = np.zeros((S, H, W), bool)
+    elif kind == "patch":
+        occ = np.zeros((S, H, W), bool)
+        ys, xs = slice(H // 4, H // 4 + H // 3), slice(W // 2, W // 2 + W // 3)
+        occ[:, ys, xs] = (np.arange(S)[:, None, None] < rng.poisson(0.5 * S, (1, H, W)))[:, ys, xs]
+    elif front_fill or kind == "zero_ff":
+        occ = np.arange(S)[:, None, None] < rng.poisson(fill * S, (1, H, W))
+    else:
+        occ = rng.rand(S, H, W) < fill
+    track = rng.randint(0, 5, (S, H, W)).astype(np.int32)
+    forget = rng.randint(0, 6, (S, H, W)).astype(np.int32)
+    table = dict(
+        px=np.where(occ, rng.randn(S, H, W), 0).astype(np.float32),
+        py=np.where(occ, rng.randn(S, H, W), 0).astype(np.float32),
+        pz=np.where(occ, rng.rand(S, H, W) * 4 + 1, 0).astype(np.float32),
+        weight=np.where(occ, rng.rand(S, H, W), 0).astype(np.float32),
+        meta=np.where(occ, (track << 8) | forget, -1).astype(np.int32),
+    )
+    cloud = dict(
+        pos=(rng.randn(H, W, 3) + np.array([0, 0, 2.5])).astype(np.float32),
+        sigma=(0.2 + rng.rand(H, W) * 0.2).astype(np.float32),
+        label=rng.randint(0, 10, (H, W)).astype(np.int32),
+        track=rng.randint(0, 5, (H, W)).astype(np.int32),
+        valid=rng.rand(H, W) < 0.85,
+    )
+    if kind == "zero_ff":
+        s, y, x = ZERO_FF_ENTRY
+        cloud["valid"][y, x] = True
+        table["px"][s, y, x], table["py"][s, y, x], table["pz"][s, y, x] = cloud["pos"][y, x]
+        table["weight"][s, y, x] = 0.5
+        table["meta"][s, y, x] = (int(cloud["track"][y, x]) << 8) | 5
+    return table, cloud
+
+
+#: Particle stores beside the mixed one: every slot dead (status INVALID),
+#: every slot alive (a status set and a stamp no older than any scroll
+#: stamp), and a map that is empty but for one stretch of slots.
+STORE_EDGES = ("mixed", "all_dead", "all_alive", "sparse")
+
+
+def particle_store(n_slots, axis_sizes, seed, max_movable, kind="mixed"):
+    """Flat particle fields and per-axis scroll stamps as numpy: positions
+    spread over and around the frustum, status 0-3, stamps 0-3 against
+    scroll stamps 0-2, tracks on both sides of ``max_movable``."""
+    rng = np.random.RandomState(seed)
+    n = n_slots
+    track = rng.randint(0, 12, n)
+    track = np.where(rng.rand(n) < 0.3, max_movable + rng.randint(-2, 12, n), track)
+    d = dict(
+        px=(rng.randn(n) * 2).astype(np.float32),
+        py=(rng.randn(n) * 2).astype(np.float32),
+        pz=(rng.rand(n) * 10 - 1).astype(np.float32),
+        status=rng.randint(0, 4, n).astype(np.uint8),
+        stamp=rng.randint(0, 4, n).astype(np.int32),
+        track=track.astype(np.int32),
+        axis=[rng.randint(0, 3, k).astype(np.int32) for k in axis_sizes],
+    )
+    if kind == "all_dead":
+        d["status"][:] = 0
+    elif kind == "all_alive":
+        d["status"] = rng.randint(1, 4, n).astype(np.uint8)
+        d["stamp"][:] = 2
+    elif kind == "sparse":
+        d["status"][: n // 3] = 0
+        d["status"][n // 3 + max(1, n // 50) :] = 0
+    return d
