@@ -4,9 +4,10 @@
     python3 chip_smoke.py            # all phases, as a check of a checkout
     python3 chip_smoke.py --phase kernels   # build + per-kernel checks only
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
-    python3 chip_smoke.py --against DIR     # also time pass B and the front scan built
-                                            # from DIR's phd.cu / observe.cu (another
-                                            # version of csrc/), in turns, in this call
+    python3 chip_smoke.py --against DIR     # also time both PHD passes, the render and
+                                            # the front scan built from DIR's sources
+                                            # (another version of csrc/), in turns, in
+                                            # this call
 
 Phases (any failure raises, and the script exits nonzero):
   0. print the card (nvidia-smi name and power limit, torch's device name);
@@ -30,9 +31,10 @@ Phases (any failure raises, and the script exits nonzero):
      frames; check that every kernel ran once per frame and that the
      template birth swept, scored and made guessed particles; time the
      birth's sweep alone.  After the vkitti2 frames, one more frame's own
-     pixel table, cloud and particle store go through pass B and the
-     candidate scan alone (against their plain versions, then timed): a
-     frame's data is patchy where the checked inputs are uniform.  Then the
+     pixel table, cloud and particle store go through both PHD passes, the
+     candidate scan and the render alone (against their plain versions, then
+     timed): a frame's data is patchy and mostly empty where the checked
+     inputs are uniform.  Then the
      replay path: 13 VKITTI2 frames written
      as npz files and replayed by ``replay.main`` on the default device
      (11 mapped frames, PLY clouds read back); the KITTI-360 soak
@@ -188,8 +190,10 @@ def synth_zed2_frame(cfg, t, mask_cls):
     return depth, masks, pos, quat
 
 
-def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+def cuda_ms(fn, reps: int, queued: bool = False, setup=None) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs (after one warm-up).
+    ``setup`` runs before each of them, outside the events: a kernel that
+    works in place gets its input back.
     The events bracket the call, so with an idle device the time holds what
     the host takes to make the launch (a kernel wrapper's checks and
     allocations, tens of microseconds) as well as the kernel.  With
@@ -198,10 +202,14 @@ def cuda_ms(fn, reps: int, queued: bool = False) -> float:
     and the time is the device's alone."""
     import torch
 
+    if setup is not None:
+        setup()
     fn()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if setup is not None:
+            setup()
         if queued:
             torch.cuda._sleep(2_000_000)
         a.record()
@@ -239,11 +247,11 @@ def using_library(lib):
         cuda_lib.library = own
 
 
-def ms_in_turns(fn, other, reps=10):
+def ms_in_turns(fn, other, reps=10, setup=None):
     """Times of ``fn`` launched from the other library, the package's, the
     package's, the other; each as (ms, ms with the launch queued).  Returns
     ([other, other], [own, own])."""
-    both = lambda: (cuda_ms(fn, reps), cuda_ms(fn, reps, queued=True))
+    both = lambda: (cuda_ms(fn, reps, setup=setup), cuda_ms(fn, reps, queued=True, setup=setup))
     with using_library(other):
         o1 = both()
     n1, n2 = both(), both()
@@ -365,6 +373,75 @@ def pass_b_inputs(cfg, params, t, cloud, ck_kappa):
             cloud.valid, cloud.track, ck_kappa)
 
 
+def pass_a_inputs(cfg, params, t, cloud, weff):
+    """The arguments of pass A (those of pass_a_raw and pass_a_cuda) for this
+    table and cloud with the weight plane ``weff``."""
+    import torch
+
+    isg = 1.0 / torch.clamp(cloud.sigma, min=1e-6)
+    ox, oy, oz = (cloud.pos[..., i].contiguous() for i in range(3))
+    return (cfg, params, t.px, t.py, t.pz, weff, t.meta >> 8, ox, oy, oz, isg, cloud.track)
+
+
+def check_pass_a(tag, args):
+    """Pass A's kernel against the plain version on ``args``, within the
+    tolerance (the kernel adds a pixel's terms one by one in list order, the
+    plain version the slots of one offset first), and two launches on the
+    same input against each other, bit for bit.  Returns (ck, (max abs, max
+    rel) error)."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import phd, phd_cuda
+
+    ck_p = phd.pass_a_raw(*args)
+    ck_k = phd_cuda.pass_a_cuda(*args)
+    ck_again = phd_cuda.pass_a_cuda(*args)
+    torch.cuda.synchronize()
+    assert_close(f"pass A ck {tag}", ck_k, ck_p)
+    assert_equal(f"pass A ck {tag}, second launch", ck_again.view(torch.int32), ck_k.view(torch.int32))
+    return ck_k, max_err(ck_k, ck_p)
+
+
+#: Pass A's tile in csrc/phd.cu: a warp is 32 neighbouring pixels of one row.
+PASS_A_WARP = 32
+
+
+def pass_a_census(args):
+    """From pass A's arguments: live entries (w_eff != 0), terms (one per live
+    entry and pixel of the image within R of it), and the lane-iterations the
+    kernel's walk spends on them: a warp of 32 neighbouring pixels of a row
+    steps through one halo row as often as its longest lane has entries in
+    its 2R+1 columns.  share = terms / lane-iterations."""
+    import torch
+
+    cfg, weff = args[0], args[5]
+    R = cfg.neighbor_half
+    S, H, W = weff.shape
+    live = (weff != 0).sum(0).double()
+    inside = torch.ones((H, W), dtype=torch.bool, device=weff.device)
+    terms = int((live * window_counts(inside, R)).sum())
+    # entries in columns x-R .. x+R of row r, for every pixel column x
+    c = torch.nn.functional.pad(live, (R + 1, R)).cumsum(1)
+    row_len = c[:, 2 * R + 1 :] - c[:, : -(2 * R + 1)]
+    pad = -W % PASS_A_WARP
+    longest = torch.nn.functional.pad(row_len, (0, pad)).view(H, -1, PASS_A_WARP).amax(2)
+    # a halo row r serves the image rows within R of it
+    rows = torch.arange(H, device=weff.device)
+    served = (torch.clamp(rows + R, max=H - 1) - torch.clamp(rows - R, min=0) + 1).double()
+    lane_iterations = int((longest * served[:, None]).sum()) * PASS_A_WARP
+    return {"live_entries": int(live.sum()), "terms": terms, "lane_iterations": lane_iterations,
+            "term_share": terms / max(lane_iterations, 1)}
+
+
+def pass_a_bound(args, ck, census):
+    """(bound dict, needed bytes, bound with every entry read whole) of pass
+    A: w_eff of every entry, position and track (16 B) only of the live ones,
+    the five observation planes, ck written once."""
+    _, _, px, py, pz, weff, trk, ox, oy, oz, isg, otrk = args
+    ops = phd_op_seconds(census["terms"])
+    n = nbytes(weff, ox, oy, oz, isg, otrk, ck) + 16 * census["live_entries"]
+    return bound(n, ops), n, bound(nbytes(px, py, pz, weff, trk, ox, oy, oz, isg, otrk, ck), ops)
+
+
 def window_census(args):
     """From pass B's arguments, by the plain version's arithmetic: (bool[S, H,
     W] of entries with a valid same-track neighbour whose COEF^3 * exp(...)
@@ -468,12 +545,14 @@ def check_phd(cfg, report, prefix=""):
         ck_kern = phd.stencil_pass_a_any(cfg, params, t, cloud)
         torch.cuda.synchronize()
         assert_close(f"pass A ck_kappa {tag}", ck_kern, ck_plain)
-        a_abs, a_rel = max_err(ck_kern, ck_plain)
+        # the kernel alone, on the weight plane it has been timed on since its
+        # first version (no forgetting factor: every occupied entry is live)
+        occupied = t.meta >= 0
+        a_args = pass_a_inputs(cfg, params, t, cloud, torch.where(occupied, t.weight, 0.0))
+        ck_raw, (a_abs, a_rel) = check_pass_a(tag, a_args)
 
         # pass B on identical inputs (the plain pass A's ck_kappa)
-        occupied = t.meta >= 0
         args = pass_b_inputs(cfg, params, t, cloud, ck_plain)
-        isg, ox, oy, oz = args[7:11]
         acc_k, right_k, (b_abs, b_rel), n_near = check_pass_b(tag, args)
         nw_p, nf_p = phd.stencil_pass_b(cfg, params, t, cloud, ck_plain)
         nw_k, nf_k = phd.stencil_pass_b_any(cfg, params, t, cloud, ck_plain)
@@ -481,42 +560,42 @@ def check_phd(cfg, report, prefix=""):
         if n_near == 0:
             assert_equal(f"new forget {tag}", nf_k, nf_p)
 
-        # pass A timed as since its first version: with the two elementwise
-        # ops that make its weight and track planes
-        a_args = lambda: (cfg, params, t.px, t.py, t.pz, torch.where(occupied, t.weight, 0.0),
-                          t.meta >> 8, ox, oy, oz, isg, cloud.track)
-        run_a, run_b = lambda: phd_cuda.pass_a_cuda(*a_args()), lambda: phd_cuda.pass_b_cuda(*args)
+        # Pass A alone (arguments made once); until this version its row held
+        # the two elementwise ops that make its weight and track planes too:
+        # that figure is kept beside it for one more round.
+        run_a, run_b = lambda: phd_cuda.pass_a_cuda(*a_args), lambda: phd_cuda.pass_b_cuda(*args)
+        prep_a = lambda: phd_cuda.pass_a_cuda(
+            *a_args[:5], torch.where(occupied, t.weight, 0.0), t.meta >> 8, *a_args[7:])
         ms_a, q_a = cuda_ms(run_a, 10), cuda_ms(run_a, 10, queued=True)
-        ms_a_plain = cuda_ms(lambda: phd.pass_a_raw(*a_args()), 3)
+        ms_a_prep, q_a_prep = cuda_ms(prep_a, 10), cuda_ms(prep_a, 10, queued=True)
+        ms_a_plain = cuda_ms(lambda: phd.pass_a_raw(*a_args), 3)
         ms_b, q_b = cuda_ms(run_b, 10), cuda_ms(run_b, 10, queued=True)
         ms_b_plain = cuda_ms(lambda: phd.pass_b_raw(*args), 3)
         print(f"[phd] {tag}: pass A max abs {a_abs:.3e} rel {a_rel:.3e}, "
-              f"kernel {ms_a:.3f} ms ({q_a:.3f} with the launch queued), plain {ms_a_plain:.3f} ms")
+              f"kernel {ms_a:.3f} ms ({q_a:.3f} with the launch queued; with the two ops that make "
+              f"its planes {ms_a_prep:.3f}, {q_a_prep:.3f}), plain {ms_a_plain:.3f} ms")
         print(f"[phd] {tag}: pass B max abs {b_abs:.3e} rel {b_rel:.3e}, "
               f"kernel {ms_b:.3f} ms ({q_b:.3f} with the launch queued), plain {ms_b_plain:.3f} ms")
         if not independent:
-            # Bounds from these inputs.  Pass A needs one term per table
-            # entry with weight and observation pixel of its window inside
-            # the image; pass B one per occupied entry and valid observation
-            # pixel of its window.  Every input is read once, every output
-            # written once.
-            R = cfg.neighbor_half
-            weff = torch.where(occupied, t.weight, 0.0)
-            inside = torch.ones((H, W), dtype=torch.bool, device=weff.device)
-            terms_a = int(((weff != 0).sum(0).double() * window_counts(inside, R)).sum())
-            in_a = (t.px, t.py, t.pz, weff, t.meta, ox, oy, oz, isg, cloud.track)
-            bytes_a = nbytes(*in_a, ck_kern)
-            bound_a = bound(bytes_a, phd_op_seconds(terms_a))
+            # Bounds from these inputs (pass_a_bound, pass_b_bound).
+            census = pass_a_census(a_args)
+            bound_a, bytes_a, bound_a_all = pass_a_bound(a_args, ck_raw, census)
+            terms_a = census["terms"]
+            in_a = a_args[2:]
             bound_b, bytes_b, terms_b = pass_b_bound(args, acc_k, right_k)
             note_a = cache_note(report["phd_pass_a"], prefix, *in_a)
             note_b = cache_note(report["phd_pass_b"], prefix, *args[2:])
+            print(f"[phd] {prefix}pass A walk: {census['live_entries']} live entries, {terms_a} terms in "
+                  f"{census['lane_iterations']} lane-iterations: {census['term_share']:.4f} of them are terms")
             print(f"[phd] {prefix}bounds: pass A {bytes_a} bytes, {terms_a} terms -> "
-                  f"{bound_a['bound_ms']:.4f} ms by {bound_a['bound_by']}{note_a}; pass B "
+                  f"{bound_a['bound_ms']:.4f} ms by {bound_a['bound_by']} (every entry read whole: "
+                  f"{bound_a_all['bound_ms']:.4f} ms){note_a}; pass B "
                   f"{bytes_b} bytes, {terms_b} terms -> {bound_b['bound_ms']:.4f} ms by "
                   f"{bound_b['bound_by']}{note_b}")
             report["phd_pass_a"].update(
                 {prefix + "max_abs_err": a_abs, prefix + "ms": ms_a, prefix + "queued_ms": q_a,
-                 prefix + "plain_ms": ms_a_plain,
+                 prefix + "with_prep_ms": ms_a_prep, prefix + "with_prep_queued_ms": q_a_prep,
+                 prefix + "plain_ms": ms_a_plain, prefix + "term_share": census["term_share"],
                  **{prefix + k: v for k, v in bound_a.items()}})
             report["phd_pass_b"].update(
                 {prefix + "max_abs_err": b_abs, prefix + "ms": ms_b, prefix + "queued_ms": q_b,
@@ -551,55 +630,113 @@ def random_render_state(cfg, seed=5):
     return p, ri(3, V), ri(2, V)
 
 
-def check_render(cfg, report, prefix=""):
+#: A block's span of voxels in csrc/render.cu at K <= 7 and its sub-spans.
+RENDER_SPAN, RENDER_SUB = 1024, 256
+
+
+def check_render_once(tag, cfg, p, vst, vax, thr):
+    """The render kernel on a copy of the store ``p`` against the plain
+    version: occ, label, track and the new status equal, the sums within the
+    tolerance.  Returns (kernel's store and result, (weight_sum, new weight)
+    max abs errors, whether both are also equal bit for bit)."""
     import dataclasses
 
     import torch
     from semantic_dsp_map_tpu_torch.ops.render import render_core_plain
     from semantic_dsp_map_tpu_torch.ops.render_cuda import render_core_cuda
 
-    p, vst, vax = random_render_state(cfg)
-    thr = 0.4
     new_p, r_p = render_core_plain(cfg, p, vst, vax, thr)
     pk = dataclasses.replace(p, weight=p.weight.clone(), status=p.status.clone())
     pk, r_k = render_core_cuda(cfg, pk, vst, vax, thr)
     torch.cuda.synchronize()
     for name in ("occ", "label", "track"):
-        assert_equal(f"render {name}", getattr(r_k, name), getattr(r_p, name))
-    assert_equal("render new status", pk.status, new_p.status)
-    assert_close("render weight_sum", r_k.weight_sum, r_p.weight_sum)
-    assert_close("render new weight", pk.weight, new_p.weight)
-    e1 = max_err(r_k.weight_sum, r_p.weight_sum)
-    e2 = max_err(pk.weight, new_p.weight)
-    alive = (p.status != 0) & (p.stamp >= vax.repeat_interleave(cfg.slots_per_voxel))
-    n_alive = int(alive.sum())
-    n_clamped = int((pk.weight != p.weight).sum())
-    n_collected = int((pk.status != p.status).sum())
-    run = lambda: render_core_cuda(cfg, pk, vst, vax, thr)
-    ms, q_ms = cuda_ms(run, 10), cuda_ms(run, 10, queued=True)
+        assert_equal(f"render {tag} {name}", getattr(r_k, name), getattr(r_p, name))
+    assert_equal(f"render {tag} new status", pk.status, new_p.status)
+    assert_close(f"render {tag} weight_sum", r_k.weight_sum, r_p.weight_sum)
+    assert_close(f"render {tag} new weight", pk.weight, new_p.weight)
+    bits = (torch.equal(r_k.weight_sum.view(torch.int32), r_p.weight_sum.view(torch.int32))
+            and torch.equal(pk.weight.view(torch.int32), new_p.weight.view(torch.int32)))
+    return pk, r_k, (max_err(r_k.weight_sum, r_p.weight_sum)[0], max_err(pk.weight, new_p.weight)[0]), bits
+
+
+def render_census(cfg, p, pk, vax, vst, r):
+    """Counts of the store ``p`` before and ``pk`` after the render, and its
+    bound: the status of every slot (1 B), the stamp (4 B) only of the slots
+    with a status set, weight, track and label (9 B) only of the alive ones,
+    both voxel stamps and the four results; written back only the weights the
+    clamp changed and the statuses collected.  ``bound_all``: every slot read
+    whole, weight and status of all written back."""
+    import torch
+
+    K = cfg.slots_per_voxel
+    has_status = p.status != 0
+    alive = has_status & (p.stamp >= vax.repeat_interleave(K))
+    pad = lambda a, m: torch.nn.functional.pad(a, (0, -a.numel() % m))
+    spans = pad(has_status, RENDER_SPAN * K).view(-1, RENDER_SPAN * K).any(1)
+    subs = pad(alive, RENDER_SUB * K).view(-1, RENDER_SUB * K).any(1)
+    c = {"slots": p.status.numel(), "with_status": int(has_status.sum()), "alive": int(alive.sum()),
+         "clamped": int((pk.weight != p.weight).sum()), "collected": int((pk.status != p.status).sum()),
+         "spans": spans.numel(), "spans_without_status": int((~spans).sum()),
+         "sub_spans": subs.numel(), "sub_spans_without_alive": int((~subs).sum())}
+    fixed = nbytes(p.status, vax, vst, r.occ, r.label, r.track, r.weight_sum)
+    c["bound"] = bound(fixed + 4 * c["with_status"] + 9 * c["alive"] + 4 * c["clamped"] + c["collected"])
+    c["bound_every_stamp"] = bound(fixed + nbytes(p.stamp) + 9 * c["alive"] + 4 * c["clamped"]
+                                   + c["collected"])["bound_ms"]
+    c["bound_all"] = bound(nbytes(p.weight, p.stamp, p.status, p.track, p.label, vax, vst,
+                                  pk.weight, pk.status, r.occ, r.label, r.track, r.weight_sum))["bound_ms"]
+    return c
+
+
+def census_line(c) -> str:
+    return (f"{c['with_status']} of {c['slots']} slots with a status, {c['alive']} alive, {c['clamped']} "
+            f"weights clamped, {c['collected']} slots collected; {c['spans_without_status']} of "
+            f"{c['spans']} spans of {RENDER_SPAN} voxels without a status, {c['sub_spans_without_alive']} "
+            f"of {c['sub_spans']} sub-spans of {RENDER_SUB} without a live slot; bound "
+            f"{c['bound']['bound_ms']:.4f} ms by {c['bound']['bound_by']} (every slot's stamp read: "
+            f"{c['bound_every_stamp']:.4f} ms; every slot read whole, weight and status of all "
+            f"written back: {c['bound_all']:.4f} ms)")
+
+
+def render_runner(cfg, p, vst, vax, thr):
+    """(run, restore) for timing the render on the store ``p``: the kernel
+    works in place, so ``restore`` gives a scratch copy its weight and status
+    back before each timed launch (outside the events)."""
+    import dataclasses
+
+    from semantic_dsp_map_tpu_torch.ops.render_cuda import render_core_cuda
+
+    scratch = dataclasses.replace(p, weight=p.weight.clone(), status=p.status.clone())
+
+    def restore():
+        scratch.weight.copy_(p.weight)
+        scratch.status.copy_(p.status)
+
+    return (lambda: render_core_cuda(cfg, scratch, vst, vax, thr)), restore
+
+
+def check_render(cfg, report, prefix=""):
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.render import render_core_plain
+
+    p, vst, vax = random_render_state(cfg)
+    thr = 0.4
+    pk, r_k, (e1, e2), bits = check_render_once(prefix + "checked store", cfg, p, vst, vax, thr)
+    run, restore = render_runner(cfg, p, vst, vax, thr)
+    ms, q_ms = cuda_ms(run, 10, setup=restore), cuda_ms(run, 10, queued=True, setup=restore)
     ms_plain = cuda_ms(lambda: render_core_plain(cfg, p, vst, vax, thr), 3)
     occ = torch.bincount((r_k.occ + 1).long(), minlength=4).tolist()
     print(f"[render] {prefix}V={cfg.num_voxels} K={cfg.slots_per_voxel}: occ histogram "
-          f"(-1,0,1,2) {occ}; weight_sum max abs {e1[0]:.3e}, new weight max abs "
-          f"{e2[0]:.3e}; kernel {ms:.3f} ms ({q_ms:.3f} with the launch queued), plain {ms_plain:.3f} ms")
-    # Bound from this store, reckoned as the observe bounds are: status and
-    # stamp of every slot (5 B), both voxel stamps and the four outputs; the
-    # weight, track and label (9 B) only of the slots that are alive; written
-    # back only the weights that the clamp changed and the collected statuses.
-    b = bound(nbytes(p.status, p.stamp, vax, vst, r_k.occ, r_k.label, r_k.track, r_k.weight_sum)
-              + 9 * n_alive + 4 * n_clamped + n_collected)
-    b_all = bound(nbytes(p.weight, p.stamp, p.status, p.track, p.label, vax, vst,
-                         pk.weight, pk.status, r_k.occ, r_k.label, r_k.track, r_k.weight_sum))
+          f"(-1,0,1,2) {occ}; weight_sum max abs {e1:.3e}, new weight max abs {e2:.3e} (both "
+          f"bit-equal: {bits}); kernel {ms:.3f} ms ({q_ms:.3f} with the launch queued; each launch on "
+          f"the store as it was before the render), plain {ms_plain:.3f} ms")
+    c = render_census(cfg, p, pk, vax, vst, r_k)
     note = cache_note(report["render"], prefix, p.weight, p.stamp, p.status, p.track, p.label,
                       vax, vst)
-    print(f"[render] {prefix}{n_alive} of {p.status.numel()} slots alive, {n_clamped} weights "
-          f"clamped, {n_collected} slots collected; bound {b['bound_ms']:.4f} ms by "
-          f"{b['bound_by']} (every slot read whole, weight and status of all written back: "
-          f"{b_all['bound_ms']:.4f} ms){note}")
-    report["render"].update({prefix + "max_abs_err": max(e1[0], e2[0]), prefix + "ms": ms,
-                             prefix + "queued_ms": q_ms,
-                             prefix + "plain_ms": ms_plain,
-                             **{prefix + k: v for k, v in b.items()}})
+    print(f"[render] {prefix}{census_line(c)}{note}")
+    report["render"].update({prefix + "max_abs_err": max(e1, e2), prefix + "ms": ms,
+                             prefix + "queued_ms": q_ms, prefix + "plain_ms": ms_plain,
+                             prefix + "sums_bit_equal": bits,
+                             **{prefix + k: v for k, v in c["bound"].items()}})
 
 
 def observe_inputs(cfg):
@@ -716,11 +853,58 @@ def check_observe(cfg, report, prefix=""):
          **{prefix + k: v for k, v in b_m.items()}})
 
 
+def compare_render(other, tag, cfg, p, vst, vax, thr, card):
+    """The render from the package's library and from ``other`` on the store
+    ``p``, each on its own copy: integers and statuses equal, sums within the
+    tolerance; then timed in turns.  Returns the times."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.render_cuda import render_core_cuda
+
+    copy = lambda: dataclasses.replace(p, weight=p.weight.clone(), status=p.status.clone())
+    p_n, r_n = render_core_cuda(cfg, copy(), vst, vax, thr)
+    with using_library(other):
+        p_o, r_o = render_core_cuda(cfg, copy(), vst, vax, thr)
+    torch.cuda.synchronize()
+    for name in ("occ", "label", "track"):
+        assert_equal(f"{tag} render {name}, other version", getattr(r_o, name), getattr(r_n, name))
+    assert_equal(f"{tag} render status, other version", p_o.status, p_n.status)
+    assert_close(f"{tag} render weight_sum, other version", r_o.weight_sum, r_n.weight_sum)
+    assert_close(f"{tag} render weight, other version", p_o.weight, p_n.weight)
+    same_bits = (torch.equal(r_o.weight_sum.view(torch.int32), r_n.weight_sum.view(torch.int32))
+                 and torch.equal(p_o.weight.view(torch.int32), p_n.weight.view(torch.int32)))
+    del p_n, p_o, r_n, r_o
+    run, restore = render_runner(cfg, p, vst, vax, thr)
+    r_other, r_own = ms_in_turns(run, other, setup=restore)
+    print(f"[against] {tag} render: {turns_line(r_other, r_own)}; occ, label, track, status equal, "
+          f"sums bit-equal: {same_bits} ({card})")
+    return {"other_ms": r_other, "own_ms": r_own}
+
+
+def compare_pass_a(other, tag, args, card):
+    """Pass A from the package's library and from ``other`` on ``args``: ck
+    within the tolerance of each other, then timed in turns."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import phd_cuda
+
+    ck_n = phd_cuda.pass_a_cuda(*args)
+    with using_library(other):
+        ck_o = phd_cuda.pass_a_cuda(*args)
+    torch.cuda.synchronize()
+    assert_close(f"{tag} pass A ck, other version", ck_o, ck_n)
+    a_other, a_own = ms_in_turns(lambda: phd_cuda.pass_a_cuda(*args), other)
+    print(f"[against] {tag} pass A: {turns_line(a_other, a_own)}; ck within rtol {RTOL} / atol "
+          f"{ATOL} of each other, max abs {max_err(ck_o, ck_n)[0]:.3e} ({card})")
+    return {"other_ms": a_other, "own_ms": a_own}
+
+
 def compare_versions(other, cfg, label, card):
-    """Pass B and the candidate scan from the package's library and from
-    ``other`` (a build of another version of the sources) on the inputs of
-    check_phd and check_observe: the other's results must agree too, and the
-    two are timed in turns (other, own, own, other).  Returns the times."""
+    """Both PHD passes, the render and the candidate scan from the package's
+    library and from ``other`` (a build of another version of the sources)
+    on the inputs of check_phd, check_render and check_observe: the other's
+    results must agree too, and the two are timed in turns (other, own, own,
+    other).  Returns the times."""
     import torch
     from semantic_dsp_map_tpu_torch.config import FilterParams
     from semantic_dsp_map_tpu_torch.ops import phd, phd_cuda
@@ -729,6 +913,9 @@ def compare_versions(other, cfg, label, card):
     params = FilterParams(detection_probability=0.9, noise_number=0.1,
                           if_consider_depth_noise=True)
     t, cloud, _ = phd_inputs(cfg)
+    a_args = pass_a_inputs(cfg, params, t, cloud, torch.where(t.meta >= 0, t.weight, 0.0))
+    a_times = compare_pass_a(other, label, a_args, card)
+    del a_args
     args = pass_b_inputs(cfg, params, t, cloud, phd.stencil_pass_a(cfg, params, t, cloud))
     acc_n, right_n = phd_cuda.pass_b_cuda(*args)
     with using_library(other):
@@ -742,6 +929,10 @@ def compare_versions(other, cfg, label, card):
           f"flags equal ({card})")
     del t, cloud, args, acc_n, acc_o
 
+    p, vst, vax = random_render_state(cfg)
+    r_times = compare_render(other, label, cfg, p, vst, vax, 0.4, card)
+    del p, vst, vax
+
     fargs, _, _ = observe_inputs(cfg)
     got_n = front_candidates_cuda(*fargs)
     with using_library(other):
@@ -751,8 +942,8 @@ def compare_versions(other, cfg, label, card):
         assert_equal(f"{label} front {name}, other version", o, n)
     f_other, f_own = ms_in_turns(lambda: front_candidates_cuda(*fargs), other)
     print(f"[against] {label} front scan: {turns_line(f_other, f_own)}; bytes equal ({card})")
-    return {"pass_b": {"other_ms": b_other, "own_ms": b_own},
-            "front_candidates": {"other_ms": f_other, "own_ms": f_own}}
+    return {"pass_a": a_times, "pass_b": {"other_ms": b_other, "own_ms": b_own},
+            "render": r_times, "front_candidates": {"other_ms": f_other, "own_ms": f_own}}
 
 
 def check_probes(report):
@@ -768,6 +959,8 @@ def check_probes(report):
 
     dev = torch.device("cuda")
     run_ms = lambda fn, reps=50: bench(fn, dev, reps)["device_ms"]
+    # one launch queued behind a device-side spin: the device's time alone
+    alone_ms = lambda fn: cuda_ms(fn, 20, queued=True)
     depth, rc = prim_bench7.make_inputs(dev)
     flat = depth.reshape(-1)
     got, want = gather_cuda(depth, rc), gather_plain(depth, rc)
@@ -777,12 +970,15 @@ def check_probes(report):
     entry = dict(max_abs_err=0.0, ms=run_ms(lambda: gather_cuda(depth, rc)),
                  plain_ms=run_ms(lambda: gather_plain(depth, rc)),
                  library_ms=run_ms(lambda: torch.index_select(flat, 0, rc)),
+                 queued_ms=alone_ms(lambda: gather_cuda(depth, rc)),
+                 library_queued_ms=alone_ms(lambda: torch.index_select(flat, 0, rc)),
                  **bound(nbytes(depth, rc, got)))
     report["gather"].update(entry)
     print(f"[probes] gather {rc.numel()} lookups from {tuple(depth.shape)} f32: bytes equal; "
           f"kernel {entry['ms']:.4f} ms, plain (indexing) {entry['plain_ms']:.4f} ms, "
-          f"torch.index_select {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-          f"by {entry['bound_by']}")
+          f"torch.index_select {entry['library_ms']:.4f} ms; one launch queued behind a spin: kernel "
+          f"{entry['queued_ms']:.4f} ms, torch.index_select {entry['library_queued_ms']:.4f} ms; "
+          f"bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}")
 
     g = torch.Generator(device=dev)
     g.manual_seed(3)
@@ -795,12 +991,15 @@ def check_probes(report):
     entry = dict(max_abs_err=0.0, ms=run_ms(lambda: scale2_cuda(x), 200),
                  plain_ms=run_ms(lambda: scale2_plain(x), 200),
                  library_ms=run_ms(lambda: torch.mul(x, 2.0), 200),
+                 queued_ms=alone_ms(lambda: scale2_cuda(x)),
+                 library_queued_ms=alone_ms(lambda: torch.mul(x, 2.0)),
                  **bound(nbytes(x, got)))
     report["scale2"].update(entry)
     print(f"[probes] scale2 on {tuple(x.shape)} f32: bytes equal; per launch in a run of 200: "
           f"kernel {entry['ms']:.5f} ms (the launch floor of a ctypes-bound kernel), plain "
           f"{entry['plain_ms']:.5f} ms, torch.mul {entry['library_ms']:.5f} ms, x + 1 on 8 floats "
-          f"{noop_ms:.5f} ms; bound {entry['bound_ms']:.7f} ms by {entry['bound_by']}")
+          f"{noop_ms:.5f} ms; one launch queued behind a spin (the device's time alone): kernel "
+          f"{entry['queued_ms']:.5f} ms, torch.mul {entry['library_queued_ms']:.5f} ms; bound {entry['bound_ms']:.7f} ms by {entry['bound_by']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1125,7 +1324,8 @@ def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=5
 
 class CallRecorder:
     """Stands in for a kernel wrapper in its module for one frame: keeps a
-    copy of each call's tensor arguments (the frame step updates the store in
+    copy of each call's tensor arguments, and of the tensors of a dataclass
+    argument (the frame step, and the render itself, update the store in
     place afterwards) and passes the call on.  The wrapper adds its launch to
     the ``launches`` of whatever its module holds under its name: here."""
 
@@ -1134,9 +1334,20 @@ class CallRecorder:
         self.calls, self.launches = [], 0
 
     def __call__(self, *args):
+        import dataclasses
+
         import torch
 
-        self.calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        def keep(a):
+            if isinstance(a, torch.Tensor):
+                return a.clone()
+            if dataclasses.is_dataclass(a) and not isinstance(a, type):
+                held = {f.name: getattr(a, f.name) for f in dataclasses.fields(a)}
+                tensors = {k: v.clone() for k, v in held.items() if isinstance(v, torch.Tensor)}
+                return dataclasses.replace(a, **tensors) if tensors else a
+            return a
+
+        self.calls.append(tuple(keep(a) for a in args))
         return self.fn(*args)
 
     def __enter__(self):
@@ -1148,25 +1359,48 @@ class CallRecorder:
 
 
 def check_real_frame(dsp, synth, t, card, other=None):
-    """One more frame through ``dsp``; the arguments its step hands to pass B
-    (the frame's pixel table, cloud and ck_kappa) and to the candidate scan
-    (the particle store before the frame) then go through the two kernels
-    alone: against the plain version once, then timed.  With ``other`` (a
-    build of another version of the sources) the two versions are timed in
-    turns.  Returns the numbers."""
+    """One more frame through ``dsp``; the arguments its step hands to the
+    PHD passes (the frame's pixel table, cloud and ck_kappa), to the
+    candidate scan (the particle store before the frame) and to the render
+    (the store after it, before the render's clamp and collection) then go
+    through the four kernels alone: against the plain version once, then
+    timed.  With ``other`` (a build of another version of the sources) the
+    two versions are timed in turns.  Returns the numbers."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts
-    from semantic_dsp_map_tpu_torch.ops import observe_cuda, phd_cuda
+    from semantic_dsp_map_tpu_torch.ops import observe_cuda, phd_cuda, render_cuda
     from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain
 
     depth, masks, pos, quat = synth(dsp.cfg, t, MaskKpts)
-    with (CallRecorder(phd_cuda, "pass_b_cuda") as rec_b,
-          CallRecorder(observe_cuda, "front_candidates_cuda") as rec_f):
+    with (CallRecorder(phd_cuda, "pass_a_cuda") as rec_a,
+          CallRecorder(phd_cuda, "pass_b_cuda") as rec_b,
+          CallRecorder(observe_cuda, "front_candidates_cuda") as rec_f,
+          CallRecorder(render_cuda, "render_core_cuda") as rec_r):
         dsp.update(depth, masks, pos, quat, 0.1 * t)
     torch.cuda.synchronize()
-    if (len(rec_b.calls), rec_b.launches, len(rec_f.calls), rec_f.launches) != (1, 1, 1, 1):
-        raise AssertionError(f"real frame: pass B called {len(rec_b.calls)}, front {len(rec_f.calls)} times")
+    recorders = (rec_a, rec_b, rec_f, rec_r)
+    if any((len(r.calls), r.launches) != (1, 1) for r in recorders):
+        raise AssertionError("real frame: calls and launches of pass A, pass B, front, render: "
+                             f"{[(len(r.calls), r.launches) for r in recorders]}")
     out = {"frame": t}
+
+    args = rec_a.calls[0]
+    S, H, W = args[5].shape
+    ck_k, (a_abs, _) = check_pass_a(f"real frame {t}", args)
+    census = pass_a_census(args)
+    b, _, b_all = pass_a_bound(args, ck_k, census)
+    run_a = lambda: phd_cuda.pass_a_cuda(*args)
+    ms, q_ms = cuda_ms(run_a, 10), cuda_ms(run_a, 10, queued=True)
+    out["pass_a"] = {"ms": ms, "queued_ms": q_ms, "max_abs_err": a_abs, **census, **b}
+    print(f"[real] frame {t} pass A: table S={S} H={H} W={W}, {census['live_entries']} live entries "
+          f"(share {census['live_entries'] / (S * H * W):.4f}), {census['terms']} terms in "
+          f"{census['lane_iterations']} lane-iterations ({census['term_share']:.4f} of them terms); "
+          f"within tolerance of the plain version (max abs {a_abs:.3e}), two launches bit-equal; "
+          f"kernel {ms:.4f} ms ({q_ms:.4f} with the launch queued), bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']} (every entry read whole: {b_all['bound_ms']:.4f} ms) ({card})")
+    if other is not None:
+        out["pass_a"].update(compare_pass_a(other, "real frame", args, card))
+    del args, ck_k
 
     args = rec_b.calls[0]
     trk_eff = args[5]
@@ -1216,6 +1450,20 @@ def check_real_frame(dsp, synth, t, card, other=None):
         o, n2 = ms_in_turns(run_f, other)
         out["front_candidates"].update(other_ms=o, own_ms=n2)
         print(f"[against] real frame front scan: {turns_line(o, n2)} ({card})")
+    del fargs
+
+    cfg, p, vst, vax, thr = rec_r.calls[0]
+    pk, r_k, (e1, e2), bits = check_render_once(f"real frame {t}", cfg, p, vst, vax, thr)
+    c = render_census(cfg, p, pk, vax, vst, r_k)
+    run_r, restore = render_runner(cfg, p, vst, vax, thr)
+    ms, q_ms = cuda_ms(run_r, 10, setup=restore), cuda_ms(run_r, 10, queued=True, setup=restore)
+    out["render"] = {"ms": ms, "queued_ms": q_ms, "max_abs_err": max(e1, e2), "sums_bit_equal": bits,
+                     **{k: v for k, v in c.items() if k != "bound"}, **c["bound"]}
+    print(f"[real] frame {t} render: {census_line(c)}; occ, label, track, status equal to the plain "
+          f"version, sums bit-equal: {bits}; kernel {ms:.4f} ms ({q_ms:.4f} with the launch queued) "
+          f"({card})")
+    if other is not None:
+        out["render"].update(compare_render(other, "real frame", cfg, p, vst, vax, thr, card))
     return out
 
 
@@ -1407,9 +1655,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     ap.add_argument("--against", metavar="DIR", type=Path,
-                    help="a directory holding another version of csrc/'s sources: pass B and "
-                         "the candidate scan are also built from it and timed in turns with "
-                         "the package's own, on the checked inputs and on the real frame")
+                    help="a directory holding another version of csrc/'s sources: both PHD "
+                         "passes, the render and the candidate scan are also built from it and "
+                         "timed in turns with the package's own, on the checked inputs and on "
+                         "the real frame")
     args = ap.parse_args()
 
     import torch

@@ -27,10 +27,12 @@ from .config import (
     virtual_kitti2_config,
     zed2_config,
 )
-from .frontend import FrameInput, MaskKpts
+from .frontend import FrameInput, MaskKpts, rasterize_masks
 from .labels import LabelRegistry
 from .map import SemanticDSPMap, StepDiagnostics
-from .state import MapState, init_map_state
+from .state import MapState, ObjectTable, init_map_state
+
+__version__ = "0.1.0"
 
 __all__ = [
     "FilterParams",
@@ -42,9 +44,11 @@ __all__ = [
     "zed2_config",
     "FrameInput",
     "MaskKpts",
+    "rasterize_masks",
     "LabelRegistry",
     "SemanticDSPMap",
     "StepDiagnostics",
     "MapState",
+    "ObjectTable",
     "init_map_state",
 ]

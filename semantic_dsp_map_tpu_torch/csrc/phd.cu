@@ -12,14 +12,39 @@
 // in registers.  After staging, the work is expf plus ~15 flops per
 // (pixel, offset, live slot): bound by the f32 pipes.
 //
-// Pass A (one thread per pixel, slot loop outside): for each slot plane s
-// the block stages the five planes (px, py, pz, w_eff, track) of its
-// (TH+2R) x (TW+2R) halo tile; outside the image w_eff is 0, which kills
-// the term, as the TPU wrapper's zero padding does.  A tile whose staged
-// w_eff is all zero is skipped (the table is front-filled, so most high
-// slot planes are empty); a zero-weight neighbour is skipped too.  Both
-// skips drop terms that are exactly zero.  The 10-sigma clip of the plain
-// version is dropped: it only ever zeroes terms below COEF^3 * e^-49.
+// Pass A (one term per lane-iteration): what bounds it on this card is the
+// rate of the SMs' warp schedulers, as for pass B, not bytes.  The table is
+// front-filled and mostly empty, so a thread per pixel that walks all
+// (2R+1)^2 offsets of every slot plane and skips the empty neighbours keeps
+// a third of its lanes busy: a warp runs a term when any of its 32
+// neighbours has one.  Here a block owns an A_TW x A_TH tile and, for each
+// group of up to 32 slot planes,
+//   1. reads w_eff of every entry of its (A_TW+2R) x (A_TH+2R) halo once and
+//      keeps one bit per entry (w_eff != 0; outside the image no bit), a word
+//      per halo pixel;
+//   2. turns the words' bit counts into list positions with a block prefix
+//      scan (no atomics: a position depends on the data alone, not on which
+//      warp came first);
+//   3. packs the live entries into a list in shared memory, ordered by (halo
+//      row, halo column, slot): (px, py, pz, w_eff) as one float4 and the
+//      track beside it, so a term is one 16-byte and one 4-byte shared load;
+//      positions and track are read only of live entries, one entry per
+//      thread, every lane busy;
+//   4. gives each pixel its 2R+1 halo rows in turn: the entries of columns
+//      x-R .. x+R of one halo row are one contiguous range of the list, so
+//      every step of a lane is a term.  Neighbouring lanes' ranges share 2R
+//      of their 2R+1 columns, so their lengths are close and the lanes of a
+//      warp stay together.
+// A tile whose halo has no live entry writes its zeros after step 2.  The
+// list holds A_CAP entries; a group of planes with more (a table with every
+// slot full) is run in sub-groups of A_CAP / halo-pixels planes, which always
+// fit.  Summation order: plane groups in ascending order, inside a group halo
+// row, halo column, slot, one add at a time into one accumulator; it depends
+// on the data alone, so two launches on one input give the same bits.  The
+// plain version sums the slots of one offset first: the two agree at rtol
+// 2e-5, not bit for bit.  Terms with w_eff == 0 are dropped (they are exactly
+// zero), and so is the plain version's 10-sigma clip: it only ever zeroes
+// terms below COEF^3 * e^-49.
 //
 // Pass B (work compacted inside the block): what bounds it on this card is
 // the rate of the SMs' warp schedulers (one operation a cycle each), not
@@ -58,11 +83,48 @@
 
 namespace {
 
-constexpr int TW = 32;  // tile width = threads in x
-constexpr int TH = 16;  // tile height = threads in y
-constexpr int NT = TW * TH;
+// Pass A tile, block and list: 256 pixels, one thread each, A_CAP entries.
+constexpr int A_TW = 32;
+constexpr int A_TH = 8;
+constexpr int A_NT = A_TW * A_TH;
+constexpr int A_CAP = 2048;
+constexpr int A_MAX_R = 8;  // the list must hold one plane of the halo
+static_assert(A_CAP >= (A_TW + 2 * A_MAX_R) * (A_TH + 2 * A_MAX_R), "a sub-group needs a plane");
 
-__global__ void pass_a_kernel(
+// Exclusive prefix sums of popc(s_mask[i] & sel), i < n, into s_start[0..n];
+// returns the total.  Every thread of the block calls it.
+__device__ __forceinline__ int scan_live(
+    const unsigned* s_mask, unsigned sel, int* s_start, int* s_warp, int n, int tid) {
+  const int per = (n + A_NT - 1) / A_NT;
+  const int lo = min(tid * per, n), hi = min(lo + per, n);
+  int local = 0;
+  for (int i = lo; i < hi; ++i) local += __popc(s_mask[i] & sel);
+  int incl = local;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if ((tid & 31) >= d) incl += v;
+  }
+  if ((tid & 31) == 31) s_warp[tid >> 5] = incl;
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < A_NT / 32; ++w) {
+    const int v = s_warp[w];
+    if (w < (tid >> 5)) before += v;
+    total += v;
+  }
+  int pos = before + incl - local;
+  for (int i = lo; i < hi; ++i) {
+    s_start[i] = pos;
+    pos += __popc(s_mask[i] & sel);
+  }
+  if (tid == 0) s_start[n] = total;
+  __syncthreads();
+  return total;
+}
+
+__global__ void __launch_bounds__(A_NT, 4) pass_a_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ weff,
     const int* __restrict__ trk,
@@ -71,18 +133,18 @@ __global__ void pass_a_kernel(
     const int* __restrict__ otrk,
     float* __restrict__ ck,
     int S, int H, int W, int R, float coef3, float id_p, int independent) {
-  extern __shared__ float smem[];
-  const int sw = TW + 2 * R;
-  const int n = sw * (TH + 2 * R);
-  float* s_px = smem;
-  float* s_py = smem + n;
-  float* s_pz = smem + 2 * n;
-  float* s_w = smem + 3 * n;
-  int* s_trk = reinterpret_cast<int*>(smem + 4 * n);
+  extern __shared__ float4 smem_a[];
+  __shared__ int s_warp[A_NT / 32];
+  const int sw = A_TW + 2 * R;
+  const int n = sw * (A_TH + 2 * R);
+  float4* s_ent = smem_a;                                     // px, py, pz, w_eff
+  int* s_trk = reinterpret_cast<int*>(s_ent + A_CAP);         // track (first: entry code)
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_trk + A_CAP);  // live bits per halo pixel
+  int* s_start = reinterpret_cast<int*>(s_mask + n);          // n + 1 list positions
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TW + tx;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int tid = threadIdx.x;
+  const int tx = tid & (A_TW - 1), ty = tid / A_TW;
+  const int x0 = blockIdx.x * A_TW, y0 = blockIdx.y * A_TH;
   const int x = x0 + tx, y = y0 + ty;
   const bool inside = x < W && y < H;
   const long long HW = (long long)H * W;
@@ -94,49 +156,86 @@ __global__ void pass_a_kernel(
     const long long q = (long long)y * W + x;
     qx = ox[q]; qy = oy[q]; qz = oz[q]; qs = isg[q]; qt = otrk[q];
   }
-
   float acc = 0.f;
-  for (int s = 0; s < S; ++s) {
-    int live = 0;
-    for (int i = tid; i < n; i += NT) {
-      const int iy = i / sw, ix = i - iy * sw;
-      const int gy = y0 + iy - R, gx = x0 + ix - R;
-      float w = 0.f, a = 0.f, b = 0.f, c = 0.f;
-      int t = -1;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const long long g = s * HW + (long long)gy * W + gx;
-        w = weff[g];
-        if (w != 0.f) {
-          a = px[g]; b = py[g]; c = pz[g]; t = trk[g];
-          live = 1;
-        }
+
+  // The planes of ``sel`` (bits relative to plane s_lo), ``total`` > 0 live
+  // entries: list them and add every pixel's terms.  Uniform over the block.
+  auto run = [&](int s_lo, unsigned sel, int total) {
+    // entry codes in list order; the order of a pixel's slots is ascending
+    for (int i = tid; i < n; i += A_NT) {
+      unsigned m = s_mask[i] & sel;
+      int pos = s_start[i];
+      while (m != 0u) {
+        const int b = __ffs(m) - 1;
+        m &= m - 1u;
+        s_trk[pos++] = (b << 16) | i;
       }
-      s_px[i] = a; s_py[i] = b; s_pz[i] = c; s_w[i] = w; s_trk[i] = t;
     }
-    if (!__syncthreads_or(live)) continue;
+    __syncthreads();
+    // one live entry per thread: its position, weight and track
+    for (int k = tid; k < total; k += A_NT) {
+      const int code = s_trk[k];
+      const int i = code & 0xffff, b = code >> 16;
+      const int iy = i / sw, ix = i - iy * sw;
+      const long long g = (long long)(s_lo + b) * HW + (long long)(y0 + iy - R) * W + (x0 + ix - R);
+      s_ent[k] = make_float4(px[g], py[g], pz[g], weff[g]);
+      s_trk[k] = trk[g];
+    }
+    __syncthreads();
     if (inside) {
       for (int dm = 0; dm < side; ++dm) {
-        const int row = (ty + dm) * sw + tx;
-        for (int dn = 0; dn < side; ++dn) {
-          const int i = row + dn;
-          const float w = s_w[i];
-          if (w == 0.f) continue;
-          const float zx = (s_px[i] - qx) * qs;
-          const float zy = (s_py[i] - qy) * qs;
-          const float zz = (s_pz[i] - qz) * qs;
+        const int first = (ty + dm) * sw + tx;
+        const int end = s_start[first + side];
+        for (int k = s_start[first]; k < end; ++k) {
+          const float4 e = s_ent[k];
+          const int t = s_trk[k];
+          const float zx = (e.x - qx) * qs;
+          const float zy = (e.y - qy) * qs;
+          const float zz = (e.z - qz) * qs;
           const float s2 = zx * zx + zy * zy + zz * zz;
           float gk = coef3 * expf(-0.5f * s2);
-          const int t = s_trk[i];
           if (independent) {
-            if (t == qt) acc += w * gk;
+            if (t == qt) acc += e.w * gk;
           } else {
             if (t != qt) gk = gk * id_p;
-            acc += w * gk;
+            acc += e.w * gk;
           }
         }
       }
     }
+    __syncthreads();  // the list and the positions are reused
+  };
+
+  for (int s_lo = 0; s_lo < S; s_lo += 32) {
+    const int planes = min(32, S - s_lo);
+    // w_eff is read here and nowhere else decides what is listed
+    for (int i = tid; i < n; i += A_NT) {
+      const int iy = i / sw, ix = i - iy * sw;
+      const int gy = y0 + iy - R, gx = x0 + ix - R;
+      unsigned m = 0u;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const float* p = weff + s_lo * HW + (long long)gy * W + gx;
+#pragma unroll 4
+        for (int b = 0; b < planes; ++b)
+          if (p[b * HW] != 0.f) m |= 1u << b;
+      }
+      s_mask[i] = m;
+    }
     __syncthreads();
+    const unsigned all = planes == 32 ? 0xffffffffu : (1u << planes) - 1u;
+    const int total = scan_live(s_mask, all, s_start, s_warp, n, tid);
+    if (total == 0) continue;
+    if (total <= A_CAP) {
+      run(s_lo, all, total);
+    } else {
+      const int step = A_CAP / n;  // planes whose entries always fit the list
+      for (int b0 = 0; b0 < planes; b0 += step) {
+        const int b1 = min(b0 + step, planes);
+        const unsigned sel = (b1 == 32 ? 0xffffffffu : (1u << b1) - 1u) & ~((1u << b0) - 1u);
+        const int part = scan_live(s_mask, sel, s_start, s_warp, n, tid);
+        if (part != 0) run(s_lo, sel, part);
+      }
+    }
   }
   if (inside) ck[(long long)y * W + x] = acc;
 }
@@ -303,8 +402,11 @@ __global__ void __launch_bounds__(B_NT, 6) pass_b_kernel(
   }
 }
 
-size_t tile_smem_bytes(int R) {
-  return size_t(5) * (TW + 2 * R) * (TH + 2 * R) * sizeof(float);
+// Pass A: the list (20 bytes an entry), a word of live bits and a list
+// position per halo pixel.
+size_t pass_a_smem_bytes(int R) {
+  const size_t n = size_t(A_TW + 2 * R) * (A_TH + 2 * R);
+  return size_t(20) * A_CAP + sizeof(int) * (2 * n + 1);
 }
 
 // Pass B: the packed halo (20 bytes a pixel) and a list of a whole tile.
@@ -320,9 +422,15 @@ extern "C" int dsp_pass_a(
     const float* isg, const int* otrk, float* ck,
     int S, int H, int W, int R, float coef3, float id_p, int independent,
     void* stream) {
-  dim3 block(TW, TH);
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  pass_a_kernel<<<grid, block, tile_smem_bytes(R), (cudaStream_t)stream>>>(
+  if (R < 0 || R > A_MAX_R) return (int)cudaErrorInvalidValue;
+  const size_t smem = pass_a_smem_bytes(R);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pass_a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((W + A_TW - 1) / A_TW, (H + A_TH - 1) / A_TH);
+  pass_a_kernel<<<grid, A_NT, smem, (cudaStream_t)stream>>>(
       px, py, pz, weff, trk, ox, oy, oz, isg, otrk, ck,
       S, H, W, R, coef3, id_p, independent);
   return (int)cudaGetLastError();

@@ -83,5 +83,9 @@ def forgetting_factor(forget_count, forgetting_rate: float, max_forget_count: in
     """getForgettingFactor (basic_algorithms.h:32-48): 2.5^(-n/rate) for
     n < max_forget_count else 0."""
     n = forget_count.to(torch.float32)
-    val = torch.pow(2.5, -n / forgetting_rate)
+    # Divided by a tensor, not by the Python scalar: CUDA turns a division by
+    # a scalar into a multiplication by its reciprocal, 1 ulp off the CPU's
+    # and the JAX package's quotient at any rate other than a power of two.
+    rate = torch.tensor(forgetting_rate, dtype=torch.float32, device=n.device)
+    val = torch.pow(2.5, -n / rate)
     return torch.where(forget_count < max_forget_count, val, torch.zeros_like(val))

@@ -57,8 +57,14 @@ def generate_labeled_cloud(
     if sky_instance_id >= 0:
         valid &= track != sky_instance_id
 
-    x_cam = (cols - cfg.cx) / cfg.fx * depth
-    y_cam = (rows - cfg.cy) / cfg.fy * depth
+    # A float32 reciprocal held on the cloud's device, not a division by the
+    # Python scalar: the CPU divides where CUDA (and the JAX package under
+    # jit) multiplies by the reciprocal, 1 ulp apart in a share of the
+    # columns, and these positions are truncated to pixels and voxels.
+    inv_fx = torch.tensor(1.0 / cfg.fx, dtype=torch.float32, device=dev)
+    inv_fy = torch.tensor(1.0 / cfg.fy, dtype=torch.float32, device=dev)
+    x_cam = (cols - cfg.cx) * inv_fx * depth
+    y_cam = (rows - cfg.cy) * inv_fy * depth
     cam = torch.stack([x_cam, y_cam, depth], dim=-1)
     pos = cam @ r_wc.T + t_wc
 

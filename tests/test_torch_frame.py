@@ -35,7 +35,7 @@ from semantic_dsp_map_tpu_torch.frontend import static_label_table as t_static_t
 from semantic_dsp_map_tpu_torch.map import unpack_frame as t_unpack
 from semantic_dsp_map_tpu_torch.state import map_state_to_numpy
 
-from torch_parity import assert_states_match, dynamic_scene, jax_state_to_numpy
+from torch_parity import assert_states_match, dynamic_scene, jax_state_to_numpy, static_camera
 
 torch.set_num_threads(2)
 
@@ -51,13 +51,24 @@ SCENE_PARAMS = dict(
 
 
 def test_dynamic_scene_matches_jax():
+    _hold_scene_against_jax(dynamic_scene)
+
+
+def test_dynamic_scene_static_camera_matches_jax():
+    """With the camera at rest born particles reproject onto integer pixel
+    coordinates: this held only once the port's cloud had the jitted JAX
+    cloud's bits (tests/test_torch_projection.py)."""
+    _hold_scene_against_jax(static_camera(dynamic_scene))
+
+
+def _hold_scene_against_jax(scene):
     jm = J.SemanticDSPMap(J.config.tiny_test_config(), J.FilterParams(**SCENE_PARAMS))
     tm = T.SemanticDSPMap(T.tiny_test_config(), T.FilterParams(**SCENE_PARAMS), device="cpu")
     moved = 0
     for t in range(10):
-        d, m, p, q, tt = dynamic_scene(jm.cfg, t, J.MaskKpts)
+        d, m, p, q, tt = scene(jm.cfg, t, J.MaskKpts)
         jr, jd = jm.update_from_frame(j_build(jm.cfg, jm.registry, d, m, p, q, tt))
-        d, m, p, q, tt = dynamic_scene(tm.cfg, t, T.MaskKpts)
+        d, m, p, q, tt = scene(tm.cfg, t, T.MaskKpts)
         tr, td = tm.update_from_frame(t_build(tm.cfg, tm.registry, d, m, p, q, tt))
 
         msg = f"frame {t}"

@@ -27,7 +27,8 @@ from semantic_dsp_map_tpu_torch.ops.render_cuda import render_core_cuda
 from semantic_dsp_map_tpu_torch.state import init_map_state
 
 from torch_parity import (
-    PHD_EDGE_TABLES, STORE_EDGES, ZERO_FF_ENTRY, particle_store, phd_table_cloud, zed2_scene,
+    PHD_EDGE_TABLES, STORE_EDGES, ZERO_FF_ENTRY, particle_store, phd_table_cloud, render_store,
+    zed2_scene,
 )
 
 CASES = [(False, False, 0.4), (True, False, 0.4), (False, True, 0.12)]
@@ -76,6 +77,92 @@ def _pass_b_args(cfg, params, t, c):
     return ck, (cfg, params, t.px, t.py, t.pz, torch.where(occupied, t.meta >> 8, -2), ff_eff,
                 1.0 / torch.clamp(c.sigma, min=1e-6),
                 *(c.pos[..., i].contiguous() for i in range(3)), c.valid, c.track, ck)
+
+
+def _pass_a_args(cfg, params, t, c):
+    """The arguments ops.phd._pass_a hands to pass A."""
+    occupied = t.meta >= 0
+    ff = phd.forgetting_factor(t.meta & 0xFF, params.forgetting_rate, params.max_forget_count)
+    w = t.weight if params.if_use_independent_filter else t.weight * ff
+    return (cfg, params, t.px, t.py, t.pz, torch.where(occupied, w, 0.0), t.meta >> 8,
+            *(c.pos[..., i].contiguous() for i in range(3)),
+            1.0 / torch.clamp(c.sigma, min=1e-6), c.track)
+
+
+def _check_pass_a(args):
+    """The kernel within rtol 2e-5 / atol 1e-6 of the plain version (it adds
+    a pixel's terms in list order, the plain version offset by offset), one
+    launch counted, and a second launch with the first one's bits."""
+    want = phd.pass_a_raw(*args)
+    before = phd_cuda.pass_a_cuda.launches
+    got = phd_cuda.pass_a_cuda(*args)
+    torch.cuda.synchronize()
+    assert phd_cuda.pass_a_cuda.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+    again = phd_cuda.pass_a_cuda(*args)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [5, 3])
+@pytest.mark.parametrize("kind,independent",
+                         [(kind, False) for kind in (*PHD_EDGE_TABLES, None)] + [(None, True)])
+def test_pass_a_kernel_at_the_edges(cuda, kind, independent, R):
+    """Pass A on an image that is no multiple of its tile (37 x 53), an odd
+    slot count, and the tables its list has to get right: every entry
+    occupied, none (a tile writes its zeros and ends), one patch, and
+    occupied entries without weight (forget count at its maximum)."""
+    cfg = tiny_test_config(image_width=53, image_height=37, phd_pixel_table_slots=5,
+                           phd_neighbor_half=R)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1,
+                          if_use_independent_filter=independent, if_consider_depth_noise=True)
+    t, c = _phd_inputs(cfg, cuda, seed=4, fill=0.3, front_fill=True, kind=kind)
+    args = _pass_a_args(cfg, params, t, c)
+    ck = _check_pass_a(args)
+    weff = args[5]
+    if kind == "empty":
+        assert not ck.any()
+    elif kind == "full":
+        assert (ck > 0).all()
+    if kind != "empty" and not independent:
+        assert bool(((t.meta >= 0) & (weff == 0)).any())
+    ck_p = phd.stencil_pass_a(cfg, params, t, c)
+    ck_k = phd.stencil_pass_a_any(cfg, params, t, c)
+    torch.testing.assert_close(ck_k, ck_p, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,R,h,w", [(12, 5, 40, 70), (12, phd_cuda.MAX_R, 40, 70), (40, 5, 19, 40),
+                                      (12, 0, 9, 33)])
+@pytest.mark.parametrize("kind", ["full", None])
+def test_pass_a_kernel_list_capacity(cuda, kind, S, R, h, w):
+    """Tables that overflow the block's list of live entries: every slot full
+    at the presets' S = 12 and R = 5 (a halo of 756 pixels x 12 entries
+    against 2,048 places), the widest stencil (R = 8, more than 48 KB of
+    shared memory), more slot planes than one word of live bits holds
+    (S = 40), and no neighbourhood at all (R = 0).  The planes then run in
+    groups, in a fixed order."""
+    cfg = tiny_test_config(image_width=w, image_height=h, phd_pixel_table_slots=S,
+                           phd_neighbor_half=R)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True,
+                          max_forget_count=7)  # no entry without weight: the list is as full as can be
+    t, c = _phd_inputs(cfg, cuda, seed=6, fill=0.5, front_fill=True, kind=kind)
+    args = _pass_a_args(cfg, params, t, c)
+    if kind == "full":
+        assert bool((args[5] != 0).all())
+    ck = _check_pass_a(args)
+    assert (ck > 0).any()
+
+
+@pytest.mark.gpu
+def test_pass_a_kernel_refuses_a_wide_stencil(cuda):
+    cfg = tiny_test_config(phd_pixel_table_slots=4, phd_neighbor_half=phd_cuda.MAX_R + 1)
+    params = FilterParams()
+    t, c = _phd_inputs(cfg, cuda)
+    with pytest.raises(ValueError):
+        phd_cuda.pass_a_cuda(*_pass_a_args(cfg, params, t, c))
 
 
 @pytest.mark.gpu
@@ -221,6 +308,95 @@ def test_render_kernel_matches_plain(cuda, seed, slots_n):
     for name in ("occ", "label", "track", "weight_sum"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     assert torch.equal(p.weight, new.weight) and torch.equal(p.status, new.status)
+
+
+def _render_edge_store(V, K, device, seed, kind):
+    from semantic_dsp_map_tpu_torch.state import Particles
+
+    d = render_store(V, K, seed, kind)
+    T = lambda a: torch.from_numpy(a).to(device)
+    n = V * K
+    zeros = torch.zeros(n, device=device)
+    p = Particles(px=zeros, py=zeros, pz=zeros, weight=T(d["weight"]), label=T(d["label"]),
+                  track=T(d["track"]), status=T(d["status"]),
+                  forget=torch.zeros(n, dtype=torch.uint8, device=device), stamp=T(d["stamp"]))
+    return p, T(d["voxel_stamp"]), T(d["vax"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [1, 1023, 4099, 3 * 1024 + 1])
+@pytest.mark.parametrize("slots_n", [1, 2, 3, 4])  # K = 1, 3, 7, 15
+@pytest.mark.parametrize("kind", STORE_EDGES)
+def test_render_kernel_at_the_edges(cuda, kind, slots_n, V):
+    """The render with every K it is built for, voxel counts that are no
+    multiple of a block's span or its sub-spans, slot counts that are no
+    multiple of the 4 and 16 slots a thread loads, stale voxel stamps, and
+    stores with every slot dead (every span ends after its status bytes),
+    every slot alive, and all but one stretch empty.  occ, label, track and
+    the new status equal; the sums are bit-equal too (slot order is the plain
+    version's)."""
+    cfg = tiny_test_config(max_particle_num_per_voxel_n=slots_n)
+    K = cfg.slots_per_voxel
+    p, vst, vax = _render_edge_store(V, K, cuda, seed=V + slots_n, kind=kind)
+    new, want = render_core_plain(cfg, p, vst, vax, 0.4)
+    pk = dataclasses.replace(p, weight=p.weight.clone(), status=p.status.clone())
+    before = render_core_cuda.launches
+    pk, got = render_core_cuda(cfg, pk, vst, vax, 0.4)
+    torch.cuda.synchronize()
+    assert render_core_cuda.launches == before + 1
+    for name in ("occ", "label", "track"):
+        g = getattr(got, name)
+        assert g.shape == (V,) and g.dtype == torch.int32 and torch.equal(g, getattr(want, name)), name
+    assert torch.equal(pk.status, new.status)
+    assert torch.equal(got.weight_sum.view(torch.int32), want.weight_sum.view(torch.int32))
+    assert torch.equal(pk.weight.view(torch.int32), new.weight.view(torch.int32))
+    if kind == "all_dead":
+        assert not (want.occ > 0).any() and torch.equal(pk.weight, p.weight)
+    elif V > 1000:
+        assert (want.occ == 1).any() and (want.occ == -1).any()
+    if kind in ("mixed", "all_alive") and V > 1000:
+        assert (new.weight != p.weight).any()
+    # a second render of the rendered store changes nothing more
+    again, _ = render_core_cuda(cfg, dataclasses.replace(pk, weight=pk.weight.clone(),
+                                                         status=pk.status.clone()), vst, vax, 0.4)
+    assert torch.equal(again.weight, pk.weight) and torch.equal(again.status, pk.status)
+
+
+@pytest.mark.gpu
+def test_render_kernel_refuses_a_misaligned_store(cuda):
+    """The render loads 16 bytes a thread: a store that starts off a 16-byte
+    boundary raises, it is not read askew."""
+    cfg = tiny_test_config()
+    K, V = cfg.slots_per_voxel, 64
+    p, vst, vax = _render_edge_store(V + 1, K, cuda, seed=1, kind="mixed")
+    off = dataclasses.replace(p, **{f: getattr(p, f)[K:] for f in
+                                    ("weight", "stamp", "status", "track", "label")})
+    assert off.weight.is_contiguous() and off.status.data_ptr() % 16 != 0
+    with pytest.raises(RuntimeError):
+        render_core_cuda(cfg, off, vst[1:], vax[1:], 0.4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["virtual_kitti2_config", "zed2_config"])
+def test_labeled_cloud_cuda_has_the_cpu_bits(cuda, preset):
+    """The back-projection multiplies by a float32 reciprocal held on the
+    cloud's device: the same bits on both devices (a division by a Python
+    scalar is a multiplication by its reciprocal on CUDA only)."""
+    import semantic_dsp_map_tpu_torch as T
+    from semantic_dsp_map_tpu_torch.ops.projection import generate_labeled_cloud
+
+    cfg = getattr(T, preset)()
+    rng = np.random.RandomState(2)
+    H, W = cfg.height, cfg.width
+    args = (torch.from_numpy((rng.rand(H, W) * 30 + 0.3).astype(np.float32)),
+            torch.from_numpy(rng.randint(0, 5, (H, W)).astype(np.int32)),
+            torch.arange(65536, dtype=torch.int32) % 10, torch.eye(3), torch.zeros(3))
+    params = FilterParams(if_consider_depth_noise=True)
+    want = generate_labeled_cloud(cfg, params, *args, 65523)
+    got = generate_labeled_cloud(cfg, params, *(a.to(cuda) for a in args), 65523)
+    # x and y of the camera frame (identity pose): the products that decide pixels
+    assert torch.equal(got.pos.cpu().view(torch.int32), want.pos.view(torch.int32))
+    assert torch.equal(got.valid.cpu(), want.valid)
 
 
 @pytest.mark.gpu

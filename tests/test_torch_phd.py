@@ -5,12 +5,13 @@ and its dispatching ``stencil_passes`` (on the CPU both run the plain
 stencils) and are held against the JAX package's XLA stencils: ck and the
 new weight at rtol 2e-5 / atol 1e-6 (float association differs), the
 forget counts equal.  The plain pass B, which the CUDA kernel is held
-against on the card (tests/test_torch_kernels_gpu.py), is also held against
-the Pallas kernel in interpret mode at the edges the CUDA kernel's design
-has: an image that is no multiple of any tile (37 x 53) with R = 5 and 3,
+against on the card (tests/test_torch_kernels_gpu.py), are also held against
+the Pallas kernels in interpret mode at the edges the CUDA kernels' designs
+have: an image that is no multiple of any tile (37 x 53) with R = 5 and 3,
 a table with every slot occupied, an empty one, one occupied in a single
-patch, and an occupied entry with forgetting factor 0 whose "rightly
-updated" flag must still be set.
+patch, and an occupied entry with forgetting factor 0 (its weight counts
+for nothing in pass A; its "rightly updated" flag must still be set in pass
+B).
 """
 
 import dataclasses
@@ -23,7 +24,7 @@ import torch
 from semantic_dsp_map_tpu.config import FilterParams as JFilterParams
 from semantic_dsp_map_tpu.config import tiny_test_config as j_tiny
 from semantic_dsp_map_tpu.ops import phd as jphd
-from semantic_dsp_map_tpu.ops.phd_pallas import pass_b_pallas
+from semantic_dsp_map_tpu.ops.phd_pallas import pass_a_pallas, pass_b_pallas
 from semantic_dsp_map_tpu.ops.projection import LabeledCloud as JCloud
 
 from semantic_dsp_map_tpu_torch.config import FilterParams, tiny_test_config
@@ -88,6 +89,45 @@ def test_phd_passes_match_jax(independent, front_fill, fill, entry):
 
 
 EDGE_CASES = [(kind, False) for kind in (*PHD_EDGE_TABLES, None)] + [(None, True)]
+
+
+@pytest.mark.parametrize("R", [5, 3])
+@pytest.mark.parametrize("kind,independent", EDGE_CASES)
+def test_pass_a_plain_matches_pallas_at_the_edges(kind, independent, R):
+    """pass_a_raw against the Pallas pass A (interpret mode) on the arguments
+    ops.phd._pass_a makes: ck at rtol 2e-5 / atol 1e-6 (the Pallas kernel
+    folds COEF^3 into the weight plane and sums in slot groups)."""
+    shape = dict(image_width=53, image_height=37, phd_pixel_table_slots=5, phd_neighbor_half=R)
+    cfg_j, cfg_t = j_tiny(**shape), tiny_test_config(**shape)
+    pj, pt = _params(independent)
+    table, cloud = _inputs(cfg_t, seed=4, fill=0.3, front_fill=True, kind=kind)
+    t, c = _torch(table, cloud)
+
+    occupied = t.meta >= 0
+    ff = tphd.forgetting_factor(t.meta & 0xFF, pt.forgetting_rate, pt.max_forget_count)
+    weff = torch.where(occupied, t.weight if independent else t.weight * ff, 0.0)
+    args = (t.px, t.py, t.pz, weff, t.meta >> 8, *(c.pos[..., i].contiguous() for i in range(3)),
+            1.0 / torch.clamp(c.sigma, min=1e-6), c.track)
+    ck_t = tphd.pass_a_raw(cfg_t, pt, *args)
+    ck_j = pass_a_pallas(cfg_j, pj, *(jnp.asarray(a.numpy()) for a in args),
+                         interpret=True, th=8, tw=32)
+
+    np.testing.assert_allclose(ck_t.numpy(), np.asarray(ck_j), rtol=2e-5, atol=1e-6)
+    assert ck_t.shape == (37, 53) and bool(torch.isfinite(ck_t).all())
+    live = weff != 0
+    if kind == "empty":
+        assert not live.any() and not ck_t.any()
+    elif kind == "full":
+        assert occupied.all() and (ck_t > 0).all()
+    elif kind == "patch":
+        # nothing beyond R pixels of the patch
+        near = torch.nn.functional.max_pool2d(live.any(0)[None, None].float(), 2 * R + 1, 1, R)[0, 0] > 0
+        assert not ck_t[~near].any() and (ck_t[near] > 0).any()
+    elif kind == "zero_ff" and not independent:
+        assert occupied[ZERO_FF_ENTRY] and weff[ZERO_FF_ENTRY] == 0
+    if kind != "empty" and not independent:
+        # occupied entries whose forget count is at its maximum have no weight
+        assert bool((occupied & ~live).any())
 
 
 @pytest.mark.parametrize("R", [5, 3])

@@ -48,6 +48,7 @@ from torch_parity import (
     TEMPLATE_SCENE_GRID,
     assert_states_match,
     jax_state_to_numpy,
+    static_camera,
     template_scene,
 )
 
@@ -321,6 +322,16 @@ def test_move_skips_to_match_previous(template_mode):
 
 
 def test_template_scene_matches_jax(monkeypatch):
+    _hold_template_scene_against_jax(monkeypatch, template_scene)
+
+
+def test_template_scene_static_camera_matches_jax(monkeypatch):
+    """The scene without its quarter-pixel camera drift (see
+    torch_parity.static_camera)."""
+    _hold_template_scene_against_jax(monkeypatch, static_camera(template_scene))
+
+
+def _hold_template_scene_against_jax(monkeypatch, scene):
     monkeypatch.setattr(jte, "GUESSED_BIRTH_NOISE", 0.0)
     monkeypatch.setattr(tte, "GUESSED_BIRTH_NOISE", 0.0)
     params = dict(if_use_template_matching=True, match_score_threshold=0.2,
@@ -332,8 +343,8 @@ def test_template_scene_matches_jax(monkeypatch):
     assert jm.set_template_path(TEMPLATES) == tm.set_template_path(TEMPLATES) == 1
 
     for t in range(3):
-        jr, jd = jm.update_from_frame(j_build(jm.cfg, jm.registry, *template_scene(jm.cfg, t, J.MaskKpts)))
-        tr, td = tm.update_from_frame(t_build(tm.cfg, tm.registry, *template_scene(tm.cfg, t, T.MaskKpts)))
+        jr, jd = jm.update_from_frame(j_build(jm.cfg, jm.registry, *scene(jm.cfg, t, J.MaskKpts)))
+        tr, td = tm.update_from_frame(t_build(tm.cfg, tm.registry, *scene(tm.cfg, t, T.MaskKpts)))
         msg = f"frame {t}"
         assert {k: int(v) for k, v in td._asdict().items()} == {
             k: int(v) for k, v in jd._asdict().items()}, msg

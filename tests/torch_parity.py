@@ -113,6 +113,18 @@ def zed2_scene(cfg, t, masks_cls):
     return depth, masks, cam_pos, cam_quat, 0.35 * t
 
 
+def static_camera(scene):
+    """``scene`` with the camera held at the origin: cloud-born particles
+    then reproject onto integer pixel coordinates, where one ulp of the
+    back-projection decides the pixel."""
+
+    def frame(cfg, t, masks_cls):
+        depth, masks, _, cam_quat, time = scene(cfg, t, masks_cls)
+        return depth, masks, np.zeros(3, np.float32), cam_quat, time
+
+    return frame
+
+
 #: The small template scene: a 96 x 72 camera over a 16 x 8 x 32 grid, a
 #: wall and a Car large enough for template birth (2,940 mask pixels, a
 #: 3.5 x 2.1 m box).  Depths are off the 0.25 m voxel boundaries.
@@ -124,10 +136,9 @@ TEMPLATE_SCENE_GRID = dict(grid_n=32, max_source_points=4096, max_template_point
 
 def template_scene(cfg, t, masks_cls):
     """Frame t of the small template scene: a static car; the camera drifts
-    a quarter pixel per frame, so particles born on one frame do not
-    reproject onto pixel boundaries on the next (where 1-ulp differences of
-    the backprojection would decide the pixel).  Returns (depth, masks,
-    cam_pos, cam_quat, time)."""
+    a quarter pixel per frame (``static_camera`` holds it still: the two
+    packages' clouds agree bit for bit, so both variants are tested).
+    Returns (depth, masks, cam_pos, cam_quat, time)."""
     H, W = cfg.height, cfg.width
     depth = np.full((H, W), 3.5117, np.float32)
     car = np.zeros((H, W), np.uint8)
@@ -236,3 +247,22 @@ def particle_store(n_slots, axis_sizes, seed, max_movable, kind="mixed"):
         d["status"][: n // 3] = 0
         d["status"][n // 3 + max(1, n // 50) :] = 0
     return d
+
+
+def render_store(V, K, seed, kind="mixed"):
+    """The render's inputs as numpy: ``particle_store`` of ``kind`` (status,
+    stamp, per-voxel scroll stamps 0-2) with weights on both sides of the
+    clamp at 1 and of the newborn weight (an eighth of them feeble, for the
+    collection), labels 0-7, tracks 0-3 (ties in the per-track sums), and
+    voxel stamps 0-3, a share of them stale (0, or older than the scroll
+    stamp)."""
+    d = particle_store(V * K, (V, 1, 1), seed, max_movable=2, kind=kind)
+    rng = np.random.RandomState(seed + 1000)
+    n = V * K
+    weight = (rng.rand(n) * 1.4).astype(np.float32)
+    weight[rng.rand(n) < 0.125] *= 0.05
+    return dict(
+        weight=weight, stamp=d["stamp"], status=d["status"],
+        track=(d["track"] % 4).astype(np.int32), label=rng.randint(0, 8, n).astype(np.uint8),
+        vax=d["axis"][0], voxel_stamp=rng.randint(0, 4, V).astype(np.int32),
+    )
