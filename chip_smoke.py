@@ -8,6 +8,8 @@
                                             # the front scan built from DIR's sources
                                             # (another version of csrc/), in turns, in
                                             # this call
+    python3 chip_smoke.py --record-expected # print where the card parts from
+                                            # data/bench_expected/ instead of failing
 
 Phases (any failure raises, and the script exits nonzero):
   0. print the card (nvidia-smi name and power limit, torch's device name);
@@ -16,25 +18,42 @@ Phases (any failure raises, and the script exits nonzero):
      the card and time both with CUDA events, beside the kernel's bound
      (bytes over the memory rate or operations over their peak rate,
      whichever is larger, from this run's inputs): the five frame kernels at
-     VKITTI2 shapes and at ZED2 shapes (BOOST 640x360, R = 3, K = 3), the
+     VKITTI2 shapes, at ZED2 shapes (BOOST 640x360, R = 3, K = 3) and at the
+     coda preset's (960x540, K = 3 at 8.4M voxels), the
      gather and x2 probe kernels at the probes' shapes, beside the PyTorch
      call that computes the same function;
   3. check the CUDA path against the CPU path on the tiny dynamic scene, on
-     the tiny ZED2 scene (independent filter off and on) and on the small
-     template scene (a template birth fires), every kernel on; and the
+     the tiny ZED2 scene (independent filter off and on), on the small
+     template scene (a template birth fires) and on the reduced hostile
+     scene (20 movers, the move cap binding), every kernel on; and the
      neighbour-smoothed render on a random state, against the CPU at ZED2
      shapes and timed on the card at VKITTI2 and ZED2 shapes;
+  3a. [expected]: hold the card to the full-size files data/bench_expected/:
+     8 frames each of the hostile and the vkitti2 scene, and of the hostile
+     scene with its cars off the voxel boundaries, at the VKITTI2 preset
+     with prediction_stddev=0.0, all nine counters and the counts of
+     occupied, free and unknown voxels as the JAX package gave them on the
+     CPU; a quantity that a float tie decides is held to the value recorded
+     beside it (the port's CPU path's, or this card's) and printed as OPEN;
+  3b. [bench]: benchmarks.bench.main --iters 50 on the card: the four cells
+     (zed2, vkitti2, vkitti2_template, vkitti2_hostile) at full width, 3
+     timed loops each with one synchronize a loop; every kernel once per
+     frame in every cell, the hostile cell's move cap binding, each cell's
+     peak counters printed beside those the JAX package recorded;
   4. drive the main paths: SemanticDSPMap.update() on the default VKITTI2
-     preset, on the default ZED2 preset, and on the VKITTI2 preset with
+     preset, on the default ZED2 preset, on the VKITTI2 preset with
      template matching (vkitti2_template: the data/templates bank, a car
-     inside the template-birth window), each for 3 warm-up + 5 synthetic
+     inside the template-birth window) and on the coda preset (always-moving
+     objects), each for 3 warm-up + 5 synthetic
      frames; check that every kernel ran once per frame and that the
      template birth swept, scored and made guessed particles; time the
      birth's sweep alone.  After the vkitti2 frames, one more frame's own
      pixel table, cloud and particle store go through both PHD passes, the
      candidate scan and the render alone (against their plain versions, then
      timed): a frame's data is patchy and mostly empty where the checked
-     inputs are uniform.  Then the
+     inputs are uniform.  Then the rematch path: the VKITTI2 scene with
+     the car's keypoints withheld on frame 5, where the object layer's coast
+     branch must run at full size.  Then the
      replay path: 13 VKITTI2 frames written
      as npz files and replayed by ``replay.main`` on the default device
      (11 mapped frames, PLY clouds read back); the KITTI-360 soak
@@ -79,115 +98,16 @@ L2_BYTES = 50e6
 #: reduction (about 3), the coefficient, the weight or factor, the sum.
 PHD_FLOPS_PER_TERM = 17
 
-#: Runtime parameters of the VKITTI2 cell (cfg/options.yaml semantics with
-#: depth noise on; the JAX package's bench uses the same).
-VK_PARAMS = dict(
-    detection_probability=0.98, noise_number=0.001, nb_ptc_num_per_point=1,
-    occupancy_threshold=0.5, max_observation_lost_time=5,
-    forgetting_rate=1.0, max_forget_count=3, id_transition_probability=0.2,
-    if_consider_depth_noise=True,
-    depth_noise_model_first_order=0.01, depth_noise_model_zero_order=0.2,
-)
-
-
-def synth_vkitti2_frame(cfg, t, mask_cls, car_h_div=6, car_w_div=8):
-    """VKITTI2-like frame: ground + buildings + a moving tracked car (the
-    JAX package's bench.synth_vkitti2_frame, without JAX)."""
-    H, W = cfg.height, cfg.width
-    rng = np.random.RandomState(t)
-    v = np.arange(H, dtype=np.float32)[:, None]
-    depth = np.full((H, W), 25.0, np.float32)
-    ground = cfg.fy * 1.6 / np.maximum(v - cfg.cy, 1e-3)
-    depth = np.minimum(depth, np.where(v > cfg.cy, ground, depth))
-    depth += rng.randn(H, W).astype(np.float32) * 0.05
-    static = np.where(v > cfg.cy, 6, 5).astype(np.uint8) * np.ones((1, W), np.uint8)
-    car = np.zeros((H, W), np.uint8)
-    cx0 = int((0.2 + 0.02 * t) * W) % W
-    car[H // 2 : H // 2 + H // car_h_div, cx0 : cx0 + W // car_w_div] = 1
-    car_z = 12.0
-    depth[car > 0] = car_z
-    xl = (cx0 - cfg.cx) / cfg.fx * car_z
-    kpts = np.array(
-        [[xl, 0, car_z], [xl + 2, 0, car_z], [xl, -1.5, car_z],
-         [xl + 2, -1.5, car_z], [xl, 0, car_z + 4], [xl + 2, 0, car_z + 4]],
-        np.float32,
-    )
-    masks = [
-        mask_cls(track_id=65535, label="static", mask=static),
-        mask_cls(track_id=3, label="Car", mask=car, kpts_current=kpts,
-                 kpts_previous=kpts - np.array([0.02 * W / cfg.fx * car_z, 0, 0], np.float32)),
-    ]
-    pos = np.array([0.0, 0.0, 0.35 * t], np.float32)
-    quat = np.array([1.0, 0, 0, 0], np.float32)
-    return depth, masks, pos, quat
-
-
-#: Runtime parameters of the vkitti2_template cell (the JAX package's
-#: bench.py:337-343): VKITTI2 with template matching on.
-TPL_PARAMS = dict(
-    detection_probability=0.98, noise_number=0.001, nb_ptc_num_per_point=1,
-    occupancy_threshold=0.5, max_observation_lost_time=5, if_consider_depth_noise=True,
-    depth_noise_model_first_order=0.01, depth_noise_model_zero_order=0.2,
-    if_use_template_matching=True, match_score_threshold=0.2,
-)
-
 TEMPLATES = REPO / "data" / "templates"
+EXPECTED = REPO / "data" / "bench_expected"
 
 
-def synth_template_frame(cfg, t, mask_cls):
-    """The VKITTI2 frame with the car 1/5 of the image high: 6,600 points
-    over 1.44 x 1.22 m, inside the template-birth window (> 1,500 points,
-    both extents >= 1 m).  The JAX bench's car_h_div=8 car is 0.74 m high
-    and never eligible."""
-    return synth_vkitti2_frame(cfg, t, mask_cls, car_h_div=5, car_w_div=14)
+def bench_scenes():
+    """The bench's scenes and parameter sets (the package's
+    benchmarks/scenes.py; imported late, as everything of the package)."""
+    from semantic_dsp_map_tpu_torch.benchmarks import scenes
 
-
-#: Runtime parameters of the ZED2 cell (cfg/options_zed2.yaml; the JAX
-#: package's bench.py uses the same).
-ZED2_PARAMS = dict(
-    detection_probability=0.8, noise_number=0.2, nb_ptc_num_per_point=1,
-    occupancy_threshold=0.15, max_observation_lost_time=20,
-    forgetting_rate=1.0, max_forget_count=5, id_transition_probability=0.5,
-    bayesian_movement_distance_threshold=0.2,
-    bayesian_movement_probability_threshold=0.3,
-    bayesian_movement_increment=0.2, bayesian_movement_decrement=0.05,
-    if_consider_depth_noise=True,
-    depth_noise_model_first_order=0.02, depth_noise_model_zero_order=0.3,
-)
-
-
-def synth_zed2_frame(cfg, t, mask_cls):
-    """ZED2-like frame at full sensor resolution (update() BOOST-resizes):
-    ground, a building above the horizon and a tracked person with 3D-bbox
-    corner keypoints (the JAX package's bench.synth_zed2_frame, without
-    JAX)."""
-    H, W = cfg.image_height, cfg.image_width
-    rng = np.random.RandomState(t)
-    v = np.arange(H, dtype=np.float32)[:, None]
-    depth = np.full((H, W), 9.0, np.float32)
-    ground = cfg.camera_fy * 1.2 / np.maximum(v - cfg.camera_cy, 1e-3)
-    depth = np.minimum(depth, np.where(v > cfg.camera_cy, ground, depth))
-    depth += rng.randn(H, W).astype(np.float32) * 0.03
-    static = np.full((H, W), 6, np.uint8)
-    static[: H // 2] = 5
-    person = np.zeros((H, W), np.uint8)
-    cx0 = int((0.15 + 0.015 * t) * W) % W
-    person[H // 3 : H // 3 + H // 4, cx0 : cx0 + W // 10] = 1
-    pz = 4.0
-    depth[person > 0] = pz
-    xl = (cx0 - cfg.camera_cx) / cfg.camera_fx * pz
-    kpts = np.array(
-        [[xl, -0.9, pz], [xl + 0.5, -0.9, pz], [xl, 0.9, pz], [xl + 0.5, 0.9, pz]],
-        np.float32,
-    )
-    masks = [
-        mask_cls(track_id=65535, label="static", mask=static),
-        mask_cls(track_id=7, label="Person", mask=person, kpts_current=kpts,
-                 kpts_previous=kpts - np.array([0.1, 0, 0], np.float32)),
-    ]
-    pos = np.array([0.02 * t, 0.0, 0.2 * t], np.float32)
-    quat = np.array([1.0, 0, 0, 0], np.float32)
-    return depth, masks, pos, quat
+    return scenes
 
 
 def cuda_ms(fn, reps: int, queued: bool = False, setup=None) -> float:
@@ -1553,7 +1473,7 @@ def drive_replay(counters, card, n_frames=13, drop_first=2):
         data, out = Path(tmp) / "frames", Path(tmp) / "out"
         frames = []
         for t in range(n_frames):
-            depth, masks, pos, quat = synth_vkitti2_frame(cfg, t, MaskKpts)
+            depth, masks, pos, quat = bench_scenes().synth_vkitti2_frame(cfg, t, MaskKpts)
             frames.append(Frame(depth, masks, pos, quat, 0.1 * t, t))
             save_npz_frame(str(data), t, frames[-1])
         # a frame that went through the files packs to the same bytes
@@ -1648,6 +1568,247 @@ def run_probe_modules(probe_counters, card, iters=10):
     return launches, rows
 
 
+#: The StepDiagnostics counters that say a capacity cap bound.
+CAP_COUNTERS = ("block_overflow", "entry_overflow", "table_dropped", "corner_overflow",
+                "move_overflow", "birth_overflow")
+
+
+def frame_quantities(result, diag):
+    """A frame's nine counters and its counts of occupied, free and unknown
+    voxels, as the files under data/bench_expected hold them."""
+    row = {k: int(v) for k, v in diag._asdict().items()}
+    occ = result.occ
+    row.update(occupied=int((occ == 1).sum()), free=int((occ == 0).sum()),
+               unknown=int((occ == -1).sum()))
+    return row
+
+
+def check_expected(counters, card, record=False):
+    """The card against the full-size files under data/bench_expected: the
+    hostile and the vkitti2 scene at ``virtual_kitti2_config()`` with
+    ``prediction_stddev=0.0``, every frame of a file; and under
+    off_boundaries/ the hostile scene with its cars 0.07 m off their exact
+    depths, where no voxel boundary decides anything.  A file holds what the
+    JAX package gave on the CPU and, where the port's CPU path gave another
+    integer, that one beside it (``port_cpu``); where the card is known to
+    give a third, that one (``card``).  The card is held to the last of these
+    that a quantity has; such a quantity is printed with the word OPEN.
+    Every other quantity must equal the JAX package's.  What the card gave
+    goes to chiprun_out/EXPECTED_CARD.json; with ``record`` a parting is
+    printed and does not fail the run, so that ``tests/make_bench_expected.py
+    card`` can enter the card's values into the files.  Returns the summary
+    per scene."""
+    from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config
+
+    scenes = bench_scenes()
+    cfg = virtual_kitti2_config()
+    params = FilterParams(**dict(scenes.VK_PARAMS, prediction_stddev=0.0))
+    summary, seen = {}, {}
+    files = sorted(EXPECTED.glob("*.json")) + sorted((EXPECTED / "off_boundaries").glob("*.json"))
+    for path in files:
+        with open(path) as f:
+            doc = json.load(f)
+        name = doc["scene"] + ("_off_boundaries" if path.parent.name == "off_boundaries" else "")
+        synth = getattr(scenes, doc["synth"].rsplit(".", 1)[1])
+        dsp = SemanticDSPMap(cfg, params, device="cuda")
+        for fn in counters:
+            fn.launches = 0
+        opened, parted, rows = [], [], []
+        for frame in doc["frames"]:
+            t = frame["t"]
+            depth, masks, pos, quat = synth(cfg, t, MaskKpts, **doc["synth_kwargs"])
+            got = frame_quantities(*dsp.update(depth, masks, pos, quat, 0.1 * t))
+            for q, jax_value in frame["jax"].items():
+                want, held_to = jax_value, "the JAX package"
+                for column, who in (("port_cpu", "the port on the CPU"), ("card", "this card's record")):
+                    if q in frame.get(column, {}):
+                        want, held_to = frame[column][q], who
+                if held_to != "the JAX package":
+                    opened.append([t, q, jax_value, frame.get("port_cpu", {}).get(q), got[q]])
+                    print(f"[expected] {name} frame {t} {q}: OPEN: the JAX package {jax_value}, the "
+                          f"port on the CPU {frame.get('port_cpu', {}).get(q, jax_value)}, the card "
+                          f"{got[q]} (held to {held_to}: {want})")
+                if got[q] != want:
+                    parted.append((t, q, got[q], want, held_to))
+            rows.append(got)
+            print(f"[expected] {name} frame {t}: {got}")
+        launches = read_launches(counters)
+        n = len(doc["frames"])
+        seen[name] = rows
+        if parted:
+            lines = "; ".join(f"frame {t} {q}: card {g}, {who} {w}" for t, q, g, w, who in parted)
+            if not record:
+                raise AssertionError(f"expected {name}: the card parts from {path.name}: {lines}")
+            print(f"[expected] {name} PARTS from {path.name} (recorded, not failed): {lines}")
+        for fname, count in launches.items():
+            if count != n:
+                raise AssertionError(f"expected {name}: {fname} launched {count} times in {n} frames")
+        summary[name] = {"frames": n, "equal": not parted, "open": opened, "launches": launches}
+        print(f"[expected] {name}: {n} frames on the card equal to {path.relative_to(REPO)} "
+              f"({len(opened)} quantities OPEN, {12 * n - len(opened)} held to the JAX package's; "
+              f"launches {launches}) ({card})")
+        del dsp
+    if set(summary) != {"vkitti2_hostile", "vkitti2", "vkitti2_hostile_off_boundaries"}:
+        raise AssertionError(f"expected: files for {sorted(summary)} under {EXPECTED}")
+    out = REPO / "chiprun_out" / "EXPECTED_CARD.json"
+    out.parent.mkdir(exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"card": card, "scenes": seen}, f, indent=1)
+    return summary
+
+
+def reduced_hostile_scene(cfg, t, mask_cls):
+    """The hostile scene for the CUDA-against-CPU check: the cars 0.07 m off
+    their exact depths (off the voxel boundaries, where the last bit of a
+    moved particle's position decides its voxel), with the frame's time."""
+    return (*bench_scenes().synth_hostile_frame(cfg, t, mask_cls, car_depth_offset=0.07), 0.1 * t)
+
+
+def run_bench(counters, card):
+    """``benchmarks.bench.main --iters 50`` on the card: four cells at full
+    width, 3 warm-up frames and 3 timed loops of 50 / 25 / 25 / 25 frames
+    each, one synchronize a loop.  Every cell must launch each frame kernel
+    once per frame, leave occupied voxels and no NaN weight; the template
+    cell must sweep a birth and leave GUESSED_BORN particles; the hostile
+    cell must move particles and overflow the move cap.  Each cell's peak
+    counters are printed beside those the JAX package recorded for the same
+    scene (BENCH_DETAILS.json, read as data; its rates are not used) and,
+    where data/bench_expected/jitter/ has the cell, beside those the JAX
+    package gives on the CPU over the same frames; a cap counter that is
+    zero on one side and not on the other is printed as a FINDING (against
+    the CPU run where there is one).
+    Returns (the cells, the launches of all cells)."""
+    from semantic_dsp_map_tpu_torch.benchmarks import bench
+
+    out = REPO / "chiprun_out" / "BENCH_CELLS.json"
+    out.parent.mkdir(exist_ok=True)
+    for fn in counters:
+        fn.launches = 0
+    cells = bench.main(["--iters", "50", "--out", str(out)])
+    launches = read_launches(counters)
+    with open(REPO / "BENCH_DETAILS.json") as f:
+        recorded = {name: cell["peak_diag"] for name, cell in json.load(f).items()
+                    if "peak_diag" in cell}
+
+    if list(cells) != ["zed2", "vkitti2", "vkitti2_template", "vkitti2_hostile"]:
+        raise AssertionError(f"bench: cells {list(cells)}")
+    n_all = 0
+    for name, cell in cells.items():
+        n = cell["warmup"] + len(cell["runs"]) * cell["frames"]
+        n_all += n
+        if cell["frames"] != (50 if name == "zed2" else 25) or len(cell["runs"]) < 3:
+            raise AssertionError(f"bench {name}: {cell['frames']} frames x {len(cell['runs'])} runs")
+        for fname, count in cell["kernel_launches"].items():
+            if count != n:
+                raise AssertionError(f"bench {name}: {fname} launched {count} times in {n} frames")
+        if cell["nan_weights"]:
+            raise AssertionError(f"bench {name}: {cell['nan_weights']} NaN particle weights")
+        if cell["occ_histogram"]["1"] <= 0:
+            raise AssertionError(f"bench {name}: no occupied voxel after the last frame")
+        if cell["peak_diag"]["moved_count"] <= 0:
+            raise AssertionError(f"bench {name}: no particle moved in any timed frame")
+        # the first loop's frames are the frames of the JAX bench's one loop
+        peak, rec = cell["runs"][0]["peak_diag"], recorded[name]
+        print(f"[bench] {name} peak_diag on the card, all {len(cell['runs'])} loops: {cell['peak_diag']}")
+        print(f"[bench] {name} peak_diag on the card, first loop: {peak}")
+        print(f"[bench] {name} peak_diag the JAX package recorded: {rec}")
+        jitter = EXPECTED / "jitter" / f"{name}.json"
+        if jitter.exists():
+            # the same cell through the JAX package on the CPU (its own draws
+            # of the move jitter), the same frames as the first loop
+            with open(jitter) as f:
+                rows = [fr["jax"] for fr in json.load(f)["frames"]][cell["warmup"]:][:cell["frames"]]
+            on_cpu = {q: max(row[q] for row in rows) for q in peak}
+            print(f"[bench] {name} peak_diag of the JAX package on the CPU, frames "
+                  f"{cell['warmup']}-{cell['warmup'] + len(rows) - 1}: {on_cpu}")
+            rec = on_cpu if len(rows) == cell["frames"] else rec
+        for q in CAP_COUNTERS:
+            if (peak[q] > 0) != (rec[q] > 0):
+                print(f"[bench] {name} FINDING: {q} is {peak[q]} on the card and {rec[q]} in the "
+                      "JAX package's record")
+    for fname, count in launches.items():
+        if count != n_all:
+            raise AssertionError(f"bench: {fname} launched {count} times in {n_all} frames")
+    tpl = cells["vkitti2_template"]
+    if "birth" not in tpl["template_sweeps"] or tpl["guessed_born_in_warmup"] <= 0:
+        raise AssertionError(f"bench vkitti2_template: sweeps {tpl['template_sweeps']}, "
+                             f"{tpl['guessed_born_in_warmup']} GUESSED_BORN particles")
+    hostile = cells["vkitti2_hostile"]["peak_diag"]
+    if hostile["move_overflow"] <= 0:
+        raise AssertionError(f"bench vkitti2_hostile: the move cap did not bind: {hostile}")
+    # where the hostile cell's extra host time goes: its 21 masks in pack_frame
+    from semantic_dsp_map_tpu_torch import virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch.frontend import pack_frame
+    from semantic_dsp_map_tpu_torch.labels import LabelRegistry
+
+    scenes, cfg, reg = bench_scenes(), virtual_kitti2_config(), LabelRegistry.default()
+    pack_ms = {}
+    for name, synth in (("vkitti2", scenes.synth_vkitti2_frame),
+                        ("vkitti2_hostile", scenes.synth_hostile_frame)):
+        frame = synth(cfg, 5)
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            pack_frame(cfg, reg, *frame, 0.5)
+            times.append((time.perf_counter() - t0) * 1e3)
+        pack_ms[name] = float(np.median(times))
+        cells[name]["pack_frame_ms"] = pack_ms[name]
+    print(f"[bench] pack_frame alone on the host, median of 7: vkitti2 (2 masks) "
+          f"{pack_ms['vkitti2']:.3f} ms, vkitti2_hostile (21 masks) "
+          f"{pack_ms['vkitti2_hostile']:.3f} ms")
+    print(f"[bench] four cells, {n_all} frames, launches {launches}; template cell: sweeps "
+          f"{tpl['template_sweeps']}, {tpl['guessed_born_in_warmup']} GUESSED_BORN particles after "
+          f"a warm-up frame ({card})")
+    return cells, launches
+
+
+def drive_rematch(counters, card, lost=5, frames=7):
+    """The VKITTI2 scene with the car's keypoints withheld on frame ``lost``,
+    after the car has moved for three frames and has a velocity: the object
+    layer's keypoint fit cannot run, the coast branch sets the car's
+    transform to its velocity over the default interval, and the rigid move
+    goes on.  Returns (launches, that frame's quantities)."""
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch.objects import DEFAULT_PREDICT_DT
+
+    scenes = bench_scenes()
+    cfg = virtual_kitti2_config()
+    dsp = SemanticDSPMap(cfg, FilterParams(**scenes.VK_PARAMS), device="cuda")
+    for fn in counters:
+        fn.launches = 0
+    at = None
+    for t in range(frames):
+        before = dsp.state.objects
+        depth, masks, pos, quat = scenes.synth_vkitti2_frame(cfg, t, MaskKpts, kpts=t != lost)
+        got = frame_quantities(*dsp.update(depth, masks, pos, quat, 0.1 * t))
+        obj = dsp.state.objects
+        row = int(torch.nonzero(obj.valid & (obj.track_id == 3))[0])
+        print(f"[rematch] frame {t}{' (no keypoints)' if t == lost else ''}: {got}; car: moving "
+              f"{bool(obj.moving[row])}, window {int(obj.win_count[row])}, velocity valid "
+              f"{bool(obj.vel_valid[row])}, to_match_previous {bool(obj.to_match_previous[row])}")
+        if t == lost:
+            at = got
+            if not (bool(before.moving[row]) and bool(before.vel_valid[row])):
+                raise AssertionError("rematch: the car had no velocity before it lost its keypoints")
+            want = torch.eye(4, device="cuda")
+            want[:3, 3] = before.velocity[row] * DEFAULT_PREDICT_DT
+            if not torch.equal(obj.tmatrix[row], want) or bool(obj.to_match_previous[row]):
+                raise AssertionError(f"rematch: the coast branch did not run: tmatrix {obj.tmatrix[row]}")
+            if int(obj.win_count[row]) != int(before.win_count[row]):
+                raise AssertionError("rematch: a keypoint fit was pushed on the frame without keypoints")
+            if got["moved_count"] <= 0:
+                raise AssertionError("rematch: no particle moved on the frame without keypoints")
+            print(f"[rematch] frame {t}: the coast branch ran at full size: translation "
+                  f"{want[:3, 3].tolist()} (velocity x {DEFAULT_PREDICT_DT} s), {got['moved_count']} "
+                  f"particles moved ({card})")
+    launches = read_launches(counters)
+    for fname, count in launches.items():
+        if count != frames:
+            raise AssertionError(f"rematch: {fname} launched {count} times in {frames} frames")
+    return launches, at
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels"), default="all",
@@ -1659,6 +1820,9 @@ def main() -> int:
                          "passes, the render and the candidate scan are also built from it and "
                          "timed in turns with the package's own, on the checked inputs and on "
                          "the real frame")
+    ap.add_argument("--record-expected", action="store_true",
+                    help="print where the card parts from data/bench_expected instead of "
+                         "failing (its values go to chiprun_out/EXPECTED_CARD.json either way)")
     args = ap.parse_args()
 
     import torch
@@ -1676,7 +1840,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from semantic_dsp_map_tpu_torch import (
-        FilterParams, tiny_test_config, virtual_kitti2_config, zed2_config,
+        FilterParams, coda_config, tiny_test_config, virtual_kitti2_config, zed2_config,
     )
     from semantic_dsp_map_tpu_torch.config import KEYPOINTS_BBOX3D
     from semantic_dsp_map_tpu_torch import profiling
@@ -1696,7 +1860,8 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "error" in line.lower():
             print(f"[build] {line.strip()}")
 
-    vk_cfg, zed2_cfg = virtual_kitti2_config(), zed2_config()
+    scenes = bench_scenes()
+    vk_cfg, zed2_cfg, coda_cfg = virtual_kitti2_config(), zed2_config(), coda_config()
     source = "semantic_dsp_map_tpu_torch/csrc/"
     report = {
         "phd_pass_a": dict(name="phd_pass_a", route="cuda", source=source + "phd.cu",
@@ -1718,8 +1883,9 @@ def main() -> int:
     # No single PyTorch call computes a frame kernel's function.
     for key in ("phd_pass_a", "phd_pass_b", "render", "front_candidates", "movable_voxels"):
         report[key]["library_ms"] = None
-    # ms / plain_ms / max_abs_err at VKITTI2 shapes, zed2_* at ZED2 shapes
-    for cfg, prefix in ((vk_cfg, ""), (zed2_cfg, "zed2_")):
+    # ms / plain_ms / max_abs_err at VKITTI2 shapes, zed2_* at ZED2 shapes,
+    # coda_* at the coda preset's (960 x 540, K = 3 at 8.4M voxels)
+    for cfg, prefix in ((vk_cfg, ""), (zed2_cfg, "zed2_"), (coda_cfg, "coda_")):
         check_phd(cfg, report, prefix)
         check_render(cfg, report, prefix)
         check_observe(cfg, report, prefix)
@@ -1754,12 +1920,24 @@ def main() -> int:
             tiny_zed2_scene, fns,
         )
     check_template_scene(fns)
+    check_scene_cuda_vs_cpu(
+        "reduced hostile scene", virtual_kitti2_config(**scenes.REDUCED_VKITTI2),
+        FilterParams(**dict(scenes.VK_PARAMS, prediction_stddev=0.0)), reduced_hostile_scene, fns,
+        frames=6)
     smoothed_ms = {"vkitti2": check_smoothed_render(vk_cfg, "vkitti2", against_cpu=False),
                    "zed2": check_smoothed_render(zed2_cfg, "zed2")}
+    torch.cuda.empty_cache()
 
-    paths = (("vkitti2", vk_cfg, VK_PARAMS, synth_vkitti2_frame, None),
-             ("zed2", zed2_cfg, ZED2_PARAMS, synth_zed2_frame, None),
-             ("vkitti2_template", vk_cfg, TPL_PARAMS, synth_template_frame, TEMPLATES))
+    expected = check_expected(fns, card, record=args.record_expected)
+    torch.cuda.empty_cache()
+    bench_cells, bench_launches = run_bench(fns, card)
+    torch.cuda.empty_cache()
+
+    paths = (("vkitti2", vk_cfg, scenes.VK_PARAMS, scenes.synth_vkitti2_frame, None),
+             ("zed2", zed2_cfg, scenes.ZED2_PARAMS, scenes.synth_zed2_frame, None),
+             ("vkitti2_template", vk_cfg, scenes.TPL_PARAMS, scenes.synth_template_frame,
+              TEMPLATES),
+             ("coda", coda_cfg, scenes.CODA_PARAMS, scenes.synth_coda_frame, None))
     medians, template, real_frame = {}, {}, {}
     for name, cfg, params, synth, tpl_path in paths:
         launches, medians[name], dsp, frame_ms, sweeps = drive_main_path(
@@ -1788,11 +1966,17 @@ def main() -> int:
             report[key].setdefault("launches_by_path", {})[name] = launches[fn.__name__]
     torch.cuda.empty_cache()
 
+    rematch_launches, rematch_frame = drive_rematch(fns, card)
     replay_launches, replay_ms = drive_replay(fns, card)
     soak_launches, soak_report = drive_soak(fns, card)
     for key, fn in counters.items():
-        report[key]["launches_by_path"]["replay"] = replay_launches[fn.__name__]
-        report[key]["launches_by_path"]["kitti360_soak"] = soak_launches[fn.__name__]
+        by_path = report[key]["launches_by_path"]
+        by_path["rematch"] = rematch_launches[fn.__name__]
+        by_path["replay"] = replay_launches[fn.__name__]
+        by_path["kitti360_soak"] = soak_launches[fn.__name__]
+        by_path["bench"] = bench_launches[fn.__name__]
+        for name, summary in expected.items():
+            by_path["expected_" + name] = summary["launches"][fn.__name__]
         report[key]["launches"] = report[key]["launches_by_path"]["vkitti2"]
     torch.cuda.empty_cache()
 
@@ -1810,7 +1994,8 @@ def main() -> int:
                       "template": template, "smoothed_render_ms": smoothed_ms,
                       "real_frame": real_frame, "against": against,
                       "replay_ms_per_frame": replay_ms, "soak": soak_report,
-                      "stage_profile": stage_rows, "probes": probe_rows, "card": card}))
+                      "stage_profile": stage_rows, "probes": probe_rows, "bench": bench_cells,
+                      "expected": expected, "rematch_frame": rematch_frame, "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

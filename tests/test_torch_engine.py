@@ -90,13 +90,41 @@ def test_no_overflow_at_default_capacity():
         (dict(phd_pixel_table_slots=1), "table_dropped", 4),
         (dict(corner_gather_blocks=1), "corner_overflow", 3),
         (dict(max_birth_blocks=1), "birth_overflow", 3),
+        (dict(max_moving_blocks=1), "move_overflow", 6),
     ],
 )
 def test_overflow_counter_fires(override, counter, frames):
     """Every capacity cap fires its counter when exceeded (the corner pass
-    drains its backlog over frames, so the peak is checked)."""
-    _, peak = _run_slanted_wall(tiny_test_config(**override), frames)
+    drains its backlog over frames, so the peak is checked).  The slanted
+    wall has no mover: the move cap is driven by the dynamic scene, whose car
+    spreads over several blocks, and its counter is held to the JAX map's."""
+    if counter == "move_overflow":
+        peak = _run_dynamic_scene_with_the_jax_map(override, frames)
+    else:
+        _, peak = _run_slanted_wall(tiny_test_config(**override), frames)
     assert peak[counter] > 0
+
+
+def _run_dynamic_scene_with_the_jax_map(override, n_frames):
+    """The dynamic scene through the port and the JAX map with the same cap:
+    all counters equal on every frame; returns their peak."""
+    import semantic_dsp_map_tpu as J
+
+    from torch_parity import dynamic_scene
+
+    params = dict(if_consider_depth_noise=True, nb_ptc_num_per_point=1,
+                  depth_noise_model_zero_order=0.2, prediction_stddev=0.0)
+    tm = SemanticDSPMap(tiny_test_config(**override), FilterParams(**params), device="cpu")
+    jm = J.SemanticDSPMap(J.config.tiny_test_config(**override), J.FilterParams(**params))
+    peak = None
+    for t in range(n_frames):
+        _, td = tm.update(*dynamic_scene(tm.cfg, t, MaskKpts))
+        _, jd = jm.update(*dynamic_scene(jm.cfg, t, J.MaskKpts))
+        d = {k: int(v) for k, v in td._asdict().items()}
+        assert d == {k: int(v) for k, v in jd._asdict().items()}, f"frame {t}"
+        peak = d if peak is None else {k: max(peak[k], d[k]) for k in d}
+    assert peak["moved_count"] > 0  # the cap binds on a move that still happens
+    return peak
 
 
 def test_static_scene_occupancy_fixed_point():

@@ -12,7 +12,6 @@
 import dataclasses
 import json
 import os
-import sys
 
 import numpy as np
 import pytest
@@ -90,8 +89,7 @@ def _hold_scene_against_jax(scene):
 
 
 def test_committed_replay_matches_expected():
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    from make_replay_sequence import replay_params
+    from semantic_dsp_map_tpu_torch.tools.make_replay_sequence import replay_params
 
     with open(os.path.join(DATA, "EXPECTED.json")) as f:
         expected = json.load(f)

@@ -116,9 +116,10 @@ def test_port_imports_no_jax():
         "assert 'semantic_dsp_map_tpu_torch.template_engine' in sys.modules\n"
         "assert 'semantic_dsp_map_tpu_torch.ops.templates' in sys.modules\n"
         "for n in ('datasets', 'replay', 'profiling', 'timing', 'tools.soak', 'ops.probes',\n"
-        "          'ops.probes_cuda', 'benchmarks.prim_bench1', 'benchmarks.prim_bench7'):\n"
+        "          'ops.probes_cuda', 'benchmarks.prim_bench1', 'benchmarks.prim_bench7',\n"
+        "          'benchmarks.scenes', 'benchmarks.bench', 'tools.make_replay_sequence'):\n"
         "    assert 'semantic_dsp_map_tpu_torch.' + n in sys.modules, n\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'semantic_dsp_map_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'semantic_dsp_map_tpu', 'bench'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -126,4 +127,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 36
+    assert int(out.stdout.split()[-1]) >= 39

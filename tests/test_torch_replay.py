@@ -20,6 +20,7 @@ import semantic_dsp_map_tpu_torch as T
 from semantic_dsp_map_tpu_torch import replay as treplay
 from semantic_dsp_map_tpu_torch.datasets import NpzSequence
 from semantic_dsp_map_tpu_torch.io import read_ply
+from semantic_dsp_map_tpu_torch.tools import make_replay_sequence as make_replay
 
 torch.set_num_threads(2)
 
@@ -28,10 +29,56 @@ DATA = os.path.join(REPO, "data", "replay_tiny")
 
 
 def _replay_params():
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    from make_replay_sequence import replay_params
+    return dataclasses.asdict(make_replay.replay_params())
 
-    return dataclasses.asdict(replay_params())
+
+def test_replay_params_are_the_jax_tool_s():
+    """The port's copy of the generator's parameters against the JAX tool's,
+    field by field; and one generated frame against the JAX tool's."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import make_replay_sequence as jtool
+
+    jp, tp = dataclasses.asdict(jtool.replay_params()), _replay_params()
+    assert list(jp) == list(tp)
+    for field in jp:
+        assert jp[field] == tp[field] and type(jp[field]) is type(tp[field]), field
+    assert (jtool.N_FRAMES, 2) == (make_replay.N_FRAMES, make_replay.DROP_FIRST)
+    jf = jtool.make_frame(J.config.tiny_test_config(), 7)
+    tf = make_replay.make_frame(T.tiny_test_config(), 7)
+    assert jf.depth.tobytes() == tf.depth.tobytes() and (jf.time, jf.index) == (tf.time, tf.index)
+    assert jf.masks[1].kpts_previous.tobytes() == tf.masks[1].kpts_previous.tobytes()
+
+
+def test_replay_generator_writes_the_committed_sequence(tmp_path, capsys):
+    """The port's generator into a directory of its own: the 12 npz frames
+    equal to data/replay_tiny's array by array, the summary equal to
+    EXPECTED.json, and nothing written elsewhere."""
+    before = sorted(os.listdir(DATA))
+    out = tmp_path / "seq"
+    summary = make_replay.main(["--out", str(out), "--device", "cpu"])
+    with open(os.path.join(DATA, "EXPECTED.json")) as f:
+        expected = json.load(f)
+    assert summary == expected
+    with open(out / "EXPECTED.json") as f:
+        assert json.load(f) == expected
+    names = sorted(n for n in os.listdir(out) if n.endswith(".npz"))
+    assert names == sorted(n for n in before if n.endswith(".npz")) and len(names) == 12
+    for name in names:
+        with np.load(out / name, allow_pickle=False) as got, \
+                np.load(os.path.join(DATA, name), allow_pickle=False) as want:
+            assert sorted(got.files) == sorted(want.files)
+            for key in want.files:
+                assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape, key
+                assert got[key].tobytes() == want[key].tobytes(), (name, key)
+    assert sorted(os.listdir(DATA)) == before
+    assert json.loads(capsys.readouterr().out.splitlines()[-2]) == expected["frames"][-1]
+
+
+def test_replay_generator_defaults_to_the_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_replay.main(["--out", str(tmp_path / "seq")])
+    assert not (tmp_path / "seq").exists()
 
 
 def test_run_replay_matches_expected_and_jax(tmp_path, capsys):

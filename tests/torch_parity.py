@@ -6,6 +6,10 @@ import dataclasses
 
 import numpy as np
 
+# The bench scenes are empty at ``tiny_test_config()`` (depths of 3.5-28 m
+# against a 4 x 2 x 4 m grid): their tests run at these reduced presets.
+from semantic_dsp_map_tpu_torch.benchmarks.scenes import REDUCED_VKITTI2, REDUCED_ZED2  # noqa: F401
+
 
 #: Object-layer floats come out of a 3x3 f32 SVD (Kabsch refit), whose
 #: LAPACK routines differ between the two frameworks by a few ulp of the
@@ -13,13 +17,19 @@ import numpy as np
 OBJECT_ATOL = 1e-5
 
 
-def assert_states_match(js: dict, ts: dict, msg: str):
+#: The same for scenes whose objects stand 8-28 m from the origin (the bench
+#: scenes): an ulp there is 1e-6 to 2e-6, and a velocity is a fitted
+#: translation over a 0.1 s frame, ten times the translation's error.
+OBJECT_ATOL_FAR = 2e-4
+
+
+def assert_states_match(js: dict, ts: dict, msg: str, object_atol: float = OBJECT_ATOL):
     """All integer leaves equal; float leaves at rtol 2e-4 with atol 1e-6,
-    object floats at atol OBJECT_ATOL."""
+    object floats at atol ``object_atol``."""
     for key, a in js.items():
         b = ts[key]
         if a.dtype.kind == "f":
-            atol = OBJECT_ATOL if key.startswith("objects.") else 1e-6
+            atol = object_atol if key.startswith("objects.") else 1e-6
             np.testing.assert_allclose(b, a, rtol=2e-4, atol=atol, err_msg=f"{key} {msg}")
         else:
             np.testing.assert_array_equal(
@@ -152,6 +162,72 @@ def template_scene(cfg, t, masks_cls):
     ]
     cam_pos = np.array([0.01313 * t, 0.00517 * t, 0.0], np.float32)
     return depth, masks, cam_pos, np.array([1, 0, 0, 0], np.float32), 0.1 * t
+
+
+def hold_scene_against_jax(jcfg, tcfg, params: dict, scene, frames, on_frame=None,
+                           object_atol: float = OBJECT_ATOL):
+    """Step ``scene(cfg, t, mask_cls) -> (depth, masks, pos, quat[, time])``
+    through the JAX map and the port's map on the CPU: every counter, ``occ``,
+    ``label`` and ``track`` equal on every frame, ``weight_sum`` and the state
+    within ``assert_states_match``'s tolerances (object floats at
+    ``object_atol``).  ``on_frame(t, jm, tm)`` runs
+    after each frame.  Returns the per-frame counters and the two maps."""
+    import semantic_dsp_map_tpu as J
+    import semantic_dsp_map_tpu_torch as T
+    from semantic_dsp_map_tpu_torch.state import map_state_to_numpy
+
+    jm = J.SemanticDSPMap(jcfg, J.FilterParams(**params))
+    tm = T.SemanticDSPMap(tcfg, T.FilterParams(**params), device="cpu")
+    diags = []
+    for t in range(frames):
+        out = []
+        for m, cls in ((jm, J.MaskKpts), (tm, T.MaskKpts)):
+            fr = scene(m.cfg, t, cls)
+            time = fr[4] if len(fr) > 4 else 0.1 * t
+            out.append(m.update(fr[0], fr[1], fr[2], fr[3], time))
+        (jr, jd), (tr, td) = out
+        msg = f"frame {t}"
+        jdd = {k: int(v) for k, v in jd._asdict().items()}
+        tdd = {k: int(v) for k, v in td._asdict().items()}
+        assert tdd == jdd, msg
+        for name in ("occ", "label", "track"):
+            np.testing.assert_array_equal(
+                getattr(tr, name).numpy(), np.asarray(getattr(jr, name)), err_msg=f"{name} {msg}")
+        np.testing.assert_allclose(tr.weight_sum.numpy(), np.asarray(jr.weight_sum), rtol=2e-4,
+                                   atol=1e-6, err_msg=f"weight_sum {msg}")
+        assert_states_match(jax_state_to_numpy(jm.state), map_state_to_numpy(tm.state), msg,
+                            object_atol)
+        diags.append(tdd)
+        if on_frame is not None:
+            on_frame(t, jm, tm)
+    return diags, jm, tm
+
+
+def occ_counts(occ) -> dict:
+    """Counts of occupied (1), free (0) and unknown (-1) voxels."""
+    occ = np.asarray(occ)
+    return {"occupied": int((occ == 1).sum()), "free": int((occ == 0).sum()),
+            "unknown": int((occ == -1).sum())}
+
+
+def without_keypoints(scene, lost):
+    """``scene`` with the tracked car's keypoints withheld on the frames in
+    ``lost`` (the tracker lost them; the mask stays).  The keypoint fit cannot
+    run on such a frame.  If the object is moving by then, the object layer
+    coasts on the object's velocity where its transform window holds two
+    moves, and flags the object for cloud rematching where it does not.  In
+    ``dynamic_scene`` with the default Bayesian parameters the car counts as
+    moving from frame 2 and has a velocity from frame 3: frame 3 without
+    keypoints takes the rematch branch, a later one the coast branch."""
+
+    def frame(cfg, t, masks_cls):
+        depth, masks, pos, quat, time = scene(cfg, t, masks_cls)
+        if t in lost:
+            masks[1].kpts_current = None
+            masks[1].kpts_previous = None
+        return depth, masks, pos, quat, time
+
+    return frame
 
 
 # ---------------------------------------------------------------------------
