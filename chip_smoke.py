@@ -59,7 +59,17 @@ Phases (any failure raises, and the script exits nonzero):
      (11 mapped frames, PLY clouds read back); the KITTI-360 soak
      (``tools.soak``: the largest preset, a checkpoint and a restore); the
      stage profiler's table at VKITTI2; and the two primitive-op probe
-     modules, which launch the gather and x2 kernels.
+     modules, which launch the gather and x2 kernels;
+  5. [sharded]: the sharded step (parallel/shard_step.py) at one rank, in a
+     process group of this process alone (NCCL): at the VKITTI2 preset with
+     the movers, 8 frames, unpacked and packed, in turns with the
+     single-device step and equal to it (integer state, voxel stamps, the
+     render and the counters bit for bit, floats within 1e-6), timed with
+     CUDA events; at the ZED2 preset, ``benchmarks.bench.run_sharded_check``;
+     PHD passes A and B, the render, the candidate scan and the movable scan
+     once a sharded frame.  Then those five kernels against their plain
+     versions at the shapes a rank of a D-rank run gives them (D = 1, 2, 4,
+     8; VKITTI2 and ZED2), and the weak-scaling report at one rank.
 Then one JSON line with the kernels' numbers, the card again, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no result.
@@ -243,16 +253,18 @@ def assert_equal(name, got, want):
 # ---------------------------------------------------------------------------
 
 
-def phd_inputs(cfg, seed=0, fill=0.12):
+def phd_inputs(cfg, seed=0, fill=0.12, rows=None):
     """Front-filled pixel table + observation cloud (the generator of
     tests/test_phd_pallas.py at full size): slot s of a pixel is occupied
-    only if slot s-1 is, so high slot planes are mostly empty."""
+    only if slot s-1 is, so high slot planes are mostly empty.  ``rows``
+    sets the table's rows in place of the image height (a rank's row slab
+    with its halo)."""
     import torch
     from semantic_dsp_map_tpu_torch.ops.phd import PixelTable
     from semantic_dsp_map_tpu_torch.ops.projection import LabeledCloud
 
     rng = np.random.RandomState(seed)
-    H, W, S = cfg.height, cfg.width, cfg.phd_pixel_table_slots
+    H, W, S = rows or cfg.height, cfg.width, cfg.phd_pixel_table_slots
     occ = np.arange(S)[:, None, None] < rng.poisson(fill * S, (1, H, W))
     track = rng.randint(0, 5, (S, H, W)).astype(np.int32)
     forget = rng.randint(0, 6, (S, H, W)).astype(np.int32)
@@ -1289,7 +1301,7 @@ def check_real_frame(dsp, synth, t, card, other=None):
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts
     from semantic_dsp_map_tpu_torch.ops import observe_cuda, phd_cuda, render_cuda
-    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain
+    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
 
     depth, masks, pos, quat = synth(dsp.cfg, t, MaskKpts)
     with (CallRecorder(phd_cuda, "pass_a_cuda") as rec_a,
@@ -1809,6 +1821,241 @@ def drive_rematch(counters, card, lost=5, frames=7):
     return launches, at
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the sharded step at one rank
+# ---------------------------------------------------------------------------
+
+#: The frame kernels of the sharded path, each launched once a frame.
+SHARDED_KERNELS = ("pass_a_cuda", "pass_b_cuda", "render_core_cuda", "front_candidates_cuda",
+                   "movable_voxels_cuda")
+
+
+def state_parting(a, b):
+    """(max abs difference of the float tensors, names of the integer
+    tensors that differ, all bit-equal) between two map states on the card:
+    particles, voxel stamps, scroll and objects."""
+    import dataclasses
+
+    import torch
+
+    worst, differ, bits = 0.0, [], True
+    pairs = [("voxel_stamp", a.voxel_stamp, b.voxel_stamp)]
+    for group in ("particles", "scroll", "objects"):
+        x, y = getattr(a, group), getattr(b, group)
+        pairs += [(f"{group}.{f.name}", getattr(x, f.name), getattr(y, f.name))
+                  for f in dataclasses.fields(x)]
+    for name, x, y in pairs:
+        if x.is_floating_point():
+            worst = max(worst, max_err(x, y)[0])
+            bits &= torch.equal(x.view(torch.int32), y.view(torch.int32))
+        elif not torch.equal(x, y):
+            differ.append(name)
+    return worst, differ, bits and not differ
+
+
+def drive_sharded_vkitti2(counters, card, frames=8):
+    """The sharded step (parallel/shard_step.py) at one rank of the default
+    group, unpacked and packed, beside the single-device step, on the
+    VKITTI2 preset at full width with the movers in (prediction_stddev=0.0):
+    the three take each frame in turns (the order rotates frame by frame),
+    each timed with CUDA events.  After every frame the two sharded states
+    must equal the single-device one (integer tensors, voxel stamps and the
+    nine counters bit for bit, floats within 1e-6) and so must the renders
+    (occ, label, track bit for bit, weight_sum within 1e-6).  Each sharded
+    call runs with the launch counts set to 0 just before it and read just
+    after: the five kernels of the path must launch once a call.  Returns
+    the numbers."""
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch.frontend import FrameInput, build_frame_input, pack_frame
+    from semantic_dsp_map_tpu_torch.labels import LabelRegistry
+    from semantic_dsp_map_tpu_torch.map import build_frame_step
+    from semantic_dsp_map_tpu_torch.parallel.shard_step import build_shard_step
+    from semantic_dsp_map_tpu_torch.parallel.sharding import gather_render, shard_state
+    from semantic_dsp_map_tpu_torch.state import init_map_state
+
+    scenes = bench_scenes()
+    cfg = virtual_kitti2_config()
+    params = FilterParams(**dict(scenes.VK_PARAMS, prediction_stddev=0.0))
+    registry = LabelRegistry.default()
+    dev = torch.device("cuda")
+    steps = {"plain": build_frame_step(cfg, params, registry),
+             "sharded": build_shard_step(cfg, params, registry),
+             "sharded_packed": build_shard_step(cfg, params, registry, packed=True)}
+    states = {"plain": init_map_state(cfg, 0, dev)}
+    for name in ("sharded", "sharded_packed"):
+        states[name] = shard_state(cfg, init_map_state(cfg, 0, dev), 0, 1)
+    print(f"[sharded] vkitti2: grid {cfg.num_voxels} voxels x K={cfg.slots_per_voxel}, image "
+          f"{cfg.width}x{cfg.height}, R={cfg.neighbor_half}: the table slab is "
+          f"[{cfg.phd_pixel_table_slots}, {cfg.height + 2 * cfg.neighbor_half}, {cfg.width}]")
+    ms = {name: [] for name in steps}
+    launches = dict.fromkeys((fn.__name__ for fn in counters), 0)
+    worst, bits, moved = 0.0, True, []
+    names = list(steps)
+    for t in range(frames):
+        raw = (*scenes.synth_vkitti2_frame(cfg, t, MaskKpts), 0.1 * t)
+        inputs = {"plain": FrameInput(*(torch.as_tensor(np.asarray(a)).to(dev)
+                                        for a in build_frame_input(cfg, registry, *raw))),
+                  "sharded_packed": torch.from_numpy(pack_frame(cfg, registry, *raw)).to(dev)}
+        inputs["sharded"] = inputs["plain"]
+        torch.cuda.synchronize()
+        out = {}
+        for name in names[t % 3 :] + names[: t % 3]:
+            if name != "plain":
+                for fn in counters:
+                    fn.launches = 0
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out[name] = steps[name](states[name], inputs[name])
+            b.record()
+            torch.cuda.synchronize()
+            ms[name].append(a.elapsed_time(b))
+            if name != "plain":
+                for fname, count in read_launches(counters).items():
+                    launches[fname] += count
+            states[name] = out[name][0]
+        _, r1, d1 = out["plain"]
+        want = {k: int(v) for k, v in d1._asdict().items()}
+        moved.append(want["moved_count"])
+        for name in ("sharded", "sharded_packed"):
+            _, r, d = out[name]
+            got = {k: int(v) for k, v in d._asdict().items()}
+            if got != want:
+                raise AssertionError(f"sharded vkitti2 frame {t} {name}: counters {got}, "
+                                     f"single-device {want}")
+            r = gather_render(r)
+            for field in ("occ", "label", "track"):
+                assert_equal(f"sharded vkitti2 frame {t} {name} {field}", getattr(r, field),
+                             getattr(r1, field))
+            err, differ, same = state_parting(states[name], states["plain"])
+            err = max(err, max_err(r.weight_sum, r1.weight_sum)[0])
+            if differ or err > 1e-6:
+                raise AssertionError(f"sharded vkitti2 frame {t} {name}: integer tensors {differ} "
+                                     f"differ, floats up to {err}")
+            worst, bits = max(worst, err), bits and same and torch.equal(r.weight_sum, r1.weight_sum)
+        print(f"[sharded] vkitti2 frame {t}: plain {ms['plain'][-1]:.3f} ms, sharded "
+              f"{ms['sharded'][-1]:.3f} ms, packed {ms['sharded_packed'][-1]:.3f} ms (events); "
+              f"equal to the single-device step; counters {want} ({card})")
+    del states, out
+    if not any(moved):
+        raise AssertionError("sharded vkitti2: the rigid-move route moved no particle")
+    for fname in SHARDED_KERNELS:
+        if launches[fname] != 2 * frames:
+            raise AssertionError(f"sharded vkitti2: {fname} launched {launches[fname]} times in "
+                                 f"{2 * frames} sharded frames")
+    med = {name: float(np.median(v)) for name, v in ms.items()}
+    print(f"[sharded] vkitti2 per-frame median over {frames} frames, in turns: single-device "
+          f"{med['plain']:.3f} ms, sharded at one rank {med['sharded']:.3f} ms, packed "
+          f"{med['sharded_packed']:.3f} ms; states bit-equal: {bits} (floats within {worst:.3e}); "
+          f"moved per frame {moved}; launches {launches} ({card})")
+    return {"frames": frames, "ms_median": med, "ms": ms, "bit_equal": bits,
+            "max_float_err": worst, "moved_count": moved, "launches": launches}
+
+
+def check_sharded_zed2(counters, card):
+    """``benchmarks.bench.run_sharded_check()`` on the card: the ZED2 preset's
+    static scene, 8 frames through the single-device and the sharded step in
+    turns (it raises if a render parts), then a warm-up and 8 timed sharded
+    frames.  The five kernels of the path must launch once a sharded frame."""
+    from semantic_dsp_map_tpu_torch.benchmarks import bench
+
+    for fn in counters:
+        fn.launches = 0
+    cell = bench.run_sharded_check()
+    total = read_launches(counters)
+    n = 2 * cell["frames"] + 1
+    for fname in SHARDED_KERNELS:
+        if cell["kernel_launches"][fname] != n:
+            raise AssertionError(f"sharded zed2: {fname} launched {cell['kernel_launches'][fname]} "
+                                 f"times in {n} sharded frames")
+    print(f"[sharded] zed2 ({cell['config']}): render equal to the single-device step on "
+          f"{cell['frames']} frames; {1e3 * cell['sec_per_frame']:.3f} ms/frame over {cell['frames']} "
+          f"timed frames (host clock, one synchronize); sharded launches {cell['kernel_launches']}, "
+          f"all launches of the check {total} ({card})")
+    return cell
+
+
+def check_slab_kernels(report, card):
+    """The five kernels of the sharded path at the shapes a rank of a D-rank
+    run gives them, D in 1, 2, 4, 8, at the VKITTI2 and the ZED2 preset:
+    both PHD passes over a row slab's table [S, ceil(H/D) + 2R, W], the
+    render, the candidate scan and the movable scan over a z-slab of V/D
+    voxels; each against
+    its plain version (as in phase 2), then timed beside its bound.  The
+    numbers go to ``report[kernel]["slab_shapes"]``."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, virtual_kitti2_config, zed2_config
+    from semantic_dsp_map_tpu_torch.ops import observe_cuda, phd, phd_cuda
+    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
+    from semantic_dsp_map_tpu_torch.ops.render import render_core_plain
+
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True)
+    rows_out = {}
+    for preset, cfg in (("vkitti2", virtual_kitti2_config()), ("zed2", zed2_config())):
+        for D in (1, 2, 4, 8):
+            tag = f"{preset}_D{D}"
+            rows = -(-cfg.height // D) + 2 * cfg.neighbor_half
+            t, cloud, _ = phd_inputs(cfg, seed=D, rows=rows)
+            a_args = pass_a_inputs(cfg, params, t, cloud, torch.where(t.meta >= 0, t.weight, 0.0))
+            ck, (a_abs, _) = check_pass_a(f"slab {tag}", a_args)
+            b_a = pass_a_bound(a_args, ck, pass_a_census(a_args))[0]
+            row_a = {"table": list(t.px.shape), "max_abs_err": a_abs,
+                     "ms": cuda_ms(lambda: phd_cuda.pass_a_cuda(*a_args), 10),
+                     "plain_ms": cuda_ms(lambda: phd.pass_a_raw(*a_args), 3), **b_a}
+            b_args = pass_b_inputs(cfg, params, t, cloud, phd.stencil_pass_a(cfg, params, t, cloud))
+            acc, right, (b_abs, _), _ = check_pass_b(f"slab {tag}", b_args)
+            row_b = {"table": list(t.px.shape), "max_abs_err": b_abs,
+                     "ms": cuda_ms(lambda: phd_cuda.pass_b_cuda(*b_args), 10),
+                     "plain_ms": cuda_ms(lambda: phd.pass_b_raw(*b_args), 3),
+                     **pass_b_bound(b_args, acc, right)[0]}
+            del t, cloud, a_args, b_args, ck, acc, right
+
+            vcfg = dataclasses.replace(cfg, voxel_num_axis_z_n=cfg.voxel_num_axis_z_n - int(np.log2(D)))
+            p, vst, vax = random_render_state(vcfg, seed=D)
+            pk, r_k, (e1, e2), _ = check_render_once(f"slab {tag}", vcfg, p, vst, vax, 0.4)
+            run_r, restore = render_runner(vcfg, p, vst, vax, 0.4)
+            row_r = {"voxels": vcfg.num_voxels, "max_abs_err": max(e1, e2),
+                     "ms": cuda_ms(run_r, 10, setup=restore),
+                     "plain_ms": cuda_ms(lambda: render_core_plain(vcfg, p, vst, vax, 0.4), 3),
+                     **render_census(vcfg, p, pk, vax, vst, r_k)["bound"]}
+            del p, pk, r_k, run_r, restore
+            fargs, p, vax = observe_inputs(vcfg)
+            ha_p, hc_p = front_candidates_plain(*fargs)
+            ha_k, hc_k = observe_cuda.front_candidates_cuda(*fargs)
+            torch.cuda.synchronize()
+            assert_equal(f"slab {tag} front has_alive", ha_k, ha_p)
+            assert_equal(f"slab {tag} front has_cand", hc_k, hc_p)
+            row_f = {"voxels": vcfg.num_voxels, "max_abs_err": 0.0,
+                     "ms": cuda_ms(lambda: observe_cuda.front_candidates_cuda(*fargs), 10),
+                     "plain_ms": cuda_ms(lambda: front_candidates_plain(*fargs), 3),
+                     **front_bound(fargs, ha_k, hc_k)[0]}
+            n_alive = front_bound(fargs, ha_k, hc_k)[1]
+            margs = (vcfg, p.track, p.status, p.stamp, vax, 1)
+            hm_p = movable_voxels_plain(*margs)
+            hm_k = observe_cuda.movable_voxels_cuda(*margs)
+            torch.cuda.synchronize()
+            assert_equal(f"slab {tag} movable", hm_k, hm_p)
+            row_m = {"voxels": vcfg.num_voxels, "max_abs_err": 0.0,
+                     "ms": cuda_ms(lambda: observe_cuda.movable_voxels_cuda(*margs), 10),
+                     "plain_ms": cuda_ms(lambda: movable_voxels_plain(*margs), 3),
+                     **bound(nbytes(p.status, p.stamp, vax, hm_k) + 4 * n_alive)}
+            del fargs, margs, p, vax
+            torch.cuda.empty_cache()
+            for key, row in (("phd_pass_a", row_a), ("phd_pass_b", row_b), ("render", row_r),
+                             ("front_candidates", row_f), ("movable_voxels", row_m)):
+                report[key].setdefault("slab_shapes", {})[tag] = row
+                shape = row.get("table") or f"{row['voxels']} voxels"
+                print(f"[slab] {tag} {key} {shape}: equal to the plain version (max abs "
+                      f"{row['max_abs_err']:.3e}); kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+                      f"({card})")
+            rows_out[tag] = {"phd_pass_a": row_a, "phd_pass_b": row_b, "render": row_r,
+                             "front_candidates": row_f, "movable_voxels": row_m}
+    return rows_out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels"), default="all",
@@ -1990,12 +2237,34 @@ def main() -> int:
         report[key]["launches"] = probe_launches[fn.__name__]
         report[key]["launches_by_path"] = {"probes": probe_launches[fn.__name__]}
 
+    # Phase 5: the sharded step at one rank, in a process group of this
+    # process alone (NCCL on the card), then the kernels at slab shapes and
+    # the weak-scaling report at one rank.
+    import torch.distributed as dist
+    from semantic_dsp_map_tpu_torch.parallel import distributed
+
+    distributed.initialize()
+    print(f"[sharded] process group: {dist.get_backend()}, {dist.get_world_size()} rank ({card})")
+    sharded = {"vkitti2": drive_sharded_vkitti2(fns, card)}
+    torch.cuda.empty_cache()
+    sharded["zed2"] = check_sharded_zed2(fns, card)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    sharded["slab_shapes"] = check_slab_kernels(report, card)
+    print(f"[sharded] the weak-scaling report at one rank ({card})")
+    sharded["weak_scaling"] = distributed.main(["--devices", "1", "--preset", "medium"])
+    for key, fn in counters.items():
+        by_path = report[key]["launches_by_path"]
+        by_path["sharded_vkitti2"] = sharded["vkitti2"]["launches"][fn.__name__]
+        by_path["sharded_zed2"] = sharded["zed2"]["kernel_launches"][fn.__name__]
+
     print(json.dumps({"kernels": list(report.values()), "frame_ms_median": medians,
                       "template": template, "smoothed_render_ms": smoothed_ms,
                       "real_frame": real_frame, "against": against,
                       "replay_ms_per_frame": replay_ms, "soak": soak_report,
                       "stage_profile": stage_rows, "probes": probe_rows, "bench": bench_cells,
-                      "expected": expected, "rematch_frame": rematch_frame, "card": card}))
+                      "expected": expected, "rematch_frame": rematch_frame, "sharded": sharded,
+                      "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,11 @@ Cells (``--cells``, default all; scenes and parameters in ``scenes``):
     one host read of template mode"): that read is part of the function and
     stays inside the timed loop;
   - ``vkitti2_hostile``: 20 moving cars, a near wall, ego yaw; the move cap
-    of the VKITTI2 preset binds.
+    of the VKITTI2 preset binds;
+  - ``zed2_sharded`` (asked for by name only): the sharded step
+    (``parallel.shard_step``) at one rank on the ZED2 preset's static scene,
+    held to the single-device step's render frame by frame
+    (:func:`run_sharded_check`).
 
 Each cell builds one map, makes every frame before the clock starts, runs
 the warm-up frames, synchronizes, and then repeats the timed loop ``runs``
@@ -44,12 +48,17 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import FilterParams, virtual_kitti2_config, zed2_config
+from ..frontend import FrameInput, build_frame_input
 from ..labels import LabelRegistry
-from ..map import SemanticDSPMap
+from ..map import SemanticDSPMap, build_frame_step
 from ..ops import observe_cuda, phd_cuda, render_cuda
-from ..state import STATUS_GUESSED_BORN, resolve_device
+from ..parallel.distributed import one_rank
+from ..parallel.shard_step import build_shard_step
+from ..parallel.sharding import gather_render, shard_state
+from ..state import STATUS_GUESSED_BORN, init_map_state, resolve_device
 from ..timing import card_line
 from . import scenes
 
@@ -193,26 +202,111 @@ def run_config(name, cfg, params, synth, iters, warmup=3, template_path=None, de
     return out
 
 
+#: The sharded check's runtime parameters (those of the JAX bench's check).
+SHARDED_PARAMS = dict(
+    detection_probability=0.8, noise_number=0.2, nb_ptc_num_per_point=1,
+    occupancy_threshold=0.15, if_consider_depth_noise=True,
+    depth_noise_model_first_order=0.02, depth_noise_model_zero_order=0.3,
+)
+
+
+def run_sharded_check(iters: int = 8, device=None) -> dict:
+    """The sharded step on the ZED2 preset's static scene (the person's mask
+    left out: the step's move jitter comes from a per-rank generator, so
+    only a scene without movers compares bit for bit), in a process group of
+    one rank unless the caller has a group: each of ``iters`` frames runs
+    through the single-device step and the sharded step in turn, and the
+    two renders' occ, label and track must be equal, else it raises.  Then
+    ``iters`` more sharded frames are timed (host clock around the loop and
+    one synchronize).  Returns the cell's dictionary, with the kernel
+    launches of the sharded frames alone."""
+    device = resolve_device(device)
+    cfg = _PRESETS["zed2"]()
+    params = FilterParams(**SHARDED_PARAMS)
+    registry = LabelRegistry.default()
+
+    def frame(t):
+        depth, masks, pos, quat = scenes.synth_zed2_frame(cfg, t)
+        masks = [m for m in masks if m.label == "static"]
+        f = build_frame_input(cfg, registry, depth, masks, pos, quat, t * 0.1)
+        return FrameInput(*(torch.as_tensor(np.asarray(a)).to(device) for a in f))
+
+    frames = [frame(t) for t in range(iters)]
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    plain = build_frame_step(cfg, params, registry)
+    s1 = init_map_state(cfg, seed=0, device=device)
+    with one_rank(device):
+        D = dist.get_world_size()
+        sharded = build_shard_step(cfg, params, registry)
+        s2 = shard_state(cfg, init_map_state(cfg, seed=0, device=device), dist.get_rank(), D)
+        launches = dict.fromkeys(_launch_counts(), 0)
+        parted = []
+        for t, f in enumerate(frames):
+            s1, r1, _ = plain(s1, f)
+            before = _launch_counts()
+            s2, r2, _ = sharded(s2, f)
+            launches = {k: launches[k] + v - before[k] for k, v in _launch_counts().items()}
+            r2 = gather_render(r2)
+            parted += [(t, k) for k in ("occ", "label", "track")
+                       if not torch.equal(getattr(r1, k), getattr(r2, k))]
+        del s1, r1
+        if parted:
+            raise AssertionError(f"zed2_sharded: the sharded render parts from the single-device "
+                                 f"step's at (frame, field) {parted}")
+        before = _launch_counts()
+        s2, r2, _ = sharded(s2, frames[0])
+        sync()
+        t0 = time.perf_counter()
+        for t in range(iters):
+            s2, r2, _ = sharded(s2, frames[t % len(frames)])
+        sync()
+        dt = time.perf_counter() - t0
+        launches = {k: launches[k] + v - before[k] for k, v in _launch_counts().items()}
+    return {
+        "config": f"zed2_sharded_ranks{D}",
+        "ranks": D,
+        "frames": iters,
+        "fps": iters / dt,
+        "sec_per_frame": dt / iters,
+        "render_equal_vs_plain": True,
+        "kernel_launches": launches,
+        "card": card_line(device),
+    }
+
+
+#: Cells asked for by name only (not in the default list): name -> a
+#: function of the device that returns the cell's dictionary.
+BY_NAME = {"zed2_sharded": run_sharded_check}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """The CLI; returns {cell name: cell dictionary}."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=50,
                     help="timed frames of a zed2 loop; the other cells run half of it")
     ap.add_argument("--cells", default=None,
-                    help="comma list of cells (default: all of %s)" % ",".join(CELLS))
+                    help="comma list of cells (default: all of %s; by name only: %s)"
+                    % (",".join(CELLS), ",".join(BY_NAME)))
     ap.add_argument("--out", default=None, help="write the cells' dictionaries to this JSON file")
     ap.add_argument("--device", default=None,
                     help="torch device of the map (default: the card; 'cpu' for the CPU)")
     args = ap.parse_args(argv)
 
     names = args.cells.split(",") if args.cells else list(CELLS)
-    unknown = [n for n in names if n not in CELLS]
+    unknown = [n for n in names if n not in CELLS and n not in BY_NAME]
     if unknown:
-        ap.error(f"unknown cells {unknown}; known: {list(CELLS)}")
+        ap.error(f"unknown cells {unknown}; known: {list(CELLS) + list(BY_NAME)}")
     device = resolve_device(args.device)
 
     details = {}
     for name in names:
+        if name not in CELLS:
+            cell = details[name] = BY_NAME[name](device=device)
+            print(f"[bench] {name}: {cell['frames']} frames equal to the single-device step "
+                  f"(occ, label, track) at {cell['ranks']} rank(s), then "
+                  f"{1e3 * cell['sec_per_frame']:.3f} ms/frame (host clock, one synchronize); "
+                  f"launches {cell['kernel_launches']} ({cell['card']})", flush=True)
+            continue
         preset, params, synth, n_frames, tpl = CELLS[name]
         cell = run_config(name, _PRESETS[preset](), FilterParams(**params), synth,
                           n_frames(args.iters), template_path=tpl, device=device)

@@ -85,6 +85,43 @@ def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def rigid_move(params: FilterParams, objects, btrk, bst, bmovable, bpx, bpy, bpz,
+               generator: torch.Generator):
+    """The floating cleanup and the rigid moves of a working set
+    (semantic_dsp_map.h:672-737): a movable slot whose track has no valid
+    object is invalidated; a slot of a moving object is transformed by the
+    object's transform, plus Gaussian jitter from ``generator``.  Returns
+    (status after the cleanup, the moved slots, their new x, y, z)."""
+    mv_obj = objects.valid & objects.has_moved_record & objects.moving & objects.has_tmatrix
+    if params.if_use_template_matching:
+        # Objects flagged for cloud re-matching skip the rigid move; the
+        # rematch stage re-seeds their particles (semantic_dsp_map.h:616-669).
+        mv_obj = mv_obj & ~objects.to_match_previous
+
+    # Owner and moving-owner per slot.  Valid objects have unique track ids
+    # (a new object is placed only when no valid row has its id), so at most
+    # one row matches a slot.
+    eq = btrk[:, :, None] == objects.track_id[None, None, :]
+    owned = (eq & objects.valid).any(dim=-1)
+    eq_mv = eq & mv_obj
+    moving_mask = eq_mv.any(dim=-1)
+    owner = torch.argmax(eq_mv.to(torch.int32), dim=-1)
+
+    floating = bmovable & ~owned
+    bst = torch.where(floating, STATUS_INVALID, bst)
+    bmove = bmovable & moving_mask & ~floating
+
+    T = objects.tmatrix[owner]  # [A, spb, 4, 4]
+    rows = [T[..., r, 0] * bpx + T[..., r, 1] * bpy + T[..., r, 2] * bpz + T[..., r, 3]
+            for r in range(3)]
+    nx, ny, nz = (torch.where(bmove, t, b) for t, b in zip(rows, (bpx, bpy, bpz)))
+    if params.prediction_stddev != 0.0:
+        noise = torch.randn((3,) + bpx.shape, generator=generator, device=bpx.device)
+        noise = noise * params.prediction_stddev
+        nx, ny, nz = nx + noise[0], ny + noise[1], nz + noise[2]
+    return bst, bmove, nx, ny, nz
+
+
 def _move_and_cleanup(
     cfg: MapConfig,
     params: FilterParams,
@@ -107,12 +144,6 @@ def _move_and_cleanup(
     flat = particles
 
     vox_axis = codecs.axis_stamps_per_voxel(cfg, scroll)
-    mv_obj = objects.valid & objects.has_moved_record & objects.moving & objects.has_tmatrix
-    if params.if_use_template_matching:
-        # Objects flagged for cloud re-matching skip the rigid move; the
-        # rematch stage re-seeds their particles (semantic_dsp_map.h:616-669).
-        mv_obj = mv_obj & ~objects.to_match_previous
-
     scan = movable_voxels_plain
     if use_observe_kernels(cfg, flat.track):
         from .ops.observe_cuda import movable_voxels_cuda as scan
@@ -128,29 +159,9 @@ def _move_and_cleanup(
     baxis = torch.repeat_interleave(gather_rows_flat(vox_axis, blocks, bv), K, dim=1)
     balive = (bst != STATUS_INVALID) & (bstamp >= baxis)
     bmovable = balive & (btrk >= 0) & (btrk <= max_movable) & rv[:, None]
-
-    # Owner and moving-owner per slot.  Valid objects have unique track ids
-    # (a new object is placed only when no valid row has its id), so at most
-    # one row matches a slot.
-    eq = btrk[:, :, None] == objects.track_id[None, None, :]
-    owned = (eq & objects.valid).any(dim=-1)
-    eq_mv = eq & mv_obj
-    moving_mask = eq_mv.any(dim=-1)
-    owner = torch.argmax(eq_mv.to(torch.int32), dim=-1)
-
-    floating = bmovable & ~owned
-    bst = torch.where(floating, STATUS_INVALID, bst)
-    bmove = bmovable & moving_mask & ~floating
-
     bpx, bpy, bpz = g(flat.px), g(flat.py), g(flat.pz)
-    T = objects.tmatrix[owner]  # [A, spb, 4, 4]
-    rows = [T[..., r, 0] * bpx + T[..., r, 1] * bpy + T[..., r, 2] * bpz + T[..., r, 3]
-            for r in range(3)]
-    nx, ny, nz = (torch.where(bmove, t, b) for t, b in zip(rows, (bpx, bpy, bpz)))
-    if params.prediction_stddev != 0.0:
-        noise = torch.randn((3,) + bpx.shape, generator=generator, device=bpx.device)
-        noise = noise * params.prediction_stddev
-        nx, ny, nz = nx + noise[0], ny + noise[1], nz + noise[2]
+    bst, bmove, nx, ny, nz = rigid_move(params, objects, btrk, bst, bmovable, bpx, bpy, bpz,
+                                        generator)
 
     # Delete the sources first (batched copy-delete-readd,
     # operations.h:321-362), then re-insert them as candidates.

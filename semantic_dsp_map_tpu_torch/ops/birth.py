@@ -123,11 +123,20 @@ def _insert_core(
     uniform_weight: Optional[float] = None,
     uniform_stamp=None,
     max_target_blocks: Optional[int] = None,
+    vox: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
+    vox_axis: Optional[torch.Tensor] = None,
 ) -> InsertResult:
     """Sort candidates by (voxel, priority), stage the first K per voxel
     into the target blocks, optionally resample the targeted voxels, merge
     staged candidates into first-vacant slots and write the rows back IN
-    PLACE into ``particles``."""
+    PLACE into ``particles``.
+
+    Works on a voxel slab as on the whole grid: sizes come from the particle
+    store, and a caller may pass each candidate's voxel id (``vox``, with
+    ``valid``) and the store's per-voxel scroll stamps (``vox_axis``) in
+    slab-local ids (parallel/shard_step.py does); left None they are
+    derived from ``scroll`` for the whole grid."""
     K = cfg.slots_per_voxel
     V = particles.px.shape[0] // K
     bv, _nb_full, spb = block_layout(cfg)
@@ -137,9 +146,11 @@ def _insert_core(
     dev = cand.pos.device
     flat = particles
 
-    vox, _, _, _, in_map = codecs.global_pos_to_voxel(cfg, scroll, cand.pos)
-    valid = cand.valid & in_map
-    vox_axis = codecs.axis_stamps_per_voxel(cfg, scroll)
+    if vox is None:
+        vox, _, _, _, in_map = codecs.global_pos_to_voxel(cfg, scroll, cand.pos)
+        valid = cand.valid & in_map
+    if vox_axis is None:
+        vox_axis = codecs.axis_stamps_per_voxel(cfg, scroll)
     vox = torch.where(valid, vox, V).to(torch.int64)
 
     meta = (
@@ -276,15 +287,19 @@ def newborn_candidates(
     cloud: LabeledCloud,
     global_time,
     generator: torch.Generator,
+    first_row: int = 0,
 ) -> Candidates:
     """One candidate per valid pixel, or nb_ptc_num_per_point jittered
     copies with depth noise (semantic_dsp_map.h:1148-1230).  Priority
-    encodes the reference's 3x3-interleaved sweep order (:777-800)."""
+    encodes the reference's 3x3-interleaved sweep order (:777-800).  The
+    cloud may be a slab of image rows starting at ``first_row`` (a rank's
+    row slab, parallel/shard_step.py): priorities stay the whole image's."""
     H, W = cfg.height, cfg.width
+    h = cloud.pos.shape[0]
     dev = cloud.pos.device
     nb = params.nb_ptc_num_per_point if params.if_consider_depth_noise else 1
 
-    rows = torch.arange(H, dtype=torch.int32, device=dev)[:, None]
+    rows = torch.arange(first_row, first_row + h, dtype=torch.int32, device=dev)[:, None]
     cols = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
     pri = (((rows % 3) * 3 + cols % 3) * H + rows) * W + cols
 
@@ -298,7 +313,7 @@ def newborn_candidates(
     if nb > 1:
         rep = lambda a: torch.repeat_interleave(a, nb, dim=0)
         pos, valid, label, track, sigma = map(rep, (pos, valid, label, track, sigma))
-        pri = rep(pri) * nb + torch.arange(nb, dtype=torch.int32, device=dev).repeat(H * W)
+        pri = rep(pri) * nb + torch.arange(nb, dtype=torch.int32, device=dev).repeat(h * W)
         noise = torch.randn(pos.shape, generator=generator, device=dev) * sigma[:, None]
         pos = pos + noise
     elif params.if_consider_depth_noise:

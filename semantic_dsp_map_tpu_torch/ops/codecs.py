@@ -93,6 +93,18 @@ def axis_stamps_per_voxel(cfg: MapConfig, scroll: ScrollState):
     return out.expand(cfg.nz, cfg.ny, cfg.nx).reshape(-1)
 
 
+def axis_stamps_per_voxel_slab(cfg: MapConfig, scroll: ScrollState, z0: int, nz_loc: int):
+    """:func:`axis_stamps_per_voxel` for the z-slab ``[z0, z0 + nz_loc)`` of
+    the grid -> i32[nz_loc * ny * nx]: a rank's share under voxel-slab
+    sharding (the flat voxel index is z-major, so an even split of [V] is a
+    z-slab)."""
+    sx = scroll.axis_stamp_x[None, None, :]
+    sy = scroll.axis_stamp_y[None, :, None]
+    sz = scroll.axis_stamp_z[z0 : z0 + nz_loc, None, None]
+    out = torch.maximum(torch.maximum(sx, sy), sz)
+    return out.expand(nz_loc, cfg.ny, cfg.nx).reshape(-1)
+
+
 def particle_alive(status, stamp, voxel_axis_stamp):
     """isParticleVacant negation (operations.h:810-816) on [V, K] slots."""
     return (status != STATUS_INVALID) & (stamp >= voxel_axis_stamp[:, None])

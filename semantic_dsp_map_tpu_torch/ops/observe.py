@@ -30,6 +30,7 @@ from ..config import FilterParams, MapConfig, PARTICLE_OCC_INIT_WEIGHT
 from ..state import Particles, STATUS_INVALID, STATUS_UPDATED
 from . import codecs
 from .blocks import (
+    ActiveBlocks,
     block_layout,
     gather_rows_flat,
     row_valid,
@@ -79,6 +80,94 @@ def use_observe_kernels(cfg: MapConfig, t: torch.Tensor) -> bool:
     return cfg.use_pallas_observe and t.is_cuda
 
 
+class WorkingSet(NamedTuple):
+    """The active blocks' slots as [A, spb] rows (stale slots pruned to
+    INVALID in ``status``), and whether each slot is a candidate: alive and
+    projecting into the image within the depth range, at (row, col, camz)."""
+
+    blocks: ActiveBlocks
+    has_alive: torch.Tensor  # bool[V]: the voxel holds a live slot
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    weight: torch.Tensor
+    status: torch.Tensor     # i32
+    stamp: torch.Tensor
+    forget: torch.Tensor     # i32
+    track: torch.Tensor
+    cand: torch.Tensor       # bool
+    row: torch.Tensor
+    col: torch.Tensor
+    camz: torch.Tensor
+
+
+def gather_working_set(cfg: MapConfig, flat: Particles, vox_axis, r_cw, t_cw,
+                       capacity: int) -> WorkingSet:
+    """The dense [V, K] candidate pass over the store (``vox_axis`` gives V:
+    the whole grid or a rank's z-slab), then the row gather of up to
+    ``capacity`` blocks that hold a candidate."""
+    K = cfg.slots_per_voxel
+    bv, _nb, spb = block_layout(cfg)
+    front = front_candidates_plain
+    if use_observe_kernels(cfg, flat.px):
+        from .observe_cuda import front_candidates_cuda as front
+    ha, hc = front(cfg, flat.px, flat.py, flat.pz, flat.status, flat.stamp, vox_axis, r_cw, t_cw)
+    blocks = select_blocks((hc.view(-1, bv) != 0).any(dim=1), capacity)
+    del hc
+    rv = row_valid(blocks)
+
+    g = lambda f: gather_rows_flat(f, blocks, spb)
+    bpx, bpy, bpz = g(flat.px), g(flat.py), g(flat.pz)
+    bst = g(flat.status).to(torch.int32)
+    bstamp = g(flat.stamp)
+    baxis = torch.repeat_interleave(gather_rows_flat(vox_axis, blocks, bv), K, dim=1)
+    not_invalid = bst != STATUS_INVALID
+    fresh = bstamp >= baxis
+    balive = not_invalid & fresh & rv[:, None]
+    # Stale-slot pruning on visit (operations.h:1374-1377).
+    bst = torch.where(not_invalid & ~fresh & rv[:, None], STATUS_INVALID, bst)
+    brow, bcol, bcamz, bok = project_to_image_xyz(cfg, r_cw, t_cw, bpx, bpy, bpz)
+    return WorkingSet(
+        blocks=blocks, has_alive=ha != 0, px=bpx, py=bpy, pz=bpz, weight=g(flat.weight),
+        status=bst, stamp=bstamp, forget=g(flat.forget).to(torch.int32), track=g(flat.track),
+        cand=bok & balive, row=brow, col=bcol, camz=bcamz,
+    )
+
+
+def classify_entries(cfg: MapConfig, depth, pix, camz, real):
+    """(far_free, visible) of entries at pixel ``pix`` (flat, < H*W where
+    ``real``) and camera depth ``camz`` against the depth image: far-depth
+    free space (operations.h:1389-1395), else visible unless behind the
+    measured surface by more than the one-sigma slack (:1397-1400)."""
+    HW = depth.numel()
+    depth_at = depth.reshape(-1)[torch.clamp(pix, max=HW - 1)]
+    one_sigma = 1.0 + cfg.depth_error_stddev_at_one_meter
+    far_free = real & (depth_at > cfg.depth_range_max)
+    occluded = real & ~far_free & (camz > depth_at * one_sigma)
+    return far_free, real & ~far_free & ~occluded
+
+
+def write_back(cfg: MapConfig, flat: Particles, voxel_stamp, ws: WorkingSet, weight, touched,
+               updated, forget, observed, global_time):
+    """Merge the frame's results into the working set and write its rows
+    back IN PLACE: the new ``weight`` where ``touched``; UPDATED status, the
+    frame's stamp and the new ``forget`` where ``updated``; the frame's stamp
+    on the voxels with an ``observed`` slot.  All [A, spb]."""
+    K = cfg.slots_per_voxel
+    bv, _nb, spb = block_layout(cfg)
+    blocks = ws.blocks
+    scatter_rows_flat(flat.weight, blocks, spb, torch.where(touched, weight, ws.weight))
+    scatter_rows_flat(flat.status, blocks, spb, torch.where(updated, STATUS_UPDATED, ws.status))
+    scatter_rows_flat(flat.stamp, blocks, spb, torch.where(updated, global_time, ws.stamp))
+    scatter_rows_flat(flat.forget, blocks, spb, torch.where(updated, forget, ws.forget))
+
+    # Voxel observation stamps from particle evidence.
+    obs_vox = observed.view(-1, bv, K).any(dim=2)
+    bvst = gather_rows_flat(voxel_stamp, blocks, bv)
+    bvst = torch.where(obs_vox & row_valid(blocks)[:, None], global_time, bvst)
+    scatter_rows_flat(voxel_stamp, blocks, bv, bvst)
+
+
 def observe_and_update(
     cfg: MapConfig,
     params: FilterParams,
@@ -95,51 +184,25 @@ def observe_and_update(
     ``voxel_stamp`` are updated in place."""
     H, W, S = cfg.height, cfg.width, cfg.phd_pixel_table_slots
     HW = H * W
-    K = cfg.slots_per_voxel
     bv, nb, spb = block_layout(cfg)
     A = min(cfg.max_active_blocks, nb)
     C = min(cfg.max_table_entries, A * spb)
     flat = particles
     dev = depth.device
 
-    # ---- dense [V, K] pass: who can project into the image ----
+    # ---- dense [V, K] pass and the active-block working set ----
     vox_axis = codecs.axis_stamps_per_voxel(cfg, scroll)
-    front = front_candidates_plain
-    if use_observe_kernels(cfg, flat.px):
-        from .observe_cuda import front_candidates_cuda as front
-    ha, hc = front(cfg, flat.px, flat.py, flat.pz, flat.status, flat.stamp, vox_axis, r_cw, t_cw)
-    has_alive = ha != 0
-    blocks = select_blocks((hc.view(nb, bv) != 0).any(dim=1), A)
-    del hc
-    rv = row_valid(blocks)
-
-    # ---- active-block working set ----
-    g = lambda f: gather_rows_flat(f, blocks, spb)
-    bpx, bpy, bpz = g(flat.px), g(flat.py), g(flat.pz)
-    bw = g(flat.weight)
-    bst = g(flat.status).to(torch.int32)
-    bstamp = g(flat.stamp)
-    bforget = g(flat.forget).to(torch.int32)
-    btrack = g(flat.track)
-    baxis = torch.repeat_interleave(gather_rows_flat(vox_axis, blocks, bv), K, dim=1)
-
-    not_invalid = bst != STATUS_INVALID
-    fresh = bstamp >= baxis
-    balive = not_invalid & fresh & rv[:, None]
-    # Stale-slot pruning on visit (operations.h:1374-1377).
-    bst = torch.where(not_invalid & ~fresh & rv[:, None], STATUS_INVALID, bst)
-
-    brow, bcol, bcamz, bok = project_to_image_xyz(cfg, r_cw, t_cw, bpx, bpy, bpz)
-    bcand = bok & balive
-    pix = torch.where(bcand, brow * W + bcol, HW).reshape(-1)
-    meta = ((btrack << 8) | (bforget & 0xFF)).reshape(-1)
+    ws = gather_working_set(cfg, flat, vox_axis, r_cw, t_cw, A)
+    bcand = ws.cand
+    pix = torch.where(bcand, ws.row * W + ws.col, HW).reshape(-1)
+    meta = ((ws.track << 8) | (ws.forget & 0xFF)).reshape(-1)
 
     # ---- one stable sort by (pixel, camera depth) ----
-    order = stable_lexsort(pix, bcamz.reshape(-1))[:C]
+    order = stable_lexsort(pix, ws.camz.reshape(-1))[:C]
     pix_s = pix[order]
-    camz_s = bcamz.reshape(-1)[order]
-    px_s, py_s, pz_s = (a.reshape(-1)[order] for a in (bpx, bpy, bpz))
-    w_s = bw.reshape(-1)[order]
+    camz_s = ws.camz.reshape(-1)[order]
+    px_s, py_s, pz_s = (a.reshape(-1)[order] for a in (ws.px, ws.py, ws.pz))
+    w_s = ws.weight.reshape(-1)[order]
     meta_s = meta[order]
     src_s = order
 
@@ -147,11 +210,7 @@ def observe_and_update(
 
     # ---- classification on the compact entries ----
     real = pix_s < HW
-    depth_at = depth.reshape(-1)[torch.clamp(pix_s, max=HW - 1)]
-    one_sigma = 1.0 + cfg.depth_error_stddev_at_one_meter
-    far_free = real & (depth_at > cfg.depth_range_max)
-    occluded = real & ~far_free & (camz_s > depth_at * one_sigma)
-    visible = real & ~far_free & ~occluded
+    far_free, visible = classify_entries(cfg, depth, pix_s, camz_s, real)
 
     # ---- rank among visible entries of the same pixel (front-most first) ----
     is_start = torch.ones_like(real)
@@ -192,36 +251,19 @@ def observe_and_update(
     w_back = w_back[:n_work].view(A, spb)
     m_back = m_back[:n_work].view(A, spb)
 
-    upd = ((m_back >> 8) & 1) == 1
-    touched = ((m_back >> 9) & 1) == 1
-    obs_e = ((m_back >> 10) & 1) == 1
-
-    bw = torch.where(touched, w_back, bw)
-    bst = torch.where(upd, STATUS_UPDATED, bst)
-    bstamp = torch.where(upd, global_time, bstamp)
-    bforget = torch.where(upd, m_back & 0xFF, bforget)
-
-    # ---- write back particle rows (in place) ----
-    scatter_rows_flat(flat.weight, blocks, spb, bw)
-    scatter_rows_flat(flat.status, blocks, spb, bst)
-    scatter_rows_flat(flat.stamp, blocks, spb, bstamp)
-    scatter_rows_flat(flat.forget, blocks, spb, bforget)
-
-    # ---- voxel observation stamps from particle evidence ----
-    obs_vox = obs_e.view(A, bv, K).any(dim=2)
-    bvst = gather_rows_flat(voxel_stamp, blocks, bv)
-    bvst = torch.where(obs_vox & rv[:, None], global_time, bvst)
-    scatter_rows_flat(voxel_stamp, blocks, bv, bvst)
+    # ---- write back particle rows and voxel stamps (in place) ----
+    write_back(cfg, flat, voxel_stamp, ws, w_back, ((m_back >> 9) & 1) == 1,
+               ((m_back >> 8) & 1) == 1, m_back & 0xFF, ((m_back >> 10) & 1) == 1, global_time)
 
     # ---- empty-voxel stamps (imaginary center particle rule) ----
     voxel_stamp, corner_overflow = refresh_empty_voxel_stamps(
-        cfg, scroll, voxel_stamp, has_alive, depth, r_cw, t_cw, global_time,
+        cfg, scroll, voxel_stamp, ws.has_alive, depth, r_cw, t_cw, global_time,
         vox_axis=vox_axis,
     )
 
     diag = ObserveDiag(
         visible_count=visible.sum(),
-        block_overflow=blocks.overflow,
+        block_overflow=ws.blocks.overflow,
         entry_overflow=entry_overflow,
         table_dropped=table.dropped,
         corner_overflow=corner_overflow,
@@ -239,12 +281,17 @@ def refresh_empty_voxel_stamps(
     t_cw: torch.Tensor,
     global_time,
     vox_axis=None,
+    vox_base: int = 0,
 ):
     """Stamp voxels with no live particle whose corner point projects in
     front of the measured surface (operations.h:1414-1431), skipping voxels
     whose stamp is already valid (render-equivalent; the JAX package and
     its oracle apply the same rule).  Updates ``voxel_stamp`` in place;
-    returns (voxel_stamp, corner_overflow)."""
+    returns (voxel_stamp, corner_overflow).
+
+    Sizes come from ``voxel_stamp``; ``vox_base`` is the global id of its
+    first voxel (a rank's z-slab under voxel-slab sharding,
+    parallel/shard_step.py)."""
     V = voxel_stamp.shape[0]
     H, W = cfg.height, cfg.width
     bs = min(512, V)
@@ -252,7 +299,8 @@ def refresh_empty_voxel_stamps(
     A2 = min(cfg.corner_gather_blocks, nb2)
 
     corner = codecs.voxel_to_global_pos(
-        cfg, scroll, torch.arange(V, dtype=torch.int32, device=voxel_stamp.device)
+        cfg, scroll,
+        torch.arange(vox_base, vox_base + V, dtype=torch.int32, device=voxel_stamp.device),
     )
     crow, ccol, cz, cok = project_to_image(cfg, r_cw, t_cw, corner)
     need = ~has_alive & cok

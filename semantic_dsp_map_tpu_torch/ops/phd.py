@@ -66,11 +66,13 @@ def gauss3(dx, dy, dz, inv_sigma):
 
 
 def table_from_entries(
-    cfg: MapConfig, pix, rank, keep, px, py, pz, weight, track, forget
+    cfg: MapConfig, pix, rank, keep, px, py, pz, weight, track, forget, n_rows: int = 0
 ) -> PixelTable:
     """Scatter compact entries into the dense table; kept (pix, rank) pairs
-    are unique.  ``pix >= H*W`` marks padding."""
-    H, W, S = cfg.height, cfg.width, cfg.phd_pixel_table_slots
+    are unique.  ``pix >= H*W`` marks padding.  ``n_rows`` sets the table's
+    row count in place of the image height: a rank's row slab under row-slab
+    sharding (parallel/shard_step.py), whose ``pix`` are then slab-local."""
+    H, W, S = n_rows or cfg.height, cfg.width, cfg.phd_pixel_table_slots
     n = H * W * S
     dest = torch.where(keep, torch.clamp(rank, max=S - 1) * (H * W) + pix, n).long()
 

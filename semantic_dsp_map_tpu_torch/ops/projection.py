@@ -34,6 +34,7 @@ def generate_labeled_cloud(
     sky_instance_id: int = -1,
     inst_bbox_min: torch.Tensor | None = None,  # f32[65536, 3]
     inst_bbox_max: torch.Tensor | None = None,
+    row_offset: int = 0,
 ) -> LabeledCloud:
     """K^-1 back-projection, camera -> world, per-pixel label lookup and the
     depth-noise model.
@@ -42,10 +43,16 @@ def generate_labeled_cloud(
     culled (pointcloud_tools.h:234-241), and a movable-track pixel whose
     point lies outside its track's box (dense tables indexed by track id,
     margin included) is demoted to Background before the label lookup
-    (pointcloud_tools.h:254-273)."""
+    (pointcloud_tools.h:254-273).
+
+    Shapes come from ``depth``: an image-row slab (halo included, row-slab
+    sharding in parallel/shard_step.py) passes its rows and their global
+    ``row_offset``."""
     H, W = depth.shape
     dev = depth.device
-    rows = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    # Integer-valued f32 rows: exact, as the JAX package's iota + row_offset.
+    rows = torch.arange(row_offset, row_offset + H, dtype=torch.float32, device=dev)
+    rows = rows[:, None].expand(H, W)
     cols = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
 
     valid = (

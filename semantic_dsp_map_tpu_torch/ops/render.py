@@ -104,17 +104,22 @@ def render_core_plain(cfg: MapConfig, p, voxel_stamp, vax, occupancy_threshold: 
     )
 
 
-def render_occupancy(cfg: MapConfig, state: MapState, occupancy_threshold: float):
-    """Returns (particles_after_gc, RenderResult): the CUDA kernel on a CUDA
-    device when ``cfg.use_pallas_render`` is set (in place), else the plain
-    reduction."""
-    vax = codecs.axis_stamps_per_voxel(cfg, state.scroll)
-    p = state.particles
+def render_any(cfg: MapConfig, p, voxel_stamp, vax, occupancy_threshold: float):
+    """Returns (particles_after_gc, RenderResult) of the voxels of ``vax``
+    (the whole grid or a z-slab): the CUDA kernel on a CUDA device when
+    ``cfg.use_pallas_render`` is set (in place), else the plain reduction."""
     if cfg.use_pallas_render and p.weight.is_cuda:
         from .render_cuda import render_core_cuda
 
-        return render_core_cuda(cfg, p, state.voxel_stamp, vax, occupancy_threshold)
-    return render_core_plain(cfg, p, state.voxel_stamp, vax, occupancy_threshold)
+        return render_core_cuda(cfg, p, voxel_stamp, vax, occupancy_threshold)
+    return render_core_plain(cfg, p, voxel_stamp, vax, occupancy_threshold)
+
+
+def render_occupancy(cfg: MapConfig, state: MapState, occupancy_threshold: float):
+    """Returns (particles_after_gc, RenderResult) of the whole grid
+    (``render_any``)."""
+    vax = codecs.axis_stamps_per_voxel(cfg, state.scroll)
+    return render_any(cfg, state.particles, state.voxel_stamp, vax, occupancy_threshold)
 
 
 #: Voxels per chunk of the smoothed render's candidate pass (whole z-planes;

@@ -230,3 +230,16 @@ def test_bench_main_writes_nothing_by_default_and_defaults_to_the_card(tmp_path,
     monkeypatch.setitem(tbench._PRESETS, "zed2", lambda: _reduced(T, "zed2_config"))
     tbench.main(["--cells", "zed2", "--iters", "2", "--device", "cpu"])
     assert list(tmp_path.iterdir()) == []
+
+
+def test_sharded_cell_on_the_cpu(monkeypatch):
+    """The zed2_sharded cell at the reduced ZED2 preset: the sharded step at
+    one rank equal to the single-device step (it raises otherwise), in a
+    group of its own that it leaves destroyed; no kernel launches on the
+    CPU."""
+    monkeypatch.setitem(tbench._PRESETS, "zed2", lambda: _reduced(T, "zed2_config"))
+    cell = tbench.run_sharded_check(iters=3, device="cpu")
+    assert cell["config"] == "zed2_sharded_ranks1" and cell["render_equal_vs_plain"]
+    assert cell["frames"] == 3 and cell["fps"] > 0 and cell["card"] == "cpu"
+    assert set(cell["kernel_launches"].values()) == {0}
+    assert not torch.distributed.is_initialized()

@@ -102,6 +102,39 @@ def test_insert_core_matches_jax(resample, cap):
     _assert_particles(tr.particles, jr.particles)
 
 
+@pytest.mark.parametrize("resample", [False, True])
+@pytest.mark.parametrize("rank", [1, 2])
+def test_insert_core_on_a_voxel_slab_matches_jax(rank, resample):
+    """Insertion into one rank's z-slab (D = 4) with explicit slab-local
+    voxel ids, validity and per-voxel scroll stamps, as the sharded step
+    calls it: the candidates of other slabs are invalid."""
+    D = 4
+    js = _state(5)
+    ts = map_state_from_numpy(jax_state_to_numpy(js), device="cpu")
+    V_loc, nz_loc = CFG_T.num_voxels // D, CFG_T.nz // D
+    n = V_loc * CFG_T.slots_per_voxel
+    cut = slice(rank * n, (rank + 1) * n)
+    jp = js.particles.replace(**{f: getattr(js.particles, f)[cut] for f in
+                                 ("px", "py", "pz", "weight", "label", "track", "status", "forget", "stamp")})
+    tp = tbirth.Particles(**{f: getattr(ts.particles, f)[cut].clone() for f in
+                             ("px", "py", "pz", "weight", "label", "track", "status", "forget", "stamp")})
+    jc, tc = _candidates(np.random.RandomState(6), 600, np.array([0.3, -0.1, 0.6]))
+    vox, _, _, _, in_map = jcodecs.global_pos_to_voxel(CFG_J, js.scroll, jc.pos)
+    vox, ok = np.asarray(vox), np.asarray(jc.valid & in_map)
+    mine = ok & (vox // V_loc == rank)
+    local = np.where(mine, vox - rank * V_loc, V_loc).astype(np.int32)
+    assert mine.sum() > 20
+    jax_axis = jcodecs.axis_stamps_per_voxel_slab(CFG_J, js.scroll, rank * nz_loc, nz_loc)
+    jr = jbirth._insert_core(CFG_J, jp, js.scroll, jc, resample_targets=resample, need_src=False,
+                             vox=jnp.asarray(local), valid=jnp.asarray(mine), vox_axis=jax_axis)
+    tr = tbirth._insert_core(CFG_T, tp, ts.scroll, tc, resample_targets=resample,
+                             vox=torch.from_numpy(local), valid=torch.from_numpy(mine),
+                             vox_axis=torch.from_numpy(np.array(jax_axis)))
+    assert int(tr.accepted_count) == int(jr.accepted_count) > 0
+    assert int(tr.block_overflow) == int(jr.block_overflow)
+    _assert_particles(tr.particles, jr.particles)
+
+
 def test_birth_and_resample_matches_jax():
     rng = np.random.RandomState(8)
     H, W = CFG_J.height, CFG_J.width

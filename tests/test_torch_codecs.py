@@ -76,6 +76,24 @@ def test_scroll_and_codecs_match_jax():
         )
 
 
+@pytest.mark.parametrize("D", [1, 2, 4, 8])
+def test_axis_stamps_per_voxel_slab_match_jax(D):
+    """Each rank's z-slab of the per-voxel scroll stamps equals the JAX
+    package's and its share of the whole grid's."""
+    rng = np.random.RandomState(D)
+    stamps = {a: rng.randint(0, 9, n).astype(np.int32) for a, n in zip("xyz", (TCFG.nx, TCFG.ny, TCFG.nz))}
+    js = j_init_scroll(JCFG).replace(**{f"axis_stamp_{a}": jnp.asarray(v) for a, v in stamps.items()})
+    ts = dataclasses.replace(t_init_scroll(TCFG, device="cpu"),
+                             **{f"axis_stamp_{a}": torch.from_numpy(v) for a, v in stamps.items()})
+    whole = tcodecs.axis_stamps_per_voxel(TCFG, ts).numpy()
+    nz_loc, V_loc = TCFG.nz // D, TCFG.num_voxels // D
+    for rank in range(D):
+        got = tcodecs.axis_stamps_per_voxel_slab(TCFG, ts, rank * nz_loc, nz_loc).numpy()
+        want = jcodecs.axis_stamps_per_voxel_slab(JCFG, js, rank * nz_loc, nz_loc)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        np.testing.assert_array_equal(got, whole[rank * V_loc : (rank + 1) * V_loc])
+
+
 def test_alive_and_valid_match_jax():
     rng = np.random.RandomState(3)
     V, K = TCFG.num_voxels, TCFG.slots_per_voxel

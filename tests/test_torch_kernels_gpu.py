@@ -617,3 +617,102 @@ def test_scale2_kernel_matches_plain(cuda, shape):
     assert torch.equal(got.view(torch.int32), scale2_plain(x).view(torch.int32))
     with pytest.raises(ValueError):
         scale2_cuda(x.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 2, 4, 8])
+def test_kernels_at_slab_shapes(cuda, D):
+    """The five kernels of the sharded step at the shapes a rank of a D-rank
+    run gives them: both PHD passes over a row slab's table
+    [S, ceil(H/D) + 2R, W], the render, the candidate scan and the movable
+    scan over a z-slab of V/D voxels; each against its plain version."""
+    cfg = tiny_test_config(phd_pixel_table_slots=4)
+    rows = -(-cfg.height // D) + 2 * cfg.neighbor_half
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True)
+    t, c = _phd_inputs(tiny_test_config(phd_pixel_table_slots=4, image_height=rows), cuda, seed=D)
+    assert t.px.shape == (4, rows, cfg.width)
+    _check_pass_a(_pass_a_args(cfg, params, t, c))
+    _ck, args = _pass_b_args(cfg, params, t, c)
+    acc_p, right_p = phd.pass_b_raw(*args)
+    acc_k, right_k = phd_cuda.pass_b_cuda(*args)
+    torch.testing.assert_close(acc_k, acc_p, rtol=2e-5, atol=1e-6)
+    assert torch.equal(right_k, right_p)
+
+    slab = tiny_test_config(voxel_num_axis_z_n=cfg.voxel_num_axis_z_n - int(np.log2(D)))
+    assert slab.num_voxels * D == cfg.num_voxels
+    s = _render_state(slab, cuda, seed=D)
+    vax = codecs.axis_stamps_per_voxel(slab, s.scroll)
+    new, want = render_core_plain(slab, s.particles, s.voxel_stamp, vax, 0.4)
+    p, got = render_core_cuda(slab, s.particles, s.voxel_stamp, vax, 0.4)
+    for name in ("occ", "label", "track", "weight_sum"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(p.weight, new.weight) and torch.equal(p.status, new.status)
+
+    n = slab.num_voxels * slab.slots_per_voxel
+    rng = np.random.RandomState(D)
+    T = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    _, _, r_cw, t_cw = camera_matrices(torch.tensor([0.4, -0.2, 0.7], device=cuda),
+                                       torch.tensor([0.9622502, 0.0544331, 0.2613872, 0.0555144],
+                                                    device=cuda))
+    # the scan projects into the whole image: the configuration's, not the slab's rows
+    front_args = (cfg, T(rng.randn(n) * 2), T(rng.randn(n) * 2), T(rng.rand(n) * 10 - 1),
+                  p.status, p.stamp, vax, r_cw, t_cw)
+    for g, w in zip(front_candidates_cuda(*front_args), front_candidates_plain(*front_args)):
+        assert torch.equal(g, w)
+    movable_args = (slab, p.track, p.status, p.stamp, vax, 2)
+    want = movable_voxels_plain(*movable_args)
+    assert torch.equal(movable_voxels_cuda(*movable_args), want) and int(want.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+def test_sharded_step_at_one_rank_matches_single_device(cuda, packed):
+    """The sharded step in a process group of one rank (NCCL on the card),
+    every kernel on: the tiny dynamic scene's counters, state and render
+    equal to the single-device step's on the card, and the five kernels of
+    the path launched once a frame."""
+    import torch.distributed as dist
+
+    from semantic_dsp_map_tpu_torch.frontend import FrameInput, build_frame_input, pack_frame
+    from semantic_dsp_map_tpu_torch.labels import LabelRegistry
+    from semantic_dsp_map_tpu_torch.map import build_frame_step
+    from semantic_dsp_map_tpu_torch.parallel import distributed
+    from semantic_dsp_map_tpu_torch.parallel.shard_step import build_shard_step
+    from semantic_dsp_map_tpu_torch.parallel.sharding import gather_render, shard_state
+    from semantic_dsp_map_tpu_torch.state import map_state_to_numpy
+    from torch_parity import dynamic_scene
+
+    cfg = tiny_test_config()
+    params = FilterParams(if_consider_depth_noise=True, nb_ptc_num_per_point=1,
+                          depth_noise_model_zero_order=0.2, prediction_stddev=0.0)
+    registry = LabelRegistry.default()
+    kernels = (phd_cuda.pass_a_cuda, phd_cuda.pass_b_cuda, render_core_cuda, front_candidates_cuda,
+               movable_voxels_cuda)
+    distributed.initialize(device=cuda, rank=0, world_size=1)
+    try:
+        plain, sharded = build_frame_step(cfg, params, registry), build_shard_step(
+            cfg, params, registry, packed=packed)
+        s1 = init_map_state(cfg, 3, cuda)
+        s2 = shard_state(cfg, init_map_state(cfg, 3, cuda), 0, 1)
+        launches, moved = 0, 0
+        for t in range(10):
+            raw = dynamic_scene(cfg, t, MaskKpts)
+            f = FrameInput(*(torch.as_tensor(np.asarray(a)).to(cuda)
+                             for a in build_frame_input(cfg, registry, *raw)))
+            s1, r1, d1 = plain(s1, f)
+            before = [k.launches for k in kernels]
+            s2, r2, d2 = sharded(s2, torch.from_numpy(pack_frame(cfg, registry, *raw)).to(cuda)
+                                 if packed else f)
+            assert [k.launches - b for k, b in zip(kernels, before)] == [1] * len(kernels)
+            assert {k: int(v) for k, v in d2._asdict().items()} == {
+                k: int(v) for k, v in d1._asdict().items()}, f"frame {t}"
+            r2 = gather_render(r2)
+            for name in ("occ", "label", "track", "weight_sum"):
+                assert torch.equal(getattr(r2, name), getattr(r1, name)), f"{name} frame {t}"
+            moved += int(d2.moved_count)
+        assert moved > 0
+        a, b = map_state_to_numpy(s1), map_state_to_numpy(s2)
+        for key in a:
+            np.testing.assert_array_equal(b[key], a[key], err_msg=key)
+    finally:
+        dist.destroy_process_group()

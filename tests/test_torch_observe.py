@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from semantic_dsp_map_tpu.config import tiny_test_config as j_tiny
+from semantic_dsp_map_tpu.ops import codecs as j_codecs
 from semantic_dsp_map_tpu.ops.geometry import camera_matrices as j_cam
+from semantic_dsp_map_tpu.ops.observe import refresh_empty_voxel_stamps as j_refresh
 from semantic_dsp_map_tpu.ops.observe_pallas import front_candidates, movable_voxels
 from semantic_dsp_map_tpu.state import init_map_state as j_init_state
 
@@ -23,7 +25,9 @@ from semantic_dsp_map_tpu_torch.config import tiny_test_config
 from semantic_dsp_map_tpu_torch.labels import LabelRegistry
 from semantic_dsp_map_tpu_torch.ops import codecs
 from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
-from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
+from semantic_dsp_map_tpu_torch.ops.observe import (
+    front_candidates_plain, movable_voxels_plain, refresh_empty_voxel_stamps,
+)
 from semantic_dsp_map_tpu_torch.ops.observe_cuda import front_candidates_cuda, movable_voxels_cuda
 from semantic_dsp_map_tpu_torch.state import init_scroll
 
@@ -137,3 +141,34 @@ def test_movable_voxels_plain_matches_pallas(seed):
     before = movable_voxels_cuda.launches
     assert torch.equal(movable_voxels_cuda(*args), hm)
     assert movable_voxels_cuda.launches == before
+
+
+@pytest.mark.parametrize("rank", [0, 1, 3])
+def test_empty_voxel_stamps_on_a_slab_match_jax(rank):
+    """The empty-voxel rule on one rank's z-slab (D = 4, ``vox_base`` its
+    first voxel): the corners project from their global ids, under the
+    rotated pose, against a random depth image."""
+    D = 4
+    jcfg, tcfg = j_tiny(corner_gather_blocks=1), tiny_test_config(corner_gather_blocks=1)
+    V_loc, nz_loc = tcfg.num_voxels // D, tcfg.nz // D
+    rng = np.random.RandomState(rank)
+    stamp = np.where(rng.rand(V_loc) < 0.3, rng.randint(1, 4, V_loc), 0).astype(np.int32)
+    has_alive = rng.rand(V_loc) < 0.2
+    depth = (rng.rand(tcfg.height, tcfg.width) * 3 + 0.5).astype(np.float32)
+    axis = [rng.randint(0, 3, n).astype(np.int32) for n in (tcfg.nx, tcfg.ny, tcfg.nz)]
+    pos, quat = (np.asarray(a, np.float32) for a in POSES["rotated"])
+    jsc = j_init_state(jcfg).scroll.replace(**{f"axis_stamp_{a}": jnp.asarray(v) for a, v in zip("xyz", axis)})
+    tsc = dataclasses.replace(init_scroll(tcfg, device="cpu"),
+                              **{f"axis_stamp_{a}": torch.from_numpy(v) for a, v in zip("xyz", axis)})
+    _, _, jr, jt = j_cam(jnp.asarray(pos), jnp.asarray(quat))
+    _, _, tr, tt = camera_matrices(torch.from_numpy(pos), torch.from_numpy(quat))
+    j_axis = j_codecs.axis_stamps_per_voxel_slab(jcfg, jsc, rank * nz_loc, nz_loc)
+    t_axis = codecs.axis_stamps_per_voxel_slab(tcfg, tsc, rank * nz_loc, nz_loc)
+    want, want_ov = j_refresh(jcfg, jsc, jnp.asarray(stamp), jnp.asarray(has_alive), jnp.asarray(depth),
+                              jr, jt, jnp.int32(5), vox_base=rank * V_loc, vox_axis=j_axis)
+    got, got_ov = refresh_empty_voxel_stamps(
+        tcfg, tsc, torch.from_numpy(stamp.copy()), torch.from_numpy(has_alive),
+        torch.from_numpy(depth), tr, tt, torch.tensor(5, dtype=torch.int32), vox_axis=t_axis,
+        vox_base=rank * V_loc)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got_ov) == int(want_ov)

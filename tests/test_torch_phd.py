@@ -200,6 +200,32 @@ def test_table_from_entries_matches_jax():
         )
 
 
+@pytest.mark.parametrize("n_rows", [3, 7])
+def test_table_from_entries_on_a_row_slab_matches_jax(n_rows):
+    """``n_rows`` sets the table's rows (a rank's row slab): slab-local
+    pixel ids, padding at n_rows * W and beyond."""
+    cfg_j, cfg_t = j_tiny(phd_pixel_table_slots=3), tiny_test_config(phd_pixel_table_slots=3)
+    rng = np.random.RandomState(n_rows)
+    n = n_rows * cfg_t.width
+    C = 200
+    pix = np.sort(rng.randint(0, n + 30, C)).astype(np.int32)
+    is_start = np.concatenate([[True], pix[1:] != pix[:-1]])
+    start = np.maximum.accumulate(np.where(is_start, np.arange(C), 0))
+    rank = (np.arange(C) - start).astype(np.int32)
+    keep = (pix < n) & (rank < 3)
+    vals = [rng.randn(C).astype(np.float32) for _ in range(4)]
+    track = rng.randint(0, 1 << 16, C).astype(np.int32)
+    forget = rng.randint(0, 6, C).astype(np.int32)
+    args = (pix, rank, keep, *vals, track, forget)
+    jt = jphd.table_from_entries(cfg_j, *(jnp.asarray(a) for a in args), n_rows=n_rows)
+    tt = tphd.table_from_entries(cfg_t, *(torch.from_numpy(a) for a in args), n_rows=n_rows)
+    assert tt.px.shape == (3, n_rows, cfg_t.width)
+    for name in ("px", "py", "pz", "weight", "meta", "dropped"):
+        np.testing.assert_array_equal(
+            getattr(tt, name).numpy(), np.asarray(getattr(jt, name)), err_msg=name
+        )
+
+
 def test_kernel_wrappers_run_plain_on_cpu():
     """On CPU tensors the kernel wrappers are their plain versions."""
     cfg = tiny_test_config(phd_pixel_table_slots=4)

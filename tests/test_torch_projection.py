@@ -67,6 +67,41 @@ def test_labeled_cloud_equals_jitted_jax_bit_for_bit(preset, pose):
     assert 0.3 < float(got.valid.float().mean()) < 1.0  # both sides of the depth range
 
 
+@pytest.mark.parametrize("first_row", [0, 37])
+@pytest.mark.parametrize("preset", ["virtual_kitti2_config", "zed2_config"])
+def test_labeled_cloud_of_a_row_slab_equals_jitted_jax(preset, first_row):
+    """A row slab's cloud, with its first row as ``row_offset``, under the
+    rotated pose: bit for bit the jitted JAX cloud of the same slab (the
+    offset traced, as in the JAX sharded step) and the whole image's
+    rows."""
+    cfg_j, cfg_t = getattr(J.config, preset)(), getattr(T.config, preset)()
+    H, W = cfg_t.height, cfg_t.width
+    n = 64
+    rng = np.random.RandomState(5)
+    depth = (rng.rand(H, W) * 30 + 0.3).astype(np.float32)
+    raster = rng.randint(0, 5, (H, W)).astype(np.int32)
+    table = (np.arange(65536) % 10).astype(np.int32)
+    quat, pos = (np.asarray(a, np.float32) for a in POSES["rotated"])
+    quat /= np.linalg.norm(quat)
+    r_wc, t_wc, _, _ = (np.array(a) for a in jgeom.camera_matrices(jnp.asarray(pos), jnp.asarray(quat)))
+    params = dict(if_consider_depth_noise=True, depth_noise_model_first_order=0.01,
+                  depth_noise_model_zero_order=0.2)
+    rows = slice(first_row, first_row + n)
+
+    jitted = jax.jit(lambda d, r, tb, rw, tw, off: j_cloud(
+        cfg_j, J.FilterParams(**params), d, r, tb, rw, tw, MAX_MOVABLE, row_offset=off))
+    want = jitted(depth[rows], raster[rows], table, r_wc, t_wc, jnp.int32(first_row))
+    T_ = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    got = t_cloud(cfg_t, T.FilterParams(**params), T_(depth[rows]), T_(raster[rows]), T_(table),
+                  T_(r_wc), T_(t_wc), MAX_MOVABLE, row_offset=first_row)
+    whole = t_cloud(cfg_t, T.FilterParams(**params), *(T_(a) for a in (depth, raster, table, r_wc, t_wc)),
+                    MAX_MOVABLE)
+    np.testing.assert_array_equal(_bits(got.pos.numpy()), _bits(want.pos))
+    np.testing.assert_array_equal(_bits(got.pos.numpy()), _bits(whole.pos[rows].numpy()))
+    for name in ("label", "track", "valid"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+
+
 @pytest.mark.parametrize("rate", [1.0, 1.7, 0.6])
 def test_forgetting_factor_equals_jitted_jax_bit_for_bit(rate):
     n = np.arange(8, dtype=np.int32)
