@@ -4,10 +4,10 @@
     python3 chip_smoke.py            # all phases, as a check of a checkout
     python3 chip_smoke.py --phase kernels   # build + per-kernel checks only
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
-    python3 chip_smoke.py --against DIR     # also time both PHD passes, the render and
-                                            # the front scan built from DIR's sources
-                                            # (another version of csrc/), in turns, in
-                                            # this call
+    python3 chip_smoke.py --against DIR     # also time both PHD passes, the render,
+                                            # the front scan and the gather built from
+                                            # DIR's sources (another version of csrc/),
+                                            # in turns, in this call
     python3 chip_smoke.py --record-expected # print where the card parts from
                                             # data/bench_expected/ instead of failing
 
@@ -20,8 +20,11 @@ Phases (any failure raises, and the script exits nonzero):
      whichever is larger, from this run's inputs): the five frame kernels at
      VKITTI2 shapes, at ZED2 shapes (BOOST 640x360, R = 3, K = 3) and at the
      coda preset's (960x540, K = 3 at 8.4M voxels), the
-     gather and x2 probe kernels at the probes' shapes, beside the PyTorch
-     call that computes the same function;
+     gather and x2 probe kernels at the probes' shapes, in turns with the
+     PyTorch call that computes the same function (the gather also with its
+     indices sorted); then [launch]: each of the seven wrappers' host time
+     per launch beside the bare ctypes call of its entry point and beside
+     torch.mul;
   3. check the CUDA path against the CPU path on the tiny dynamic scene, on
      the tiny ZED2 scene (independent filter off and on), on the small
      template scene (a template birth fires) and on the reduced hostile
@@ -169,12 +172,11 @@ def using_library(lib):
     another version of the sources, instead of the package's own library."""
     from semantic_dsp_map_tpu_torch.ops import cuda_lib
 
-    own = cuda_lib.library
-    cuda_lib.library = lambda: lib
+    cuda_lib.bind(lib)
     try:
         yield
     finally:
-        cuda_lib.library = own
+        cuda_lib.bind(cuda_lib.library())
 
 
 def ms_in_turns(fn, other, reps=10, setup=None):
@@ -878,11 +880,79 @@ def compare_versions(other, cfg, label, card):
             "render": r_times, "front_candidates": {"other_ms": f_other, "own_ms": f_own}}
 
 
+def compare_gather(other, card, rounds=3):
+    """The gather from the package's library and from ``other`` on the
+    probe's inputs, with the indices as drawn and sorted: bytes equal to
+    each other; then timed in turns (other, own, own, other; ``rounds``
+    times), each a run of 50 launches, per launch.  Returns the times."""
+    import torch
+    from semantic_dsp_map_tpu_torch.benchmarks import prim_bench7
+    from semantic_dsp_map_tpu_torch.ops.probes_cuda import gather_cuda
+    from semantic_dsp_map_tpu_torch.timing import bench
+
+    dev = torch.device("cuda")
+    depth, rc = prim_bench7.make_inputs(dev)
+    times = {}
+    for tag, idx in (("random", rc), ("sorted", torch.sort(rc).values)):
+        run = lambda: gather_cuda(depth, idx)
+        own = run()
+        with using_library(other):
+            theirs = run()
+        torch.cuda.synchronize()
+        assert_equal(f"gather {tag}, other version", theirs.view(torch.int32), own.view(torch.int32))
+        o, n = [], []
+        for _ in range(rounds):
+            with using_library(other):
+                o.append(bench(run, dev, 50)["device_ms"])
+            n += [bench(run, dev, 50)["device_ms"], bench(run, dev, 50)["device_ms"]]
+            with using_library(other):
+                o.append(bench(run, dev, 50)["device_ms"])
+        times[tag] = {"other_ms": o, "own_ms": n}
+        print(f"[against] gather, indices {tag}: per launch in runs of 50, in turns: other "
+              f"{float(np.median(o)):.5f} ms ({spread(o)}), own {float(np.median(n)):.5f} ms "
+              f"({spread(n)}); bytes equal ({card})")
+    return times
+
+
+#: Bytes the L2 moves to an SM for one 4 B table read: one sector.
+L2_SECTOR_BYTES = 32
+#: The gather's L1 line folds its indices into the table's first 16,384
+#: entries: 64 KB, which the L1 of every SM holds.
+L1_SPAN = 16384
+
+
+def runs_in_turns(fns, reps, rounds=5):
+    """Runs of ``reps`` launches of each of ``fns`` in turns (a, b, ..., a,
+    b, ...), ``rounds`` times, each timed by ``timing.bench``.  Per fn:
+    {device_ms, enqueue_ms} of every round, per launch."""
+    import torch
+    from semantic_dsp_map_tpu_torch.timing import bench
+
+    dev = torch.device("cuda")
+    out = [{"device_ms": [], "enqueue_ms": []} for _ in fns]
+    for _ in range(rounds):
+        for fn, o in zip(fns, out):
+            r = bench(fn, dev, reps)
+            o["device_ms"].append(r["device_ms"])
+            o["enqueue_ms"].append(r["enqueue_ms"])
+    return out
+
+
+def spread(times) -> str:
+    return f"{min(times):.5f}-{max(times):.5f}"
+
+
 def check_probes(report):
     """The gather and x2 probe kernels against their plain versions on the
     card, byte for byte (both only move or double f32 values), at the
-    probes' shapes; timed over runs of 50 launches beside the plain version
-    and the one PyTorch call that computes the same function."""
+    probes' shapes; the gather also on the same lookups with the indices
+    sorted (its table reads then coalesce: what is left is the streaming)
+    and with them folded into the table's first 64 KB (which each SM's L1
+    holds: random reads that the L2 does not serve).
+    Timed in turns with the one PyTorch call that computes the same
+    function, five rounds of runs of 50 (gather) or 200 (x2) launches each:
+    the median per launch and the spread of the rounds; beside the plain
+    version and, queued behind a device-side spin, one launch alone."""
     import torch
     from semantic_dsp_map_tpu_torch.benchmarks import prim_bench7
     from semantic_dsp_map_tpu_torch.ops.probes import gather_plain, scale2_plain
@@ -894,23 +964,45 @@ def check_probes(report):
     # one launch queued behind a device-side spin: the device's time alone
     alone_ms = lambda fn: cuda_ms(fn, 20, queued=True)
     depth, rc = prim_bench7.make_inputs(dev)
+    rc_sorted = torch.sort(rc).values
+    rc_l1 = rc % L1_SPAN
     flat = depth.reshape(-1)
-    got, want = gather_cuda(depth, rc), gather_plain(depth, rc)
-    torch.cuda.synchronize()
-    assert_equal("gather", got.view(torch.int32), want.view(torch.int32))
-    assert_equal("gather vs index_select", got, torch.index_select(flat, 0, rc))
-    entry = dict(max_abs_err=0.0, ms=run_ms(lambda: gather_cuda(depth, rc)),
+    for tag, idx in (("", rc), ("sorted ", rc_sorted), ("L1 span ", rc_l1)):
+        got, want = gather_cuda(depth, idx), gather_plain(depth, idx)
+        torch.cuda.synchronize()
+        assert_equal(f"gather {tag}", got.view(torch.int32), want.view(torch.int32))
+        assert_equal(f"gather {tag}vs index_select", got, torch.index_select(flat, 0, idx))
+    kern, lib, kern_s, lib_s, kern_l1 = runs_in_turns(
+        [lambda: gather_cuda(depth, rc), lambda: torch.index_select(flat, 0, rc),
+         lambda: gather_cuda(depth, rc_sorted), lambda: torch.index_select(flat, 0, rc_sorted),
+         lambda: gather_cuda(depth, rc_l1)], 50)
+    med = lambda r: float(np.median(r["device_ms"]))
+    n = rc.numel()
+    entry = dict(max_abs_err=0.0, ms=med(kern), ms_rounds=kern["device_ms"],
                  plain_ms=run_ms(lambda: gather_plain(depth, rc)),
-                 library_ms=run_ms(lambda: torch.index_select(flat, 0, rc)),
+                 library_ms=med(lib), library_ms_rounds=lib["device_ms"],
+                 sorted_ms=med(kern_s), sorted_ms_rounds=kern_s["device_ms"],
+                 library_sorted_ms=med(lib_s), l1_span_ms=med(kern_l1),
                  queued_ms=alone_ms(lambda: gather_cuda(depth, rc)),
                  library_queued_ms=alone_ms(lambda: torch.index_select(flat, 0, rc)),
-                 **bound(nbytes(depth, rc, got)))
+                 l2_sector_bytes=n * L2_SECTOR_BYTES, **bound(nbytes(depth, rc, got)))
     report["gather"].update(entry)
-    print(f"[probes] gather {rc.numel()} lookups from {tuple(depth.shape)} f32: bytes equal; "
-          f"kernel {entry['ms']:.4f} ms, plain (indexing) {entry['plain_ms']:.4f} ms, "
-          f"torch.index_select {entry['library_ms']:.4f} ms; one launch queued behind a spin: kernel "
-          f"{entry['queued_ms']:.4f} ms, torch.index_select {entry['library_queued_ms']:.4f} ms; "
-          f"bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}")
+    print(f"[probes] gather {n} lookups from {tuple(depth.shape)} f32: bytes equal, with the "
+          f"indices as drawn and sorted; per launch in runs of 50, five rounds in turns (median, "
+          f"spread): kernel {entry['ms']:.5f} ms ({spread(kern['device_ms'])}), torch.index_select "
+          f"{entry['library_ms']:.5f} ms ({spread(lib['device_ms'])}); sorted indices: kernel "
+          f"{entry['sorted_ms']:.5f} ms ({spread(kern_s['device_ms'])}), torch.index_select "
+          f"{entry['library_sorted_ms']:.5f} ms ({spread(lib_s['device_ms'])}); indices in the "
+          f"table's first {L1_SPAN * 4 // 1024} KB: kernel {entry['l1_span_ms']:.5f} ms "
+          f"({spread(kern_l1['device_ms'])}); plain (indexing) "
+          f"{entry['plain_ms']:.5f} ms; one launch queued behind a spin: kernel "
+          f"{entry['queued_ms']:.5f} ms, torch.index_select {entry['library_queued_ms']:.5f} ms; "
+          f"bound {entry['bound_ms']:.5f} ms by {entry['bound_by']} (share "
+          f"{entry['bound_ms'] / entry['ms']:.3f}, sorted {entry['bound_ms'] / entry['sorted_ms']:.3f})"
+          f"{cache_note(report['gather'], '', depth, rc)}")
+    print(f"[probes] gather L2 sector traffic (information, not the bound): {n} table reads x "
+          f"{L2_SECTOR_BYTES} B = {entry['l2_sector_bytes']} B, "
+          f"{entry['l2_sector_bytes'] / nbytes(depth, rc, got):.2f}x the bytes the bound counts")
 
     g = torch.Generator(device=dev)
     g.manual_seed(3)
@@ -920,18 +1012,105 @@ def check_probes(report):
     assert_equal("scale2", got.view(torch.int32), want.view(torch.int32))
     small = torch.ones(8, device=dev)
     noop_ms = run_ms(lambda: small + 1.0, 200)
-    entry = dict(max_abs_err=0.0, ms=run_ms(lambda: scale2_cuda(x), 200),
+    kern, lib = runs_in_turns([lambda: scale2_cuda(x), lambda: torch.mul(x, 2.0)], 200)
+    entry = dict(max_abs_err=0.0, ms=med(kern), ms_rounds=kern["device_ms"],
                  plain_ms=run_ms(lambda: scale2_plain(x), 200),
-                 library_ms=run_ms(lambda: torch.mul(x, 2.0), 200),
+                 library_ms=med(lib), library_ms_rounds=lib["device_ms"],
+                 run_enqueue_ms=float(np.median(kern["enqueue_ms"])),
+                 library_enqueue_ms=float(np.median(lib["enqueue_ms"])),
                  queued_ms=alone_ms(lambda: scale2_cuda(x)),
                  library_queued_ms=alone_ms(lambda: torch.mul(x, 2.0)),
                  **bound(nbytes(x, got)))
     report["scale2"].update(entry)
-    print(f"[probes] scale2 on {tuple(x.shape)} f32: bytes equal; per launch in a run of 200: "
-          f"kernel {entry['ms']:.5f} ms (the launch floor of a ctypes-bound kernel), plain "
-          f"{entry['plain_ms']:.5f} ms, torch.mul {entry['library_ms']:.5f} ms, x + 1 on 8 floats "
-          f"{noop_ms:.5f} ms; one launch queued behind a spin (the device's time alone): kernel "
-          f"{entry['queued_ms']:.5f} ms, torch.mul {entry['library_queued_ms']:.5f} ms; bound {entry['bound_ms']:.7f} ms by {entry['bound_by']}")
+    print(f"[probes] scale2 on {tuple(x.shape)} f32: bytes equal; per launch in runs of 200, five "
+          f"rounds in turns (median, spread): kernel {entry['ms']:.5f} ms "
+          f"({spread(kern['device_ms'])}), torch.mul {entry['library_ms']:.5f} ms "
+          f"({spread(lib['device_ms'])}); the host's part of it (enqueue): kernel "
+          f"{entry['run_enqueue_ms']:.5f} ms ({spread(kern['enqueue_ms'])}), torch.mul "
+          f"{entry['library_enqueue_ms']:.5f} ms ({spread(lib['enqueue_ms'])}); plain "
+          f"{entry['plain_ms']:.5f} ms, x + 1 on 8 floats {noop_ms:.5f} ms; one launch queued "
+          f"behind a spin (the device's time alone): kernel {entry['queued_ms']:.5f} ms, torch.mul "
+          f"{entry['library_queued_ms']:.5f} ms; bound {entry['bound_ms']:.7f} ms by {entry['bound_by']}")
+
+
+def launch_cost(entry_name, call, reps=200, rounds=3):
+    """Host time per launch of the kernel wrapper ``call`` in runs of
+    ``reps`` (``timing.bench``'s enqueue_ms) and of the bare ctypes call of
+    its C entry point ``entry_name`` with the arguments the wrapper passed it
+    (no checks, no allocation), in turns, ``rounds`` times.  Returns (wrapper
+    rounds, bare rounds)."""
+    from semantic_dsp_map_tpu_torch.ops import cuda_lib
+
+    real = getattr(cuda_lib.entry, entry_name)
+    passed = []
+
+    def record(*args):
+        passed.append(args)
+        return real(*args)
+
+    setattr(cuda_lib.entry, entry_name, record)
+    try:
+        keep = call()  # its outputs stay alive: the bare calls write there
+    finally:
+        setattr(cuda_lib.entry, entry_name, real)
+    args = passed[0]
+    err = real(*args)
+    if err:
+        raise cuda_lib.error(err, entry_name)
+    wrapper, bare = runs_in_turns([call, lambda: real(*args)], reps, rounds)
+    del keep
+    return wrapper["enqueue_ms"], bare["enqueue_ms"]
+
+
+def check_launch(report, card):
+    """[launch]: what a launch costs the host.  Each of the seven wrappers at
+    its main shapes (the five frame kernels at VKITTI2 shapes on the inputs
+    of phase 2, the probes at theirs): its host time per launch in runs of
+    200, beside the bare ctypes call of the same entry point on the same
+    pointers and beside torch.mul on [8, 128] f32.  The wrapper's own cost
+    is the difference from the bare call."""
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch.benchmarks import prim_bench7
+    from semantic_dsp_map_tpu_torch.ops import observe_cuda, phd, phd_cuda, probes_cuda
+    from semantic_dsp_map_tpu_torch.ops.render_cuda import render_core_cuda
+
+    dev = torch.device("cuda")
+    cfg = virtual_kitti2_config()
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True)
+    t, cloud, _ = phd_inputs(cfg)
+    a_args = pass_a_inputs(cfg, params, t, cloud, torch.where(t.meta >= 0, t.weight, 0.0))
+    b_args = pass_b_inputs(cfg, params, t, cloud, phd.stencil_pass_a(cfg, params, t, cloud))
+    p, vst, vax = random_render_state(cfg)
+    fargs, fp, fvax = observe_inputs(cfg)
+    margs = (cfg, fp.track, fp.status, fp.stamp, fvax, 1)
+    depth, rc = prim_bench7.make_inputs(dev)
+    x = torch.randn((8, 128), device=dev)
+    cases = (
+        ("phd_pass_a", "dsp_pass_a", lambda: phd_cuda.pass_a_cuda(*a_args)),
+        ("phd_pass_b", "dsp_pass_b", lambda: phd_cuda.pass_b_cuda(*b_args)),
+        ("render", "dsp_render", lambda: render_core_cuda(cfg, p, vst, vax, 0.4)),
+        ("front_candidates", "dsp_front_candidates",
+         lambda: observe_cuda.front_candidates_cuda(*fargs)),
+        ("movable_voxels", "dsp_movable_voxels", lambda: observe_cuda.movable_voxels_cuda(*margs)),
+        ("gather", "dsp_gather", lambda: probes_cuda.gather_cuda(depth, rc)),
+        ("scale2", "dsp_scale2", lambda: probes_cuda.scale2_cuda(x)),
+    )
+    mul = []
+    for key, name, call in cases:
+        wrapper, bare = launch_cost(name, call)
+        mul += runs_in_turns([lambda: torch.mul(x, 2.0)], 200, 1)[0]["enqueue_ms"]
+        w, b = float(np.median(wrapper)), float(np.median(bare))
+        report[key].update(enqueue_ms=w, enqueue_ms_rounds=wrapper, bare_enqueue_ms=b,
+                           bare_enqueue_ms_rounds=bare)
+        print(f"[launch] {key} ({name}): host time per launch in runs of 200, median of 3 rounds "
+              f"(spread): wrapper {w:.5f} ms ({spread(wrapper)}), bare ctypes call {b:.5f} ms "
+              f"({spread(bare)}): the wrapper adds {w - b:.5f} ms ({card})")
+    m = float(np.median(mul))
+    for key in report:
+        report[key]["mul_enqueue_ms"] = m
+    print(f"[launch] torch.mul on [8, 128] f32: {m:.5f} ms a launch ({spread(mul)}), measured "
+          f"after each wrapper ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -2064,9 +2243,9 @@ def main() -> int:
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     ap.add_argument("--against", metavar="DIR", type=Path,
                     help="a directory holding another version of csrc/'s sources: both PHD "
-                         "passes, the render and the candidate scan are also built from it and "
-                         "timed in turns with the package's own, on the checked inputs and on "
-                         "the real frame")
+                         "passes, the render, the candidate scan and the gather are also built "
+                         "from it and timed in turns with the package's own, on the checked "
+                         "inputs and (the first four) on the real frame")
     ap.add_argument("--record-expected", action="store_true",
                     help="print where the card parts from data/bench_expected instead of "
                          "failing (its values go to chiprun_out/EXPECTED_CARD.json either way)")
@@ -2137,6 +2316,8 @@ def main() -> int:
         check_render(cfg, report, prefix)
         check_observe(cfg, report, prefix)
     check_probes(report)
+    check_launch(report, card)
+    torch.cuda.empty_cache()
     other, against = None, {}
     if args.against is not None:
         other_path, other_s, _ = cuda_lib.build(args.against.resolve())
@@ -2144,6 +2325,7 @@ def main() -> int:
         other = cuda_lib.load(other_path)
         for cfg, label in ((vk_cfg, "vkitti2 shapes"), (zed2_cfg, "zed2 shapes")):
             against[label] = compare_versions(other, cfg, label, card)
+        against["gather"] = compare_gather(other, card)
         torch.cuda.empty_cache()
     if args.phase == "kernels":
         print(json.dumps({"kernels": list(report.values())}))

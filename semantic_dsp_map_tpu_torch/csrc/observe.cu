@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr uint8_t STATUS_INVALID = 0;
@@ -276,18 +278,18 @@ int launch_front(const float* px, const float* py, const float* pz,
                  const float* pose, uint8_t* ha, uint8_t* hc, long long V,
                  Camera cam, cudaStream_t s) {
   const unsigned grid = (unsigned)((V + FRONT_SPAN - 1) / FRONT_SPAN);
-  front_kernel<K><<<grid, FRONT_NT, 0, s>>>(px, py, pz, status, stamp, vax,
-                                            pose, ha, hc, V, cam);
-  return (int)cudaGetLastError();
+  static CUfunction fn = nullptr;
+  return dsp::launch(front_kernel<K>, fn, grid, FRONT_NT, 0, s, px, py, pz,
+                     status, stamp, vax, pose, ha, hc, V, cam);
 }
 
 template <int K>
 int launch_movable(const int* track, const uint8_t* status, const int* stamp,
                    const int* vax, uint8_t* hm, long long V, int max_movable,
                    cudaStream_t s) {
-  movable_kernel<K><<<grid_for(V), BLOCK, 0, s>>>(track, status, stamp, vax,
-                                                  hm, V, max_movable);
-  return (int)cudaGetLastError();
+  static CUfunction fn = nullptr;
+  return dsp::launch(movable_kernel<K>, fn, grid_for(V), BLOCK, 0, s, track,
+                     status, stamp, vax, hm, V, max_movable);
 }
 
 }  // namespace

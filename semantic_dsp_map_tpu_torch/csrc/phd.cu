@@ -81,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 // Pass A tile, block and list: 256 pixels, one thread each, A_CAP entries.
@@ -430,10 +432,10 @@ extern "C" int dsp_pass_a(
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((W + A_TW - 1) / A_TW, (H + A_TH - 1) / A_TH);
-  pass_a_kernel<<<grid, A_NT, smem, (cudaStream_t)stream>>>(
-      px, py, pz, weff, trk, ox, oy, oz, isg, otrk, ck,
-      S, H, W, R, coef3, id_p, independent);
-  return (int)cudaGetLastError();
+  static CUfunction fn = nullptr;
+  return dsp::launch(pass_a_kernel, fn, grid, A_NT, (unsigned)smem,
+                     (cudaStream_t)stream, px, py, pz, weff, trk, ox, oy, oz,
+                     isg, otrk, ck, S, H, W, R, coef3, id_p, independent);
 }
 
 extern "C" int dsp_pass_b(
@@ -452,8 +454,9 @@ extern "C" int dsp_pass_b(
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((W + B_TW - 1) / B_TW, (H + B_TH - 1) / B_TH);
-  pass_b_kernel<<<grid, B_NT, smem, (cudaStream_t)stream>>>(
-      px, py, pz, trk_eff, ff_eff, isg_p, ox, oy, oz, ovalid, otrk, ck_kappa,
-      acc, right, S, H, W, R, coef3, id_p, thr_right, independent);
-  return (int)cudaGetLastError();
+  static CUfunction fn = nullptr;
+  return dsp::launch(pass_b_kernel, fn, grid, B_NT, (unsigned)smem,
+                     (cudaStream_t)stream, px, py, pz, trk_eff, ff_eff, isg_p,
+                     ox, oy, oz, ovalid, otrk, ck_kappa, acc, right, S, H, W, R,
+                     coef3, id_p, thr_right, independent);
 }

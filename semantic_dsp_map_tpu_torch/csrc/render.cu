@@ -56,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr uint8_t STATUS_INVALID = 0;
@@ -249,10 +251,10 @@ int launch(float* weight, const int* stamp, uint8_t* status, const int* track,
            cudaStream_t stream) {
   constexpr int SPAN = RENDER_NT * (K <= 7 ? 4 : 2);
   const long long grid = (V + SPAN - 1) / SPAN;
-  render_kernel<K><<<(unsigned)grid, RENDER_NT, 0, stream>>>(
-      weight, stamp, status, track, label, vax, vst, occ, lab, trk, ws, V,
-      thr, init_w);
-  return (int)cudaGetLastError();
+  static CUfunction fn = nullptr;
+  return dsp::launch(render_kernel<K>, fn, (unsigned)grid, RENDER_NT, 0, stream,
+                     weight, stamp, status, track, label, vax, vst, occ, lab,
+                     trk, ws, V, thr, init_w);
 }
 
 }  // namespace

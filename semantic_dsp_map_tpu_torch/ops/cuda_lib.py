@@ -1,11 +1,25 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-The sources have a plain C interface and are compiled by ``nvcc`` (one
-process per source, in parallel) and linked into one shared library, loaded
-with ctypes.  The build runs at first use and is
-keyed on a hash of the sources and flags, under ``build/kernels/`` at the
-repository root (a cache, listed in .gitignore).  Nothing here runs at
-import time: the CPU tests import every module on a machine without nvcc.
+Build.  The sources have a plain C interface and are compiled by ``nvcc``
+(one process per source, in parallel) and linked into one shared library,
+loaded with ctypes.  The build runs at first use and is keyed on a hash of
+the sources and flags, under ``build/kernels/`` at the repository root (a
+cache, listed in .gitignore).  Nothing here runs at import time: the CPU
+tests import every module on a machine without nvcc.
+
+Launch.  A wrapper (``ops/*_cuda.py``) reaches the card in four steps, each
+paid once a launch and no more: ``pointers`` checks its tensors of one
+dtype and shape in one pass (device, dtype, shape, contiguity) and returns
+their device pointers; ``torch.empty`` allocates the outputs;
+``stream_ptr`` reads the raw handle of PyTorch's current stream (the
+accessor PyTorch's own Triton launcher uses: no ``torch.cuda.Stream`` is
+built, and under CUDA-graph capture it is the capture stream); and the C
+entry point is called through ``entry``, whose attributes are the ctypes
+function objects of the loaded library, resolved once with their argtypes
+(pointers, ints and Python floats are converted by those).  The C function
+launches with ``cuLaunchKernel`` on a ``CUfunction`` looked up once
+(``csrc/launch.cuh``) and returns its error code; the wrapper
+raises ``error(err, name)`` if that is not 0.
 """
 
 from __future__ import annotations
@@ -34,11 +48,14 @@ NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
+#: The kernels launch with cuLaunchKernel of libcuda (csrc/launch.cuh).
+LINK_FLAGS = ("-lcuda",)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-#: argtypes of every C entry point (each returns cudaGetLastError()).
+#: argtypes of every C entry point (each returns 0 or a CUDA error code).
 SIGNATURES = {
     # 10 inputs, ck; S, H, W, R; coef3, id_p; independent; stream
     "dsp_pass_a": [_P] * 11 + [_I] * 4 + [_F, _F, _I, _P],
@@ -67,9 +84,9 @@ def _nvcc() -> str:
 
 
 def _source_hash(csrc: Path) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((csrc / name).read_bytes())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *LINK_FLAGS)).encode())
+    for path in sorted(csrc.glob("*.cu*")):  # the sources and the headers they include
+        h.update(path.name.encode() + path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -99,7 +116,7 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{output}")
         tmp_lib = Path(tmp) / lib.name
-        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp_lib), *objects],
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp_lib), *objects, *LINK_FLAGS],
                               capture_output=True, text=True)
         output += link.stdout + link.stderr
         if link.returncode != 0:
@@ -110,8 +127,10 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
 
 
 def load(path: Path) -> ctypes.CDLL:
-    """Load a built kernel library and declare its entry points."""
-    lib = ctypes.CDLL(str(path))
+    """Load a built kernel library and declare its entry points.  Loaded as
+    a ``PyDLL``: a call keeps the interpreter lock, which saves releasing and
+    taking it again on every launch (each entry point only enqueues work)."""
+    lib = ctypes.PyDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -127,25 +146,64 @@ def library() -> ctypes.CDLL:
     return load(build()[0])
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
-    if err != 0:
-        msg = library().dsp_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+class _EntryPoints:
+    """The C entry points the wrappers launch, one attribute each (the names
+    of ``SIGNATURES`` and ``dsp_error_string``): the ctypes function objects
+    of one loaded library.  The first lookup builds and binds the package's
+    library; ``bind`` puts another build's in place."""
+
+    def __getattr__(self, name: str):
+        if name not in SIGNATURES and name != "dsp_error_string":
+            raise AttributeError(name)
+        bind(library())
+        return self.__dict__[name]
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> int:
-    """Validate a kernel argument and return its device pointer."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+entry = _EntryPoints()
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """Make ``lib``'s entry points the ones ``entry`` holds."""
+    entry.__dict__.update({name: getattr(lib, name) for name in (*SIGNATURES, "dsp_error_string")})
+
+
+def error(err: int, name: str) -> RuntimeError:
+    """The error to raise when the C entry point ``name`` returned ``err``."""
+    msg = entry.dsp_error_string(err).decode()
+    return RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def _refuse(t: torch.Tensor, name: str, index: int, dtype: torch.dtype, shape) -> None:
+    """Raise the ValueError that names what is wrong with argument ``name``."""
+    if t.get_device() != index:
+        if index >= 0 and not t.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+        raise ValueError(f"{name}: expected a tensor on device {index}, got {t.device}")
+    if t.dtype is not dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != shape:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    return t.data_ptr()
 
 
-def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def pointers(index: int, dtype: torch.dtype, shape, tensors, names) -> list:
+    """Data pointers of ``tensors``, after one pass that checks each is a
+    contiguous ``dtype`` tensor of ``shape`` (any shape if None) on device
+    ``index`` (``Tensor.get_device()``'s number: a CUDA device, or -1 for
+    the CPU, which no kernel takes).  A tensor that is not raises ValueError
+    naming its argument: ``names`` holds them in the same order."""
+    ptrs = []
+    for t in tensors:
+        if (t.dtype is not dtype or t.get_device() != index or not t.is_contiguous()
+                or (shape is not None and t.shape != shape)):
+            for u, name in zip(tensors, names):
+                _refuse(u, name, index, dtype, shape)
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
+#: ``stream_ptr(index)``: the raw ``cudaStream_t`` of PyTorch's current
+#: stream on CUDA device ``index`` (a device index, not a ``torch.device``).
+#: It is PyTorch's own accessor, which a CPU-only build lacks.
+stream_ptr = getattr(torch._C, "_cuda_getCurrentRawStream", None)

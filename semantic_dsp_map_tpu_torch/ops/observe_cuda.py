@@ -14,8 +14,6 @@ count kernel launches.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..config import MapConfig
@@ -33,47 +31,46 @@ def front_candidates_cuda(cfg: MapConfig, px, py, pz, status, stamp, vox_axis, r
     ops.observe.front_candidates_plain.  The kernel loads 16 bytes a thread:
     the store's arrays must start on a 16-byte boundary (whole tensors do),
     and a store that does not raises."""
-    if not px.is_cuda:
+    index = px.get_device()
+    if index < 0:  # the CPU: the plain version
         return front_candidates_plain(cfg, px, py, pz, status, stamp, vox_axis, r_cw, t_cw)
     V, K, n = _slots(cfg, vox_axis)
     f32 = torch.float32
     pose = torch.cat([r_cw.reshape(-1), t_cw.reshape(-1)])
-    ptrs = [cuda_lib.require(t, name, f32, n) for t, name in ((px, "px"), (py, "py"), (pz, "pz"))]
-    ptrs += [
-        cuda_lib.require(status, "status", torch.uint8, n),
-        cuda_lib.require(stamp, "stamp", torch.int32, n),
-        cuda_lib.require(vox_axis, "vox_axis", torch.int32, (V,)),
-        cuda_lib.require(pose, "pose", f32, (12,)),
-    ]
+    ptrs = cuda_lib.pointers(index, f32, n, (px, py, pz), ("px", "py", "pz"))
+    ptrs += cuda_lib.pointers(index, torch.uint8, n, (status,), ("status",))
+    ptrs += cuda_lib.pointers(index, torch.int32, n, (stamp,), ("stamp",))
+    ptrs += cuda_lib.pointers(index, torch.int32, (V,), (vox_axis,), ("vox_axis",))
+    ptrs += cuda_lib.pointers(index, f32, (12,), (pose,), ("pose",))
     ha = torch.empty(V, dtype=torch.uint8, device=px.device)
     hc = torch.empty(V, dtype=torch.uint8, device=px.device)
-    F = ctypes.c_float
-    err = cuda_lib.library().dsp_front_candidates(
-        *ptrs, ha.data_ptr(), hc.data_ptr(), V, K,
-        F(cfg.fx), F(cfg.fy), F(cfg.cx), F(cfg.cy), cfg.height, cfg.width,
-        F(cfg.depth_range_min), F(cfg.depth_range_max), cuda_lib.stream_ptr(px.device),
+    err = cuda_lib.entry.dsp_front_candidates(
+        *ptrs, ha.data_ptr(), hc.data_ptr(), V, K, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+        cfg.height, cfg.width, cfg.depth_range_min, cfg.depth_range_max,
+        cuda_lib.stream_ptr(index),
     )
-    cuda_lib.check(err, "dsp_front_candidates")
+    if err:
+        raise cuda_lib.error(err, "dsp_front_candidates")
     front_candidates_cuda.launches += 1
     return ha, hc
 
 
 def movable_voxels_cuda(cfg: MapConfig, track, status, stamp, vox_axis, max_movable: int):
     """u8[V]; see ops.observe.movable_voxels_plain."""
-    if not track.is_cuda:
+    index = track.get_device()
+    if index < 0:  # the CPU: the plain version
         return movable_voxels_plain(cfg, track, status, stamp, vox_axis, max_movable)
     V, K, n = _slots(cfg, vox_axis)
-    ptrs = [
-        cuda_lib.require(track, "track", torch.int32, n),
-        cuda_lib.require(status, "status", torch.uint8, n),
-        cuda_lib.require(stamp, "stamp", torch.int32, n),
-        cuda_lib.require(vox_axis, "vox_axis", torch.int32, (V,)),
-    ]
+    track_p, stamp_p = cuda_lib.pointers(index, torch.int32, n, (track, stamp), ("track", "stamp"))
+    (status_p,) = cuda_lib.pointers(index, torch.uint8, n, (status,), ("status",))
+    (vax,) = cuda_lib.pointers(index, torch.int32, (V,), (vox_axis,), ("vox_axis",))
     hm = torch.empty(V, dtype=torch.uint8, device=track.device)
-    err = cuda_lib.library().dsp_movable_voxels(
-        *ptrs, hm.data_ptr(), V, K, int(max_movable), cuda_lib.stream_ptr(track.device),
+    err = cuda_lib.entry.dsp_movable_voxels(
+        track_p, status_p, stamp_p, vax, hm.data_ptr(), V, K, int(max_movable),
+        cuda_lib.stream_ptr(index),
     )
-    cuda_lib.check(err, "dsp_movable_voxels")
+    if err:
+        raise cuda_lib.error(err, "dsp_movable_voxels")
     movable_voxels_cuda.launches += 1
     return hm
 

@@ -12,8 +12,6 @@ the top of csrc/phd.cu.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..config import FilterParams, GAUSSIAN_PDF_COEF, MIN_RIGHTLY_UPDATED_PDF, MapConfig
@@ -21,6 +19,12 @@ from . import cuda_lib
 from .phd import pass_a_raw, pass_b_raw
 
 _COEF3 = GAUSSIAN_PDF_COEF ** 3
+
+#: Argument names of the tensors the wrappers check together.
+_A_PLANES = ("px", "py", "pz", "weff")
+_A_OBS = ("obs_x", "obs_y", "obs_z", "inv_sigma")
+_B_PLANES = ("px", "py", "pz", "ff_eff")
+_B_OBS = ("inv_sigma_p", "obs_x", "obs_y", "obs_z", "ck_kappa")
 
 #: Largest stencil half-width the kernels' shared-memory tile is sized for.
 MAX_R = 8
@@ -40,25 +44,24 @@ def pass_a_cuda(
     obs_x, obs_y, obs_z, inv_sigma, obs_trk,  # [H, W]
 ) -> torch.Tensor:
     """Raw per-pixel ck, f32[H, W] (see ops.phd.pass_a_raw)."""
-    if not px.is_cuda:
+    index = px.get_device()
+    if index < 0:  # the CPU: the plain version
         return pass_a_raw(cfg, params, px, py, pz, weff, trk,
                           obs_x, obs_y, obs_z, inv_sigma, obs_trk)
-    S, H, W = px.shape
+    S, H, W = shape = px.shape
     R = _check_r(cfg)
     f32, i32 = torch.float32, torch.int32
-    ptrs = [cuda_lib.require(t, n, f32, (S, H, W)) for t, n in
-            ((px, "px"), (py, "py"), (pz, "pz"), (weff, "weff"))]
-    ptrs.append(cuda_lib.require(trk, "trk", i32, (S, H, W)))
-    ptrs += [cuda_lib.require(t, n, f32, (H, W)) for t, n in
-             ((obs_x, "obs_x"), (obs_y, "obs_y"), (obs_z, "obs_z"), (inv_sigma, "inv_sigma"))]
-    ptrs.append(cuda_lib.require(obs_trk, "obs_trk", i32, (H, W)))
+    ptrs = cuda_lib.pointers(index, f32, shape, (px, py, pz, weff), _A_PLANES)
+    ptrs += cuda_lib.pointers(index, i32, shape, (trk,), ("trk",))
+    ptrs += cuda_lib.pointers(index, f32, (H, W), (obs_x, obs_y, obs_z, inv_sigma), _A_OBS)
+    ptrs += cuda_lib.pointers(index, i32, (H, W), (obs_trk,), ("obs_trk",))
     ck = torch.empty((H, W), dtype=f32, device=px.device)
-    err = cuda_lib.library().dsp_pass_a(
-        *ptrs, ck.data_ptr(), S, H, W, R,
-        ctypes.c_float(_COEF3), ctypes.c_float(params.id_transition_probability),
-        int(params.if_use_independent_filter), cuda_lib.stream_ptr(px.device),
+    err = cuda_lib.entry.dsp_pass_a(
+        *ptrs, ck.data_ptr(), S, H, W, R, _COEF3, params.id_transition_probability,
+        int(params.if_use_independent_filter), cuda_lib.stream_ptr(index),
     )
-    cuda_lib.check(err, "dsp_pass_a")
+    if err:
+        raise cuda_lib.error(err, "dsp_pass_a")
     pass_a_cuda.launches += 1
     return ck
 
@@ -79,31 +82,28 @@ def pass_b_cuda(
     ck_kappa,              # f32[H, W]
 ):
     """(acc f32[S, H, W], right bool[S, H, W]) (see ops.phd.pass_b_raw)."""
-    if not px.is_cuda:
+    index = px.get_device()
+    if index < 0:  # the CPU: the plain version
         return pass_b_raw(cfg, params, px, py, pz, trk_eff, ff_eff, inv_sigma_p,
                           obs_x, obs_y, obs_z, obs_valid, obs_trk, ck_kappa)
-    S, H, W = px.shape
+    S, H, W = shape = px.shape
     R = _check_r(cfg)
     f32, i32 = torch.float32, torch.int32
-    ptrs = [cuda_lib.require(t, n, f32, (S, H, W)) for t, n in
-            ((px, "px"), (py, "py"), (pz, "pz"))]
-    ptrs.append(cuda_lib.require(trk_eff, "trk_eff", i32, (S, H, W)))
-    ptrs.append(cuda_lib.require(ff_eff, "ff_eff", f32, (S, H, W)))
-    ptrs += [cuda_lib.require(t, n, f32, (H, W)) for t, n in
-             ((inv_sigma_p, "inv_sigma_p"), (obs_x, "obs_x"), (obs_y, "obs_y"),
-              (obs_z, "obs_z"))]
-    ptrs.append(cuda_lib.require(obs_valid, "obs_valid", torch.bool, (H, W)))
-    ptrs.append(cuda_lib.require(obs_trk, "obs_trk", i32, (H, W)))
-    ptrs.append(cuda_lib.require(ck_kappa, "ck_kappa", f32, (H, W)))
-    acc = torch.empty((S, H, W), dtype=f32, device=px.device)
-    right = torch.empty((S, H, W), dtype=torch.bool, device=px.device)
-    err = cuda_lib.library().dsp_pass_b(
-        *ptrs, acc.data_ptr(), right.data_ptr(), S, H, W, R,
-        ctypes.c_float(_COEF3), ctypes.c_float(params.id_transition_probability),
-        ctypes.c_float(MIN_RIGHTLY_UPDATED_PDF),
-        int(params.if_use_independent_filter), cuda_lib.stream_ptr(px.device),
+    *planes, ff = cuda_lib.pointers(index, f32, shape, (px, py, pz, ff_eff), _B_PLANES)
+    *obs, ck = cuda_lib.pointers(index, f32, (H, W),
+                                 (inv_sigma_p, obs_x, obs_y, obs_z, ck_kappa), _B_OBS)
+    (trk,) = cuda_lib.pointers(index, i32, shape, (trk_eff,), ("trk_eff",))
+    (valid,) = cuda_lib.pointers(index, torch.bool, (H, W), (obs_valid,), ("obs_valid",))
+    (otrk,) = cuda_lib.pointers(index, i32, (H, W), (obs_trk,), ("obs_trk",))
+    acc = torch.empty(shape, dtype=f32, device=px.device)
+    right = torch.empty(shape, dtype=torch.bool, device=px.device)
+    err = cuda_lib.entry.dsp_pass_b(
+        *planes, trk, ff, *obs, valid, otrk, ck, acc.data_ptr(), right.data_ptr(), S, H, W, R,
+        _COEF3, params.id_transition_probability, MIN_RIGHTLY_UPDATED_PDF,
+        int(params.if_use_independent_filter), cuda_lib.stream_ptr(index),
     )
-    cuda_lib.check(err, "dsp_pass_b")
+    if err:
+        raise cuda_lib.error(err, "dsp_pass_b")
     pass_b_cuda.launches += 1
     return acc, right
 

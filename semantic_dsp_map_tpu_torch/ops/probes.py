@@ -12,22 +12,16 @@ from __future__ import annotations
 import torch
 
 
-def check_gather_args(depth: torch.Tensor, rc: torch.Tensor) -> None:
-    """The argument rule shared by the plain version and the kernel wrapper:
-    an f32 table of any shape, a one-dimensional i32 index of flat positions.
-    Indices outside ``[0, depth.numel())`` are the caller's error."""
+def gather_plain(depth: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
+    """``out[i] = depth.reshape(-1)[rc[i]]``: f32[N] from an f32 table of any
+    shape and i32[N] flat indices.  Indices outside ``[0, depth.numel())``
+    are the caller's error."""
     if depth.dtype != torch.float32:
         raise ValueError(f"depth: expected torch.float32, got {depth.dtype}")
     if rc.dtype != torch.int32:
         raise ValueError(f"rc: expected torch.int32, got {rc.dtype}")
     if rc.dim() != 1:
         raise ValueError(f"rc: expected one dimension, got shape {tuple(rc.shape)}")
-
-
-def gather_plain(depth: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
-    """``out[i] = depth.reshape(-1)[rc[i]]``: f32[N] from an f32 table and
-    i32[N] flat indices."""
-    check_gather_args(depth, rc)
     return depth.reshape(-1)[rc]
 
 

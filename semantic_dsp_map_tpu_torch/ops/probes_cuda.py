@@ -15,36 +15,42 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .probes import check_gather_args, gather_plain, scale2_plain
+from .probes import gather_plain, scale2_plain
 
 
 def gather_cuda(depth: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
-    """f32[N]; see ops.probes.gather_plain."""
-    if not depth.is_cuda:
+    """f32[N]; see ops.probes.gather_plain.  An empty index launches
+    nothing and gives an empty tensor, as the plain version does."""
+    index = depth.get_device()
+    if index < 0:  # the CPU: the plain version
         return gather_plain(depth, rc)
-    check_gather_args(depth, rc)
-    n = rc.shape[0]
-    ptrs = [
-        cuda_lib.require(depth, "depth", torch.float32),
-        cuda_lib.require(rc, "rc", torch.int32, (n,)),
-    ]
+    n = rc.numel()
+    ptrs = cuda_lib.pointers(index, torch.float32, None, (depth,), ("depth",))
+    ptrs += cuda_lib.pointers(index, torch.int32, (n,), (rc,), ("rc",))
     out = torch.empty(n, dtype=torch.float32, device=depth.device)
-    err = cuda_lib.library().dsp_gather(
-        *ptrs, out.data_ptr(), n, cuda_lib.stream_ptr(depth.device))
-    cuda_lib.check(err, "dsp_gather")
+    if n == 0:
+        return out
+    err = cuda_lib.entry.dsp_gather(*ptrs, out.data_ptr(), n, cuda_lib.stream_ptr(index))
+    if err:
+        raise cuda_lib.error(err, "dsp_gather")
     gather_cuda.launches += 1
     return out
 
 
 def scale2_cuda(x: torch.Tensor) -> torch.Tensor:
-    """f32 of x's shape; see ops.probes.scale2_plain."""
-    if not x.is_cuda:
+    """f32 of x's shape; see ops.probes.scale2_plain.  An empty tensor
+    launches nothing."""
+    index = x.get_device()
+    if index < 0:  # the CPU: the plain version
         return scale2_plain(x)
-    ptr = cuda_lib.require(x, "x", torch.float32)
+    (ptr,) = cuda_lib.pointers(index, torch.float32, None, (x,), ("x",))
     out = torch.empty_like(x)
-    err = cuda_lib.library().dsp_scale2(
-        ptr, out.data_ptr(), x.numel(), cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(err, "dsp_scale2")
+    n = out.numel()
+    if n == 0:
+        return out
+    err = cuda_lib.entry.dsp_scale2(ptr, out.data_ptr(), n, cuda_lib.stream_ptr(index))
+    if err:
+        raise cuda_lib.error(err, "dsp_scale2")
     scale2_cuda.launches += 1
     return out
 

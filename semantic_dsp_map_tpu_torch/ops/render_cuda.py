@@ -14,8 +14,6 @@ csrc/render.cu.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..config import MapConfig, PARTICLE_OCC_INIT_WEIGHT
@@ -28,32 +26,32 @@ def render_core_cuda(cfg: MapConfig, p, voxel_stamp, vax, occupancy_threshold: f
     in place."""
     K = cfg.slots_per_voxel
     V = voxel_stamp.shape[0]
-    if not p.weight.is_cuda:
+    index = p.weight.get_device()
+    if index < 0:  # the CPU: the plain version
         new, res = render_core_plain(cfg, p, voxel_stamp, vax, occupancy_threshold)
         p.weight.copy_(new.weight)
         p.status.copy_(new.status)
         return p, res
     n = (V * K,)
-    ptrs = [
-        cuda_lib.require(p.weight, "weight", torch.float32, n),
-        cuda_lib.require(p.stamp, "stamp", torch.int32, n),
-        cuda_lib.require(p.status, "status", torch.uint8, n),
-        cuda_lib.require(p.track, "track", torch.int32, n),
-        cuda_lib.require(p.label, "label", torch.uint8, n),
-        cuda_lib.require(vax, "vax", torch.int32, (V,)),
-        cuda_lib.require(voxel_stamp, "voxel_stamp", torch.int32, (V,)),
-    ]
+    (weight_p,) = cuda_lib.pointers(index, torch.float32, n, (p.weight,), ("weight",))
+    stamp_p, track_p = cuda_lib.pointers(index, torch.int32, n, (p.stamp, p.track),
+                                         ("stamp", "track"))
+    status_p, label_p = cuda_lib.pointers(index, torch.uint8, n, (p.status, p.label),
+                                          ("status", "label"))
+    voxel_p = cuda_lib.pointers(index, torch.int32, (V,), (vax, voxel_stamp),
+                                ("vax", "voxel_stamp"))
     dev = p.weight.device
     occ = torch.empty(V, dtype=torch.int32, device=dev)
     label = torch.empty(V, dtype=torch.int32, device=dev)
     track = torch.empty(V, dtype=torch.int32, device=dev)
     weight_sum = torch.empty(V, dtype=torch.float32, device=dev)
-    err = cuda_lib.library().dsp_render(
-        *ptrs, occ.data_ptr(), label.data_ptr(), track.data_ptr(), weight_sum.data_ptr(),
-        V, K, ctypes.c_float(occupancy_threshold), ctypes.c_float(PARTICLE_OCC_INIT_WEIGHT),
-        cuda_lib.stream_ptr(dev),
+    err = cuda_lib.entry.dsp_render(
+        weight_p, stamp_p, status_p, track_p, label_p, *voxel_p,
+        occ.data_ptr(), label.data_ptr(), track.data_ptr(), weight_sum.data_ptr(), V, K,
+        occupancy_threshold, PARTICLE_OCC_INIT_WEIGHT, cuda_lib.stream_ptr(index),
     )
-    cuda_lib.check(err, "dsp_render")
+    if err:
+        raise cuda_lib.error(err, "dsp_render")
     render_core_cuda.launches += 1
     return p, RenderResult(occ=occ, label=label, track=track, weight_sum=weight_sum)
 

@@ -620,6 +620,166 @@ def test_scale2_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [*range(1, 18), 100_003])
+def test_gather_kernel_lengths_and_offsets(cuda, n):
+    """The gather at every length from 1 to 17 (the kernel takes 8 lookups
+    a thread, in quads of 4 from a 16-byte boundary) and at an odd large
+    one, on index views that start 0-3 entries past a 16-byte boundary
+    (rc[1:] of a whole tensor is a valid input): bytes equal, one launch."""
+    from semantic_dsp_map_tpu_torch.benchmarks.prim_bench7 import make_inputs
+    from semantic_dsp_map_tpu_torch.ops.probes import gather_plain
+    from semantic_dsp_map_tpu_torch.ops.probes_cuda import gather_cuda
+
+    depth, rc = make_inputs(cuda, 37, 53, n + 3, seed=n)
+    for k in range(4):
+        idx = rc[k:k + n]
+        assert idx.is_contiguous() and idx.data_ptr() % 16 == 4 * k
+        before = gather_cuda.launches
+        got = gather_cuda(depth, idx)
+        torch.cuda.synchronize()
+        assert gather_cuda.launches == before + 1
+        assert got.shape == (n,) and got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), gather_plain(depth, idx).view(torch.int32)), k
+
+
+@pytest.mark.gpu
+def test_gather_kernel_empty_index(cuda):
+    """An empty index gives an empty f32 tensor on the card, as the plain
+    version does, and launches nothing."""
+    from semantic_dsp_map_tpu_torch.ops.probes import gather_plain
+    from semantic_dsp_map_tpu_torch.ops.probes_cuda import gather_cuda
+
+    depth = torch.rand((4, 5), device=cuda)
+    rc = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = gather_cuda.launches
+    got = gather_cuda(depth, rc)
+    assert gather_cuda.launches == before
+    want = gather_plain(depth, rc)
+    assert got.shape == want.shape == (0,) and got.dtype == want.dtype == torch.float32
+    assert got.device == want.device
+
+
+@pytest.mark.gpu
+def test_probe_kernels_in_a_cuda_graph(cuda):
+    """Both probe kernels captured in a CUDA graph: each launches on the
+    stream its wrapper reads as current, which under capture is the capture
+    stream; replayed on new inputs (copied into the captured ones) they give
+    the plain versions' bytes."""
+    from semantic_dsp_map_tpu_torch.benchmarks.prim_bench7 import make_inputs
+    from semantic_dsp_map_tpu_torch.ops.probes import gather_plain, scale2_plain
+    from semantic_dsp_map_tpu_torch.ops.probes_cuda import gather_cuda, scale2_cuda
+
+    depth, rc = make_inputs(cuda, 37, 53, 100_003, seed=1)
+    x = torch.randn((8, 128), device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture asks
+        gather_cuda(depth, rc)
+        scale2_cuda(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (gather_cuda.launches, scale2_cuda.launches)
+    with torch.cuda.graph(graph):
+        g_out = gather_cuda(depth, rc)
+        s_out = scale2_cuda(x)
+    assert (gather_cuda.launches, scale2_cuda.launches) == (before[0] + 1, before[1] + 1)
+    for seed in (2, 3):
+        new_depth, new_rc = make_inputs(cuda, 37, 53, 100_003, seed=seed)
+        depth.copy_(new_depth)
+        rc.copy_(new_rc)
+        x.copy_(torch.randn((8, 128), device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_out.view(torch.int32), gather_plain(depth, rc).view(torch.int32))
+        assert torch.equal(s_out.view(torch.int32), scale2_plain(x).view(torch.int32))
+
+
+def _faulty(t, fault):
+    """``t`` with one fault a kernel wrapper refuses: another dtype, another
+    shape, the same values laid out with a stride, or on the CPU."""
+    if fault == "dtype":
+        return t.double() if t.is_floating_point() else t.long()
+    if fault == "shape":
+        return t.unsqueeze(0)
+    if fault == "strided":
+        return torch.stack([t, t], -1)[..., 0]
+    return t.cpu()
+
+
+def _wrapper_cases(device):
+    """(wrapper, arguments, [(argument name, position or Particles field)],
+    {argument: the name a wrong shape of it is reported under}) for each of
+    the seven kernel wrappers at the tiny config: every tensor but the one
+    whose device decides between the kernel and the plain version.  The
+    voxel count comes from one argument, so a wrong shape of that one is
+    reported under the first store array checked against it."""
+    from semantic_dsp_map_tpu_torch.ops.probes_cuda import gather_cuda, scale2_cuda
+
+    cfg = tiny_test_config(phd_pixel_table_slots=4)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True)
+    t, c = _phd_inputs(cfg, device)
+    a_args = _pass_a_args(cfg, params, t, c)
+    _, b_args = _pass_b_args(cfg, params, t, c)
+    s = _render_state(cfg, device, seed=3)
+    vax = codecs.axis_stamps_per_voxel(cfg, s.scroll)
+    p = s.particles
+    _, _, r_cw, t_cw = camera_matrices(torch.tensor([0.4, -0.2, 0.7], device=device),
+                                       torch.tensor([1.0, 0, 0, 0], device=device))
+    n = cfg.num_voxels * cfg.slots_per_voxel
+    pos = torch.rand(n, device=device)
+    a_names = ("py", "pz", "weff", "trk", "obs_x", "obs_y", "obs_z", "inv_sigma", "obs_trk")
+    b_names = ("py", "pz", "trk_eff", "ff_eff", "inv_sigma_p", "obs_x", "obs_y", "obs_z",
+               "obs_valid", "obs_trk", "ck_kappa")
+    depth = torch.rand((6, 7), device=device)
+    rc = torch.randint(0, 42, (100,), dtype=torch.int32, device=device)
+    return {
+        "pass_a": (phd_cuda.pass_a_cuda, a_args, list(zip(a_names, range(3, 12))), {}),
+        "pass_b": (phd_cuda.pass_b_cuda, b_args, list(zip(b_names, range(3, 14))), {}),
+        "render": (render_core_cuda, (cfg, p, s.voxel_stamp, vax, 0.4),
+                   [(f, f) for f in ("stamp", "status", "track", "label")]
+                   + [("voxel_stamp", 2), ("vax", 3)], {"voxel_stamp": "weight"}),
+        "front": (front_candidates_cuda, (cfg, pos, pos.clone(), pos.clone(), p.status, p.stamp,
+                                          vax, r_cw, t_cw),
+                  [("py", 2), ("pz", 3), ("status", 4), ("stamp", 5), ("vox_axis", 6)],
+                  {"vox_axis": "px"}),
+        "movable": (movable_voxels_cuda, (cfg, p.track, p.status, p.stamp, vax, 2),
+                    [("status", 2), ("stamp", 3), ("vox_axis", 4)], {"vox_axis": "track"}),
+        "gather": (gather_cuda, (depth, rc), [("rc", 1)], {}),
+        "scale2": (scale2_cuda, (torch.rand((8, 128), device=device),), [("x", 0)], {}),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["pass_a", "pass_b", "render", "front", "movable", "gather",
+                                    "scale2"])
+@pytest.mark.parametrize("fault", ["dtype", "shape", "strided", "cpu"])
+def test_wrappers_refuse_what_their_kernels_do_not_take(cuda, kernel, fault):
+    """Each of the seven wrappers raises a ValueError that names the
+    argument, before any launch, for every tensor argument of another dtype,
+    another shape, a strided layout, or on the CPU among CUDA tensors.  The
+    gather's table and x2's input take any shape, and x2 has no other tensor
+    to put on the CPU (a CPU input runs the plain version)."""
+    fn, args, targets, sized_by = _wrapper_cases(cuda)[kernel]
+    if kernel == "scale2" and fault in ("shape", "cpu"):
+        fault = "dtype"
+    fn(*args)  # the arguments as they are pass
+    torch.cuda.synchronize()
+    for name, where in targets:
+        if isinstance(where, str):  # a field of the particle store
+            p = args[1]
+            bad = list(args)
+            bad[1] = dataclasses.replace(p, **{where: _faulty(getattr(p, where), fault)})
+        else:
+            bad = list(args)
+            bad[where] = _faulty(args[where], fault)
+        named = sized_by.get(name, name) if fault == "shape" else name
+        before = fn.launches
+        with pytest.raises(ValueError, match=f"^{named}: "):
+            fn(*bad)
+        assert fn.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("D", [1, 2, 4, 8])
 def test_kernels_at_slab_shapes(cuda, D):
     """The five kernels of the sharded step at the shapes a rank of a D-rank

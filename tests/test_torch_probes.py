@@ -10,6 +10,7 @@ The TPU kernels live in scripts that run at import
 
 import inspect
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from semantic_dsp_map_tpu_torch.benchmarks import prim_bench1, prim_bench7
+from semantic_dsp_map_tpu_torch.ops import cuda_lib
 from semantic_dsp_map_tpu_torch.ops.probes import gather_plain, scale2_plain
 from semantic_dsp_map_tpu_torch.ops.probes_cuda import gather_cuda, scale2_cuda
 
@@ -117,6 +119,35 @@ def test_probe_wrappers_check_their_arguments():
     for fn in (scale2_plain, scale2_cuda):
         with pytest.raises(ValueError, match="x"):
             fn(depth.double())
+
+
+@pytest.mark.parametrize("fault, message", [
+    (lambda a: a.double(), "b: expected torch.float32, got torch.float64"),
+    (lambda a: a[:3], "b: expected shape (4,), got (3,)"),
+    (lambda a: a.view(2, 2), "b: expected shape (4,), got (2, 2)"),
+    (lambda a: torch.stack([a, a], -1)[..., 0], "b: expected a contiguous tensor"),
+])
+def test_pointer_check_names_the_argument(fault, message):
+    """The wrappers' one-pass check (``cuda_lib.pointers``) names the
+    argument that is wrong and what is wrong with it, whichever of the
+    tensors it is; tensors that pass give their data pointers.  On the CPU
+    it runs with the CPU's device number, -1."""
+    a = torch.arange(4.0)
+    good = torch.zeros(4)
+    assert cuda_lib.pointers(-1, torch.float32, (4,), (a, good), ("a", "b")) == [
+        a.data_ptr(), good.data_ptr()]
+    with pytest.raises(ValueError, match=re.escape(message)):
+        cuda_lib.pointers(-1, torch.float32, (4,), (a, fault(a)), ("a", "b"))
+    with pytest.raises(ValueError, match=re.escape(message.replace("b:", "a:"))):
+        cuda_lib.pointers(-1, torch.float32, (4,), (fault(a), good), ("a", "b"))
+
+
+def test_pointer_check_wants_the_card():
+    """A CPU tensor handed to a kernel (device 0) is refused by name."""
+    x = torch.zeros((2, 3))
+    with pytest.raises(ValueError, match=re.escape("x: expected a CUDA tensor, got cpu")):
+        cuda_lib.pointers(0, torch.float32, x.shape, (x,), ("x",))
+    assert cuda_lib.pointers(-1, torch.float32, x.shape, (x,), ("x",)) == [x.data_ptr()]
 
 
 @pytest.mark.parametrize("module, kwargs, n_rows", [
