@@ -22,7 +22,9 @@ Phases (any failure raises, and the script exits nonzero):
      coda preset's (960x540, K = 3 at 8.4M voxels), the
      gather and x2 probe kernels at the probes' shapes, in turns with the
      PyTorch call that computes the same function (the gather also with its
-     indices sorted); then [launch]: each of the seven wrappers' host time
+     indices sorted); the movable scan also a launch inside a CUDA graph
+     (no host time); then [launch]: each of the seven
+     wrappers' host time
      per launch beside the bare ctypes call of its entry point and beside
      torch.mul;
   3. check the CUDA path against the CPU path on the tiny dynamic scene, on
@@ -63,6 +65,17 @@ Phases (any failure raises, and the script exits nonzero):
      (``tools.soak``: the largest preset, a checkpoint and a restore); the
      stage profiler's table at VKITTI2; and the two primitive-op probe
      modules, which launch the gather and x2 kernels;
+  4b. [graph]: the captured step against the eager one at full width on
+     vkitti2, zed2, coda and the hostile scene: SemanticDSPMap.update()
+     (frame 0 eager, frame 1 captured into a CUDA graph, replays after) in
+     turns with build_frame_step on a state of its own, 10 frames, noise
+     on: state (generator included), render and counters bit-equal every
+     frame; both per-frame medians, host API calls a frame, device busy
+     share, the memory a frame takes, and the five kernels' device time
+     inside a replay (torch.profiler).  Every main path's map replays its
+     graph; a path's launch counts are a wrapper's launches outside graphs
+     plus those captured into a graph times its replays
+     (step_graph.kernel_runs);
   5. [sharded]: the sharded step (parallel/shard_step.py) at one rank, in a
      process group of this process alone (NCCL): at the VKITTI2 preset with
      the movers, 8 frames, unpacked and packed, in turns with the
@@ -150,6 +163,32 @@ def cuda_ms(fn, reps: int, queued: bool = False, setup=None) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device ms a call of ``fn`` takes inside a CUDA graph: ``launches``
+    calls captured into one graph, replayed ``reps`` times between CUDA
+    events; the median over the launches.  No host time is in it: the
+    launches are enqueued by one replay.  ``fn`` must give the same result
+    every call (it does not work in place)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
     return float(np.median(times))
 
 
@@ -760,11 +799,15 @@ def check_observe(cfg, report, prefix=""):
     run_m = lambda: movable_voxels_cuda(*margs)
     ms_m, q_m = cuda_ms(run_m, 10), cuda_ms(run_m, 10, queued=True)
     ms_m_plain = cuda_ms(lambda: movable_voxels_plain(*margs), 3)
+    # The movable scan inside a graph on this store, the one its bound and
+    # its earlier times are reckoned on ([graph] times it on a real frame's
+    # store, which has fewer slots with a status).
+    g_m = graph_ms(run_m)
     print(f"[observe] {prefix}V={V} K={K}: voxel shares alive {alive_share:.4f}, "
           f"candidate {cand_share:.4f}, movable {mov_share:.4f}; outputs byte-equal; "
-          f"front kernel {ms_f:.3f} ms ({q_f:.3f} with the launch queued), plain "
-          f"{ms_f_plain:.3f} ms; movable kernel {ms_m:.3f} ms ({q_m:.3f} queued), plain "
-          f"{ms_m_plain:.3f} ms")
+          f"front kernel {ms_f:.4f} ms ({q_f:.4f} with the launch queued), plain "
+          f"{ms_f_plain:.3f} ms; movable kernel {ms_m:.4f} ms "
+          f"({q_m:.4f} queued, {g_m:.4f} inside a graph), plain {ms_m_plain:.3f} ms")
     # Bounds from this store (front_bound); the movable scan as reckoned
     # since it was written: status and stamp of every slot, the track (4 B)
     # of the alive slots.
@@ -783,7 +826,7 @@ def check_observe(cfg, report, prefix=""):
          **{prefix + k: v for k, v in b_f.items()}})
     report["movable_voxels"].update(
         {prefix + "max_abs_err": 0.0, prefix + "ms": ms_m, prefix + "queued_ms": q_m,
-         prefix + "plain_ms": ms_m_plain,
+         prefix + "plain_ms": ms_m_plain, prefix + "in_graph_ms": g_m,
          **{prefix + k: v for k, v in b_m.items()}})
 
 
@@ -1227,8 +1270,7 @@ def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10, setup
     if setup is not None:
         setup(cpu)
         setup(gpu)
-    for fn in counters:
-        fn.launches = 0
+    reset_launches(counters)
     moved = 0
     for t in range(frames):
         rc, dc = cpu.update(*scene(cfg, t, MaskKpts))
@@ -1381,8 +1423,7 @@ def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=5
     scenes = [synth(cfg, t, MaskKpts) for t in range(warmup + frames)]
     torch.cuda.synchronize()
 
-    for fn in counters:
-        fn.launches = 0
+    reset_launches(counters)
     frame_ms, wall_ms, moved_any = [], [], False
     result = None
     for t, (depth, masks, pos, quat) in enumerate(scenes):
@@ -1470,7 +1511,7 @@ class CallRecorder:
 
 
 def check_real_frame(dsp, synth, t, card, other=None):
-    """One more frame through ``dsp``; the arguments its step hands to the
+    """One more frame through ``dsp``'s eager step; the arguments it hands to the
     PHD passes (the frame's pixel table, cloud and ck_kappa), to the
     candidate scan (the particle store before the frame) and to the render
     (the store after it, before the render's clamp and collection) then go
@@ -1479,15 +1520,23 @@ def check_real_frame(dsp, synth, t, card, other=None):
     two versions are timed in turns.  Returns the numbers."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts
+    from semantic_dsp_map_tpu_torch.frontend import pack_frame
+    from semantic_dsp_map_tpu_torch.map import build_frame_step, unpack_frame
     from semantic_dsp_map_tpu_torch.ops import observe_cuda, phd_cuda, render_cuda
     from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
 
     depth, masks, pos, quat = synth(dsp.cfg, t, MaskKpts)
+    # The map's own frames replay a captured graph, which calls no wrapper:
+    # this frame runs the eager step on the map's state (taken over by the
+    # map on its next frame).
+    step = build_frame_step(dsp.cfg, dsp.params, dsp.registry)
+    buf = pack_frame(dsp.cfg, dsp.registry, depth, masks, pos, quat, 0.1 * t - dsp._time_origin)
+    f = unpack_frame(dsp.cfg, dsp._static_table, torch.from_numpy(buf).cuda())
     with (CallRecorder(phd_cuda, "pass_a_cuda") as rec_a,
           CallRecorder(phd_cuda, "pass_b_cuda") as rec_b,
           CallRecorder(observe_cuda, "front_candidates_cuda") as rec_f,
           CallRecorder(render_cuda, "render_core_cuda") as rec_r):
-        dsp.update(depth, masks, pos, quat, 0.1 * t)
+        dsp.state, _, _ = step(dsp.state, f)
     torch.cuda.synchronize()
     recorders = (rec_a, rec_b, rec_f, rec_r)
     if any((len(r.calls), r.launches) != (1, 1) for r in recorders):
@@ -1640,8 +1689,25 @@ def profile_main_path(dsp, synth, card, first_t=8, frames=3, out_dir=REPO / "chi
     prof.export_chrome_trace(str(out_dir / f"profile_trace_{dsp.cfg.width}x{dsp.cfg.height}.json"))
 
 
+def reset_launches(counters):
+    """Set the launch counts of ``counters`` (kernel wrappers) to 0, and
+    those the captured frame steps keep (``step_graph.captured`` and
+    ``replayed``)."""
+    from semantic_dsp_map_tpu_torch import step_graph
+
+    for fn in counters:
+        fn.launches = 0
+    step_graph.captured.clear()
+    step_graph.replayed.clear()
+
+
 def read_launches(counters):
-    return {fn.__name__: fn.launches for fn in counters}
+    """How often each wrapper's kernel ran since ``reset_launches``: its
+    launches outside graphs plus those captured into a graph times the
+    graph's replays (``step_graph.kernel_runs``)."""
+    from semantic_dsp_map_tpu_torch import step_graph
+
+    return {fn.__name__: step_graph.kernel_runs(fn) for fn in counters}
 
 
 def drive_replay(counters, card, n_frames=13, drop_first=2):
@@ -1676,8 +1742,7 @@ def drive_replay(counters, card, n_frames=13, drop_first=2):
             if pa.tobytes() != pb.tobytes():
                 raise AssertionError(f"replay: frame {a.index} packs differently after the npz files")
 
-        for fn in counters:
-            fn.launches = 0
+        reset_launches(counters)
         summary, result = replay.main([
             "--dataset", "npz", "--data", str(data), "--preset", "vkitti2", "--out", str(out),
             "--ply-every", "5", "--drop-first", str(drop_first)])
@@ -1719,8 +1784,7 @@ def drive_soak(counters, card, frames=40):
     from semantic_dsp_map_tpu_torch.tools import soak
 
     out = REPO / "chiprun_out" / "SOAK_KITTI360.json"
-    for fn in counters:
-        fn.launches = 0
+    reset_launches(counters)
     report = soak.main(["--frames", str(frames), "--out", str(out)])
     launches = read_launches(counters)
     n = frames + soak.RESUME_FRAMES
@@ -1746,8 +1810,7 @@ def run_probe_modules(probe_counters, card, iters=10):
     (launches, rows of both)."""
     from semantic_dsp_map_tpu_torch.benchmarks import prim_bench1, prim_bench7
 
-    for fn in probe_counters:
-        fn.launches = 0
+    reset_launches(probe_counters)
     argv = ["--iters", str(iters)]
     rows = {"prim_bench1": prim_bench1.main(argv), "prim_bench7": prim_bench7.main(argv)}
     launches = read_launches(probe_counters)
@@ -1802,8 +1865,7 @@ def check_expected(counters, card, record=False):
         name = doc["scene"] + ("_off_boundaries" if path.parent.name == "off_boundaries" else "")
         synth = getattr(scenes, doc["synth"].rsplit(".", 1)[1])
         dsp = SemanticDSPMap(cfg, params, device="cuda")
-        for fn in counters:
-            fn.launches = 0
+        reset_launches(counters)
         opened, parted, rows = [], [], []
         for frame in doc["frames"]:
             t = frame["t"]
@@ -1873,8 +1935,7 @@ def run_bench(counters, card):
 
     out = REPO / "chiprun_out" / "BENCH_CELLS.json"
     out.parent.mkdir(exist_ok=True)
-    for fn in counters:
-        fn.launches = 0
+    reset_launches(counters)
     cells = bench.main(["--iters", "50", "--out", str(out)])
     launches = read_launches(counters)
     with open(REPO / "BENCH_DETAILS.json") as f:
@@ -1953,12 +2014,235 @@ def run_bench(counters, card):
     return cells, launches
 
 
+#: The report's key and the profiler's kernel name of each wrapper of
+#: ``step_graph.FRAME_KERNELS``, in its order.
+FRAME_KERNEL_NAMES = (("phd_pass_a", "pass_a_kernel"), ("phd_pass_b", "pass_b_kernel"),
+                      ("render", "render_kernel"), ("front_candidates", "front_kernel"),
+                      ("movable_voxels", "movable_kernel"))
+
+
+def states_differ(a, b):
+    """Names of the leaves of two map states (on the card) that are not
+    bit-equal, the generators' seed and offset included."""
+    import dataclasses
+
+    import torch
+
+    pairs = [(n, getattr(a, n), getattr(b, n))
+             for n in ("voxel_stamp", "global_time", "prev_frame_time")]
+    for group in ("particles", "scroll", "objects"):
+        x, y = getattr(a, group), getattr(b, group)
+        pairs += [(f"{group}.{f.name}", getattr(x, f.name), getattr(y, f.name))
+                  for f in dataclasses.fields(x)]
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    out = [n for n, x, y in pairs if not torch.equal(bits(x), bits(y))]
+    if not torch.equal(a.rng.get_state(), b.rng.get_state()):
+        out.append("rng")
+    return out
+
+
+def movable_bound(cfg, state):
+    """The movable scan's bound on ``state``'s store (the store a frame's
+    scan reads), counting what this store needs: the status of every slot,
+    the stamp of the slots whose status is set, the track of the alive ones,
+    the voxel axis stamps and the output, at the memory rate.  Returns
+    (bound, slots with a status, alive slots)."""
+    from semantic_dsp_map_tpu_torch.ops import codecs
+    from semantic_dsp_map_tpu_torch.state import STATUS_INVALID
+
+    p, V, K = state.particles, cfg.num_voxels, cfg.slots_per_voxel
+    vax = codecs.axis_stamps_per_voxel(cfg, state.scroll)
+    n_set = int((p.status != STATUS_INVALID).sum())
+    n_alive = int(codecs.particle_alive(p.status.view(V, K), p.stamp.view(V, K), vax).sum())
+    return bound(nbytes(p.status, vax) + V + 4 * n_set + 4 * n_alive), n_set, n_alive
+
+
+def profile_frame(run):
+    """torch.profiler around one call of ``run`` (a frame, ended by a
+    synchronize): (host API calls, device ms by kernel name, device busy ms,
+    wall ms, kernel launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e3
+    events = prof.events()
+    api = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+              and e.name.startswith("cu"))
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {e.key: (e.self_device_time_total / 1e3, e.count) for e in device}
+    busy = sum(ms for ms, _ in by_name.values())
+    return api, by_name, busy, wall, sum(n for _, n in by_name.values())
+
+
+@contextlib.contextmanager
+def sync_debug_errors():
+    """Inside the block an op that synchronizes the card with the host
+    raises (``torch.cuda.set_sync_debug_mode``; PyTorch calls the mode a
+    prototype that does not see every such op: a capture refuses them all)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def drive_graph(name, cfg, params, synth, counters, card, frames=10):
+    """[graph]: ``SemanticDSPMap.update()`` (frame 0 eager, frame 1 captured
+    into a CUDA graph and replayed, replays after) in turns with the eager
+    step (``build_frame_step``'s two parts on a state of its own, fed the
+    same packed frame: ``pack_frame``, the copy and the unpack included; on
+    frame 1 the captured part under the sync debug mode "error"), ``frames``
+    frames from one seed, the presets' noise on: state (the generator's seed
+    and offset too), render and counters bit-equal every frame.  Then one
+    more frame of each under torch.profiler: host API calls a frame, device
+    busy share, and the five kernels' device time inside the replay.
+    Returns the numbers."""
+    import torch
+    from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap, step_graph
+    from semantic_dsp_map_tpu_torch.frontend import pack_frame
+    from semantic_dsp_map_tpu_torch.map import build_frame_stages, unpack_frame
+    from semantic_dsp_map_tpu_torch.state import init_map_state
+
+    reset_launches(counters)
+    dsp = SemanticDSPMap(cfg, params, device="cuda")
+    stages = build_frame_stages(cfg, params, dsp.registry)
+    box = {"state": init_map_state(cfg, 0, "cuda")}
+    scenes = [synth(cfg, t, MaskKpts) for t in range(frames + 1)]
+    outside = step_graph.objects_outside_graph(cfg)
+
+    def graph_frame(t):
+        return dsp.update(*scenes[t], 0.1 * t)
+
+    def eager_frame(t):
+        # build_frame_step's step, in its two parts; on frame 1 the part the
+        # card captures runs under the sync debug mode "error", which raises
+        # on an op that synchronizes with the host.
+        buf = pack_frame(cfg, dsp.registry, *scenes[t], 0.1 * t)
+        f = unpack_frame(cfg, dsp._static_table, torch.from_numpy(buf).cuda())
+        checked = contextlib.nullcontext() if t != 1 else sync_debug_errors()
+        if outside:
+            objects = stages.objects(box["state"], f)
+        with checked:
+            if not outside:
+                objects = stages.objects(box["state"], f)
+            box["state"], result, diag = stages.rest(box["state"], f, objects)
+        return result, diag
+
+    modes = {"graph": graph_frame, "eager": eager_frame}
+    ms = {m: [] for m in modes}
+    wall = {m: [] for m in modes}
+    work = {m: [] for m in modes}
+    for t in range(frames):
+        out = {}
+        for mode in (("graph", "eager") if t % 2 == 0 else ("eager", "graph")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            w0 = time.perf_counter()
+            a.record()
+            out[mode] = modes[mode](t)
+            b.record()
+            torch.cuda.synchronize()
+            wall[mode].append((time.perf_counter() - w0) * 1e3)
+            ms[mode].append(a.elapsed_time(b))
+            work[mode].append(torch.cuda.max_memory_allocated() - resident)
+        parted = states_differ(dsp.state, box["state"])
+        (rg, dg), (re, de) = out["graph"], out["eager"]
+        parted += [f for f in rg._fields if not torch.equal(getattr(rg, f), getattr(re, f))]
+        dgd = {k: int(v) for k, v in dg._asdict().items()}
+        if dgd != {k: int(v) for k, v in de._asdict().items()}:
+            parted.append("diagnostics")
+        if parted:
+            raise AssertionError(f"[graph] {name} frame {t}: the graph parts from the eager step "
+                                 f"in {parted}")
+        print(f"[graph] {name} frame {t}: graph {ms['graph'][-1]:.3f} ms (host "
+              f"{wall['graph'][-1]:.3f}), eager {ms['eager'][-1]:.3f} ms (host "
+              f"{wall['eager'][-1]:.3f}); state, render and counters bit-equal; diag {dgd}"
+              + ("; the eager frame's captured part made no sync under the debug mode" if t == 1
+                 else ""))
+    launches = read_launches(counters)
+    captured, replayed = dict(step_graph.captured), dict(step_graph.replayed)
+    # Each frame: the map's kernels (eager on frame 0, replayed after) and
+    # the eager step's.
+    if any(n != 2 * frames for n in launches.values()) or any(
+            replayed.get(fn.__name__) != frames - 1 or captured.get(fn.__name__) != 1
+            for fn in counters):
+        raise AssertionError(f"[graph] {name}: launches {launches} in {frames} frames of each, "
+                             f"captured {captured}, replayed {replayed}")
+    if set(dsp._static.graphs) != {"packed"}:
+        raise AssertionError(f"[graph] {name}: graphs {list(dsp._static.graphs)}")
+
+    t = frames
+    bound_m, n_set, n_alive = movable_bound(cfg, dsp.state)
+    prof = {"graph": profile_frame(lambda: graph_frame(t)),
+            "eager": profile_frame(lambda: eager_frame(t))}
+    parted = states_differ(dsp.state, box["state"])
+    if parted:
+        raise AssertionError(f"[graph] {name} profiled frame: parts in {parted}")
+    api_g, kernels_g, busy_g, wall_g, n_g = prof["graph"]
+    api_e, _, busy_e, wall_e, n_e = prof["eager"]
+    in_graph = {}
+    for key, kname in FRAME_KERNEL_NAMES:
+        hits = [(ms_, n) for k, (ms_, n) in kernels_g.items() if kname in k]
+        if len(hits) != 1 or hits[0][1] != 1:
+            raise AssertionError(f"[graph] {name}: {kname} in the profiled replay: {hits}")
+        in_graph[key] = hits[0][0]
+    timed = slice(2, frames)
+    med = {m: float(np.median(ms[m][timed])) for m in modes}
+    med_wall = {m: float(np.median(wall[m][timed])) for m in modes}
+    peak = {"graph_capture": work["graph"][1], "graph_replay": max(work["graph"][2:]),
+            "eager": max(work["eager"]), "graph_pool_reserved": torch.cuda.memory_reserved()}
+    objects = "eager ahead of the graph" if dsp._static.objects_eager else "in the graph"
+    print(f"[graph] {name}: grid {cfg.num_voxels} voxels x K={cfg.slots_per_voxel}, image "
+          f"{cfg.width}x{cfg.height}, object layer {objects}; per-frame medians over frames "
+          f"2-{frames - 1}, in turns: graph {med['graph']:.3f} ms (host {med_wall['graph']:.3f}), "
+          f"eager {med['eager']:.3f} ms (host {med_wall['eager']:.3f}), ratio "
+          f"{med['eager'] / med['graph']:.2f}x ({card})")
+    print(f"[graph] {name}: host API calls a frame: graph {api_g}, eager {api_e}; device kernels "
+          f"a frame: graph {n_g}, eager {n_e}; device busy: graph {busy_g:.3f} of {wall_g:.3f} ms "
+          f"({100 * busy_g / wall_g:.1f}%), eager {busy_e:.3f} of {wall_e:.3f} ms "
+          f"({100 * busy_e / wall_e:.1f}%) (profiled frame {t})")
+    print(f"[graph] {name}: memory a frame takes beyond the resident states: capture "
+          f"{peak['graph_capture']} bytes, replay {peak['graph_replay']} bytes, eager "
+          f"{peak['eager']} bytes; reserved after {peak['graph_pool_reserved']} bytes")
+    print(f"[graph] {name}: kernels inside the replay (ms, profiler): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in in_graph.items())
+          + f"; movable scan bound on this store {bound_m['bound_ms']:.4f} ms by bytes ({n_set} "
+          f"slots with a status, {n_alive} alive), share "
+          f"{bound_m['bound_ms'] / in_graph['movable_voxels']:.3f} ({card})")
+    print(f"[graph] {name}: launches {launches} ({frames} frames each), captured {captured}, "
+          f"replayed {replayed}")
+    del dsp, box
+    return {"graph_ms": ms["graph"], "eager_ms": ms["eager"], "graph_wall_ms": wall["graph"],
+            "eager_wall_ms": wall["eager"], "median_ms": med, "median_wall_ms": med_wall,
+            "api_calls": {"graph": api_g, "eager": api_e},
+            "device_kernels": {"graph": n_g, "eager": n_e},
+            "device_busy_ms": {"graph": busy_g, "eager": busy_e},
+            "profiled_wall_ms": {"graph": wall_g, "eager": wall_e}, "memory_bytes": peak,
+            "kernel_ms_in_replay": in_graph, "movable_bound": bound_m,
+            "movable_slots": {"status_set": n_set, "alive": n_alive}, "objects_eager": objects, "launches": launches}
+
+
 def drive_rematch(counters, card, lost=5, frames=7):
     """The VKITTI2 scene with the car's keypoints withheld on frame ``lost``,
     after the car has moved for three frames and has a velocity: the object
     layer's keypoint fit cannot run, the coast branch sets the car's
     transform to its velocity over the default interval, and the rigid move
     goes on.  Returns (launches, that frame's quantities)."""
+    import dataclasses
+
     import torch
     from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config
     from semantic_dsp_map_tpu_torch.objects import DEFAULT_PREDICT_DT
@@ -1966,11 +2250,13 @@ def drive_rematch(counters, card, lost=5, frames=7):
     scenes = bench_scenes()
     cfg = virtual_kitti2_config()
     dsp = SemanticDSPMap(cfg, FilterParams(**scenes.VK_PARAMS), device="cuda")
-    for fn in counters:
-        fn.launches = 0
+    reset_launches(counters)
     at = None
     for t in range(frames):
-        before = dsp.state.objects
+        # update() overwrites the map's state in place: the object table
+        # before the frame is a copy.
+        obj = dsp.state.objects
+        before = type(obj)(**{f.name: getattr(obj, f.name).clone() for f in dataclasses.fields(obj)})
         depth, masks, pos, quat = scenes.synth_vkitti2_frame(cfg, t, MaskKpts, kpts=t != lost)
         got = frame_quantities(*dsp.update(depth, masks, pos, quat, 0.1 * t))
         obj = dsp.state.objects
@@ -2003,11 +2289,6 @@ def drive_rematch(counters, card, lost=5, frames=7):
 # ---------------------------------------------------------------------------
 # Phase 5: the sharded step at one rank
 # ---------------------------------------------------------------------------
-
-#: The frame kernels of the sharded path, each launched once a frame.
-SHARDED_KERNELS = ("pass_a_cuda", "pass_b_cuda", "render_core_cuda", "front_candidates_cuda",
-                   "movable_voxels_cuda")
-
 
 def state_parting(a, b):
     """(max abs difference of the float tensors, names of the integer
@@ -2081,8 +2362,7 @@ def drive_sharded_vkitti2(counters, card, frames=8):
         out = {}
         for name in names[t % 3 :] + names[: t % 3]:
             if name != "plain":
-                for fn in counters:
-                    fn.launches = 0
+                reset_launches(counters)
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             out[name] = steps[name](states[name], inputs[name])
@@ -2118,7 +2398,7 @@ def drive_sharded_vkitti2(counters, card, frames=8):
     del states, out
     if not any(moved):
         raise AssertionError("sharded vkitti2: the rigid-move route moved no particle")
-    for fname in SHARDED_KERNELS:
+    for fname in launches:
         if launches[fname] != 2 * frames:
             raise AssertionError(f"sharded vkitti2: {fname} launched {launches[fname]} times in "
                                  f"{2 * frames} sharded frames")
@@ -2138,12 +2418,11 @@ def check_sharded_zed2(counters, card):
     frames.  The five kernels of the path must launch once a sharded frame."""
     from semantic_dsp_map_tpu_torch.benchmarks import bench
 
-    for fn in counters:
-        fn.launches = 0
+    reset_launches(counters)
     cell = bench.run_sharded_check()
     total = read_launches(counters)
     n = 2 * cell["frames"] + 1
-    for fname in SHARDED_KERNELS:
+    for fname in (fn.__name__ for fn in counters):
         if cell["kernel_launches"][fname] != n:
             raise AssertionError(f"sharded zed2: {fname} launched {cell['kernel_launches'][fname]} "
                                  f"times in {n} sharded frames")
@@ -2269,10 +2548,8 @@ def main() -> int:
         FilterParams, coda_config, tiny_test_config, virtual_kitti2_config, zed2_config,
     )
     from semantic_dsp_map_tpu_torch.config import KEYPOINTS_BBOX3D
-    from semantic_dsp_map_tpu_torch import profiling
-    from semantic_dsp_map_tpu_torch.ops import (
-        cuda_lib, observe_cuda, phd_cuda, probes_cuda, render_cuda,
-    )
+    from semantic_dsp_map_tpu_torch import profiling, step_graph
+    from semantic_dsp_map_tpu_torch.ops import cuda_lib, probes_cuda
     from semantic_dsp_map_tpu_torch.timing import card_line
 
     card = card_line(torch.device("cuda"))
@@ -2332,13 +2609,8 @@ def main() -> int:
         print(f"[card] {card}")
         return 0
 
-    counters = {
-        "phd_pass_a": phd_cuda.pass_a_cuda, "phd_pass_b": phd_cuda.pass_b_cuda,
-        "render": render_cuda.render_core_cuda,
-        "front_candidates": observe_cuda.front_candidates_cuda,
-        "movable_voxels": observe_cuda.movable_voxels_cuda,
-    }
-    fns = tuple(counters.values())
+    fns = step_graph.FRAME_KERNELS
+    counters = {key: fn for (key, _), fn in zip(FRAME_KERNEL_NAMES, fns, strict=True)}
     check_scene_cuda_vs_cpu("dynamic scene", tiny_test_config(), FilterParams(**TINY_PARAMS),
                             tiny_scene, fns)
     for independent in (False, True):
@@ -2395,6 +2667,21 @@ def main() -> int:
             report[key].setdefault("launches_by_path", {})[name] = launches[fn.__name__]
     torch.cuda.empty_cache()
 
+    graph = {}
+    for name, cfg, params, synth in (
+            ("vkitti2", vk_cfg, scenes.VK_PARAMS, scenes.synth_vkitti2_frame),
+            ("zed2", zed2_cfg, scenes.ZED2_PARAMS, scenes.synth_zed2_frame),
+            ("coda", coda_cfg, scenes.CODA_PARAMS, scenes.synth_coda_frame),
+            ("vkitti2_hostile", vk_cfg, scenes.VK_PARAMS, scenes.synth_hostile_frame)):
+        graph[name] = drive_graph(name, cfg, FilterParams(**params), synth, fns, card)
+        torch.cuda.empty_cache()
+        for key, fn in counters.items():
+            report[key].setdefault("graph_ms_by_path", {})[name] = (
+                graph[name]["kernel_ms_in_replay"][key])
+            report[key]["launches_by_path"]["graph_" + name] = graph[name]["launches"][fn.__name__]
+    for key in counters:
+        report[key]["graph_ms"] = report[key]["graph_ms_by_path"]["vkitti2"]
+
     rematch_launches, rematch_frame = drive_rematch(fns, card)
     replay_launches, replay_ms = drive_replay(fns, card)
     soak_launches, soak_report = drive_soak(fns, card)
@@ -2446,6 +2733,7 @@ def main() -> int:
                       "replay_ms_per_frame": replay_ms, "soak": soak_report,
                       "stage_profile": stage_rows, "probes": probe_rows, "bench": bench_cells,
                       "expected": expected, "rematch_frame": rematch_frame, "sharded": sharded,
+                      "graph": graph,
                       "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -54,11 +54,11 @@ from ..config import FilterParams, virtual_kitti2_config, zed2_config
 from ..frontend import FrameInput, build_frame_input
 from ..labels import LabelRegistry
 from ..map import SemanticDSPMap, build_frame_step
-from ..ops import observe_cuda, phd_cuda, render_cuda
 from ..parallel.distributed import one_rank
 from ..parallel.shard_step import build_shard_step
 from ..parallel.sharding import gather_render, shard_state
 from ..state import STATUS_GUESSED_BORN, init_map_state, resolve_device
+from ..step_graph import FRAME_KERNELS, kernel_runs
 from ..timing import card_line
 from . import scenes
 
@@ -81,15 +81,8 @@ CELLS = {
                         lambda n: max(10, n // 2), None),
 }
 
-#: The frame kernels' wrappers; each counts its launches.
-FRAME_KERNELS = (
-    phd_cuda.pass_a_cuda, phd_cuda.pass_b_cuda, render_cuda.render_core_cuda,
-    observe_cuda.front_candidates_cuda, observe_cuda.movable_voxels_cuda,
-)
-
-
 def _launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in FRAME_KERNELS}
+    return {fn.__name__: kernel_runs(fn) for fn in FRAME_KERNELS}
 
 
 def timed_loop(dsp: SemanticDSPMap, frames, first_t: int):

@@ -18,7 +18,8 @@ host per frame; without it the step makes no data-dependent host sync.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,6 +49,7 @@ from .state import (
     init_map_state,
     resolve_device,
 )
+from .step_graph import StaticStep, objects_outside_graph
 from .template_engine import TemplateEngine
 
 
@@ -185,79 +187,98 @@ def _move_and_cleanup(
     return res.particles, res.accepted_count, blocks.overflow + res.block_overflow
 
 
-def unpack_frame(cfg: MapConfig, static_table: torch.Tensor, buf: torch.Tensor) -> FrameInput:
-    """Device-side decode of the packed frame buffer (frontend.pack_frame),
-    rebuilding the dense track -> label and track -> bbox tables from the
-    per-instance arrays.  ``buf`` is int32 on the target device."""
-    H, W = cfg.height, cfg.width
-    HW = H * W
+def _packed_views(cfg: MapConfig, buf: torch.Tensor) -> dict:
+    """pack_frame's fields as int32 views of ``buf``, by name (no kernel
+    runs)."""
+    HW = cfg.height * cfg.width
     I, Kp = cfg.max_instances_per_frame, cfg.max_keypoints
-    f32 = lambda x: x.view(torch.float32)
+    sizes = (("head", 8), ("depth", HW), ("raster", (HW + 1) // 2), ("inst_track", I),
+             ("inst_label", I), ("kpts_count", I), ("has_bbox", I), ("bbox_min", 3 * I),
+             ("bbox_max", 3 * I), ("kpts_curr", 3 * I * Kp), ("kpts_prev", 3 * I * Kp))
+    views, o = {}, 0
+    for name, n in sizes:
+        views[name] = buf[o : o + n]
+        o += n
+    return views
 
-    head = f32(buf[0:8])
-    o = 8
-    depth = f32(buf[o : o + HW]).view(H, W)
-    o += HW
-    nr = (HW + 1) // 2
-    rp = buf[o : o + nr]
-    o += nr
-    raster = torch.stack([rp & 0xFFFF, (rp >> 16) & 0xFFFF], dim=-1).reshape(-1)[:HW].view(H, W)
 
-    inst_track = buf[o : o + I]; o += I
-    inst_label = buf[o : o + I]; o += I
-    kpts_count = buf[o : o + I]; o += I
-    has_bbox = buf[o : o + I]; o += I
-    bbox_min_i = f32(buf[o : o + 3 * I]).view(I, 3); o += 3 * I
-    bbox_max_i = f32(buf[o : o + 3 * I]).view(I, 3); o += 3 * I
-    kc = f32(buf[o : o + I * Kp * 3]).view(I, Kp, 3); o += I * Kp * 3
-    kp = f32(buf[o : o + I * Kp * 3]).view(I, Kp, 3)
-
-    valid = inst_track >= 0
-    # Overlays: valid instances with a known label write the label table,
-    # those with a box the bbox tables; row 65536 is the drop row.
-    tid = torch.where(valid & (inst_label >= 0) & (inst_track < 65536), inst_track, 65536)
-    table = torch.cat([static_table, static_table[:1]])
-    table[tid.long()] = torch.clamp(inst_label, min=0)
-    tid_b = torch.where(valid & (has_bbox == 1) & (inst_track < 65536), inst_track, 65536).long()
-    dev = buf.device
-    bbox_min = torch.full((65537, 3), float("-inf"), dtype=torch.float32, device=dev)
-    bbox_max = torch.full((65537, 3), float("inf"), dtype=torch.float32, device=dev)
-    bbox_min[tid_b] = bbox_min_i
-    bbox_max[tid_b] = bbox_max_i
+def _object_inputs(cfg: MapConfig, v: dict) -> FrameInput:
+    I, Kp = cfg.max_instances_per_frame, cfg.max_keypoints
+    head = v["head"].view(torch.float32)
     return FrameInput(
-        depth=depth,
-        track_raster=raster,
-        track_label_table=table[:65536],
-        inst_valid=valid,
-        inst_track=torch.clamp(inst_track, min=0),
-        inst_label=inst_label,
-        kpts_curr=kc,
-        kpts_prev=kp,
-        kpts_count=kpts_count,
-        inst_bbox_min=bbox_min[:65536],
-        inst_bbox_max=bbox_max[:65536],
+        depth=None,
+        track_raster=None,
+        track_label_table=None,
+        inst_valid=v["inst_track"] >= 0,
+        inst_track=torch.clamp(v["inst_track"], min=0),
+        inst_label=v["inst_label"],
+        kpts_curr=v["kpts_curr"].view(torch.float32).view(I, Kp, 3),
+        kpts_prev=v["kpts_prev"].view(torch.float32).view(I, Kp, 3),
+        kpts_count=v["kpts_count"],
+        inst_bbox_min=None,
+        inst_bbox_max=None,
         cam_pos=head[0:3],
         cam_quat=head[3:7],
         time=head[7],
     )
 
 
-def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
-                     template_stages=None, stop_after: Optional[int] = None):
-    """The per-frame update: (MapState, FrameInput of device tensors) ->
-    (MapState, RenderResult, StepDiagnostics).  The state's particle store
-    and voxel stamps are updated in place.
+def unpack_objects(cfg: MapConfig, buf: torch.Tensor) -> FrameInput:
+    """The part of :func:`unpack_frame` that the object layer reads: the
+    camera, the time and the per-instance arrays, the same tensors.  The
+    image and the dense track tables (``depth``, ``track_raster``,
+    ``track_label_table``, ``inst_bbox_min``, ``inst_bbox_max``) are None."""
+    return _object_inputs(cfg, _packed_views(cfg, buf))
 
-    ``template_stages`` (a template_engine.TemplateStages) runs template
-    matching where the JAX step does: the gate and the rematch after object
-    expiry, before the rigid moves (semantic_dsp_map.h:616-669); the
-    template birth after regular birth, before the render (:806-894).  Their
-    insert overflow is added to ``birth_overflow``.
 
-    ``stop_after`` (an index into :data:`STAGES`) truncates the step after
-    that stage, for the per-stage timing of ``profiling``: the step then
-    returns (the state as far as it got, None, None).  ``None`` and the last
-    index run the whole step."""
+def unpack_frame(cfg: MapConfig, static_table: torch.Tensor, buf: torch.Tensor) -> FrameInput:
+    """Device-side decode of the packed frame buffer (frontend.pack_frame),
+    rebuilding the dense track -> label and track -> bbox tables from the
+    per-instance arrays.  ``buf`` is int32 on the target device."""
+    H, W = cfg.height, cfg.width
+    I = cfg.max_instances_per_frame
+    v = _packed_views(cfg, buf)
+    f = _object_inputs(cfg, v)
+    rp = v["raster"]
+    raster = torch.stack([rp & 0xFFFF, (rp >> 16) & 0xFFFF], dim=-1).reshape(-1)[:H * W].view(H, W)
+
+    inst_track, inst_label, valid = v["inst_track"], v["inst_label"], f.inst_valid
+    # Overlays: valid instances with a known label write the label table,
+    # those with a box the bbox tables; row 65536 is the drop row.
+    tid = torch.where(valid & (inst_label >= 0) & (inst_track < 65536), inst_track, 65536)
+    table = torch.cat([static_table, static_table[:1]])
+    table[tid.long()] = torch.clamp(inst_label, min=0)
+    tid_b = torch.where(valid & (v["has_bbox"] == 1) & (inst_track < 65536), inst_track,
+                        65536).long()
+    dev = buf.device
+    bbox_min = torch.full((65537, 3), float("-inf"), dtype=torch.float32, device=dev)
+    bbox_max = torch.full((65537, 3), float("inf"), dtype=torch.float32, device=dev)
+    bbox_min[tid_b] = v["bbox_min"].view(torch.float32).view(I, 3)
+    bbox_max[tid_b] = v["bbox_max"].view(torch.float32).view(I, 3)
+    return f._replace(
+        depth=v["depth"].view(torch.float32).view(H, W),
+        track_raster=raster,
+        track_label_table=table[:65536],
+        inst_bbox_min=bbox_min[:65536],
+        inst_bbox_max=bbox_max[:65536],
+    )
+
+
+class FrameStages(NamedTuple):
+    """The frame step in two parts: ``objects(state, f)`` is the object layer
+    (stage 0) and returns the updated ObjectTable; ``rest(state, f, objects)``
+    runs stages 1-5 from it and returns (MapState, RenderResult,
+    StepDiagnostics).  ``step_graph`` runs the first part outside a CUDA graph
+    where it cannot be captured.  ``objects`` reads only the fields of ``f``
+    that :func:`unpack_objects` fills."""
+
+    objects: Callable
+    rest: Callable
+
+
+def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
+                       template_stages=None, stop_after: Optional[int] = None) -> FrameStages:
+    """The two parts of :func:`build_frame_step`'s step (same arguments)."""
     last = len(STAGES) - 1
     stop_after = last if stop_after is None else stop_after
     if not 0 <= stop_after <= last:
@@ -271,25 +292,26 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
     render_fn = (render_occupancy_smoothed if params.if_use_neighbor_smoothed_occupancy
                  else render_occupancy)
 
-    def step(state: MapState, f: FrameInput):
-        gt = state.global_time + 1
-        r_wc, t_wc, r_cw, t_cw = camera_matrices(f.cam_pos, f.cam_quat)
-        dev = f.depth.device
-
+    def object_stage(state: MapState, f: FrameInput):
         # 1. Object layer (only with instances, semantic_dsp_map.h:189-191).
-        objects = state.objects
-        if cfg.consider_instance:
-            obs = ObservedInstances(
-                valid=f.inst_valid, track=f.inst_track, label=f.inst_label,
-                kpts_curr=f.kpts_curr, kpts_prev=f.kpts_prev, kpts_count=f.kpts_count,
-            )
-            draws = gumbel(ransac_draw_shape(cfg), state.rng, dev)
-            objects = object_level_update(
-                cfg, params, objects, obs, f.cam_pos, r_cw, t_cw, f.time,
-                state.prev_frame_time, gt, draws,
-            )
+        if not cfg.consider_instance:
+            return state.objects
+        _r_wc, _t_wc, r_cw, t_cw = camera_matrices(f.cam_pos, f.cam_quat)
+        obs = ObservedInstances(
+            valid=f.inst_valid, track=f.inst_track, label=f.inst_label,
+            kpts_curr=f.kpts_curr, kpts_prev=f.kpts_prev, kpts_count=f.kpts_count,
+        )
+        draws = gumbel(ransac_draw_shape(cfg), state.rng, f.cam_pos.device)
+        return object_level_update(
+            cfg, params, state.objects, obs, f.cam_pos, r_cw, t_cw, f.time,
+            state.prev_frame_time, state.global_time + 1, draws,
+        )
+
+    def rest(state: MapState, f: FrameInput, objects):
         if stop_after == 0:
             return dataclasses.replace(state, objects=objects), None, None
+        gt = state.global_time + 1
+        r_wc, t_wc, r_cw, t_cw = camera_matrices(f.cam_pos, f.cam_quat)
 
         # 2. Labeled point cloud.
         cloud = generate_labeled_cloud(
@@ -360,6 +382,31 @@ def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
         )
         return state, result, diag
 
+    return FrameStages(object_stage, rest)
+
+
+def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
+                     template_stages=None, stop_after: Optional[int] = None):
+    """The per-frame update: (MapState, FrameInput of device tensors) ->
+    (MapState, RenderResult, StepDiagnostics).  The state's particle store
+    and voxel stamps are updated in place.  This is the eager step, the
+    oracle of the captured one (``step_graph``).
+
+    ``template_stages`` (a template_engine.TemplateStages) runs template
+    matching where the JAX step does: the gate and the rematch after object
+    expiry, before the rigid moves (semantic_dsp_map.h:616-669); the
+    template birth after regular birth, before the render (:806-894).  Their
+    insert overflow is added to ``birth_overflow``.
+
+    ``stop_after`` (an index into :data:`STAGES`) truncates the step after
+    that stage, for the per-stage timing of ``profiling``: the step then
+    returns (the state as far as it got, None, None).  ``None`` and the last
+    index run the whole step."""
+    stages = build_frame_stages(cfg, params, registry, template_stages, stop_after)
+
+    def step(state: MapState, f: FrameInput):
+        return stages.rest(state, f, stages.objects(state, f))
+
     return step
 
 
@@ -374,7 +421,13 @@ class SemanticDSPMap:
             result, diag = dsp.update(depth, masks, cam_pos, cam_quat, t)
 
     ``device=None`` means the card; without a CUDA device it raises, and
-    ``device="cpu"`` asks for the CPU by name (state.resolve_device).
+    ``device="cpu"`` asks for the CPU by name (state.resolve_device).  On the
+    card the step is captured into a CUDA graph from the second frame on and
+    replayed after (``step_graph``); in template mode it is not captured.
+    ``state`` names tensors that keep their addresses; assigning another
+    state (a restored checkpoint) is taken over on the next frame.  Every
+    frame overwrites them in place: a part of ``state`` held across
+    ``update()`` holds the new values, so clone what must stay as it was.
     """
 
     def __init__(
@@ -395,9 +448,10 @@ class SemanticDSPMap:
         self._static_table = torch.from_numpy(static_label_table(self.registry)).to(self.device)
         self._time_origin: Optional[float] = None
         self._templates = None
-        # Built on first use: in template mode the stages close over the bank,
-        # which set_template_path loads after construction.
-        self._step = None
+        # The step (step_graph.StaticStep), built on first use: in template
+        # mode the stages close over the bank, which set_template_path loads
+        # after construction.
+        self._static = None
         if self.params.if_use_template_matching:
             self._templates = TemplateEngine(cfg, self.params, self.registry)
 
@@ -410,18 +464,28 @@ class SemanticDSPMap:
                 "set_template_path requires FilterParams(if_use_template_matching=True)"
             )
         n = self._templates.set_template_path(folder)
-        self._step = None
+        self._static = None
         return n
 
     def clear(self):
         """semantic_dsp_map.h:74-81."""
         self.state = clear_map_state(self.state, self.cfg)
 
-    def _run(self, f: FrameInput):
-        if self._step is None:
-            stages = self._templates.stages(self.device) if self._templates else None
-            self._step = build_frame_step(self.cfg, self.params, self.registry, stages)
-        self.state, result, diag = self._step(self.state, f)
+    def _run(self, kind: str, host):
+        """One frame from host data: ``kind`` "packed" is pack_frame's int32
+        array, "frame" a FrameInput of host arrays."""
+        if self._static is None:
+            templates = self._templates.stages(self.device) if self._templates else None
+            self._static = StaticStep(
+                build_frame_stages(self.cfg, self.params, self.registry, templates),
+                functools.partial(unpack_frame, self.cfg, self._static_table),
+                functools.partial(unpack_objects, self.cfg), self.state,
+                # Template mode stays eager: it reads its gate to the host
+                # every frame (the rows with work decide which sweeps run).
+                capture=self.device.type == "cuda" and templates is None,
+                objects_eager=objects_outside_graph(self.cfg),
+            )
+        self.state, result, diag = self._static(kind, host, self.state)
         if self.log_diagnostics:
             d = {k: int(v) for k, v in diag._asdict().items()}
             print(f"[dsp] t={int(self.state.global_time)} {d}", flush=True)
@@ -430,7 +494,7 @@ class SemanticDSPMap:
     def update_from_frame(self, frame: FrameInput):
         """Run one frame from a host FrameInput (frontend.build_frame_input);
         returns (RenderResult, StepDiagnostics)."""
-        return self._run(FrameInput(*(torch.as_tensor(np.asarray(a)).to(self.device) for a in frame)))
+        return self._run("frame", frame)
 
     def update(self, depth: np.ndarray, masks, cam_pos, cam_quat, time: float = 0.0):
         """Reference-parity entry (semantic_dsp_map.h:170): depth image,
@@ -439,6 +503,5 @@ class SemanticDSPMap:
         if self._time_origin is None:
             self._time_origin = float(time)
         t = float(time) - self._time_origin
-        buf = pack_frame(self.cfg, self.registry, depth, masks, cam_pos, cam_quat, t)
-        buf_t = torch.from_numpy(buf).to(self.device, non_blocking=False)
-        return self._run(unpack_frame(self.cfg, self._static_table, buf_t))
+        return self._run("packed", pack_frame(self.cfg, self.registry, depth, masks, cam_pos,
+                                              cam_quat, t))

@@ -26,7 +26,7 @@ from .config import (
     MOVEMENT_NEVER,
 )
 from .ops.transforms import ransac_transform
-from .state import ObjectTable
+from .state import ObjectTable, constant
 
 WINDOW_MAX_AGE = 10
 DEFAULT_TIME_INTERVAL = 0.15
@@ -63,9 +63,11 @@ def _scatter(arr: torch.Tensor, tgt: torch.Tensor, vals, add: bool = False) -> t
     """``arr.at[tgt].set(vals, mode="drop")`` where ``tgt == len(arr)`` is
     the drop sentinel: writes go to a spare trailing row."""
     out = torch.cat([arr, arr[:1]])
-    vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device).expand(
-        (tgt.shape[0],) + arr.shape[1:]
-    )
+    shape = (tgt.shape[0],) + arr.shape[1:]
+    if isinstance(vals, torch.Tensor):
+        vals = vals.to(arr.dtype).expand(shape)
+    else:  # a Python number, filled on the device (no copy from the host)
+        vals = torch.full(shape, vals, dtype=arr.dtype, device=arr.device)
     if add:
         out.index_add_(0, tgt, vals)
     else:
@@ -136,7 +138,7 @@ def _window_push_and_estimate(objects, push_mask, T_new, dt_new, ref_new, global
     # Centroid of {ref, ref+x_hat, ref+y_hat} is ref + (1/3, 1/3, 0); its
     # displacement under T is (R - I) @ centroid + t.
     entry_valid = torch.arange(W, device=dev)[None, :] < win_count[:, None]
-    centroid = win_ref + torch.tensor([1.0 / 3.0, 1.0 / 3.0, 0.0], device=dev)
+    centroid = win_ref + constant((1.0 / 3.0, 1.0 / 3.0, 0.0), torch.float32, dev)
     R = win_t[..., :3, :3]
     t = win_t[..., :3, 3]
     disp = torch.einsum("owij,owj->owi", R, centroid) - centroid + t

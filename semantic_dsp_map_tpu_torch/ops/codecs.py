@@ -16,7 +16,7 @@ import dataclasses
 import torch
 
 from ..config import MapConfig
-from ..state import STATUS_INVALID, ScrollState
+from ..state import STATUS_INVALID, ScrollState, constant
 
 INVALID_VOXEL = -1
 
@@ -49,14 +49,14 @@ def ring_to_map(cfg: MapConfig, equiv_steps, xi, yi, zi):
 
 
 def _axis_sizes(cfg: MapConfig, device):
-    return torch.tensor([cfg.nx, cfg.ny, cfg.nz], dtype=torch.int32, device=device)
+    return constant((cfg.nx, cfg.ny, cfg.nz), torch.int32, device)
 
 
 def global_pos_to_voxel(cfg: MapConfig, scroll: ScrollState, pos):
     """Global position [..., 3] -> (voxel index, xi, yi, zi, valid)
     (operations.h:848-883); out-of-map positions get INVALID_VOXEL."""
-    half = torch.tensor(cfg.map_half_extent, dtype=torch.float32, device=pos.device)
-    recip = torch.tensor(1.0 / cfg.voxel_size, dtype=torch.float32, device=pos.device)
+    half = constant(tuple(cfg.map_half_extent), torch.float32, pos.device)
+    recip = constant(1.0 / cfg.voxel_size, torch.float32, pos.device)
     f = (pos - scroll.map_center + half) * recip
     midx = f.to(torch.int32)  # truncation toward zero (operations.h:867-869)
     valid = ((f >= 0) & (midx < _axis_sizes(cfg, pos.device))).all(dim=-1)
@@ -136,7 +136,7 @@ def update_ego_center(cfg: MapConfig, scroll: ScrollState, new_pos, global_time)
     (operations.h:68-96, 1111-1191): quantize the ego position to voxel
     steps, stamp the wrapped-out columns, update the scroll offsets.  No
     particle data moves."""
-    recip = torch.tensor(1.0 / cfg.voxel_size, dtype=torch.float32, device=new_pos.device)
+    recip = constant(1.0 / cfg.voxel_size, torch.float32, new_pos.device)
     center_steps = (new_pos * recip).to(torch.int32)  # trunc toward zero
     map_center = center_steps.to(torch.float32) * cfg.voxel_size
     delta = center_steps - scroll.moved_steps

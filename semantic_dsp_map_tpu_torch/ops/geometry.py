@@ -11,6 +11,7 @@ from ..config import (
     GAUSSIAN_PDF_Z_CLIP,
     MapConfig,
 )
+from ..state import constant
 
 
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
@@ -86,6 +87,6 @@ def forgetting_factor(forget_count, forgetting_rate: float, max_forget_count: in
     # Divided by a tensor, not by the Python scalar: CUDA turns a division by
     # a scalar into a multiplication by its reciprocal, 1 ulp off the CPU's
     # and the JAX package's quotient at any rate other than a power of two.
-    rate = torch.tensor(forgetting_rate, dtype=torch.float32, device=n.device)
+    rate = constant(float(forgetting_rate), torch.float32, n.device)
     val = torch.pow(2.5, -n / rate)
     return torch.where(forget_count < max_forget_count, val, torch.zeros_like(val))

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import FilterParams, MapConfig, PARTICLE_OCC_INIT_WEIGHT
-from ..state import Particles, STATUS_INVALID, STATUS_UPDATED
+from ..state import Particles, STATUS_INVALID, STATUS_UPDATED, constant
 from . import codecs
 from .blocks import (
     ActiveBlocks,
@@ -232,7 +232,7 @@ def observe_and_update(
     nf_e = new_f_t.reshape(-1)[dest].to(torch.int32)
 
     # ---- per-entry results, unsorted back into the working set ----
-    init_w = torch.tensor(PARTICLE_OCC_INIT_WEIGHT, dtype=torch.float32, device=dev)
+    init_w = constant(PARTICLE_OCC_INIT_WEIGHT, torch.float32, dev)
     w_out = torch.where(keep, nw_e, torch.where(far_free, init_w, w_s))
     touched_w = keep | far_free
     observed = visible | far_free

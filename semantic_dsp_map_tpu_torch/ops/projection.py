@@ -10,6 +10,7 @@ import torch
 
 from ..config import FilterParams, MapConfig
 from ..labels import BACKGROUND_INSTANCE_ID
+from ..state import constant
 
 
 class LabeledCloud(NamedTuple):
@@ -68,8 +69,8 @@ def generate_labeled_cloud(
     # Python scalar: the CPU divides where CUDA (and the JAX package under
     # jit) multiplies by the reciprocal, 1 ulp apart in a share of the
     # columns, and these positions are truncated to pixels and voxels.
-    inv_fx = torch.tensor(1.0 / cfg.fx, dtype=torch.float32, device=dev)
-    inv_fy = torch.tensor(1.0 / cfg.fy, dtype=torch.float32, device=dev)
+    inv_fx = constant(1.0 / cfg.fx, torch.float32, dev)
+    inv_fy = constant(1.0 / cfg.fy, torch.float32, dev)
     x_cam = (cols - cfg.cx) * inv_fx * depth
     y_cam = (rows - cfg.cy) * inv_fy * depth
     cam = torch.stack([x_cam, y_cam, depth], dim=-1)

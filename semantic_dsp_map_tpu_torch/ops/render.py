@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import MapConfig, PARTICLE_OCC_INIT_WEIGHT
-from ..state import MapState, STATUS_GUESSED_BORN, STATUS_INVALID, STATUS_UPDATED
+from ..state import MapState, STATUS_GUESSED_BORN, STATUS_INVALID, STATUS_UPDATED, constant
 from . import codecs
 
 
@@ -42,8 +42,8 @@ def render_core_plain(cfg: MapConfig, p, voxel_stamp, vax, occupancy_threshold: 
     K = cfg.slots_per_voxel
     V = voxel_stamp.shape[0]
     f32 = torch.float32
-    thr = torch.tensor(occupancy_threshold, dtype=f32, device=vax.device)
-    init_w = torch.tensor(PARTICLE_OCC_INIT_WEIGHT, dtype=f32, device=vax.device)
+    thr = constant(float(occupancy_threshold), f32, vax.device)
+    init_w = constant(PARTICLE_OCC_INIT_WEIGHT, f32, vax.device)
 
     w = p.weight.view(V, K)
     status = p.status.view(V, K)
@@ -155,8 +155,8 @@ def render_occupancy_smoothed(cfg: MapConfig, state: MapState, occupancy_thresho
     p = state.particles
     dev = p.weight.device
     f32 = torch.float32
-    thr = torch.tensor(occupancy_threshold, dtype=f32, device=dev)
-    init_w = torch.tensor(PARTICLE_OCC_INIT_WEIGHT, dtype=f32, device=dev)
+    thr = constant(float(occupancy_threshold), f32, dev)
+    init_w = constant(PARTICLE_OCC_INIT_WEIGHT, f32, dev)
 
     vax = codecs.axis_stamps_per_voxel(cfg, state.scroll)
     status = p.status.view(V, K)
@@ -212,7 +212,7 @@ def render_occupancy_smoothed(cfg: MapConfig, state: MapState, occupancy_thresho
     ws_sm = torch.where(
         wv3 > thr,
         torch.where(any_big, wv3, 0.0),
-        torch.where(big_count >= 2, thr + torch.tensor(0.1, dtype=f32, device=dev), wv3),
+        torch.where(big_count >= 2, thr + constant(0.1, f32, dev), wv3),
     ).reshape(-1)
     gw_total = gw_total.reshape(-1)
 

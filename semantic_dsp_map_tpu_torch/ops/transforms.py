@@ -13,10 +13,9 @@ def _eye4(shape, device):
 
 
 def _compose(R, t):
-    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=torch.float32, device=R.device)
+    T = _eye4(R.shape[:-2], R.device).clone()
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
     return T
 
 

@@ -114,6 +114,17 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)`` for a Python number
+    or a short sequence of them, made by fill kernels on ``device``.
+    ``torch.tensor`` copies from host memory, which on the card synchronizes
+    the stream, and a CUDA graph's capture refuses that (``step_graph``).
+    Each value is rounded to ``dtype`` as ``torch.tensor`` rounds it."""
+    if isinstance(values, (bool, int, float)):
+        return torch.full((), values, dtype=dtype, device=device)
+    return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])
+
+
 def init_particles(cfg: MapConfig, device=None) -> Particles:
     device = resolve_device(device)
     n = cfg.num_voxels * cfg.slots_per_voxel

@@ -25,6 +25,7 @@ from semantic_dsp_map_tpu_torch.ops.projection import LabeledCloud
 from semantic_dsp_map_tpu_torch.ops.render import render_core_plain
 from semantic_dsp_map_tpu_torch.ops.render_cuda import render_core_cuda
 from semantic_dsp_map_tpu_torch.state import init_map_state
+from semantic_dsp_map_tpu_torch.step_graph import kernel_runs
 
 from torch_parity import (
     PHD_EDGE_TABLES, STORE_EDGES, ZERO_FF_ENTRY, particle_store, phd_table_cloud, render_store,
@@ -501,7 +502,7 @@ def test_zed2_scene_cuda_matches_cpu(cuda, independent):
     cfg = tiny_test_config(keypoint_mode=KEYPOINTS_BBOX3D)
     cpu = SemanticDSPMap(cfg, params, device="cpu")
     gpu = SemanticDSPMap(cfg, params, device=cuda)
-    launches = front_candidates_cuda.launches
+    launches = kernel_runs(front_candidates_cuda)
     moved = 0
     for t in range(10):
         rc, dc = cpu.update(*zed2_scene(cfg, t, MaskKpts))
@@ -514,7 +515,8 @@ def test_zed2_scene_cuda_matches_cpu(cuda, independent):
         torch.testing.assert_close(rg.weight_sum.cpu(), rc.weight_sum, rtol=2e-4, atol=1e-6)
         moved += int(dg.moved_count)
     assert moved > 0
-    assert front_candidates_cuda.launches == launches + 10
+    # frame 0 eager, frame 1 captured into a graph and replayed, then replays
+    assert kernel_runs(front_candidates_cuda) == launches + 10
 
 
 def _box_cloud(rng, n, size, center):
