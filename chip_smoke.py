@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases, as a check of a checkout
     python3 chip_smoke.py --phase kernels   # build + per-kernel checks only
+    python3 chip_smoke.py --phase graph     # build + [graph] only
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
     python3 chip_smoke.py --against DIR     # also time both PHD passes, the render,
                                             # the front scan and the gather built from
@@ -67,12 +68,14 @@ Phases (any failure raises, and the script exits nonzero):
      modules, which launch the gather and x2 kernels;
   4b. [graph]: the captured step against the eager one at full width on
      vkitti2, zed2, coda and the hostile scene: SemanticDSPMap.update()
-     (frame 0 eager, frame 1 captured into a CUDA graph, replays after) in
-     turns with build_frame_step on a state of its own, 10 frames, noise
-     on: state (generator included), render and counters bit-equal every
-     frame; both per-frame medians, host API calls a frame, device busy
-     share, the memory a frame takes, and the five kernels' device time
-     inside a replay (torch.profiler).  Every main path's map replays its
+     (frame 0 eager, frame 1 captured into CUDA graphs, replays after: at
+     zed2 one graph, at the superpoint three two graphs around the refit's
+     eager SVD) in turns with build_frame_step on a state of its own, 10
+     frames, noise on: state (generator included), render and counters
+     bit-equal every frame; both per-frame medians, the SVD bridge's host
+     and device ms, host API calls a frame (by name), device busy share, the
+     memory a frame takes, and the five kernels' device time inside a
+     replay (torch.profiler).  Every main path's map replays its
      graph; a path's launch counts are a wrapper's launches outside graphs
      plus those captured into a graph times its replays
      (step_graph.kernel_runs);
@@ -2060,7 +2063,7 @@ def movable_bound(cfg, state):
 def profile_frame(run):
     """torch.profiler around one call of ``run`` (a frame, ended by a
     synchronize): (host API calls, device ms by kernel name, device busy ms,
-    wall ms, kernel launches)."""
+    wall ms, kernel launches, host API calls by name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2070,13 +2073,16 @@ def profile_frame(run):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - w0) * 1e3
-    events = prof.events()
-    api = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
-              and e.name.startswith("cu"))
+    import collections
+
+    api = collections.Counter(e.name for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CPU
+                              and e.name.startswith("cu"))
     device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {e.key: (e.self_device_time_total / 1e3, e.count) for e in device}
     busy = sum(ms for ms, _ in by_name.values())
-    return api, by_name, busy, wall, sum(n for _, n in by_name.values())
+    return (sum(api.values()), by_name, busy, wall, sum(n for _, n in by_name.values()),
+            dict(api.most_common()))
 
 
 @contextlib.contextmanager
@@ -2099,19 +2105,26 @@ def sync_debug_errors():
 
 def drive_graph(name, cfg, params, synth, counters, card, frames=10):
     """[graph]: ``SemanticDSPMap.update()`` (frame 0 eager, frame 1 captured
-    into a CUDA graph and replayed, replays after) in turns with the eager
-    step (``build_frame_step``'s two parts on a state of its own, fed the
-    same packed frame: ``pack_frame``, the copy and the unpack included; on
-    frame 1 the captured part under the sync debug mode "error"), ``frames``
-    frames from one seed, the presets' noise on: state (the generator's seed
-    and offset too), render and counters bit-equal every frame.  Then one
-    more frame of each under torch.profiler: host API calls a frame, device
-    busy share, and the five kernels' device time inside the replay.
+    into CUDA graphs and replayed, replays after; where the superpoint refit
+    runs, two graphs around the eager SVD) in turns with the eager step
+    (``build_frame_step``'s parts on a state of its own, fed the same packed
+    frame: ``pack_frame``, the copy and the unpack included; on frame 1 the
+    parts the card captures under the sync debug mode "error", the SVD
+    outside it), ``frames`` frames from one seed, the presets' noise on:
+    state (the generator's seed and offset too), render and counters
+    bit-equal every frame.  The bridge (the SVD between the graphs) is timed
+    on its own in the graph frames: host ms from its call to its return and
+    device ms between events around it, after a synchronize whose host ms
+    is kept too (the SVD waits for the first graph in any case: it reads to
+    the host).  Then one more
+    frame of each under torch.profiler: host API calls a frame (by name),
+    device busy share, and the five kernels' device time inside the replay.
     Returns the numbers."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap, step_graph
     from semantic_dsp_map_tpu_torch.frontend import pack_frame
     from semantic_dsp_map_tpu_torch.map import build_frame_stages, unpack_frame
+    from semantic_dsp_map_tpu_torch.objects import refit_svd
     from semantic_dsp_map_tpu_torch.state import init_map_state
 
     reset_launches(counters)
@@ -2119,31 +2132,50 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
     stages = build_frame_stages(cfg, params, dsp.registry)
     box = {"state": init_map_state(cfg, 0, "cuda")}
     scenes = [synth(cfg, t, MaskKpts) for t in range(frames + 1)]
-    outside = step_graph.objects_outside_graph(cfg)
+    split = step_graph.split_at_refit(cfg)
 
     def graph_frame(t):
         return dsp.update(*scenes[t], 0.1 * t)
 
     def eager_frame(t):
-        # build_frame_step's step, in its two parts; on frame 1 the part the
-        # card captures runs under the sync debug mode "error", which raises
-        # on an op that synchronizes with the host.
+        # build_frame_step's step, in its parts; on frame 1 the parts the
+        # card captures run under the sync debug mode "error", which raises
+        # on an op that synchronizes with the host; the SVD between them
+        # runs outside it.
         buf = pack_frame(cfg, dsp.registry, *scenes[t], 0.1 * t)
         f = unpack_frame(cfg, dsp._static_table, torch.from_numpy(buf).cuda())
-        checked = contextlib.nullcontext() if t != 1 else sync_debug_errors()
-        if outside:
-            objects = stages.objects(box["state"], f)
-        with checked:
-            if not outside:
-                objects = stages.objects(box["state"], f)
-            box["state"], result, diag = stages.rest(box["state"], f, objects)
+        checked = (lambda: contextlib.nullcontext()) if t != 1 else sync_debug_errors
+        state = box["state"]
+        if split:
+            with checked():
+                fit = stages.objects_fit(state, f)
+            uv = refit_svd(fit)
+        with checked():
+            objects = stages.objects_finish(fit, *uv) if split else stages.objects(state, f)
+            box["state"], result, diag = stages.rest(state, f, objects)
         return result, diag
+
+    bridge = {"wait_ms": [], "host_ms": [], "events": []}
+
+    def timed_bridge(fit):
+        w0 = time.perf_counter()
+        torch.cuda.synchronize()
+        bridge["wait_ms"].append((time.perf_counter() - w0) * 1e3)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        w0 = time.perf_counter()
+        type(dsp._static)._bridge(dsp._static, fit)
+        bridge["host_ms"].append((time.perf_counter() - w0) * 1e3)
+        b.record()
+        bridge["events"].append((a, b))
 
     modes = {"graph": graph_frame, "eager": eager_frame}
     ms = {m: [] for m in modes}
     wall = {m: [] for m in modes}
     work = {m: [] for m in modes}
     for t in range(frames):
+        if t == 1 and split:
+            dsp._static._bridge = timed_bridge
         out = {}
         for mode in (("graph", "eager") if t % 2 == 0 else ("eager", "graph")):
             torch.cuda.synchronize()
@@ -2170,7 +2202,10 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
         print(f"[graph] {name} frame {t}: graph {ms['graph'][-1]:.3f} ms (host "
               f"{wall['graph'][-1]:.3f}), eager {ms['eager'][-1]:.3f} ms (host "
               f"{wall['eager'][-1]:.3f}); state, render and counters bit-equal; diag {dgd}"
-              + ("; the eager frame's captured part made no sync under the debug mode" if t == 1
+              + (f"; bridge host {bridge['host_ms'][-1]:.3f} ms, device "
+                 f"{bridge['events'][-1][0].elapsed_time(bridge['events'][-1][1]):.3f} ms"
+                 if split and t >= 1 else "")
+              + ("; the eager frame's captured parts made no sync under the debug mode" if t == 1
                  else ""))
     launches = read_launches(counters)
     captured, replayed = dict(step_graph.captured), dict(step_graph.replayed)
@@ -2181,8 +2216,21 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
             for fn in counters):
         raise AssertionError(f"[graph] {name}: launches {launches} in {frames} frames of each, "
                              f"captured {captured}, replayed {replayed}")
-    if set(dsp._static.graphs) != {"packed"}:
-        raise AssertionError(f"[graph] {name}: graphs {list(dsp._static.graphs)}")
+    want = {("packed", "fit"), ("packed", "finish")} if split else {("packed", "step")}
+    if set(dsp._static.graphs) != want or dsp._static.split != split:
+        raise AssertionError(f"[graph] {name}: graphs {list(dsp._static.graphs)}, want {want}")
+    if split and any(dsp._static.graphs["packed", "fit"].launches.values()):
+        raise AssertionError(f"[graph] {name}: frame kernels in the fit graph "
+                             f"{dsp._static.graphs['packed', 'fit'].launches}")
+    bridge_ms = {}
+    if split:
+        del dsp._static._bridge  # the profiled frame runs the bridge untimed
+        device = [a.elapsed_time(b) for a, b in bridge["events"]]
+        bridge_ms = {"host_ms": bridge["host_ms"], "device_ms": device,
+                     "wait_ms": bridge["wait_ms"],
+                     "median_host_ms": float(np.median(bridge["host_ms"][1:])),
+                     "median_device_ms": float(np.median(device[1:])),
+                     "median_wait_ms": float(np.median(bridge["wait_ms"][1:]))}
 
     t = frames
     bound_m, n_set, n_alive = movable_bound(cfg, dsp.state)
@@ -2191,8 +2239,8 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
     parted = states_differ(dsp.state, box["state"])
     if parted:
         raise AssertionError(f"[graph] {name} profiled frame: parts in {parted}")
-    api_g, kernels_g, busy_g, wall_g, n_g = prof["graph"]
-    api_e, _, busy_e, wall_e, n_e = prof["eager"]
+    api_g, kernels_g, busy_g, wall_g, n_g, api_by_g = prof["graph"]
+    api_e, _, busy_e, wall_e, n_e, api_by_e = prof["eager"]
     in_graph = {}
     for key, kname in FRAME_KERNEL_NAMES:
         hits = [(ms_, n) for k, (ms_, n) in kernels_g.items() if kname in k]
@@ -2204,7 +2252,7 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
     med_wall = {m: float(np.median(wall[m][timed])) for m in modes}
     peak = {"graph_capture": work["graph"][1], "graph_replay": max(work["graph"][2:]),
             "eager": max(work["eager"]), "graph_pool_reserved": torch.cuda.memory_reserved()}
-    objects = "eager ahead of the graph" if dsp._static.objects_eager else "in the graph"
+    objects = "in the graph (two parts around the SVD)" if split else "in the graph"
     print(f"[graph] {name}: grid {cfg.num_voxels} voxels x K={cfg.slots_per_voxel}, image "
           f"{cfg.width}x{cfg.height}, object layer {objects}; per-frame medians over frames "
           f"2-{frames - 1}, in turns: graph {med['graph']:.3f} ms (host {med_wall['graph']:.3f}), "
@@ -2214,6 +2262,16 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
           f"a frame: graph {n_g}, eager {n_e}; device busy: graph {busy_g:.3f} of {wall_g:.3f} ms "
           f"({100 * busy_g / wall_g:.1f}%), eager {busy_e:.3f} of {wall_e:.3f} ms "
           f"({100 * busy_e / wall_e:.1f}%) (profiled frame {t})")
+    print(f"[graph] {name}: host API calls of the graph frame by name: {api_by_g}; of the eager "
+          f"frame, the first ten: {dict(list(api_by_e.items())[:10])}")
+    if split:
+        print(f"[graph] {name}: the bridge (the eager SVD between the two graphs), medians over "
+              f"frames 2-{frames - 1}: host {bridge_ms['median_host_ms']:.3f} ms from its call "
+              f"to its return, device {bridge_ms['median_device_ms']:.3f} ms between events "
+              f"around it, the device idle before it; the host waited "
+              f"{bridge_ms['median_wait_ms']:.3f} ms for the fit graph before it ({card})")
+    else:
+        print(f"[graph] {name}: one graph a frame, no bridge")
     print(f"[graph] {name}: memory a frame takes beyond the resident states: capture "
           f"{peak['graph_capture']} bytes, replay {peak['graph_replay']} bytes, eager "
           f"{peak['eager']} bytes; reserved after {peak['graph_pool_reserved']} bytes")
@@ -2228,11 +2286,13 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
     return {"graph_ms": ms["graph"], "eager_ms": ms["eager"], "graph_wall_ms": wall["graph"],
             "eager_wall_ms": wall["eager"], "median_ms": med, "median_wall_ms": med_wall,
             "api_calls": {"graph": api_g, "eager": api_e},
+            "api_calls_by_name": {"graph": api_by_g, "eager": api_by_e}, "bridge": bridge_ms,
             "device_kernels": {"graph": n_g, "eager": n_e},
             "device_busy_ms": {"graph": busy_g, "eager": busy_e},
             "profiled_wall_ms": {"graph": wall_g, "eager": wall_e}, "memory_bytes": peak,
             "kernel_ms_in_replay": in_graph, "movable_bound": bound_m,
-            "movable_slots": {"status_set": n_set, "alive": n_alive}, "objects_eager": objects, "launches": launches}
+            "movable_slots": {"status_set": n_set, "alive": n_alive}, "object_layer": objects,
+            "launches": launches}
 
 
 def drive_rematch(counters, card, lost=5, frames=7):
@@ -2516,8 +2576,9 @@ def check_slab_kernels(report, card):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels"), default="all",
-                    help="'kernels' stops after the per-kernel checks")
+    ap.add_argument("--phase", choices=("all", "kernels", "graph"), default="all",
+                    help="'kernels' stops after the per-kernel checks; 'graph' runs the build "
+                         "and [graph] alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     ap.add_argument("--against", metavar="DIR", type=Path,
@@ -2565,6 +2626,19 @@ def main() -> int:
 
     scenes = bench_scenes()
     vk_cfg, zed2_cfg, coda_cfg = virtual_kitti2_config(), zed2_config(), coda_config()
+    fns = step_graph.FRAME_KERNELS
+    graph_paths = (("vkitti2", vk_cfg, scenes.VK_PARAMS, scenes.synth_vkitti2_frame),
+                   ("zed2", zed2_cfg, scenes.ZED2_PARAMS, scenes.synth_zed2_frame),
+                   ("coda", coda_cfg, scenes.CODA_PARAMS, scenes.synth_coda_frame),
+                   ("vkitti2_hostile", vk_cfg, scenes.VK_PARAMS, scenes.synth_hostile_frame))
+    if args.phase == "graph":
+        graph = {}
+        for name, cfg, params, synth in graph_paths:
+            graph[name] = drive_graph(name, cfg, FilterParams(**params), synth, fns, card)
+            torch.cuda.empty_cache()
+        print(json.dumps({"graph": graph, "card": card}))
+        print(f"[card] {card}")
+        return 0
     source = "semantic_dsp_map_tpu_torch/csrc/"
     report = {
         "phd_pass_a": dict(name="phd_pass_a", route="cuda", source=source + "phd.cu",
@@ -2609,7 +2683,6 @@ def main() -> int:
         print(f"[card] {card}")
         return 0
 
-    fns = step_graph.FRAME_KERNELS
     counters = {key: fn for (key, _), fn in zip(FRAME_KERNEL_NAMES, fns, strict=True)}
     check_scene_cuda_vs_cpu("dynamic scene", tiny_test_config(), FilterParams(**TINY_PARAMS),
                             tiny_scene, fns)
@@ -2668,11 +2741,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     graph = {}
-    for name, cfg, params, synth in (
-            ("vkitti2", vk_cfg, scenes.VK_PARAMS, scenes.synth_vkitti2_frame),
-            ("zed2", zed2_cfg, scenes.ZED2_PARAMS, scenes.synth_zed2_frame),
-            ("coda", coda_cfg, scenes.CODA_PARAMS, scenes.synth_coda_frame),
-            ("vkitti2_hostile", vk_cfg, scenes.VK_PARAMS, scenes.synth_hostile_frame)):
+    for name, cfg, params, synth in graph_paths:
         graph[name] = drive_graph(name, cfg, FilterParams(**params), synth, fns, card)
         torch.cuda.empty_cache()
         for key, fn in counters.items():

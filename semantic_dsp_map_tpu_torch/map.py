@@ -27,7 +27,14 @@ import torch
 from .config import FilterParams, KEYPOINTS_BBOX3D, MapConfig
 from .frontend import FrameInput, pack_frame, static_label_table
 from .labels import LabelRegistry
-from .objects import ObservedInstances, expire_objects, object_level_update, ransac_draw_shape
+from .objects import (
+    ObservedInstances,
+    expire_objects,
+    object_finish,
+    object_fit,
+    object_level_update,
+    ransac_draw_shape,
+)
 from .ops import codecs
 from .ops.birth import Candidates, _insert_core, birth_and_resample
 from .ops.blocks import (
@@ -49,7 +56,7 @@ from .state import (
     init_map_state,
     resolve_device,
 )
-from .step_graph import StaticStep, objects_outside_graph
+from .step_graph import StaticStep, split_at_refit
 from .template_engine import TemplateEngine
 
 
@@ -265,15 +272,20 @@ def unpack_frame(cfg: MapConfig, static_table: torch.Tensor, buf: torch.Tensor) 
 
 
 class FrameStages(NamedTuple):
-    """The frame step in two parts: ``objects(state, f)`` is the object layer
+    """The frame step in parts: ``objects(state, f)`` is the object layer
     (stage 0) and returns the updated ObjectTable; ``rest(state, f, objects)``
     runs stages 1-5 from it and returns (MapState, RenderResult,
-    StepDiagnostics).  ``step_graph`` runs the first part outside a CUDA graph
-    where it cannot be captured.  ``objects`` reads only the fields of ``f``
-    that :func:`unpack_objects` fills."""
+    StepDiagnostics).  Where the superpoint refit runs
+    (``step_graph.split_at_refit``), ``objects`` is ``objects_fit(state, f)``
+    (an ``objects.ObjectFit``), ``objects.refit_svd`` of it (U, Vt), then
+    ``objects_finish(fit, U, Vt)``, and ``step_graph`` captures the parts on
+    either side of the SVD; elsewhere those two are None.  The object parts
+    read only the fields of ``f`` that :func:`unpack_objects` fills."""
 
     objects: Callable
     rest: Callable
+    objects_fit: Optional[Callable]
+    objects_finish: Optional[Callable]
 
 
 def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
@@ -292,20 +304,30 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
     render_fn = (render_occupancy_smoothed if params.if_use_neighbor_smoothed_occupancy
                  else render_occupancy)
 
+    def observed(f: FrameInput):
+        return ObservedInstances(
+            valid=f.inst_valid, track=f.inst_track, label=f.inst_label,
+            kpts_curr=f.kpts_curr, kpts_prev=f.kpts_prev, kpts_count=f.kpts_count,
+        )
+
     def object_stage(state: MapState, f: FrameInput):
         # 1. Object layer (only with instances, semantic_dsp_map.h:189-191).
         if not cfg.consider_instance:
             return state.objects
         _r_wc, _t_wc, r_cw, t_cw = camera_matrices(f.cam_pos, f.cam_quat)
-        obs = ObservedInstances(
-            valid=f.inst_valid, track=f.inst_track, label=f.inst_label,
-            kpts_curr=f.kpts_curr, kpts_prev=f.kpts_prev, kpts_count=f.kpts_count,
-        )
         draws = gumbel(ransac_draw_shape(cfg), state.rng, f.cam_pos.device)
         return object_level_update(
-            cfg, params, state.objects, obs, f.cam_pos, r_cw, t_cw, f.time,
+            cfg, params, state.objects, observed(f), f.cam_pos, r_cw, t_cw, f.time,
             state.prev_frame_time, state.global_time + 1, draws,
         )
+
+    def objects_fit(state: MapState, f: FrameInput):
+        draws = gumbel(ransac_draw_shape(cfg), state.rng, f.cam_pos.device)
+        return object_fit(cfg, state.objects, observed(f), f.cam_pos, f.time,
+                          state.prev_frame_time, state.global_time + 1, draws)
+
+    def objects_finish(fit, U, Vt):
+        return object_finish(cfg, params, fit, U, Vt)
 
     def rest(state: MapState, f: FrameInput, objects):
         if stop_after == 0:
@@ -382,7 +404,9 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
         )
         return state, result, diag
 
-    return FrameStages(object_stage, rest)
+    if split_at_refit(cfg):
+        return FrameStages(object_stage, rest, objects_fit, objects_finish)
+    return FrameStages(object_stage, rest, None, None)
 
 
 def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
@@ -483,7 +507,6 @@ class SemanticDSPMap:
                 # Template mode stays eager: it reads its gate to the host
                 # every frame (the rows with work decide which sweeps run).
                 capture=self.device.type == "cuda" and templates is None,
-                objects_eager=objects_outside_graph(self.cfg),
             )
         self.state, result, diag = self._static(kind, host, self.state)
         if self.log_diagnostics:

@@ -14,7 +14,7 @@ test of the bbox3d mode and the Chebyshev range gate for new objects.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,7 +25,7 @@ from .config import (
     MOVEMENT_ALWAYS,
     MOVEMENT_NEVER,
 )
-from .ops.transforms import ransac_transform
+from .ops.transforms import RansacFit, kabsch_svd, ransac_finish, ransac_fit, ransac_transform
 from .state import ObjectTable, constant
 
 WINDOW_MAX_AGE = 10
@@ -158,24 +158,31 @@ def _window_push_and_estimate(objects, push_mask, T_new, dt_new, ref_new, global
     )
 
 
-def object_level_update(
-    cfg: MapConfig,
-    params: FilterParams,
-    objects: ObjectTable,
-    obs: ObservedInstances,
-    cam_pos,
-    r_cw,
-    t_cw,
-    time_now,
-    prev_frame_time,
-    global_time,
-    gumbel: torch.Tensor,
-) -> ObjectTable:
-    """One frame of objectLevelUpdate (semantic_dsp_map.h:306-566).
-    ``gumbel`` (shape :func:`ransac_draw_shape`) holds the RANSAC triple
-    draws (see ops.transforms.ransac_transform)."""
+class ObjectFit(NamedTuple):
+    """The superpoint object layer up to the refit's SVD (:func:`object_fit`):
+    the table after Case 1, this frame's instances matched to it, the RANSAC
+    up to the covariance of the best inliers, and the frame's times.
+    :func:`object_finish` takes the update on from there."""
+
+    objects: ObjectTable        # the table after Case 1 (new objects)
+    obs: ObservedInstances
+    relevant: torch.Tensor      # bool[I]: valid, with a known label
+    has: torch.Tensor           # bool[I]: matched to a row of the table
+    oidx: torch.Tensor          # i64[I]: that row (0 without one)
+    new_mask: torch.Tensor      # bool[I]: placed in the table this frame
+    exist_obs: torch.Tensor     # bool[I]: Case 2's instances
+    kmask: torch.Tensor         # bool[I, Kp]: the keypoints that count
+    ransac: Optional[RansacFit]  # None in bbox3d mode
+    time_now: torch.Tensor
+    prev_frame_time: torch.Tensor
+    global_time: torch.Tensor   # i32
+
+
+def _new_objects(cfg: MapConfig, objects: ObjectTable, obs: ObservedInstances, cam_pos,
+                 time_now, prev_frame_time, global_time) -> ObjectFit:
+    """Case 1 (new objects) and the match of every instance to the table;
+    returns the ObjectFit without its RANSAC."""
     bbox3d = cfg.keypoint_mode == KEYPOINTS_BBOX3D
-    I = obs.valid.shape[0]
     Kp = obs.kpts_curr.shape[1]
     O = objects.valid.shape[0]
     dev = obs.valid.device
@@ -228,54 +235,121 @@ def object_level_update(
 
     # ---------------- Case 2: keypoint transform update ----------------
     exist_obs = relevant & has & ~new_mask & (obs.kpts_count >= (4 if bbox3d else 5))
-    if bbox3d:
-        # ZED2: transform from the stored last-frame corners to the current
-        # ones (semantic_dsp_map.h:408-481).
-        last_k = objects.last_kpts[oidx]
-        has_last = objects.has_last_kpts[oidx]
-        key_k = objects.key_kpts[oidx]
-        last_idx = torch.clamp(obs.kpts_count - 1, min=0)
-        last_pt = obs.kpts_curr[torch.arange(I, device=dev), last_idx]
-        out_fov = _point_out_of_fov(cfg, r_cw, t_cw, last_pt, margin=5)
-        T2 = ransac_transform(
-            gumbel, last_k, k4, torch.ones((I, 4), dtype=torch.bool, device=dev), 0.5, False
-        )[0]
+    return ObjectFit(objects, obs, relevant, has, oidx, new_mask, exist_obs, kmask, None,
+                     time_now, prev_frame_time, gt)
 
-        width = torch.linalg.vector_norm(k4[:, 1] - k4[:, 0], dim=-1)
-        key_thr = torch.clamp(width, min=params.bayesian_movement_distance_threshold)
-        drift = torch.linalg.vector_norm(k4[:, 0] - key_k[:, 0], dim=-1)
-        moved_obs = (drift > key_thr).to(torch.int32)
-        success2 = exist_obs & ~out_fov & has_last
-        ref_pt = last_k[:, 0]
-        dt_window = time_now - objects.last_kpts_time[oidx]
 
-        # Corner caches: the last corners of every stored observation, and
-        # the key corners when missing or older than 2 s
-        # (semantic_dsp_map.h:431-478).
-        store = exist_obs & ~out_fov
-        set_key = store & (~has_last | ((time_now - objects.key_kpts_time[oidx]) > 2.0))
-        tgt2 = torch.where(store, oidx, O)
-        tgt_key = torch.where(set_key, oidx, O)
-        objects = dataclasses.replace(
-            objects,
-            last_kpts=_scatter(objects.last_kpts, tgt2, k4),
-            last_kpts_time=_scatter(objects.last_kpts_time, tgt2, time_now),
-            has_last_kpts=_scatter(objects.has_last_kpts, tgt2, True),
-            key_kpts=_scatter(objects.key_kpts, tgt_key, k4),
-            key_kpts_time=_scatter(objects.key_kpts_time, tgt_key, time_now),
-        )
-    else:
-        # Superpoint: matched keypoint pairs, RANSAC with refit and the
-        # mse/inlier gate (semantic_dsp_map.h:381-407).
-        T2, _inl, n_inl, mse, first_inl = ransac_transform(
-            gumbel, obs.kpts_prev, obs.kpts_curr, kmask, 0.5, True
-        )
-        ratio = n_inl.to(torch.float32) / torch.clamp(obs.kpts_count, min=1)
-        tf_ok = (mse <= 0.2) & (n_inl >= 5) & (ratio >= 0.5)
-        success2 = exist_obs & tf_ok
-        ref_pt = obs.kpts_prev[torch.arange(I, device=dev), first_inl]
-        moved_obs = torch.full((I,), -1, dtype=torch.int32, device=dev)
-        dt_window = torch.full((I,), DEFAULT_TIME_INTERVAL, dtype=torch.float32, device=dev)
+def object_fit(cfg: MapConfig, objects: ObjectTable, obs: ObservedInstances, cam_pos, time_now,
+               prev_frame_time, global_time, gumbel: torch.Tensor) -> ObjectFit:
+    """The superpoint object_level_update up to the refit's SVD (its
+    arguments less ``params``, ``r_cw`` and ``t_cw``): Case 1, the match and
+    the RANSAC up to the covariance of the best inliers."""
+    fit = _new_objects(cfg, objects, obs, cam_pos, time_now, prev_frame_time, global_time)
+    # Superpoint: matched keypoint pairs, RANSAC with refit
+    # (semantic_dsp_map.h:381-407).
+    ransac = ransac_fit(gumbel, obs.kpts_prev, obs.kpts_curr, fit.kmask, 0.5, True)
+    return fit._replace(ransac=ransac)
+
+
+def refit_svd(fit: ObjectFit):
+    """The SVD between :func:`object_fit` and :func:`object_finish`: (U, Vt)
+    of the refit's covariance (ops.transforms.kabsch_svd)."""
+    return kabsch_svd(fit.ransac.H)
+
+
+def object_finish(cfg: MapConfig, params: FilterParams, fit: ObjectFit, U, Vt) -> ObjectTable:
+    """The superpoint object_level_update from the refit's SVD (:func:`refit_svd`)
+    on: the refit, the mse/inlier gate, updateObject, the window push, the
+    rematch/coast case and the unobserved objects' coasting."""
+    I = fit.obs.valid.shape[0]
+    dev = fit.obs.valid.device
+    obs = fit.obs
+    T2, _inl, n_inl, mse, first_inl = ransac_finish(fit.ransac, U, Vt)
+    ratio = n_inl.to(torch.float32) / torch.clamp(obs.kpts_count, min=1)
+    tf_ok = (mse <= 0.2) & (n_inl >= 5) & (ratio >= 0.5)
+    success2 = fit.exist_obs & tf_ok
+    ref_pt = obs.kpts_prev[torch.arange(I, device=dev), first_inl]
+    moved_obs = torch.full((I,), -1, dtype=torch.int32, device=dev)
+    dt_window = torch.full((I,), DEFAULT_TIME_INTERVAL, dtype=torch.float32, device=dev)
+    return _update_objects(cfg, params, fit, fit.objects, success2, T2, ref_pt, moved_obs,
+                           dt_window)
+
+
+def object_level_update(
+    cfg: MapConfig,
+    params: FilterParams,
+    objects: ObjectTable,
+    obs: ObservedInstances,
+    cam_pos,
+    r_cw,
+    t_cw,
+    time_now,
+    prev_frame_time,
+    global_time,
+    gumbel: torch.Tensor,
+) -> ObjectTable:
+    """One frame of objectLevelUpdate (semantic_dsp_map.h:306-566).
+    ``gumbel`` (shape :func:`ransac_draw_shape`) holds the RANSAC triple
+    draws (see ops.transforms.ransac_transform).  In superpoint mode this is
+    :func:`object_fit`, :func:`refit_svd` and :func:`object_finish`."""
+    if cfg.keypoint_mode != KEYPOINTS_BBOX3D:
+        fit = object_fit(cfg, objects, obs, cam_pos, time_now, prev_frame_time, global_time, gumbel)
+        return object_finish(cfg, params, fit, *refit_svd(fit))
+
+    # ZED2: transform from the stored last-frame corners to the current ones
+    # (semantic_dsp_map.h:408-481).
+    fit = _new_objects(cfg, objects, obs, cam_pos, time_now, prev_frame_time, global_time)
+    objects, oidx, exist_obs = fit.objects, fit.oidx, fit.exist_obs
+    I = obs.valid.shape[0]
+    O = objects.valid.shape[0]
+    dev = obs.valid.device
+    k4 = obs.kpts_curr[:, :4]
+    last_k = objects.last_kpts[oidx]
+    has_last = objects.has_last_kpts[oidx]
+    key_k = objects.key_kpts[oidx]
+    last_idx = torch.clamp(obs.kpts_count - 1, min=0)
+    last_pt = obs.kpts_curr[torch.arange(I, device=dev), last_idx]
+    out_fov = _point_out_of_fov(cfg, r_cw, t_cw, last_pt, margin=5)
+    T2 = ransac_transform(
+        gumbel, last_k, k4, torch.ones((I, 4), dtype=torch.bool, device=dev), 0.5, False
+    )[0]
+
+    width = torch.linalg.vector_norm(k4[:, 1] - k4[:, 0], dim=-1)
+    key_thr = torch.clamp(width, min=params.bayesian_movement_distance_threshold)
+    drift = torch.linalg.vector_norm(k4[:, 0] - key_k[:, 0], dim=-1)
+    moved_obs = (drift > key_thr).to(torch.int32)
+    success2 = exist_obs & ~out_fov & has_last
+    ref_pt = last_k[:, 0]
+    dt_window = time_now - objects.last_kpts_time[oidx]
+
+    # Corner caches: the last corners of every stored observation, and the
+    # key corners when missing or older than 2 s (semantic_dsp_map.h:431-478).
+    store = exist_obs & ~out_fov
+    set_key = store & (~has_last | ((time_now - objects.key_kpts_time[oidx]) > 2.0))
+    tgt2 = torch.where(store, oidx, O)
+    tgt_key = torch.where(set_key, oidx, O)
+    objects = dataclasses.replace(
+        objects,
+        last_kpts=_scatter(objects.last_kpts, tgt2, k4),
+        last_kpts_time=_scatter(objects.last_kpts_time, tgt2, time_now),
+        has_last_kpts=_scatter(objects.has_last_kpts, tgt2, True),
+        key_kpts=_scatter(objects.key_kpts, tgt_key, k4),
+        key_kpts_time=_scatter(objects.key_kpts_time, tgt_key, time_now),
+    )
+    return _update_objects(cfg, params, fit, objects, success2, T2, ref_pt, moved_obs, dt_window)
+
+
+def _update_objects(cfg: MapConfig, params: FilterParams, fit: ObjectFit, objects: ObjectTable,
+                    success2, T2, ref_pt, moved_obs, dt_window) -> ObjectTable:
+    """Both modes after Case 2's transform: updateObject, the window push,
+    the rematch/coast case (superpoint) and the unobserved objects'
+    coasting, on ``objects``."""
+    bbox3d = cfg.keypoint_mode == KEYPOINTS_BBOX3D
+    obs, relevant, has, oidx, new_mask = fit.obs, fit.relevant, fit.has, fit.oidx, fit.new_mask
+    time_now, gt = fit.time_now, fit.global_time
+    I = obs.valid.shape[0]
+    O = objects.valid.shape[0]
+    dev = obs.valid.device
 
     # ---------------- updateObject (object_layer.h:470-539) ------------
     disp = torch.einsum("iab,ib->ia", T2[:, :3, :3], ref_pt) + T2[:, :3, 3] - ref_pt
@@ -355,7 +429,7 @@ def object_level_update(
         torch.zeros(O, dtype=torch.bool, device=dev), torch.where(relevant, oidx, O), True
     )
     unobs = objects.valid & ~observed & objects.has_moved_record & objects.moving
-    td = time_now - prev_frame_time
+    td = time_now - fit.prev_frame_time
     td = torch.where(td.abs() > 1.0, 1.0, td)
     T_pred_u = _translation_matrix(objects.velocity * td)
     upd_T = unobs & objects.vel_valid

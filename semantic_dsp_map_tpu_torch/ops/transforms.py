@@ -5,6 +5,8 @@ dimensions, so the object layer runs every instance in one call."""
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 
@@ -19,9 +21,10 @@ def _compose(R, t):
     return T
 
 
-def kabsch(P, Q, mask):
-    """Masked rigid fit Q ~ R @ P + t (basic_algorithms.h:56-95).
-    P, Q: f32[..., N, 3]; mask: bool[..., N].  Returns (T [..., 4, 4], ok)."""
+def kabsch_cov(P, Q, mask):
+    """The Kabsch fit up to its SVD: masked centroids and the covariance.
+    P, Q: f32[..., N, 3]; mask: bool[..., N].  Returns (H [..., 3, 3],
+    cp [..., 3], cq [..., 3], ok), ``ok`` where the mask holds 3 points."""
     m = mask.to(torch.float32)[..., None]
     cnt = torch.clamp(m.sum(dim=-2), min=1e-9)
     cp = (P * m).sum(dim=-2) / cnt
@@ -29,7 +32,20 @@ def kabsch(P, Q, mask):
     Pc = (P - cp[..., None, :]) * m
     Qc = (Q - cq[..., None, :]) * m
     H = torch.einsum("...ni,...nj->...ij", Pc, Qc)
+    return H, cp, cq, mask.sum(dim=-1) >= 3
+
+
+def kabsch_svd(H):
+    """The SVD of the Kabsch fit: (U, Vt) of H [..., 3, 3].  On the card
+    ``torch.linalg.svd`` reads cuSOLVER's convergence flags to the host, a
+    synchronization that a CUDA graph cannot hold (``step_graph``)."""
     U, _, Vt = torch.linalg.svd(H)
+    return U, Vt
+
+
+def kabsch_finish(U, Vt, cp, cq):
+    """The Kabsch fit from its SVD on: the rotation with the reflection fix
+    and the translation.  Returns T [..., 4, 4]."""
     V = Vt.transpose(-1, -2)
     R = V @ U.transpose(-1, -2)
     det = torch.linalg.det(R)
@@ -38,7 +54,15 @@ def kabsch(P, Q, mask):
     flip[..., :, 2] = torch.where(det < 0, -1.0, 1.0)[..., None]
     R = (V * flip) @ U.transpose(-1, -2)
     t = cq - torch.einsum("...ij,...j->...i", R, cp)
-    return _compose(R, t), mask.sum(dim=-1) >= 3
+    return _compose(R, t)
+
+
+def kabsch(P, Q, mask):
+    """Masked rigid fit Q ~ R @ P + t (basic_algorithms.h:56-95):
+    :func:`kabsch_cov`, :func:`kabsch_svd`, :func:`kabsch_finish`.
+    P, Q: f32[..., N, 3]; mask: bool[..., N].  Returns (T [..., 4, 4], ok)."""
+    H, cp, cq, ok = kabsch_cov(P, Q, mask)
+    return kabsch_finish(*kabsch_svd(H), cp, cq), ok
 
 
 def apply_transform(T, pts):
@@ -74,36 +98,57 @@ def triangle_fit(Ps, Qs):
     return torch.where(ok[..., None, None], T, _eye4(T.shape[:-2], T.device))
 
 
-def ransac_transform(gumbel, P, Q, mask, threshold: float, refit_with_inliers: bool):
-    """estimateTransformationRANSAC (basic_algorithms.h:106-195), batched.
+class RansacFit(NamedTuple):
+    """RANSAC up to the refit's SVD (:func:`ransac_fit`): the best hypothesis
+    of each batch row and its inliers, and, where the refit runs, the
+    covariance of those inliers (:func:`kabsch_cov`; None without it)."""
 
-    ``gumbel`` f32[..., n_iter, N] holds the Gumbel draws that pick each
-    hypothesis's distinct random triple (Gumbel top-3 over the valid
-    points); the caller draws them from its generator.  P, Q: f32[..., N, 3];
-    mask: bool[..., N].  Returns (T, inlier_mask, n_inliers, mse,
-    first_inlier_idx)."""
-    batch = P.shape[:-2]
+    P: torch.Tensor         # f32[..., N, 3]
+    Q: torch.Tensor         # f32[..., N, 3]
+    best_T: torch.Tensor    # f32[B, 4, 4]
+    best_inl: torch.Tensor  # bool[B, N]
+    n_inl: torch.Tensor     # i64[B]
+    H: Optional[torch.Tensor]         # f32[B, 3, 3]
+    cp: Optional[torch.Tensor]        # f32[B, 3]
+    cq: Optional[torch.Tensor]        # f32[B, 3]
+    refit_ok: Optional[torch.Tensor]  # bool[B]
+
+
+def ransac_fit(gumbel, P, Q, mask, threshold: float, refit_with_inliers: bool) -> RansacFit:
+    """:func:`ransac_transform` up to the refit's SVD (same arguments)."""
     n_iter, N = gumbel.shape[-2:]
-    P, Q = P.reshape(-1, N, 3), Q.reshape(-1, N, 3)
+    Pf, Qf = P.reshape(-1, N, 3), Q.reshape(-1, N, 3)
     mask = mask.reshape(-1, N)
-    B = P.shape[0]
+    B = Pf.shape[0]
     bi = torch.arange(B, device=P.device)
 
     g = torch.where(mask[:, None, :], gumbel.reshape(B, n_iter, N), float("-inf"))
     triple = torch.topk(g, 3, dim=-1).indices              # [B, n_iter, 3]
-    T_h = triangle_fit(P[bi[:, None, None], triple], Q[bi[:, None, None], triple])
+    T_h = triangle_fit(Pf[bi[:, None, None], triple], Qf[bi[:, None, None], triple])
 
-    Pt = apply_transform(T_h, P[:, None].expand(B, n_iter, N, 3))
-    err = torch.linalg.vector_norm(Pt - Q[:, None], dim=-1)
+    Pt = apply_transform(T_h, Pf[:, None].expand(B, n_iter, N, 3))
+    err = torch.linalg.vector_norm(Pt - Qf[:, None], dim=-1)
     inl = mask[:, None, :] & (err < threshold)
     counts = inl.sum(dim=-1)
 
     best = torch.argmax(counts, dim=-1)                    # first max wins
     best_T, best_inl, n_inl = T_h[bi, best], inl[bi, best], counts[bi, best]
+    cov = kabsch_cov(Pf, Qf, best_inl) if refit_with_inliers else (None,) * 4
+    return RansacFit(P, Q, best_T, best_inl, n_inl, *cov)
 
-    if refit_with_inliers:
-        refit_T, refit_ok = kabsch(P, Q, best_inl)
-        use_refit = refit_ok & (n_inl >= 3)
+
+def ransac_finish(fit: RansacFit, U=None, Vt=None):
+    """:func:`ransac_transform` from the refit's SVD on: ``U`` and ``Vt``
+    are :func:`kabsch_svd` of ``fit.H`` (None where the refit does not
+    run).  Returns what :func:`ransac_transform` returns."""
+    N = fit.P.shape[-2]
+    batch = fit.P.shape[:-2]
+    P, Q = fit.P.reshape(-1, N, 3), fit.Q.reshape(-1, N, 3)
+    best_T, best_inl, n_inl = fit.best_T, fit.best_inl, fit.n_inl
+
+    if fit.H is not None:
+        refit_T = kabsch_finish(U, Vt, fit.cp, fit.cq)
+        use_refit = fit.refit_ok & (n_inl >= 3)
         best_T = torch.where(use_refit[..., None, None], refit_T, best_T)
 
     Pf = apply_transform(best_T, P)
@@ -116,3 +161,18 @@ def ransac_transform(gumbel, P, Q, mask, threshold: float, refit_with_inliers: b
         best_T.reshape(batch + (4, 4)), best_inl.reshape(batch + (N,)),
         n_inl.reshape(batch), mse.reshape(batch), first_inlier.reshape(batch),
     )
+
+
+def ransac_transform(gumbel, P, Q, mask, threshold: float, refit_with_inliers: bool):
+    """estimateTransformationRANSAC (basic_algorithms.h:106-195), batched:
+    :func:`ransac_fit`, the refit's :func:`kabsch_svd`, :func:`ransac_finish`.
+
+    ``gumbel`` f32[..., n_iter, N] holds the Gumbel draws that pick each
+    hypothesis's distinct random triple (Gumbel top-3 over the valid
+    points); the caller draws them from its generator.  P, Q: f32[..., N, 3];
+    mask: bool[..., N].  With ``refit_with_inliers`` the best hypothesis is
+    refitted to its inliers (Kabsch).  Returns (T, inlier_mask, n_inliers,
+    mse, first_inlier_idx)."""
+    fit = ransac_fit(gumbel, P, Q, mask, threshold, refit_with_inliers)
+    uv = kabsch_svd(fit.H) if refit_with_inliers else ()
+    return ransac_finish(fit, *uv)

@@ -1,7 +1,8 @@
 """The frame step at fixed addresses, captured into a CUDA graph on the card:
 the counterpart of the JAX package's ``jax.jit(step, donate_argnums=0)``
-(``semantic_dsp_map_tpu/map.py:446-487``), one dispatch a frame where the
-eager step issues some 2,300.
+(``semantic_dsp_map_tpu/map.py:446-487``): one replay a frame (two, and an
+eager SVD between them, where the superpoint refit runs) where the eager
+step issues some 2,300 dispatches.
 
 :class:`StaticStep` holds a map's step on tensors that keep their addresses
 from frame to frame:
@@ -26,22 +27,37 @@ from frame to frame:
 On the card the first frame of each input kind runs eagerly (it loads the
 kernel library, sets the kernels' shared-memory attributes and warms the
 allocator); the second is captured with ``torch.cuda.graph`` and replayed;
-every later frame is the input copy and one ``replay()``.  The map's
-``torch.Generator`` is registered with the graph, so a replay draws from the
+every later frame is the input copy and the replays.  The map's
+``torch.Generator`` is registered with each graph, so a replay draws from the
 Philox offsets the eager step would have drawn from, in the same order.  A
 capture or a replay that fails raises: there is no step back to eager.
 
 The superpoint object layer refits its RANSAC hypotheses with a Kabsch fit
 whose ``torch.linalg.svd`` reads cuSOLVER's convergence flags to the host, a
 synchronization that capture refuses.  Where it runs
-(:func:`objects_outside_graph`), the object layer (stage 0) runs eagerly
-ahead of the graph on its own fields of the frame (``map.unpack_objects``)
-and writes the static object table, and the graph holds stages 1-5.  Template mode reads its gate to the host every frame and the
-sharded step talks to other ranks through NCCL: both stay eager
-(``SemanticDSPMap`` and ``parallel/shard_step.py``).
+(:func:`split_at_refit`), a frame is two graphs and one eager bridge:
 
-On the CPU nothing is captured: the same static-state function runs eagerly.
-The eager ``map.build_frame_step`` stays the oracle of this step.
+- graph "fit": the object layer up to the refit's SVD
+  (``FrameStages.objects_fit`` on its own fields of the frame,
+  ``map.unpack_objects``), the RANSAC draws included;
+- the bridge: ``objects.refit_svd`` of that graph's covariance, eager (the
+  frame's one host synchronization), its U and Vt copied into static
+  tensors;
+- graph "finish": the rest of the object layer from those U and Vt
+  (``FrameStages.objects_finish``, ``torch.linalg.det`` of the refit
+  included) and stages 1-5; the five frame kernels all run here.
+
+The frame that captures runs: capture "fit", replay it, the bridge on its
+real outputs, capture "finish", replay it.  Both graphs draw from the map's
+generator, each its own Philox offsets, in the eager order.  Elsewhere the
+frame is one graph, "step".  Template mode reads its gate to the host every
+frame and the sharded step talks to other ranks through NCCL: both stay
+eager (``SemanticDSPMap`` and ``parallel/shard_step.py``); template mode
+runs the same parts uncaptured.
+
+On the CPU nothing is captured: the same static-state parts run eagerly,
+in the same order.  The eager ``map.build_frame_step`` stays the oracle of
+this step.
 """
 
 from __future__ import annotations
@@ -56,6 +72,7 @@ import torch
 
 from .config import KEYPOINTS_SUPERPOINT, MapConfig
 from .frontend import FrameInput
+from .objects import refit_svd
 from .ops import observe_cuda, phd_cuda, render_cuda
 from .state import MapState
 
@@ -81,9 +98,10 @@ FRAME_KERNELS = (phd_cuda.pass_a_cuda, phd_cuda.pass_b_cuda, render_cuda.render_
                  observe_cuda.front_candidates_cuda, observe_cuda.movable_voxels_cuda)
 
 
-def objects_outside_graph(cfg: MapConfig) -> bool:
-    """Whether the object layer runs ahead of the graph: with instances in
-    superpoint mode, where the RANSAC refit calls ``torch.linalg.svd``."""
+def split_at_refit(cfg: MapConfig) -> bool:
+    """Whether the step is split at the RANSAC refit's ``torch.linalg.svd``
+    into two graphs and an eager bridge: with instances in superpoint
+    mode."""
     return cfg.consider_instance and cfg.keypoint_mode == KEYPOINTS_SUPERPOINT
 
 
@@ -108,9 +126,10 @@ def _clone(outputs):
 
 
 class _Graph:
-    """One captured frame step and its outputs in the graph's memory."""
+    """One captured part of the frame step and its outputs in the graph's
+    memory, which each replay overwrites."""
 
-    def __init__(self, body: Callable, generator: torch.Generator):
+    def __init__(self, body: Callable, generator: torch.Generator, part: str):
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
         before = [fn.launches for fn in FRAME_KERNELS]
@@ -124,7 +143,8 @@ class _Graph:
             with torch.cuda.graph(self.graph):
                 self.outputs = body()
         except Exception as err:
-            raise RuntimeError(f"capturing the frame step into a CUDA graph failed: {err}") from err
+            raise RuntimeError(f"capturing the frame step ({part}) into a CUDA graph failed: "
+                               f"{err}") from err
         finally:
             if collecting:
                 gc.enable()
@@ -134,27 +154,28 @@ class _Graph:
     def replay(self):
         self.graph.replay()
         replayed.update(self.launches)
-        return tuple(_clone(out) for out in self.outputs)
+        return self.outputs
 
 
 class StaticStep:
     """A map's frame step on static tensors.  ``stages`` is
-    ``map.build_frame_stages``'s pair, ``unpack`` maps the packed buffer to a
+    ``map.build_frame_stages``'s FrameStages (split at the refit where its
+    ``objects_fit`` is set), ``unpack`` maps the packed buffer to a
     FrameInput on the device and ``unpack_objects`` to the part of it that
-    the object layer reads (``map.unpack_objects``: used where the object
-    layer runs ahead of the graph), ``state`` is the map's state, whose
-    tensors become the static ones.  ``capture`` captures the step from each
-    input kind's second frame on (the card); without it every frame runs
-    eagerly."""
+    the object layer reads (``map.unpack_objects``: the fit part's input),
+    ``state`` is the map's state, whose tensors become the static ones.
+    ``capture`` captures the step from each input kind's second frame on
+    (the card); without it every frame runs the same parts eagerly."""
 
     def __init__(self, stages, unpack: Callable, unpack_objects: Callable, state: MapState,
-                 capture: bool, objects_eager: bool):
+                 capture: bool):
         self.stages, self.unpack, self.unpack_objects = stages, unpack, unpack_objects
         self.state = state
         self.capture = capture
-        self.objects_eager = objects_eager
+        self.split = stages.objects_fit is not None
         self.inputs = {}  # "packed": int32 buffer; "frame": FrameInput
-        self.graphs = {}  # input kind -> _Graph
+        self.graphs = {}  # (input kind, part) -> _Graph
+        self.uv = None    # the bridge's static (U, Vt)
         self.frames = collections.Counter()
 
     def __call__(self, kind: str, host, state: MapState):
@@ -163,23 +184,51 @@ class StaticStep:
         state.  Returns (the static state, RenderResult, StepDiagnostics)."""
         self._take(state)
         self._put(kind, host)
-        if self.objects_eager:
-            # The object layer's fields only: the graph unpacks the rest.
-            x = self.inputs[kind]
-            f = self.unpack_objects(x) if kind == "packed" else x
-            copy_into(self.state.objects, self.stages.objects(self.state, f))
-        graph = self.graphs.get(kind)
-        if graph is None and self.capture and self.frames[kind] > 0:
-            graph = self.graphs[kind] = _Graph(lambda: self._body(kind), self.state.rng)
+        if self.split:
+            fit = self._part(kind, "fit", lambda: self._fit(kind))
+            self._bridge(fit)
+            part, body = "finish", lambda: self._body(kind, fit)
+        else:
+            part, body = "step", lambda: self._body(kind)
+        result, diag = self._part(kind, part, body)
+        if (kind, part) in self.graphs:  # the graph's own tensors
+            result, diag = _clone(result), _clone(diag)
         self.frames[kind] += 1
-        result, diag = self._body(kind) if graph is None else graph.replay()
         return self.state, result, diag
 
-    def _body(self, kind: str):
-        """Stages 1-5 (and the object layer, where it is captured) on the
-        static tensors; ends by copying the new state into them."""
+    def _part(self, kind: str, part: str, body: Callable):
+        """``body()`` eagerly, or as the replay of its graph, captured on
+        the second frame of ``kind`` and replayed at once."""
+        graph = self.graphs.get((kind, part))
+        if graph is None and self.capture and self.frames[kind] > 0:
+            graph = self.graphs[kind, part] = _Graph(body, self.state.rng, part)
+        return body() if graph is None else graph.replay()
+
+    def _fit(self, kind: str):
+        """The object layer up to the refit's SVD, on the frame's object
+        fields."""
+        x = self.inputs[kind]
+        f = self.unpack_objects(x) if kind == "packed" else x
+        return self.stages.objects_fit(self.state, f)
+
+    def _bridge(self, fit) -> None:
+        """The refit's SVD, eager, its U and Vt copied into the static pair
+        that the finishing part reads."""
+        U, Vt = refit_svd(fit)
+        if self.uv is None:
+            self.uv = (torch.empty_like(U), torch.empty_like(Vt))
+        self.uv[0].copy_(U)
+        self.uv[1].copy_(Vt)
+
+    def _body(self, kind: str, fit=None):
+        """The object layer (or its part from ``fit`` and the bridge's U and
+        Vt on) and stages 1-5 on the static tensors; ends by copying the new
+        state into them."""
         f = self._frame(kind)
-        objects = self.state.objects if self.objects_eager else self.stages.objects(self.state, f)
+        if fit is None:
+            objects = self.stages.objects(self.state, f)
+        else:
+            objects = self.stages.objects_finish(fit, *self.uv)
         new, result, diag = self.stages.rest(self.state, f, objects)
         copy_into(self.state, new)
         return result, diag

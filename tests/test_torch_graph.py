@@ -29,6 +29,8 @@ from semantic_dsp_map_tpu_torch.config import (
     virtual_kitti2_config, zed2_config,
 )
 from semantic_dsp_map_tpu_torch.frontend import FrameInput, build_frame_input, pack_frame
+from semantic_dsp_map_tpu_torch.labels import LabelRegistry
+from semantic_dsp_map_tpu_torch.objects import refit_svd
 from semantic_dsp_map_tpu_torch.map import (
     build_frame_stages, build_frame_step, unpack_frame, unpack_objects,
 )
@@ -226,13 +228,15 @@ def test_constant_has_the_bits_of_torch_tensor(values, dtype):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-def test_objects_outside_graph_by_preset():
-    """The object layer runs ahead of the graph only where the superpoint
-    refit (and its SVD) runs."""
-    assert step_graph.objects_outside_graph(virtual_kitti2_config())
-    assert step_graph.objects_outside_graph(coda_config())
-    assert not step_graph.objects_outside_graph(zed2_config())
-    assert not step_graph.objects_outside_graph(kitti360_config())
+def test_split_at_refit_by_preset():
+    """The step is split at the refit's SVD only where the superpoint refit
+    runs, and the map's stages carry the two object parts exactly there."""
+    for cfg, split in ((virtual_kitti2_config(), True), (coda_config(), True),
+                       (zed2_config(), False), (kitti360_config(), False)):
+        assert step_graph.split_at_refit(cfg) == split, cfg
+        stages = build_frame_stages(cfg, FilterParams(), LabelRegistry.default())
+        assert (stages.objects_fit is not None) == split
+        assert (stages.objects_finish is not None) == split
 
 
 # ---------------------------------------------------------------------------
@@ -275,16 +279,18 @@ class HostSyncAudit(TorchDispatchMode):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_captured_part_makes_no_host_read(case):
-    """The part of the step that the card captures (the object layer too,
-    where it is captured) runs no op that synchronizes with the host; the
-    superpoint object layer, which runs ahead of the graph, does (its SVD)."""
+    """The parts of the step that the card captures run no op that
+    synchronizes with the host: the whole step where it is one graph; where
+    it is split at the refit, the part before the SVD and the part after
+    it, while the bridge between them makes the SVD's host reads and no
+    other."""
     cfg, params, scene, entry = CASES[case]
     dsp = SemanticDSPMap(cfg, FilterParams(**params), device="cpu")
     for t in range(2):
         _feed(dsp, entry, scene(cfg, t, MaskKpts))
     static = dsp._static
-    body, objects = static._body, static.stages.objects
-    audits = {"body": HostSyncAudit(), "objects": HostSyncAudit()}
+    parts = ("_fit", "_bridge", "_body") if static.split else ("_body",)
+    audits = {name: HostSyncAudit() for name in parts}
 
     def audited(name, fn):
         def run(*args):
@@ -292,14 +298,17 @@ def test_captured_part_makes_no_host_read(case):
                 return fn(*args)
         return run
 
-    static._body = audited("body", body)
-    static.stages = static.stages._replace(objects=audited("objects", objects))
+    for name in parts:
+        setattr(static, name, audited(name, getattr(static, name)))
     _feed(dsp, entry, scene(cfg, 2, MaskKpts))
-    if static.objects_eager:
-        assert set(audits["body"].hits) == set(), audits["body"].hits
-        assert any("svd" in op for op, _ in audits["objects"].hits), audits["objects"].hits
-    else:
-        assert set(audits["body"].hits) == set(), audits["body"].hits
+    assert static.split == (cfg.keypoint_mode != KEYPOINTS_BBOX3D)
+    for name in parts:
+        if name != "_bridge":
+            assert set(audits[name].hits) == set(), (name, audits[name].hits)
+    if static.split:
+        ops = {op for op, _ in audits["_bridge"].hits}
+        svd = {str(_A._linalg_svd.default), str(_A._linalg_check_errors.default)}
+        assert str(_A._linalg_svd.default) in ops and ops <= svd, audits["_bridge"].hits
 
 
 @pytest.mark.parametrize("case", ["superpoint", "zed2"])
@@ -330,8 +339,8 @@ def test_unpack_objects_is_the_object_part_of_unpack_frame(case):
 @pytest.mark.parametrize("case", sorted(c for c in CASES if CASES[c][3] == "update"))
 def test_packed_frame_is_unpacked_whole_once_a_frame(case):
     """``update()`` unpacks the whole packed frame once a frame, inside the
-    step; where the object layer runs ahead of it, that layer unpacks only
-    its own fields."""
+    step; where the step is split at the refit, the part before the SVD
+    unpacks only the object layer's fields."""
     cfg, params, scene, entry = CASES[case]
     dsp = SemanticDSPMap(cfg, FilterParams(**params), device="cpu")
     _feed(dsp, entry, scene(cfg, 0, MaskKpts))
@@ -347,7 +356,7 @@ def test_packed_frame_is_unpacked_whole_once_a_frame(case):
     static.unpack_objects = counted("objects", static.unpack_objects)
     for t in (1, 2):
         _feed(dsp, entry, scene(cfg, t, MaskKpts))
-    assert calls == {"whole": 2, **({"objects": 2} if static.objects_eager else {})}, calls
+    assert calls == {"whole": 2, **({"objects": 2} if static.split else {})}, calls
 
 
 def test_map_packed_path_matches_jax():
@@ -388,19 +397,30 @@ def _kernel_runs():
     return [step_graph.kernel_runs(fn) for fn in step_graph.FRAME_KERNELS]
 
 
+def _graph_keys(cfg, kind):
+    """The graphs of a map fed ``kind`` after its second frame."""
+    if step_graph.split_at_refit(cfg):
+        return {(kind, "fit"), (kind, "finish")}
+    return {(kind, "step")}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_graph_equals_eager_on_the_card(cuda, case):
     """The map on the card (eager frame 0, captured frame 1, replays after)
-    bit for bit the eager step on the card, every frame; each frame runs
-    each of the five frame kernels once."""
+    bit for bit the eager step on the card, every frame; both graphs of the
+    superpoint cases (and the one of the bbox3d cases) are in place from
+    frame 1 on; each frame runs each of the five frame kernels once, all of
+    them in the finishing graph where the step is split."""
     runs = []
+    kind = "packed" if CASES[case][3] == "update" else "frame"
 
     def on_frame(t, dsp):
         runs.append(_kernel_runs())
         if t >= 1:
-            assert set(dsp._static.graphs) == {
-                "packed" if CASES[case][3] == "update" else "frame"}
+            assert set(dsp._static.graphs) == _graph_keys(dsp.cfg, kind)
+            if dsp._static.split:
+                assert not any(dsp._static.graphs[kind, "fit"].launches.values())
 
     before = _kernel_runs()
     _hold_against_eager(case, cuda, on_frame=on_frame)
@@ -440,24 +460,46 @@ def test_graph_results_addresses_clear_and_restore(cuda, tmp_path):
             dsp.state = load_checkpoint(str(tmp_path / "ck"), cfg, device=cuda)
             state = load_checkpoint(str(tmp_path / "ck"), cfg, device=cuda)
     assert {k: t.data_ptr() for k, t in _tensors(dsp.state).items()} == ptrs
-    assert set(dsp._static.graphs) == {"packed"}
+    assert set(dsp._static.graphs) == _graph_keys(cfg, "packed")
 
 
 @pytest.mark.gpu
-def test_a_capture_that_fails_raises(cuda, monkeypatch):
-    """A step that reads the device inside the captured part makes the
-    capture fail, and the map raises: there is no step back to eager."""
+def test_bridge_keeps_its_addresses(cuda):
+    """The bridge's static U and Vt keep their addresses from frame to
+    frame (the finishing graph reads them there), and hold the SVD of the
+    fit graph's covariance of the frame."""
+    cfg = tiny_test_config()
+    dsp = SemanticDSPMap(cfg, FilterParams(**NOISY), device=cuda)
+    ptrs = None
+    for t in range(5):
+        dsp.update(*dynamic_scene(cfg, t, MaskKpts))
+        U, Vt = dsp._static.uv
+        if ptrs is None:
+            ptrs = (U.data_ptr(), Vt.data_ptr())
+        assert (U.data_ptr(), Vt.data_ptr()) == ptrs, f"frame {t}"
+        if t >= 1:
+            fit = dsp._static.graphs["packed", "fit"].outputs
+            U_now, Vt_now = refit_svd(fit)
+            assert torch.equal(U, U_now) and torch.equal(Vt, Vt_now), f"frame {t}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part, stage", [("fit", "object_fit"), ("finish", "observe_and_update")])
+def test_a_capture_that_fails_raises(cuda, monkeypatch, part, stage):
+    """A step that reads the device inside a captured part (the graph before
+    the refit's SVD, or the one after it) makes that capture fail, and the
+    map raises: there is no step back to eager."""
     from semantic_dsp_map_tpu_torch import map as map_module
 
-    observe = map_module.observe_and_update
+    inner = getattr(map_module, stage)
 
-    def reads_the_device(cfg, params, particles, *args):
-        int(particles.weight.sum())  # a host read
-        return observe(cfg, params, particles, *args)
+    def reads_the_device(cfg, *args):
+        int(args[0].valid.sum() if part == "fit" else args[1].weight.sum())  # a host read
+        return inner(cfg, *args)
 
-    monkeypatch.setattr(map_module, "observe_and_update", reads_the_device)
+    monkeypatch.setattr(map_module, stage, reads_the_device)
     cfg = tiny_test_config()
     dsp = SemanticDSPMap(cfg, FilterParams(**NOISY), device=cuda)
     dsp.update(*dynamic_scene(cfg, 0, MaskKpts))  # eager: the read is allowed
-    with pytest.raises(RuntimeError, match="capturing the frame step"):
+    with pytest.raises(RuntimeError, match=f"capturing the frame step \\({part}\\)"):
         dsp.update(*dynamic_scene(cfg, 1, MaskKpts))

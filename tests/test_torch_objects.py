@@ -1,8 +1,14 @@
 """The port's object layer against the JAX package: Kabsch, RANSAC with the
 JAX Gumbel draws injected, object_level_update over a moving-object
 sequence, and expiry.  Floats that come out of a 3x3 f32 SVD are compared
-at atol 1e-4: the two frameworks' LAPACK paths differ by a few ulp."""
+at atol 1e-4: the two frameworks' LAPACK paths differ by a few ulp.
 
+The parts the captured step runs on either side of the refit's SVD
+(``kabsch_cov`` / ``kabsch_finish``, ``ransac_fit`` / ``ransac_finish``,
+``object_fit`` / ``object_finish``) are held bit for bit to the functions
+they were cut from."""
+
+import collections
 import dataclasses
 
 import jax
@@ -26,9 +32,23 @@ from semantic_dsp_map_tpu_torch.objects import (
     RANSAC_ITERS,
     ObservedInstances,
     expire_objects,
+    object_finish,
+    object_fit,
     object_level_update,
+    refit_svd,
 )
-from semantic_dsp_map_tpu_torch.ops.transforms import kabsch, ransac_transform
+from semantic_dsp_map_tpu_torch.ops.transforms import (
+    _compose,
+    apply_transform,
+    kabsch,
+    kabsch_cov,
+    kabsch_finish,
+    kabsch_svd,
+    ransac_finish,
+    ransac_fit,
+    ransac_transform,
+    triangle_fit,
+)
 from semantic_dsp_map_tpu_torch.state import ObjectTable, init_objects
 
 torch.set_num_threads(2)
@@ -180,3 +200,185 @@ def test_expire_objects_matches_jax():
                                 torch.tensor(gt, dtype=torch.int32))
         np.testing.assert_array_equal(te.numpy(), np.asarray(je))
         _assert_objects_close(tn, jn, f"gt {gt}")
+
+
+# ---------------------------------------------------------------------------
+# The parts on either side of the refit's SVD, against the unsplit functions
+# ---------------------------------------------------------------------------
+
+def _kabsch_unsplit(P, Q, mask):
+    """``kabsch`` as one function, before it was cut at its SVD."""
+    m = mask.to(torch.float32)[..., None]
+    cnt = torch.clamp(m.sum(dim=-2), min=1e-9)
+    cp = (P * m).sum(dim=-2) / cnt
+    cq = (Q * m).sum(dim=-2) / cnt
+    Pc = (P - cp[..., None, :]) * m
+    Qc = (Q - cq[..., None, :]) * m
+    H = torch.einsum("...ni,...nj->...ij", Pc, Qc)
+    U, _, Vt = torch.linalg.svd(H)
+    V = Vt.transpose(-1, -2)
+    R = V @ U.transpose(-1, -2)
+    det = torch.linalg.det(R)
+    flip = torch.ones_like(V)
+    flip[..., :, 2] = torch.where(det < 0, -1.0, 1.0)[..., None]
+    R = (V * flip) @ U.transpose(-1, -2)
+    t = cq - torch.einsum("...ij,...j->...i", R, cp)
+    return _compose(R, t), mask.sum(dim=-1) >= 3
+
+
+def _ransac_unsplit(gumbel, P, Q, mask, threshold, refit_with_inliers):
+    """``ransac_transform`` as one function, before it was cut at the
+    refit's SVD."""
+    batch = P.shape[:-2]
+    n_iter, N = gumbel.shape[-2:]
+    P, Q = P.reshape(-1, N, 3), Q.reshape(-1, N, 3)
+    mask = mask.reshape(-1, N)
+    B = P.shape[0]
+    bi = torch.arange(B, device=P.device)
+    g = torch.where(mask[:, None, :], gumbel.reshape(B, n_iter, N), float("-inf"))
+    triple = torch.topk(g, 3, dim=-1).indices
+    T_h = triangle_fit(P[bi[:, None, None], triple], Q[bi[:, None, None], triple])
+    Pt = apply_transform(T_h, P[:, None].expand(B, n_iter, N, 3))
+    err = torch.linalg.vector_norm(Pt - Q[:, None], dim=-1)
+    inl = mask[:, None, :] & (err < threshold)
+    counts = inl.sum(dim=-1)
+    best = torch.argmax(counts, dim=-1)
+    best_T, best_inl, n_inl = T_h[bi, best], inl[bi, best], counts[bi, best]
+    if refit_with_inliers:
+        refit_T, refit_ok = _kabsch_unsplit(P, Q, best_inl)
+        use_refit = refit_ok & (n_inl >= 3)
+        best_T = torch.where(use_refit[..., None, None], refit_T, best_T)
+    Pf = apply_transform(best_T, P)
+    sq = ((Pf - Q) ** 2).sum(dim=-1)
+    mse = torch.where(best_inl, sq, 0.0).sum(dim=-1) / torch.clamp(n_inl, min=1)
+    first_inlier = torch.argmax(best_inl.to(torch.int32), dim=-1)
+    first_inlier = torch.where(best_inl.any(dim=-1), first_inlier, 0)
+    return (best_T.reshape(batch + (4, 4)), best_inl.reshape(batch + (N,)),
+            n_inl.reshape(batch), mse.reshape(batch), first_inlier.reshape(batch))
+
+
+def _point_sets(seed, B, N):
+    """B point sets of N points and their images under a random rigid
+    motion with noise and a few outliers; set 1 is mirrored (its Kabsch fit
+    needs the reflection fix), set 2 keeps 2 valid points, set 3 none."""
+    rng = np.random.RandomState(seed)
+    P = rng.randn(B, N, 3).astype(np.float32) * 2.0 + rng.randn(B, 1, 3).astype(np.float32) * 10
+    Q = np.empty_like(P)
+    for b in range(B):
+        R, t = _rigid(rng)
+        Q[b] = P[b] @ R.T + t + rng.randn(N, 3).astype(np.float32) * 0.02
+    Q[1] = P[1] * np.array([1.0, 1.0, -1.0], np.float32)
+    Q[:, :2] += rng.randn(B, 2, 3).astype(np.float32) * 5.0  # outliers
+    mask = rng.rand(B, N) < 0.85
+    mask[2] = False
+    mask[2, :2] = True
+    mask[3] = False
+    return torch.from_numpy(P), torch.from_numpy(Q), torch.from_numpy(mask)
+
+
+def _assert_bits(got, want, msg=""):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, (i, msg)
+        assert torch.equal(a, b), f"output {i} {msg}"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kabsch_parts_equal_unsplit_kabsch(seed):
+    """``kabsch_cov``, ``kabsch_svd`` and ``kabsch_finish`` in a row, and
+    ``kabsch`` itself, give the unsplit fit's bits, with the reflection fix
+    taken for the mirrored set and too few points for the others."""
+    P, Q, mask = _point_sets(seed, 6, 12)
+    want = _kabsch_unsplit(P, Q, mask)
+    H, cp, cq, ok = kabsch_cov(P, Q, mask)
+    U, Vt = kabsch_svd(H)
+    _assert_bits((kabsch_finish(U, Vt, cp, cq), ok), want, "parts")
+    _assert_bits(kabsch(P, Q, mask), want, "kabsch")
+    det = torch.linalg.det(Vt.transpose(-1, -2) @ U.transpose(-1, -2))
+    assert bool(det[1] < 0) and not bool(ok[2]) and not bool(ok[3])
+
+
+@pytest.mark.parametrize("refit", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ransac_parts_equal_unsplit_ransac(seed, refit):
+    """``ransac_fit``, the refit's SVD and ``ransac_finish`` give the
+    unsplit RANSAC's bits, over sets where the refit is used, where it is
+    not (fewer than 3 inliers) and a mirrored set."""
+    P, Q, mask = _point_sets(seed, 6, 16)
+    g = torch.from_numpy(np.random.RandomState(seed + 10).gumbel(size=(6, 40, 16))
+                         .astype(np.float32))
+    want = _ransac_unsplit(g, P, Q, mask, 0.5, refit)
+    fit = ransac_fit(g, P, Q, mask, 0.5, refit)
+    assert (fit.H is None) == (not refit)
+    got = ransac_finish(fit, *kabsch_svd(fit.H)) if refit else ransac_finish(fit)
+    _assert_bits(got, want, "parts")
+    _assert_bits(ransac_transform(g, P, Q, mask, 0.5, refit), want, "ransac_transform")
+    n_inl = want[2]
+    assert bool((n_inl < 3).any()) and bool((n_inl >= 3).any())
+
+
+def _static_copy(fit):
+    """The fit as the finishing graph reads it: every tensor at another
+    address (a graph's output), the rest of the tuple as it is."""
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{f.name: copy(getattr(x, f.name))
+                                             for f in dataclasses.fields(x)})
+        if isinstance(x, tuple):
+            return type(x)(*(copy(v) for v in x))
+        return x
+    return copy(fit)
+
+
+def test_object_parts_equal_object_level_update():
+    """``object_fit``, the bridge (the SVD's U and Vt copied into tensors of
+    their own) and ``object_finish`` give ``object_level_update``'s table bit
+    for bit, frame after frame: 8 instances of random tracks, some with
+    fewer than 5 keypoints or fewer than 3 (no refit), one mirrored between
+    frames (the reflection fix), moving by random rigid motions."""
+    cfg, params = tiny_test_config(), FilterParams(**KW)
+    I, Kp = cfg.max_instances_per_frame, cfg.max_keypoints
+    rng = np.random.RandomState(7)
+    whole = split = init_objects(cfg, device="cpu")
+    cam_pos = torch.zeros(3)
+    r_cw, t_cw = torch.eye(3), torch.zeros(3)
+    base = rng.randn(I, Kp, 3).astype(np.float32) * 0.3 + np.array([0, 0, 1.5], np.float32)
+    prev = base
+    seen = collections.Counter()
+    for gt in range(1, 8):
+        cur = np.empty_like(prev)
+        for i in range(I):
+            R, t = _rigid(rng)
+            cur[i] = prev[i] @ (np.eye(3) * 0.9 + R * 0.1).T.astype(np.float32) + t * 0.1
+        cur[5] = prev[5] * np.float32([1, 1, -1]) + np.float32([0, 0, 3])
+        cur += rng.randn(*cur.shape).astype(np.float32) * 0.01
+        obs = ObservedInstances(
+            valid=torch.from_numpy(rng.rand(I) < 0.9),
+            track=torch.from_numpy(rng.randint(0, 5, I).astype(np.int32)),
+            label=torch.from_numpy(np.where(rng.rand(I) < 0.9, 14, -1).astype(np.int32)),
+            kpts_curr=torch.from_numpy(cur), kpts_prev=torch.from_numpy(prev),
+            kpts_count=torch.from_numpy(rng.choice([2, 3, 4, 8, 12, 16], I).astype(np.int32)),
+        )
+        draws = torch.from_numpy(rng.gumbel(size=(I, RANSAC_ITERS, Kp)).astype(np.float32))
+        times = (torch.tensor(0.1 * gt, dtype=torch.float32),
+                 torch.tensor(0.1 * (gt - 1), dtype=torch.float32),
+                 torch.tensor(gt, dtype=torch.int32))
+        whole = object_level_update(cfg, params, whole, obs, cam_pos, r_cw, t_cw, *times, draws)
+        fit = _static_copy(object_fit(cfg, split, obs, cam_pos, *times, draws))
+        U, Vt = refit_svd(fit)
+        uv = (torch.empty_like(U).copy_(U), torch.empty_like(Vt).copy_(Vt))
+        used = fit.ransac.refit_ok & (fit.ransac.n_inl >= 3)
+        tracked = fit.relevant & fit.has & ~fit.new_mask
+        seen["refit"] += int(used.sum())
+        seen["no refit"] += int((~used).sum())
+        seen["reflection"] += int((used & (torch.linalg.det(Vt.mT @ U.mT) < 0)).sum())
+        seen["few keypoints"] += int((tracked & (obs.kpts_count < 5)).sum())
+        seen["case 2"] += int(fit.exist_obs.sum())
+        split = object_finish(cfg, params, fit, *uv)
+        for f in dataclasses.fields(ObjectTable):
+            a, b = getattr(split, f.name), getattr(whole, f.name)
+            assert torch.equal(a, b), f"{f.name} frame {gt}"
+        prev = cur
+    assert len(seen) == 5 and all(seen.values()), seen
+    assert bool(whole.valid.any()) and bool(whole.has_tmatrix.any())
