@@ -67,15 +67,20 @@ Phases (any failure raises, and the script exits nonzero):
      stage profiler's table at VKITTI2; and the two primitive-op probe
      modules, which launch the gather and x2 kernels;
   4b. [graph]: the captured step against the eager one at full width on
-     vkitti2, zed2, coda and the hostile scene: SemanticDSPMap.update()
-     (frame 0 eager, frame 1 captured into CUDA graphs, replays after: at
-     zed2 one graph, at the superpoint three two graphs around the refit's
-     eager SVD) in turns with build_frame_step on a state of its own, 10
-     frames, noise on: state (generator included), render and counters
-     bit-equal every frame; both per-frame medians, the SVD bridge's host
-     and device ms, host API calls a frame (by name), device busy share, the
-     memory a frame takes, and the five kernels' device time inside a
-     replay (torch.profiler).  Every main path's map replays its
+     vkitti2, zed2, coda, the hostile scene and vkitti2_template:
+     SemanticDSPMap.update() (frame 0 eager, frame 1 captured into CUDA
+     graphs, replays after: at zed2 one graph, at the superpoint four two
+     graphs around the refit's eager SVD) in turns with build_frame_step on
+     a state of its own, 10 frames, noise on: state (generator included),
+     render and counters bit-equal every frame, and in template mode the
+     sweep records too.  vkitti2_template's car first shows on frame 2 (the
+     birth branch, a conditional node, runs in a replay) and loses its
+     keypoints on frame 5 (the rematch branch); no branch runs on the other
+     frames.  Both per-frame medians, the SVD bridge's host and device ms,
+     host API calls a frame (by name), device busy share, the memory a frame
+     takes, the five kernels' device time inside a replay
+     (torch.profiler), and in template mode a replay's device time with a
+     taken branch.  Every main path's map replays its
      graph; a path's launch counts are a wrapper's launches outside graphs
      plus those captured into a graph times its replays
      (step_graph.kernel_runs);
@@ -103,6 +108,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -1300,8 +1306,8 @@ def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10, setup
 def check_template_scene(counters):
     """The small template scene CUDA vs CPU for 3 frames with the birth
     jitter off (the two devices draw different normals): the birth sweeps
-    on frame 0 on both devices with equal gate rows and scores, and the
-    GUESSED_BORN particles agree."""
+    on frame 0 on both devices, the sweep records (count, gate row, score
+    of each stage) are equal, and the GUESSED_BORN particles agree."""
     import torch
     from semantic_dsp_map_tpu_torch import FilterParams, template_engine, tiny_test_config
     from semantic_dsp_map_tpu_torch.state import STATUS_GUESSED_BORN
@@ -1314,12 +1320,15 @@ def check_template_scene(counters):
             tiny_template_scene, counters, frames=3, setup=tiny_template_setup, need_moved=False)
     finally:
         template_engine.GUESSED_BIRTH_NOISE = noise
-    sc, sg = list(cpu._templates.sweeps), list(gpu._templates.sweeps)
-    if not sg or [s.stage for s in sg] != [s.stage for s in sc] or sg[0].stage != "birth":
-        raise AssertionError(f"template scene: sweeps CUDA {sg} CPU {sc}")
-    for a, b in zip(sc, sg):
-        assert_equal("template scene gate row", torch.from_numpy(b.gate_row), torch.from_numpy(a.gate_row))
-        assert_equal("template scene score", b.score.cpu(), a.score)
+    sc, sg = cpu._templates.records, gpu._templates.records
+    counts = {stage: int(r.count) for stage, r in sg.items()}
+    if counts != {"rematch": 0, "birth": 1}:
+        raise AssertionError(f"template scene: sweeps on the card {counts}")
+    for stage in sc:
+        for field in ("count", "gate_row", "score"):
+            assert_equal(f"template scene {stage} {field}", getattr(sg[stage], field).cpu(),
+                         getattr(sc[stage], field))
+    birth = sg["birth"]
     pc, pg = cpu.state.particles, gpu.state.particles
     assert_equal("template scene status", pg.status.cpu(), pc.status)
     for f in ("px", "py", "pz", "weight"):
@@ -1327,8 +1336,8 @@ def check_template_scene(counters):
     n_guessed = int((pc.status == STATUS_GUESSED_BORN).sum())
     if n_guessed == 0:
         raise AssertionError("template scene: no GUESSED_BORN particle")
-    print(f"[tiny] template scene: birth sweep gate row {sg[0].gate_row.tolist()}, score "
-          f"{float(sg[0].score):.6f} on both devices; {n_guessed} GUESSED_BORN particles "
+    print(f"[tiny] template scene: birth sweep gate row {birth.gate_row.tolist()}, score "
+          f"{float(birth.score):.6f} on both devices; {n_guessed} GUESSED_BORN particles "
           f"after 3 frames on both")
 
 
@@ -1399,13 +1408,44 @@ def check_smoothed_render(cfg, label, against_cpu=True):
 # ---------------------------------------------------------------------------
 
 
+class Sweep(NamedTuple):
+    """A frame's sweeps of one template stage, from its record on the card
+    (``template_engine.SweepRecord``): how many, and the gate row and score
+    of the last."""
+
+    stage: str
+    n: int
+    gate_row: list
+    score: float
+
+
+def sweep_counts(dsp) -> dict:
+    """The sweeps each template stage of ``dsp`` has run ({} without
+    template mode)."""
+    if dsp._templates is None or dsp._templates.records is None:
+        return {}
+    return {stage: int(r.count) for stage, r in dsp._templates.records.items()}
+
+
+def sweeps_of_frame(dsp, before: dict) -> list:
+    """The ``Sweep`` of each stage whose count rose since ``before``
+    (``sweep_counts`` before the frame)."""
+    out = []
+    for stage, n in sweep_counts(dsp).items():
+        if n > before.get(stage, 0):
+            r = dsp._templates.records[stage]
+            out.append(Sweep(stage, n - before.get(stage, 0), r.gate_row.tolist(), float(r.score)))
+    return out
+
+
 def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=5,
                     template_path=None):
     """SemanticDSPMap.update() on ``cfg`` for warm-up + timed frames, with
     the launch counts set to 0 just before and read just after.  With
-    ``template_path`` the map loads that bank and every template sweep is
-    printed with its frame.  Returns (launches, median ms, map, per-frame
-    ms, [(frame, sweep, GUESSED_BORN count after it)])."""
+    ``template_path`` the map loads that bank and every frame that ran a
+    template sweep is printed (``sweeps_of_frame``).  Returns (launches,
+    median ms, map, per-frame ms, [(frame, sweep, GUESSED_BORN count after
+    it)])."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap
     from semantic_dsp_map_tpu_torch.state import STATUS_GUESSED_BORN
@@ -1430,7 +1470,7 @@ def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=5
     frame_ms, wall_ms, moved_any = [], [], False
     result = None
     for t, (depth, masks, pos, quat) in enumerate(scenes):
-        n_sweeps = dsp._templates.n_sweeps if dsp._templates else 0
+        counts = sweep_counts(dsp)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         w0 = time.perf_counter()
         a.record()
@@ -1444,14 +1484,14 @@ def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=5
         tag = "warm-up" if t < warmup else "timed"
         print(f"[{name}] frame {t} ({tag}): {frame_ms[-1]:.3f} ms (events), "
               f"{wall_ms[-1]:.3f} ms (host) on {card}; diag {d}")
-        new = dsp._templates.n_sweeps - n_sweeps if dsp._templates else 0
+        new = sweeps_of_frame(dsp, counts)
         if new:
             guessed = int((dsp.state.particles.status == STATUS_GUESSED_BORN).sum())
-            for sw in list(dsp._templates.sweeps)[-new:]:
+            for sw in new:
                 sweeps.append((t, sw, guessed))
-                print(f"[{name}] frame {t}: {sw.stage} sweep, gate row {sw.gate_row.tolist()} "
+                print(f"[{name}] frame {t}: {sw.stage} sweep, gate row {sw.gate_row} "
                       "(valid, rematch, birth, track, label, points, x mm, y mm), "
-                      f"score {float(sw.score):.6f}; {guessed} GUESSED_BORN particles after the frame")
+                      f"score {sw.score:.6f}; {guessed} GUESSED_BORN particles after the frame")
     launches = read_launches(counters)
 
     n = warmup + frames
@@ -1630,26 +1670,116 @@ def check_real_frame(dsp, synth, t, card, other=None):
     return out
 
 
-def time_template_sweep(dsp, synth, t):
-    """The birth sweep of frame ``t`` alone: the car's cloud rebuilt from the
-    frame, compacted and swept against the bank (template_match_bank, FS
-    variant), timed on the card; its score must equal the main path's."""
+def frame_cloud(dsp, synth, t):
+    """Frame ``t`` of ``synth`` on the card: (its masks, the unpacked frame,
+    its labeled cloud)."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts
     from semantic_dsp_map_tpu_torch.frontend import pack_frame
     from semantic_dsp_map_tpu_torch.map import unpack_frame
     from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
     from semantic_dsp_map_tpu_torch.ops.projection import generate_labeled_cloud
-    from semantic_dsp_map_tpu_torch.ops.templates import template_match_bank
-    from semantic_dsp_map_tpu_torch.template_engine import _extract_track_points
 
-    cfg, eng = dsp.cfg, dsp._templates
+    cfg = dsp.cfg
     depth, masks, pos, quat = synth(cfg, t, MaskKpts)
     buf = torch.from_numpy(pack_frame(cfg, dsp.registry, depth, masks, pos, quat, 0.0)).cuda()
     f = unpack_frame(cfg, dsp._static_table, buf)
     r_wc, t_wc, _, _ = camera_matrices(f.cam_pos, f.cam_quat)
     cloud = generate_labeled_cloud(cfg, dsp.params, f.depth, f.track_raster, f.track_label_table,
                                    r_wc, t_wc, dsp.registry.max_movable_instance_id)
+    return masks, f, cloud
+
+
+def time_template_parts(dsp, synth, t):
+    """The template work that a replayed frame runs whatever its slots do,
+    on the map's state after its path and frame ``t``'s cloud, each part
+    alone (CUDA events, device-only, median of 10): the gate over [O, H*W];
+    the two ``_top_rows`` sorts; the delete pass over the store (no slot
+    good, so it changes nothing); the rematch and birth stages' inserts with
+    no valid candidate (which change nothing); the birth's normals.  Then
+    all of it: both stages, on stages of their own, fed a gate with no
+    eligible row, captured into a CUDA graph (their three IF nodes
+    included) and replayed.  Returns {part: ms}."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch import step_graph
+    from semantic_dsp_map_tpu_torch.ops.birth import _insert_core
+    from semantic_dsp_map_tpu_torch.state import STATUS_INVALID
+    from semantic_dsp_map_tpu_torch.template_engine import (
+        GUESSED_BIRTH_COPIES, RM_MAX, TB_MAX, TM_INSERT_BLOCKS, TemplateEngine, _candidates,
+        _top_rows, template_gate,
+    )
+
+    cfg, eng, state = dsp.cfg, dsp._templates, dsp.state
+    _, f, cloud = frame_cloud(dsp, synth, t)
+    p, scroll, gt = state.particles, state.scroll, state.global_time
+    car = dsp.registry.label_to_id["Car"]
+    no = torch.zeros_like(state.objects.valid)
+    objects = dataclasses.replace(state.objects, to_match_previous=no, to_match_templates=no)
+    gate = template_gate(car, objects, cloud)
+    Pt = eng.grid.max_template_points
+    tid = gate[0, 3]
+    good = torch.zeros((), dtype=torch.bool, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def delete_pass():
+        del_mask = torch.zeros_like(p.status, dtype=torch.bool)
+        for _ in range(RM_MAX):
+            del_mask |= good & (p.track == tid)
+        p.status.masked_fill_(del_mask, STATUS_INVALID)
+
+    def insert(n):
+        pos = torch.zeros((n, 3), dtype=torch.float32, device="cuda")
+        full = torch.zeros(n, dtype=torch.int32, device="cuda")
+        cand = _candidates(pos, torch.zeros(n, dtype=torch.bool, device="cuda"), full, full,
+                           0.2, gt)
+        return _insert_core(cfg, p, scroll, cand, resample_targets=False,
+                            max_target_blocks=TM_INSERT_BLOCKS).block_overflow
+
+    n_birth = TB_MAX * Pt * GUESSED_BIRTH_COPIES
+    parts = {
+        "gate": lambda: template_gate(car, objects, cloud),
+        "top_rows": lambda: (_top_rows(gate[:, 1] == 1, RM_MAX), _top_rows(gate[:, 2] == 1, TB_MAX)),
+        "delete_pass": delete_pass,
+        "rematch_insert": lambda: insert(RM_MAX * Pt),
+        "birth_insert": lambda: insert(n_birth),
+        "normals": lambda: torch.randn((n_birth, 3), generator=gen, device="cuda"),
+    }
+    ms = {name: cuda_ms(fn, 10, queued=True) for name, fn in parts.items()}
+
+    own = TemplateEngine(cfg, dsp.params, dsp.registry, bank=eng.bank, grid=eng.grid)
+    stages = own.stages("cuda")
+
+    def both():
+        g = stages.gate(objects, cloud)
+        _, ov = stages.rematch(p, scroll, cloud, f.cam_pos, g, gt)
+        _, _, ov_b = stages.birth(p, scroll, objects, cloud, f.cam_pos, g, gt, gen)
+        return ov + ov_b
+
+    both()  # eager: every branch runs once before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    capture = step_graph.Capture(graph)
+    with step_graph.capturing(capture):
+        both()
+    ms["stages_in_a_graph"] = cuda_ms(graph.replay, 10, queued=True)
+    if any(int(r.count) for r in stages.records.values()):
+        raise AssertionError("template parts: a branch ran on a gate with no eligible row")
+    return ms
+
+
+def time_template_sweep(dsp, synth, t):
+    """The birth sweep of frame ``t`` alone: the car's cloud rebuilt from the
+    frame, compacted and swept against the bank (template_match_bank, FS
+    variant), timed on the card; its score must equal the main path's."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.templates import template_match_bank
+    from semantic_dsp_map_tpu_torch.template_engine import _extract_track_points
+
+    eng = dsp._templates
+    masks, f, cloud = frame_cloud(dsp, synth, t)
     tpls, tvalids = eng.bank.of_label(dsp.registry.label_to_id["Car"])
     tpls, tvalids = torch.from_numpy(tpls).cuda(), torch.from_numpy(tvalids).cuda()
     car = next(m.track_id for m in masks if m.label == "Car")
@@ -1985,7 +2115,7 @@ def run_bench(counters, card):
         if count != n_all:
             raise AssertionError(f"bench: {fname} launched {count} times in {n_all} frames")
     tpl = cells["vkitti2_template"]
-    if "birth" not in tpl["template_sweeps"] or tpl["guessed_born_in_warmup"] <= 0:
+    if tpl["template_sweeps"].get("birth", 0) < 1 or tpl["guessed_born_in_warmup"] <= 0:
         raise AssertionError(f"bench vkitti2_template: sweeps {tpl['template_sweeps']}, "
                              f"{tpl['guessed_born_in_warmup']} GUESSED_BORN particles")
     hostile = cells["vkitti2_hostile"]["peak_diag"]
@@ -2103,7 +2233,35 @@ def sync_debug_errors():
         torch.cuda.set_sync_debug_mode("default")
 
 
-def drive_graph(name, cfg, params, synth, counters, card, frames=10):
+#: [graph]'s template scene (``late_template_frame``): the car of
+#: ``scenes.synth_template_frame`` first shows on frame TPL_LATE_CAR, and its
+#: keypoints are withheld on frame TPL_LOST, when it moves but has no
+#: velocity yet.  Both are replayed frames: the birth branch runs on the
+#: first, the rematch branch on the second, and no branch on the others.
+TPL_LATE_CAR, TPL_LOST = 2, 5
+
+
+def late_template_frame(cfg, t, mask_cls):
+    """Frame t of [graph]'s template scene (see TPL_LATE_CAR): before
+    TPL_LATE_CAR the car's box is there but untracked (static-labelled)."""
+    depth, masks, pos, quat = bench_scenes().synth_vkitti2_frame(
+        cfg, t, mask_cls, car_h_div=5, car_w_div=14, kpts=t != TPL_LOST)
+    return depth, masks if t >= TPL_LATE_CAR else masks[:1], pos, quat
+
+
+def records_differ(a, b) -> list:
+    """Names of the sweep-record fields (by stage) of two template engines
+    that are not bit-equal."""
+    import torch
+
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    return [f"sweeps.{stage}.{f}" for stage in a
+            for f, x, y in zip(a[stage]._fields, a[stage], b[stage])
+            if not torch.equal(bits(x), bits(y))]
+
+
+def drive_graph(name, cfg, params, synth, counters, card, frames=10, template_path=None,
+                profile_at=()):
     """[graph]: ``SemanticDSPMap.update()`` (frame 0 eager, frame 1 captured
     into CUDA graphs and replayed, replays after; where the superpoint refit
     runs, two graphs around the eager SVD) in turns with the eager step
@@ -2119,6 +2277,11 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
     the host).  Then one more
     frame of each under torch.profiler: host API calls a frame (by name),
     device busy share, and the five kernels' device time inside the replay.
+    With ``template_path`` both load that bank (the eager step's template
+    stages are its own, with their own sweep records, which must equal the
+    map's every frame) and the frames on which a template branch ran are
+    listed; the graph frames of ``profile_at`` run under torch.profiler
+    too (a replay with a taken branch).  Medians leave those frames out.
     Returns the numbers."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap, step_graph
@@ -2126,10 +2289,17 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
     from semantic_dsp_map_tpu_torch.map import build_frame_stages, unpack_frame
     from semantic_dsp_map_tpu_torch.objects import refit_svd
     from semantic_dsp_map_tpu_torch.state import init_map_state
+    from semantic_dsp_map_tpu_torch.template_engine import TemplateEngine
 
     reset_launches(counters)
     dsp = SemanticDSPMap(cfg, params, device="cuda")
-    stages = build_frame_stages(cfg, params, dsp.registry)
+    eager_templates = None
+    if template_path is not None:
+        dsp.set_template_path(str(template_path))
+        engine = TemplateEngine(cfg, params, dsp.registry)
+        engine.set_template_path(str(template_path))
+        eager_templates = engine.stages("cuda")
+    stages = build_frame_stages(cfg, params, dsp.registry, eager_templates)
     box = {"state": init_map_state(cfg, 0, "cuda")}
     scenes = [synth(cfg, t, MaskKpts) for t in range(frames + 1)]
     split = step_graph.split_at_refit(cfg)
@@ -2173,10 +2343,12 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
     ms = {m: [] for m in modes}
     wall = {m: [] for m in modes}
     work = {m: [] for m in modes}
+    branches, taken = {}, {}  # frame -> [Sweep]; frame -> its profile
     for t in range(frames):
         if t == 1 and split:
             dsp._static._bridge = timed_bridge
         out = {}
+        counts = sweep_counts(dsp)
         for mode in (("graph", "eager") if t % 2 == 0 else ("eager", "graph")):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2184,7 +2356,10 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             w0 = time.perf_counter()
             a.record()
-            out[mode] = modes[mode](t)
+            if mode == "graph" and t in profile_at:
+                taken[t] = profile_frame(lambda: out.__setitem__("graph", graph_frame(t)))
+            else:
+                out[mode] = modes[mode](t)
             b.record()
             torch.cuda.synchronize()
             wall[mode].append((time.perf_counter() - w0) * 1e3)
@@ -2196,6 +2371,9 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
         dgd = {k: int(v) for k, v in dg._asdict().items()}
         if dgd != {k: int(v) for k, v in de._asdict().items()}:
             parted.append("diagnostics")
+        if eager_templates is not None:
+            parted += records_differ(dsp._templates.records, eager_templates.records)
+            branches[t] = sweeps_of_frame(dsp, counts)
         if parted:
             raise AssertionError(f"[graph] {name} frame {t}: the graph parts from the eager step "
                                  f"in {parted}")
@@ -2206,7 +2384,10 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
                  f"{bridge['events'][-1][0].elapsed_time(bridge['events'][-1][1]):.3f} ms"
                  if split and t >= 1 else "")
               + ("; the eager frame's captured parts made no sync under the debug mode" if t == 1
-                 else ""))
+                 else "")
+              + ("".join(f"; {sw.stage} branch ran: gate row {sw.gate_row}, score {sw.score:.6f}"
+                         for sw in branches[t]) + "; sweep records bit-equal"
+                 if eager_templates is not None else ""))
     launches = read_launches(counters)
     captured, replayed = dict(step_graph.captured), dict(step_graph.replayed)
     # Each frame: the map's kernels (eager on frame 0, replayed after) and
@@ -2247,15 +2428,17 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
         if len(hits) != 1 or hits[0][1] != 1:
             raise AssertionError(f"[graph] {name}: {kname} in the profiled replay: {hits}")
         in_graph[key] = hits[0][0]
-    timed = slice(2, frames)
-    med = {m: float(np.median(ms[m][timed])) for m in modes}
-    med_wall = {m: float(np.median(wall[m][timed])) for m in modes}
+    # Medians over the replayed frames 2-9 on which no template branch ran
+    # (all of them outside template mode).
+    timed = [t for t in range(2, frames) if not branches.get(t) and t not in profile_at]
+    med = {m: float(np.median([ms[m][t] for t in timed])) for m in modes}
+    med_wall = {m: float(np.median([wall[m][t] for t in timed])) for m in modes}
     peak = {"graph_capture": work["graph"][1], "graph_replay": max(work["graph"][2:]),
             "eager": max(work["eager"]), "graph_pool_reserved": torch.cuda.memory_reserved()}
     objects = "in the graph (two parts around the SVD)" if split else "in the graph"
     print(f"[graph] {name}: grid {cfg.num_voxels} voxels x K={cfg.slots_per_voxel}, image "
           f"{cfg.width}x{cfg.height}, object layer {objects}; per-frame medians over frames "
-          f"2-{frames - 1}, in turns: graph {med['graph']:.3f} ms (host {med_wall['graph']:.3f}), "
+          f"{timed}, in turns: graph {med['graph']:.3f} ms (host {med_wall['graph']:.3f}), "
           f"eager {med['eager']:.3f} ms (host {med_wall['eager']:.3f}), ratio "
           f"{med['eager'] / med['graph']:.2f}x ({card})")
     print(f"[graph] {name}: host API calls a frame: graph {api_g}, eager {api_e}; device kernels "
@@ -2282,6 +2465,28 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
           f"{bound_m['bound_ms'] / in_graph['movable_voxels']:.3f} ({card})")
     print(f"[graph] {name}: launches {launches} ({frames} frames each), captured {captured}, "
           f"replayed {replayed}")
+    template = {}
+    if eager_templates is not None:
+        ran = {t: [sw.stage for sw in sws] for t, sws in branches.items() if sws}
+        idle = [t for t in range(2, frames) if t not in ran]
+        if any(t not in ran for t in profile_at) or not idle:
+            raise AssertionError(f"[graph] {name}: template branches ran on frames {ran}; "
+                                 f"profiled {list(profile_at)}, no branch on {idle}")
+        template = {"branches": ran, "idle_frames": idle,
+                    "taken": {t: {"api_calls": taken[t][0], "device_busy_ms": taken[t][2],
+                                  "wall_ms": taken[t][3], "device_kernels": taken[t][4],
+                                  "branches": ran[t]} for t in profile_at},
+                    "idle_device_busy_ms": busy_g, "idle_api_calls": api_g,
+                    "graph_ms_by_frame": ms["graph"], "eager_ms_by_frame": ms["eager"]}
+        for t in profile_at:
+            api_t, _, busy_t, wall_t, n_t, _ = taken[t]
+            print(f"[graph] {name}: the replayed frame {t} with a taken {'+'.join(ran[t])} branch: "
+                  f"device busy {busy_t:.3f} of {wall_t:.3f} ms, {n_t} device kernels, {api_t} "
+                  f"host API calls (profiler); a replayed frame with no branch (frame {frames}): "
+                  f"device busy {busy_g:.3f} ms, {n_g} device kernels, {api_g} host API calls "
+                  f"({card})")
+        print(f"[graph] {name}: template branches ran on frames {ran} and on no other; "
+              f"replayed frames with no branch: {idle}; sweep records bit-equal every frame")
     del dsp, box
     return {"graph_ms": ms["graph"], "eager_ms": ms["eager"], "graph_wall_ms": wall["graph"],
             "eager_wall_ms": wall["eager"], "median_ms": med, "median_wall_ms": med_wall,
@@ -2292,7 +2497,7 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10):
             "profiled_wall_ms": {"graph": wall_g, "eager": wall_e}, "memory_bytes": peak,
             "kernel_ms_in_replay": in_graph, "movable_bound": bound_m,
             "movable_slots": {"status_set": n_set, "alive": n_alive}, "object_layer": objects,
-            "launches": launches}
+            "launches": launches, "template": template}
 
 
 def drive_rematch(counters, card, lost=5, frames=7):
@@ -2627,15 +2832,28 @@ def main() -> int:
     scenes = bench_scenes()
     vk_cfg, zed2_cfg, coda_cfg = virtual_kitti2_config(), zed2_config(), coda_config()
     fns = step_graph.FRAME_KERNELS
-    graph_paths = (("vkitti2", vk_cfg, scenes.VK_PARAMS, scenes.synth_vkitti2_frame),
-                   ("zed2", zed2_cfg, scenes.ZED2_PARAMS, scenes.synth_zed2_frame),
-                   ("coda", coda_cfg, scenes.CODA_PARAMS, scenes.synth_coda_frame),
-                   ("vkitti2_hostile", vk_cfg, scenes.VK_PARAMS, scenes.synth_hostile_frame))
+    # name -> (config, parameters, scene, keyword arguments of drive_graph)
+    graph_paths = {
+        "vkitti2": (vk_cfg, scenes.VK_PARAMS, scenes.synth_vkitti2_frame, {}),
+        "zed2": (zed2_cfg, scenes.ZED2_PARAMS, scenes.synth_zed2_frame, {}),
+        "coda": (coda_cfg, scenes.CODA_PARAMS, scenes.synth_coda_frame, {}),
+        "vkitti2_hostile": (vk_cfg, scenes.VK_PARAMS, scenes.synth_hostile_frame, {}),
+        "vkitti2_template": (vk_cfg, scenes.TPL_PARAMS, late_template_frame,
+                             dict(template_path=TEMPLATES, profile_at=(TPL_LATE_CAR, TPL_LOST))),
+    }
+
+    def run_graph(name):
+        cfg, params, synth, kwargs = graph_paths[name]
+        out = drive_graph(name, cfg, FilterParams(**params), synth, fns, card, **kwargs)
+        if kwargs:  # the birth and the rematch each ran on its replayed frame
+            ran = out["template"]["branches"]
+            if ran.get(TPL_LATE_CAR) != ["birth"] or ran.get(TPL_LOST) != ["rematch"]:
+                raise AssertionError(f"[graph] {name}: template branches ran on frames {ran}")
+        torch.cuda.empty_cache()
+        return out
+
     if args.phase == "graph":
-        graph = {}
-        for name, cfg, params, synth in graph_paths:
-            graph[name] = drive_graph(name, cfg, FilterParams(**params), synth, fns, card)
-            torch.cuda.empty_cache()
+        graph = {name: run_graph(name) for name in graph_paths}
         print(json.dumps({"graph": graph, "card": card}))
         print(f"[card] {card}")
         return 0
@@ -2726,13 +2944,17 @@ def main() -> int:
             if guessed == 0:
                 raise AssertionError(f"{name}: the template birth made no GUESSED_BORN particle")
             sweep_ms, score = time_template_sweep(dsp, synth, t_birth)
-            if score != float(sw.score):
-                raise AssertionError(f"{name}: the sweep alone scored {score}, the path {float(sw.score)}")
-            template = dict(birth_frame=t_birth, gate_row=sw.gate_row.tolist(), score=score,
+            if score != sw.score:
+                raise AssertionError(f"{name}: the sweep alone scored {score}, the path {sw.score}")
+            parts_ms = time_template_parts(dsp, synth, len(frame_ms))
+            template = dict(birth_frame=t_birth, gate_row=sw.gate_row, score=score,
                             guessed_born=guessed, birth_frame_ms=frame_ms[t_birth],
-                            sweep_ms=sweep_ms, sweeps=len(sweeps))
+                            sweep_ms=sweep_ms, sweeps=len(sweeps), always_on_ms=parts_ms)
             print(f"[{name}] birth on frame {t_birth}: frame {frame_ms[t_birth]:.3f} ms, the sweep "
                   f"alone {sweep_ms:.3f} ms (score {score:.6f}), {guessed} GUESSED_BORN ({card})")
+            print(f"[{name}] the template work of every frame, each part alone (device-only ms, "
+                  f"median of 10): " + ", ".join(f"{k} {v:.4f}" for k, v in parts_ms.items())
+                  + f" ({card})")
         if args.profile:
             profile_main_path(dsp, synth, card)
         del dsp
@@ -2741,9 +2963,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     graph = {}
-    for name, cfg, params, synth in graph_paths:
-        graph[name] = drive_graph(name, cfg, FilterParams(**params), synth, fns, card)
-        torch.cuda.empty_cache()
+    for name in graph_paths:
+        graph[name] = run_graph(name)
         for key, fn in counters.items():
             report[key].setdefault("graph_ms_by_path", {})[name] = (
                 graph[name]["kernel_ms_in_replay"][key])

@@ -8,10 +8,9 @@ Cells (``--cells``, default all; scenes and parameters in ``scenes``):
     bank ``data/templates``.  The car is a fifth of the image high
     (``scenes.synth_template_frame``), so the template stage sweeps and
     births on frame 0; the JAX bench's car never reaches the birth window,
-    so this cell's counters are not comparable with that bench's.  Template
-    mode reads one small gate array to the host every frame (map.py, "the
-    one host read of template mode"): that read is part of the function and
-    stays inside the timed loop;
+    so this cell's counters are not comparable with that bench's.  The
+    template stages run inside the captured step, their slots as
+    conditional nodes (step_graph.slot_cond);
   - ``vkitti2_hostile``: 20 moving cars, a near wall, ego yaw; the move cap
     of the VKITTI2 preset binds;
   - ``zed2_sharded`` (asked for by name only): the sharded step
@@ -109,8 +108,9 @@ def run_config(name, cfg, params, synth, iters, warmup=3, template_path=None, de
     lists every loop with its own ``peak_diag`` (the first loop's frames are
     those of the JAX bench's one loop) and, on the card, its CUDA-event
     time; the occupancy histogram and the count of NaN weights are read
-    after the last one.  In template mode the cell also says which sweeps
-    ran and the most GUESSED_BORN particles seen after a warm-up frame."""
+    after the last one.  In template mode the cell also says how many sweeps
+    each stage ran (``template_sweeps``, read from the device after the
+    loops) and the most GUESSED_BORN particles seen after a warm-up frame."""
     device = resolve_device(device)
     cuda = device.type == "cuda"
     dsp = SemanticDSPMap(cfg, params, LabelRegistry.default(), device=device)
@@ -190,7 +190,8 @@ def run_config(name, cfg, params, synth, iters, warmup=3, template_path=None, de
         out["events_sec_per_frame"] = float(np.median(
             [row["events_sec_per_frame"] for row in run_rows]))
     if dsp._templates is not None:
-        out["template_sweeps"] = [sw.stage for sw in dsp._templates.sweeps]
+        records = dsp._templates.records
+        out["template_sweeps"] = {stage: int(r.count) for stage, r in records.items()}
         out["guessed_born_in_warmup"] = guessed_born
     return out
 

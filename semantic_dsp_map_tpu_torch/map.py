@@ -10,9 +10,8 @@ has fixed shapes and makes no data-dependent host sync.
 
 Both keypoint modes run: superpoint (the VKITTI2 preset) and ZED2/bbox3d,
 with its sky cull and bbox gate; so do template matching
-(``template_engine``, after ``set_template_path``) and the
-neighbour-smoothed render.  Template mode reads one small gate array to the
-host per frame; without it the step makes no data-dependent host sync.
+(``template_engine``, after ``set_template_path``: its gate and its slots'
+branches stay on the device) and the neighbour-smoothed render.
 """
 
 from __future__ import annotations
@@ -351,8 +350,8 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
         particles = state.particles
         tmpl_overflow = 0
         if template_stages is not None:
-            # The one host read of template mode: which rows have work.
-            gate = template_stages.gate(objects, cloud).cpu().numpy()
+            # Which rows have work, on the device (the slots' branches read it).
+            gate = template_stages.gate(objects, cloud)
             particles, rm_ov = template_stages.rematch(particles, scroll, cloud, f.cam_pos, gate, gt)
             tmpl_overflow = tmpl_overflow + rm_ov
         particles, moved, move_overflow = _move_and_cleanup(
@@ -446,8 +445,9 @@ class SemanticDSPMap:
 
     ``device=None`` means the card; without a CUDA device it raises, and
     ``device="cpu"`` asks for the CPU by name (state.resolve_device).  On the
-    card the step is captured into a CUDA graph from the second frame on and
-    replayed after (``step_graph``); in template mode it is not captured.
+    card the step is captured into CUDA graphs from the second frame on and
+    replayed after (``step_graph``), template mode included (each template
+    slot is a conditional node of graph "finish").
     ``state`` names tensors that keep their addresses; assigning another
     state (a restored checkpoint) is taken over on the next frame.  Every
     frame overwrites them in place: a part of ``state`` held across
@@ -504,9 +504,7 @@ class SemanticDSPMap:
                 build_frame_stages(self.cfg, self.params, self.registry, templates),
                 functools.partial(unpack_frame, self.cfg, self._static_table),
                 functools.partial(unpack_objects, self.cfg), self.state,
-                # Template mode stays eager: it reads its gate to the host
-                # every frame (the rows with work decide which sweeps run).
-                capture=self.device.type == "cuda" and templates is None,
+                capture=self.device.type == "cuda",
             )
         self.state, result, diag = self._static(kind, host, self.state)
         if self.log_diagnostics:

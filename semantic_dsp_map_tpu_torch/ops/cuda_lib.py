@@ -38,7 +38,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("phd.cu", "render.cu", "observe.cu", "probes.cu")
+SOURCES = ("phd.cu", "render.cu", "observe.cu", "probes.cu", "graph.cu")
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: Precise math on purpose: pass B's "rightly updated" flag is compared bit
@@ -73,6 +73,12 @@ SIGNATURES = {
     "dsp_gather": [_P] * 3 + [ctypes.c_longlong, _P],
     # input, output; number of elements; stream
     "dsp_scale2": [_P] * 2 + [ctypes.c_longlong, _P],
+    # csrc/graph.cu: a conditional IF node under capture (step_graph.slot_cond)
+    "dsp_if_node_prepare": [],
+    # capture stream, the device flag (bool), the side stream of the body
+    "dsp_if_node_begin": [_P] * 3,
+    # the side stream of the body
+    "dsp_if_node_end": [_P],
 }
 
 
@@ -94,7 +100,10 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
     """Compile the kernels if the cached library is missing.  Returns
     (library path, seconds spent building, nvcc's output).  ``csrc`` is the
     package's own sources; a measurement that holds them against another
-    version of the same sources names that version's directory."""
+    version of the same sources names that version's directory, which may
+    lack a source that version did not have yet (``graph.cu`` before the
+    template slots were captured)."""
+    sources = [src for src in SOURCES if csrc == CSRC or (csrc / src).exists()]
     out_dir = BUILD_ROOT / _source_hash(csrc)
     lib = out_dir / "libdsp_kernels.so"
     log = out_dir / "nvcc.log"
@@ -105,14 +114,14 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         # One nvcc per source, all started together, then one link.
         nvcc = _nvcc()
-        objects = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
+        objects = [str(Path(tmp) / (Path(s).stem + ".o")) for s in sources]
         procs = [
             subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(csrc / src)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(SOURCES, objects)
+            for src, obj in zip(sources, objects)
         ]
         output = "".join(proc.communicate()[0] for proc in procs)
-        failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode != 0]
+        failed = [src for src, proc in zip(sources, procs) if proc.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{output}")
         tmp_lib = Path(tmp) / lib.name
@@ -132,6 +141,8 @@ def load(path: Path) -> ctypes.CDLL:
     taking it again on every launch (each entry point only enqueues work)."""
     lib = ctypes.PyDLL(str(path))
     for name, argtypes in SIGNATURES.items():
+        if not hasattr(lib, name):
+            continue  # another version's build, from before this entry point
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -163,8 +174,10 @@ entry = _EntryPoints()
 
 
 def bind(lib: ctypes.CDLL) -> None:
-    """Make ``lib``'s entry points the ones ``entry`` holds."""
-    entry.__dict__.update({name: getattr(lib, name) for name in (*SIGNATURES, "dsp_error_string")})
+    """Make ``lib``'s entry points the ones ``entry`` holds (those it has:
+    another version's build may lack the newest)."""
+    names = (*SIGNATURES, "dsp_error_string")
+    entry.__dict__.update({name: getattr(lib, name) for name in names if hasattr(lib, name)})
 
 
 def error(err: int, name: str) -> RuntimeError:

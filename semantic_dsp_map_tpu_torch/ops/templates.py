@@ -31,10 +31,12 @@ reference interleaves "mark occupied" and "cast ray" per point.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..state import constant
 
 #: Match-grid voxel size (pointcloud_tools.h:740 / :928: voxel_size = 0.2f).
 TM_VOXEL_SIZE = 0.2
@@ -180,8 +182,26 @@ def _host_tables():
 _ROT, _JITTER = _host_tables()
 
 
-def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+class SweepTables(NamedTuple):
+    """The sweep's constant tables on one device, made once outside the
+    frame step (a copy from host memory inside it is one that a CUDA graph's
+    capture refuses)."""
+
+    rot: torch.Tensor     # f32[A, 3, 3] yaw rotations
+    jitter: torch.Tensor  # f32[J, 3] translation jitters
+    ray_steps: torch.Tensor  # f32[fs_ray_steps] sample distances along a ray
+
+
+def sweep_tables(g: MatchGridConfig, device) -> SweepTables:
+    """The tables of :class:`SweepTables` for grid ``g`` on ``device``."""
+    ks = np.arange(g.fs_ray_steps, dtype=np.float32) * np.float32(TM_VOXEL_SIZE)
+    return SweepTables(*(torch.from_numpy(a).to(device) for a in (_ROT, _JITTER, ks)))
+
+
+def take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``t[i]`` for a 0-d index tensor ``i``, on the device: indexing by a
+    0-d tensor reads it to the host (``.item()``)."""
+    return t.index_select(0, i.reshape(1))[0]
 
 
 def _cell_index(g: MatchGridConfig, pts, origin, vs):
@@ -222,22 +242,23 @@ class _Source(NamedTuple):
     occupied_count: torch.Tensor  # i64
 
 
-def _prepare_source(g: MatchGridConfig, use_freespace: bool, src, src_valid, cam_pos, vs) -> _Source:
+def _prepare_source(g: MatchGridConfig, use_freespace: bool, src, src_valid, cam_pos, vs,
+                    ks) -> _Source:
     dev = src.device
     C = g.num_cells
-    big = _f32(_BIG, dev)
+    big = constant(_BIG, torch.float32, dev)
 
     bb_min = torch.where(src_valid[:, None], src, big).amin(dim=0)
     d2 = torch.where(src_valid, _sq_norm(src - cam_pos), big)
-    closest = src[torch.argmin(d2)]
+    closest = take(src, torch.argmin(d2))
 
     expand = TM_EXPAND if use_freespace else 0
-    origin = bb_min - _f32(expand * TM_VOXEL_SIZE, dev)
+    origin = bb_min - constant(expand * TM_VOXEL_SIZE, torch.float32, dev)
 
     cell, _ = _cell_index(g, src, origin, vs)
     cell = torch.where(src_valid, cell, C)
     occ = torch.zeros(C + 1, dtype=torch.bool, device=dev)
-    occ[cell.long()] = True
+    occ.index_fill_(0, cell.long(), True)
     occ = occ[:C]
     occupied_count = occ.sum()
 
@@ -248,8 +269,6 @@ def _prepare_source(g: MatchGridConfig, use_freespace: bool, src, src_valid, cam
         ray = src - cam_pos
         ray_len = torch.sqrt(_sq_norm(ray))[:, None]
         ray_dir = ray / torch.clamp(ray_len, min=1e-6)
-        ks_np = np.arange(g.fs_ray_steps, dtype=np.float32) * np.float32(TM_VOXEL_SIZE)
-        ks = torch.from_numpy(ks_np).to(dev)
         samples = cam_pos + ray_dir[:, None, :] * ks[None, :, None]   # [N, S, 3]
         scell, sinb = _cell_index(g, samples, origin, vs)
         live = src_valid[:, None] & (ks[None, :] < ray_len) & (ray_len > 1e-6)
@@ -259,7 +278,7 @@ def _prepare_source(g: MatchGridConfig, use_freespace: bool, src, src_valid, cam
         mark = live & sinb & ~blocked
         scell = torch.where(mark, scell, C)
         free = torch.zeros(C + 1, dtype=torch.bool, device=dev)
-        free[scell.reshape(-1).long()] = True
+        free.index_fill_(0, scell.reshape(-1).long(), True)
         free = free[:C] & ~occ
     else:
         free = occ  # unused
@@ -267,22 +286,23 @@ def _prepare_source(g: MatchGridConfig, use_freespace: bool, src, src_valid, cam
     # Push vector: closest point direction, 10 m (pointcloud_tools.h:735-738).
     to_closest = closest - cam_pos
     norm = torch.sqrt(_sq_norm(to_closest))
-    push = to_closest / torch.clamp(norm, min=1e-6) * _f32(TM_PUSH_DISTANCE, dev)
+    push_distance = constant(TM_PUSH_DISTANCE, torch.float32, dev)
+    push = to_closest / torch.clamp(norm, min=1e-6) * push_distance
     return _Source(closest, push, origin, occ, free, occupied_count)
 
 
-def _sweep_one(g: MatchGridConfig, use_freespace: bool, s: _Source, tpl, tpl_valid, vs):
+def _sweep_one(g: MatchGridConfig, use_freespace: bool, s: _Source, tpl, tpl_valid, vs,
+               tables: SweepTables):
     """All A*J hypotheses of one template -> (score f32, tmatrix f32[4, 4],
     aligned f32[P, 3])."""
     dev = tpl.device
     C = g.num_cells
-    R = torch.from_numpy(_ROT).to(dev)
-    jitter = torch.from_numpy(_JITTER).to(dev)
+    R, jitter = tables.rot, tables.jitter
     A, J, P = R.shape[0], jitter.shape[0], tpl.shape[0]
 
     # Rotate, then move by the push (transform order, pointcloud_tools.h:778-781).
     rot = _rotate(R, tpl) + s.push                                     # [A, P, 3]
-    td2 = torch.where(tpl_valid, _sq_norm(rot), _f32(_BIG, dev))
+    td2 = torch.where(tpl_valid, _sq_norm(rot), constant(_BIG, torch.float32, dev))
     tpl_closest = rot[torch.arange(A, device=dev), torch.argmin(td2, dim=1)]
     correct = s.closest - tpl_closest                                  # [A, 3]
 
@@ -292,7 +312,7 @@ def _sweep_one(g: MatchGridConfig, use_freespace: bool, s: _Source, tpl, tpl_val
     # Unique-voxel dedup per hypothesis: scatter-OR into [A*J, C + 1].
     rows = torch.arange(A * J, device=dev)[:, None] * (C + 1)
     hit = torch.zeros(A * J * (C + 1), dtype=torch.bool, device=dev)
-    hit[(rows + ccell).reshape(-1)] = True
+    hit.index_fill_(0, (rows + ccell).reshape(-1), True)
     hit = hit.view(A * J, C + 1)[:, :C]
     inter = (hit & s.occ).sum(dim=1)
     if use_freespace:
@@ -301,13 +321,13 @@ def _sweep_one(g: MatchGridConfig, use_freespace: bool, s: _Source, tpl, tpl_val
 
     best = torch.argmax(inter)  # first max wins == reference's strict '>'
     best_a, best_j = best // J, best % J
-    move = s.push + correct[best_a] + jitter[best_j]
-    Rb = R[best_a]
+    move = s.push + take(correct, best_a) + take(jitter, best_j)
+    Rb = take(R, best_a)
     T = torch.eye(4, dtype=torch.float32, device=dev)
     T[:3, :3] = Rb
     T[:3, 3] = move
     aligned = _rotate(Rb[None], tpl)[0] + move
-    score = inter[best].to(torch.float32) / torch.clamp(s.occupied_count, min=1).to(torch.float32)
+    score = take(inter, best).to(torch.float32) / torch.clamp(s.occupied_count, min=1).to(torch.float32)
     return score, T, aligned
 
 
@@ -319,12 +339,15 @@ def template_match(
     cam_pos: torch.Tensor,    # f32[3]
     tpl: torch.Tensor,        # f32[P, 3] centered template
     tpl_valid: torch.Tensor,  # bool[P]
+    tables: Optional[SweepTables] = None,
 ) -> MatchResult:
     """findBestTemplateTransformationPHD[FSConsidered]
-    (pointcloud_tools.h:686-865 / 874-1097); no host sync."""
-    vs = _f32(TM_VOXEL_SIZE, src.device)
-    s = _prepare_source(g, use_freespace, src, src_valid, cam_pos, vs)
-    score, T, aligned = _sweep_one(g, use_freespace, s, tpl, tpl_valid, vs)
+    (pointcloud_tools.h:686-865 / 874-1097); no host sync.  ``tables``:
+    :func:`sweep_tables` on the source's device (made here when None)."""
+    tables = tables or sweep_tables(g, src.device)
+    vs = constant(TM_VOXEL_SIZE, torch.float32, src.device)
+    s = _prepare_source(g, use_freespace, src, src_valid, cam_pos, vs, tables.ray_steps)
+    score, T, aligned = _sweep_one(g, use_freespace, s, tpl, tpl_valid, vs, tables)
     return MatchResult(score=score, tmatrix=T, aligned=aligned)
 
 
@@ -336,19 +359,23 @@ def template_match_bank(
     cam_pos: torch.Tensor,     # f32[3]
     tpls: torch.Tensor,        # f32[T, P, 3] centered templates
     tvalids: torch.Tensor,     # bool[T, P]
+    tables: Optional[SweepTables] = None,
 ):
     """alignTemplatesToPointCloud (pointcloud_tools.h:333-360): sweep every
     template of the bank (one batched sweep each, the source prepared once)
     and argmax the score on the device; ties keep the lowest template index.
+    ``tables`` as for :func:`template_match`.
 
     Returns (best_idx i64, best_score f32, aligned f32[P, 3])."""
-    vs = _f32(TM_VOXEL_SIZE, src.device)
-    s = _prepare_source(g, use_freespace, src, src_valid, cam_pos, vs)
-    outs = [_sweep_one(g, use_freespace, s, tpls[t], tvalids[t], vs) for t in range(tpls.shape[0])]
+    tables = tables or sweep_tables(g, src.device)
+    vs = constant(TM_VOXEL_SIZE, torch.float32, src.device)
+    s = _prepare_source(g, use_freespace, src, src_valid, cam_pos, vs, tables.ray_steps)
+    outs = [_sweep_one(g, use_freespace, s, tpls[t], tvalids[t], vs, tables)
+            for t in range(tpls.shape[0])]
     scores = torch.stack([o[0] for o in outs])
     aligned = torch.stack([o[2] for o in outs])
     best = torch.argmax(scores)
-    return best, scores[best], aligned[best]
+    return best, take(scores, best), take(aligned, best)
 
 
 # ---------------------------------------------------------------------------

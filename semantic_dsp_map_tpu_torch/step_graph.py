@@ -50,10 +50,12 @@ synchronization that capture refuses.  Where it runs
 The frame that captures runs: capture "fit", replay it, the bridge on its
 real outputs, capture "finish", replay it.  Both graphs draw from the map's
 generator, each its own Philox offsets, in the eager order.  Elsewhere the
-frame is one graph, "step".  Template mode reads its gate to the host every
-frame and the sharded step talks to other ranks through NCCL: both stay
-eager (``SemanticDSPMap`` and ``parallel/shard_step.py``); template mode
-runs the same parts uncaptured.
+frame is one graph, "step".  Template mode is captured with the rest: its
+gate stays on the device, and each of its slots (:func:`slot_cond`) is a
+conditional IF node of the graph, whose body a replay runs only where the
+slot has work, as XLA runs only the taken branch of the JAX package's
+``lax.cond``.  The sharded step talks to other ranks through NCCL and stays
+eager (``parallel/shard_step.py``).
 
 On the CPU nothing is captured: the same static-state parts run eagerly,
 in the same order.  The eager ``map.build_frame_step`` stays the oracle of
@@ -63,6 +65,7 @@ this step.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 from typing import Callable
@@ -73,7 +76,7 @@ import torch
 from .config import KEYPOINTS_SUPERPOINT, MapConfig
 from .frontend import FrameInput
 from .objects import refit_svd
-from .ops import observe_cuda, phd_cuda, render_cuda
+from .ops import cuda_lib, observe_cuda, phd_cuda, render_cuda
 from .state import MapState
 
 #: Kernel launches over every graph of the process, by wrapper name:
@@ -121,6 +124,91 @@ def copy_into(static, new) -> None:
             copy_into(s, n)
 
 
+class Capture:
+    """What ``slot_cond`` needs of the capture underway: the CUDA graph, a
+    side stream on which each branch's body is captured (into the body
+    graph of its node), and the memory pool of the bodies' tensors.
+
+    A body is a capture of its own, whose allocations the allocator does
+    not give the graph's pool (and refuses to route there a second time);
+    they go to a private pool of their own, which each body holds once
+    (``bodies``) and which is let go when this object, kept beside the
+    graph by ``_Graph``, is: the bodies' memory stays reserved while the
+    graph can be replayed."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph):
+        self.graph = graph
+        self.stream = torch.cuda.Stream()
+        self.device = torch.cuda.current_device()
+        self.pool = torch.cuda.graph_pool_handle()
+        self.bodies = 0
+
+    def __del__(self):
+        for _ in range(self.bodies):
+            torch._C._cuda_releasePool(self.device, self.pool)
+
+
+_capturing: list = []  # the Capture of the capture underway, if any
+
+
+@contextlib.contextmanager
+def capturing(capture: Capture):
+    """``torch.cuda.graph(capture.graph)``, with ``capture`` the one that
+    ``slot_cond`` captures its branches for."""
+    err = cuda_lib.entry.dsp_if_node_prepare()
+    if err:
+        raise cuda_lib.error(err, "dsp_if_node_prepare")
+    _capturing.append(capture)
+    try:
+        with torch.cuda.graph(capture.graph):
+            yield
+    finally:
+        _capturing.pop()
+
+
+def slot_cond(pred: torch.Tensor, do: Callable, no: Callable) -> tuple:
+    """``do()`` where the 0-d bool tensor ``pred`` is true, else ``no()``:
+    the counterpart of one ``lax.cond`` of the JAX package's template
+    stages.  Both return tuples of tensors of the same shapes and dtypes,
+    small ones (the particle store never passes through a branch), and have
+    no side effects.
+
+    Under CUDA-graph capture (inside :func:`capturing`), ``no()``'s outputs
+    are made first, then ``do()`` is captured into a conditional IF node on
+    ``pred`` (``csrc/graph.cu``) and copies its outputs into them: a replay
+    runs ``do()``'s kernels only where ``pred`` holds, as XLA runs only the
+    taken branch.  Elsewhere (the CPU, an eager frame) both run and the
+    outputs are selected leaf by leaf with ``torch.where``: the same bits,
+    no host read, and every kernel of the branch runs once before its
+    capture."""
+    if not (pred.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return tuple(torch.where(pred, d, n) for d, n in zip(do(), no(), strict=True))
+    if not _capturing:
+        raise RuntimeError("slot_cond: a capture that step_graph.capturing did not start")
+    capture = _capturing[-1]
+    outs = tuple(t.clone() for t in no())
+    index = pred.get_device()
+    (flag,) = cuda_lib.pointers(index, torch.bool, (), (pred,), ("pred",))
+    err = cuda_lib.entry.dsp_if_node_begin(cuda_lib.stream_ptr(index), flag,
+                                           capture.stream.cuda_stream)
+    if err:
+        raise cuda_lib.error(err, "dsp_if_node_begin")
+    # While the body is captured, what this thread allocates off the
+    # capture stream (the side stream's tensors) goes to the bodies' pool.
+    torch._C._cuda_beginAllocateCurrentThreadToPool(capture.device, capture.pool)
+    capture.bodies += 1
+    try:
+        with torch.cuda.stream(capture.stream):
+            for out, value in zip(outs, do(), strict=True):
+                out.copy_(value)
+    finally:
+        torch._C._cuda_endAllocateToPool(capture.device, capture.pool)
+        err = cuda_lib.entry.dsp_if_node_end(capture.stream.cuda_stream)
+    if err:
+        raise cuda_lib.error(err, "dsp_if_node_end")
+    return outs
+
+
 def _clone(outputs):
     return type(outputs)(*(t.clone() for t in outputs))
 
@@ -132,6 +220,7 @@ class _Graph:
     def __init__(self, body: Callable, generator: torch.Generator, part: str):
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
+        self.capture = Capture(self.graph)
         before = [fn.launches for fn in FRAME_KERNELS]
         # Another map's graph destroyed during the capture (by the garbage
         # collector, at any allocation) would invalidate it: the dead go
@@ -140,7 +229,7 @@ class _Graph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph):
+            with capturing(self.capture):
                 self.outputs = body()
         except Exception as err:
             raise RuntimeError(f"capturing the frame step ({part}) into a CUDA graph failed: "

@@ -15,26 +15,38 @@ The two template paths of the reference frame kernel:
      jittered GUESSED_BORN particles are added per template point.  Runs
      after regular birth and before the render.
 
-Which objects have work is read on the host once per frame, in template
-mode only: the i32[O, 8] gate (``template_gate``).  A sweep runs only for
-eligible rows, so a frame without one costs the gate and nothing else.
-(The JAX package runs both stages as per-slot conditionals inside the
-jitted step, because a device-to-host read cost ~25 ms over its TPU link.)
+Both stages run on the device with no host read, structure for structure
+as the JAX package's (its round-5 design), so that the captured step
+(``step_graph``) holds them:
 
-As in the JAX package, at most ``RM_MAX`` rematches and ``TB_MAX`` template
-births run per frame, in ascending object row; eligibility beyond the cap
-is deferred (the ``to_match_*`` flags stay set).  Guessed-birth jitter
-comes from the map's ``torch.Generator`` unless the caller passes the
+  - the i32[O, 8] gate (``template_gate``) says which objects have work,
+    and ``_top_rows`` picks the slots' rows from it on the device; track ids
+    and labels are tensors read from it;
+  - each slot is one ``step_graph.slot_cond`` (the JAX package's
+    ``lax.cond``): a conditional node of the graph that runs the slot's sweep
+    only where its row has work, and returns small outputs only (the aligned
+    cloud, its validity, a flag or the score); the particle store never
+    passes through a branch;
+  - then, every frame, whatever the slots did: one masked delete pass and
+    one fixed-capacity ``_insert_core`` per stage, every slot's candidates
+    concatenated (an insert with no valid candidate leaves the store as it
+    was);
+  - the guessed-birth normals are drawn every frame, outside the branch, so
+    that a replay advances the generator as the eager step does.
+
+Each stage's sweeps are counted on the device (:class:`SweepRecord`).  As in
+the JAX package, at most ``RM_MAX`` rematches and ``TB_MAX`` template births
+run per frame, in ascending object row; eligibility beyond the cap is
+deferred (the ``to_match_*`` flags stay set).  Guessed-birth jitter comes
+from the map's ``torch.Generator`` unless the caller passes the
 standard-normal draws.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from .config import FilterParams, MapConfig, PARTICLE_OCC_INIT_WEIGHT
@@ -52,10 +64,13 @@ from .ops.templates import (
     TM_MIN_BBOX_XY,
     TM_MIN_POINTS,
     TemplateBank,
+    sweep_tables,
+    take,
     template_match,
     template_match_bank,
 )
-from .state import STATUS_GUESSED_BORN, STATUS_INVALID, resolve_device
+from .state import STATUS_GUESSED_BORN, STATUS_INVALID, constant, resolve_device
+from .step_graph import slot_cond
 
 #: Per-frame slot capacities (see module docstring).
 RM_MAX = 2
@@ -80,7 +95,7 @@ def template_gate(car_label: int, objects, cloud) -> torch.Tensor:
     flat_ok = cloud.valid.reshape(-1)
     fx = cloud.pos[..., 0].reshape(-1)
     fy = cloud.pos[..., 1].reshape(-1)
-    big = torch.tensor(_BIG, dtype=torch.float32, device=fx.device)
+    big = constant(_BIG, torch.float32, fx.device)
 
     m = (flat_trk[None, :] == objects.track_id[:, None]) & flat_ok[None, :]
     n = m.sum(dim=1, dtype=torch.int32)
@@ -109,10 +124,15 @@ def template_gate(car_label: int, objects, cloud) -> torch.Tensor:
     )
 
 
-def _top_rows(mask: np.ndarray, cap: int) -> np.ndarray:
-    """The first ``cap`` True rows, in ascending object index (the
-    reference's iteration order)."""
-    return np.nonzero(mask)[0][:cap]
+def _top_rows(mask: torch.Tensor, cap: int):
+    """Indices of the first ``cap`` True rows (ascending object index, the
+    reference's iteration order), i64[cap] with 0 where there is none, and
+    their validity, bool[cap]: one sort on the device."""
+    O = mask.shape[0]
+    iota = torch.arange(O, device=mask.device)
+    srt = torch.sort(torch.where(mask, iota, O + iota)).values[:cap]
+    valid = srt < O
+    return torch.where(valid, srt, 0), valid
 
 
 def _compact_by_sort(mask_flat, xs, ys, zs, n_max: int):
@@ -127,10 +147,10 @@ def _compact_by_sort(mask_flat, xs, ys, zs, n_max: int):
     return torch.where(ok[:, None], pts, 0.0), ok
 
 
-def _extract_track_points(n_max: int, cloud, tid: int):
-    """Compact the valid labeled-cloud points of one track id (the
-    reference takes every mask pixel, semantic_dsp_map.h:625-638; only
-    valid points are kept here)."""
+def _extract_track_points(n_max: int, cloud, tid):
+    """Compact the valid labeled-cloud points of track id ``tid`` (a number
+    or a 0-d tensor; the reference takes every mask pixel,
+    semantic_dsp_map.h:625-638; only valid points are kept here)."""
     m = ((cloud.track == tid) & cloud.valid).reshape(-1)
     return _compact_by_sort(
         m,
@@ -141,18 +161,19 @@ def _extract_track_points(n_max: int, cloud, tid: int):
     )
 
 
-def _extract_particle_points(cfg: MapConfig, n_max: int, particles, scroll, tid: int,
+def _extract_particle_points(cfg: MapConfig, n_max: int, particles, scroll, tid,
                              weight_threshold: float):
-    """getParticlesAsPointCloud (operations.h:242-255) for one track id:
-    alive particles with weight > threshold, compacted from the block
-    working set that holds them.  Returns (pts f32[n_max, 3], ok, count)."""
+    """getParticlesAsPointCloud (operations.h:242-255) for track id ``tid``
+    (a 0-d tensor): alive particles with weight > threshold, compacted from
+    the block working set that holds them.  Returns (pts f32[n_max, 3], ok,
+    count)."""
     K = cfg.slots_per_voxel
     V = cfg.num_voxels
     bv, nb, spb = block_layout(cfg)
     A = min(cfg.max_moving_blocks, nb)
     vox_axis = codecs.axis_stamps_per_voxel(cfg, scroll)
     alive = codecs.particle_alive(particles.status.view(V, K), particles.stamp.view(V, K), vox_axis)
-    thr = torch.tensor(weight_threshold, dtype=torch.float32, device=vox_axis.device)
+    thr = constant(weight_threshold, torch.float32, vox_axis.device)
     m = (alive & (particles.track.view(V, K) == tid) & (particles.weight.view(V, K) > thr)).reshape(-1)
 
     blocks = select_blocks(m.view(nb, spb).any(dim=1), A)
@@ -172,7 +193,7 @@ def _extract_particle_points(cfg: MapConfig, n_max: int, particles, scroll, tid:
 
 def _masked_center(ppts, pok):
     """alignPointCloudToXYZCenter (pointcloud_tools.h:365-380) under a mask."""
-    big = torch.tensor(_BIG, dtype=torch.float32, device=ppts.device)
+    big = constant(_BIG, torch.float32, ppts.device)
     lo = torch.where(pok[:, None], ppts, big).amin(dim=0)
     hi = torch.where(pok[:, None], ppts, -big).amax(dim=0)
     c = (lo + hi) * 0.5
@@ -196,22 +217,45 @@ def _candidates(pos, valid, track, label, weight: float, gt) -> Candidates:
     )
 
 
-class TemplateSweep(NamedTuple):
-    """One sweep a stage ran: its stage name, the object's gate row and the
-    best score (a device tensor)."""
+class SweepRecord(NamedTuple):
+    """The sweeps one stage ran, on the device: each branch that runs a
+    sweep writes it, inside the captured step as outside it (a replay calls
+    no Python).  ``count`` sweeps so far; ``gate_row`` and ``score`` those
+    of the last."""
 
-    stage: str
-    gate_row: np.ndarray
-    score: torch.Tensor
+    count: torch.Tensor     # i64
+    gate_row: torch.Tensor  # i32[8], the object's row of the gate
+    score: torch.Tensor     # f32, the best score of its sweep
+
+
+def _sweep_cond(pred, record: SweepRecord, gate_row, do: Callable, no: Callable) -> tuple:
+    """``step_graph.slot_cond(pred, do, no)`` for a slot whose branch
+    sweeps: ``do()``'s last output is the sweep's best score.  ``record``
+    counts the sweep and takes ``gate_row`` and that score where the branch
+    runs, and keeps what it held elsewhere."""
+
+    def do_recorded():
+        out = do()
+        return (*out, record.count + 1, gate_row, out[-1])
+
+    def no_recorded():
+        return (*no(), record.count, record.gate_row, record.score)
+
+    *out, count, row, score = slot_cond(pred, do_recorded, no_recorded)
+    for dst, src in zip(record, (count, row, score)):
+        dst.copy_(src)
+    return tuple(out)
 
 
 class TemplateStages(NamedTuple):
-    """The stage closures built once per (config, params, bank, device)."""
+    """The stage closures built once per (config, params, bank, device),
+    and the records of the sweeps they ran."""
 
     gate: object     # (objects, cloud) -> i32[O, 8] on the device
-    rematch: object  # (particles, scroll, cloud, cam_pos, gate_np, gt) -> (particles, overflow)
-    birth: object    # (particles, scroll, objects, cloud, cam_pos, gate_np, gt,
+    rematch: object  # (particles, scroll, cloud, cam_pos, gate, gt) -> (particles, overflow)
+    birth: object    # (particles, scroll, objects, cloud, cam_pos, gate, gt,
                      #  generator=None, draws=None) -> (particles, objects, overflow)
+    records: Dict[str, SweepRecord]  # "rematch", "birth"
 
 
 def build_template_stages(
@@ -221,16 +265,23 @@ def build_template_stages(
     grid: MatchGridConfig,
     bank: Optional[TemplateBank],
     device=None,
-    record: Optional[Callable[[TemplateSweep], None]] = None,
 ) -> TemplateStages:
     """Build the per-frame template stages (see module docstring).  The
-    stages take the gate as a host numpy array (``gate(...).cpu().numpy()``)
-    and update the particle store in place; ``record`` receives every sweep
-    they run."""
+    stages take the gate as the device tensor ``gate(...)`` gives, make no
+    host read, and update the particle store in place."""
     car_label = registry.label_to_id.get("Car", -1)
     Pt = grid.max_template_points
+    n_copies = Pt * GUESSED_BIRTH_COPIES
+    min_mm = int(TM_MIN_BBOX_XY * 1000)
     dev = resolve_device(device)
-    thr = torch.tensor(params.match_score_threshold, dtype=torch.float32, device=dev)
+    thr = constant(params.match_score_threshold, torch.float32, dev)
+    tables = sweep_tables(grid, dev)
+    records = {
+        stage: SweepRecord(torch.zeros((), dtype=torch.int64, device=dev),
+                           torch.zeros(8, dtype=torch.int32, device=dev),
+                           torch.zeros((), dtype=torch.float32, device=dev))
+        for stage in ("rematch", "birth")
+    }
 
     have_bank = False
     if bank is not None:
@@ -243,39 +294,49 @@ def build_template_stages(
     def gate_fn(objects, cloud):
         return template_gate(car_label, objects, cloud)
 
-    def zero():
-        return torch.zeros((), dtype=torch.int64, device=dev)
+    def no_sweep():
+        return (torch.zeros((Pt, 3), dtype=torch.float32, device=dev),
+                torch.zeros(Pt, dtype=torch.bool, device=dev))
+
+    def per_slot(v, n: int):
+        return torch.cat([x.to(torch.int32).expand(n) for x in v])
 
     # ------------------------------------------------------------------
-    def rematch(particles, scroll, cloud, cam_pos, gate: np.ndarray, gt):
-        outs = []
-        for row in _top_rows(gate[:, 1] == 1, RM_MAX):
-            if gate[row, 5] < REMATCH_MIN_POINTS:
-                continue
-            tid, label = int(gate[row, 3]), int(gate[row, 4])
-            pts, ok = _extract_track_points(grid.max_source_points, cloud, tid)
-            ppts, pok, pcount = _extract_particle_points(cfg, Pt, particles, scroll, tid, 0.1)
-            res = template_match(grid, False, pts, ok, cam_pos, _masked_center(ppts, pok), pok)
-            good = (res.score > thr) & (pcount > 0)
-            outs.append((res.aligned, pok, good, tid, label))
-            if record is not None:
-                record(TemplateSweep("rematch", gate[row].copy(), res.score))
-        if not outs:
-            return particles, zero()
+    def rematch(particles, scroll, cloud, cam_pos, gate, gt):
+        rows, rvalid = _top_rows(gate[:, 1] == 1, RM_MAX)
+        slots = []
+        for i in range(RM_MAX):
+            row = take(gate, rows[i])
+            tid = row[3]
+            eligible = rvalid[i] & (row[5] >= REMATCH_MIN_POINTS)
 
-        # deleteParticlesInSet for matched objects (one masked pass).
+            def do_match():
+                pts, ok = _extract_track_points(grid.max_source_points, cloud, tid)
+                ppts, pok, pcount = _extract_particle_points(cfg, Pt, particles, scroll, tid, 0.1)
+                res = template_match(grid, False, pts, ok, cam_pos, _masked_center(ppts, pok), pok,
+                                     tables)
+                return res.aligned, pok, (res.score > thr) & (pcount > 0), res.score
+
+            def no_match():
+                return (*no_sweep(), torch.zeros((), dtype=torch.bool, device=dev),
+                        constant(-1.0, torch.float32, dev))
+
+            aligned, pok, good, _score = _sweep_cond(eligible, records["rematch"], row, do_match,
+                                                     no_match)
+            slots.append((aligned, pok, good, tid, row[4]))
+
+        # deleteParticlesInSet for matched objects: one masked pass.
         del_mask = torch.zeros_like(particles.status, dtype=torch.bool)
-        for _aligned, _pok, good, tid, _label in outs:
+        for _aligned, _pok, good, tid, _label in slots:
             del_mask |= good & (particles.track == tid)
         particles.status.masked_fill_(del_mask, STATUS_INVALID)
 
-        # One insert of every slot's aligned cloud.
-        full = lambda v: torch.full((Pt,), v, dtype=torch.int32, device=dev)
+        # One fixed-capacity insert of every slot's aligned cloud.
         cand = _candidates(
-            pos=torch.cat([o[0] for o in outs]),
-            valid=torch.cat([o[1] & o[2] for o in outs]),
-            track=torch.cat([full(o[3]) for o in outs]),
-            label=torch.cat([full(o[4]) for o in outs]),
+            pos=torch.cat([s[0] for s in slots]),
+            valid=torch.cat([s[1] & s[2] for s in slots]),
+            track=per_slot([s[3] for s in slots], Pt),
+            label=per_slot([s[4] for s in slots], Pt),
             weight=MATCHED_WEIGHT, gt=gt,
         )
         res = _insert_core(cfg, particles, scroll, cand, resample_targets=False,
@@ -283,62 +344,68 @@ def build_template_stages(
         return res.particles, res.block_overflow
 
     # ------------------------------------------------------------------
-    def birth(particles, scroll, objects, cloud, cam_pos, gate: np.ndarray, gt,
+    def birth(particles, scroll, objects, cloud, cam_pos, gate, gt,
               generator: Optional[torch.Generator] = None, draws: Optional[torch.Tensor] = None):
-        """``draws``: standard-normal f32[TB_MAX * Pt * 3, 3] (drawn from
-        ``generator`` when None, only if a birth is attempted)."""
+        """``draws``: standard-normal f32[TB_MAX * Pt * 3, 3], drawn from
+        ``generator`` when None, on every frame: a replay of a CUDA graph
+        advances the generator's offset by the same amount whether a birth
+        runs or not, and so does the eager step."""
         if not have_bank:
-            return particles, objects, zero()
-        n_copies = Pt * GUESSED_BIRTH_COPIES
-        min_mm = int(TM_MIN_BBOX_XY * 1000)
-        outs = []
-        flags = objects.to_match_templates
-        for i, row in enumerate(_top_rows(gate[:, 2] == 1, TB_MAX)):
-            if not (TM_MIN_POINTS < gate[row, 5] < TM_MAX_POINTS
-                    and gate[row, 6] >= min_mm and gate[row, 7] >= min_mm):
-                continue
-            tid, label = int(gate[row, 3]), int(gate[row, 4])
-            pts, ok = _extract_track_points(grid.max_source_points, cloud, tid)
-            best_idx, score, aligned = template_match_bank(grid, True, pts, ok, cam_pos, tpls, tvalids)
-            # Flag bookkeeping (semantic_dsp_map.h:842, :873-875): an
-            # attempted row matches once; a below-threshold score retries.
-            flags = flags.clone()
-            flags[row] = score < thr
-            outs.append((i, aligned, tvalids[best_idx] & (score >= thr), tid, label))
-            if record is not None:
-                record(TemplateSweep("birth", gate[row].copy(), score))
-        if not outs:
-            return particles, objects, zero()
-
+            return particles, objects, torch.zeros((), dtype=torch.int64, device=dev)
         if draws is None:
             draws = torch.randn((TB_MAX * n_copies, 3), generator=generator, device=dev)
-        sigma = torch.tensor(GUESSED_BIRTH_NOISE, dtype=torch.float32, device=dev)
+        rows, rvalid = _top_rows(gate[:, 2] == 1, TB_MAX)
+        flags = objects.to_match_templates.clone()
+        slots = []
+        for i in range(TB_MAX):
+            row = take(gate, rows[i])
+            n_pts = row[5]
+            attempted = (rvalid[i] & (n_pts > TM_MIN_POINTS) & (n_pts < TM_MAX_POINTS)
+                         & (row[6] >= min_mm) & (row[7] >= min_mm))
+
+            def do_match():
+                pts, ok = _extract_track_points(grid.max_source_points, cloud, row[3])
+                best_idx, score, aligned = template_match_bank(grid, True, pts, ok, cam_pos, tpls,
+                                                               tvalids, tables)
+                return aligned, take(tvalids, best_idx), score
+
+            def no_match():
+                return (*no_sweep(), constant(-1.0, torch.float32, dev))
+
+            aligned, best_ok, score = _sweep_cond(attempted, records["birth"], row, do_match,
+                                                  no_match)
+            # Flag bookkeeping (semantic_dsp_map.h:842, :873-875): an
+            # attempted row matches once; a below-threshold score retries.
+            flags.index_copy_(0, rows[i:i + 1],
+                              torch.where(attempted, score < thr, take(flags, rows[i]))[None])
+            slots.append((aligned, best_ok & attempted & (score >= thr), row[3], row[4]))
+
         # 3 jittered GUESSED_BORN copies per template point
         # (semantic_dsp_map.h:878-891).
+        sigma = constant(GUESSED_BIRTH_NOISE, torch.float32, dev)
         pos = torch.cat([
-            torch.repeat_interleave(o[1], GUESSED_BIRTH_COPIES, dim=0)
-            + draws[o[0] * n_copies:(o[0] + 1) * n_copies] * sigma
-            for o in outs
+            torch.repeat_interleave(s[0], GUESSED_BIRTH_COPIES, dim=0)
+            + draws[i * n_copies:(i + 1) * n_copies] * sigma
+            for i, s in enumerate(slots)
         ])
-        full = lambda v: torch.full((n_copies,), v, dtype=torch.int32, device=dev)
         cand = _candidates(
             pos=pos,
-            valid=torch.cat([torch.repeat_interleave(o[2], GUESSED_BIRTH_COPIES) for o in outs]),
-            track=torch.cat([full(o[3]) for o in outs]),
-            label=torch.cat([full(o[4]) for o in outs]),
+            valid=torch.cat([torch.repeat_interleave(s[1], GUESSED_BIRTH_COPIES) for s in slots]),
+            track=per_slot([s[2] for s in slots], n_copies),
+            label=per_slot([s[3] for s in slots], n_copies),
             weight=PARTICLE_OCC_INIT_WEIGHT, gt=gt,
         )
         res = _insert_core(cfg, particles, scroll, cand, resample_targets=False,
                            max_target_blocks=TM_INSERT_BLOCKS)
         return res.particles, dataclasses.replace(objects, to_match_templates=flags), res.block_overflow
 
-    return TemplateStages(gate=gate_fn, rematch=rematch, birth=birth)
+    return TemplateStages(gate=gate_fn, rematch=rematch, birth=birth, records=records)
 
 
 class TemplateEngine:
     """Template-bank holder behind ``SemanticDSPMap.set_template_path``;
-    builds the stages on demand.  ``sweeps`` keeps the last sweeps the
-    stages ran and ``n_sweeps`` counts them all."""
+    builds the stages on demand.  ``records`` are the sweep records
+    (:class:`SweepRecord`, by stage) of the stages built last."""
 
     def __init__(
         self,
@@ -353,12 +420,7 @@ class TemplateEngine:
         self.registry = registry
         self.grid = grid or MatchGridConfig()
         self.bank = bank
-        self.sweeps = collections.deque(maxlen=16)
-        self.n_sweeps = 0
-
-    def _record(self, sweep: TemplateSweep):
-        self.sweeps.append(sweep)
-        self.n_sweeps += 1
+        self.records: Optional[Dict[str, SweepRecord]] = None
 
     def set_template_path(self, folder: str) -> int:
         """setTemplatePath (semantic_dsp_map.h:163-166)."""
@@ -366,6 +428,7 @@ class TemplateEngine:
         return int(self.bank.label.size)
 
     def stages(self, device=None) -> TemplateStages:
-        return build_template_stages(
-            self.cfg, self.params, self.registry, self.grid, self.bank, device, self._record
-        )
+        stages = build_template_stages(self.cfg, self.params, self.registry, self.grid, self.bank,
+                                       device)
+        self.records = stages.records
+        return stages

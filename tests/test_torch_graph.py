@@ -15,6 +15,7 @@ they import no JAX, so on the card they run with
 import collections
 import dataclasses
 import traceback
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -34,11 +35,15 @@ from semantic_dsp_map_tpu_torch.objects import refit_svd
 from semantic_dsp_map_tpu_torch.map import (
     build_frame_stages, build_frame_step, unpack_frame, unpack_objects,
 )
+from semantic_dsp_map_tpu_torch.ops.templates import MatchGridConfig
 from semantic_dsp_map_tpu_torch.state import (
     clear_map_state, constant, init_map_state, map_state_to_numpy,
 )
+from semantic_dsp_map_tpu_torch.template_engine import TemplateEngine
 
-from torch_parity import dynamic_scene, zed2_scene
+from torch_parity import (
+    TEMPLATE_SCENE_CFG, TEMPLATE_SCENE_GRID, dynamic_scene, template_scene, zed2_scene,
+)
 
 torch.set_num_threads(2)
 
@@ -49,22 +54,83 @@ NOISY = dict(if_consider_depth_noise=True, nb_ptc_num_per_point=1,
 ZED2_MOVE = dict(bayesian_movement_distance_threshold=0.2, bayesian_movement_increment=0.4,
                  bayesian_movement_decrement=0.05, bayesian_movement_probability_threshold=0.3)
 
-#: name -> (config, parameters, scene, entry point of the map)
+TEMPLATES = "data/templates"
+
+#: The frame on which the template scene's car first shows.  On the card
+#: frame 0 runs eagerly and frame 1 is captured: the car's template birth
+#: then runs in a replay, and frames 0-1 and those after the birth run no
+#: template branch.
+LATE_CAR = 2
+
+
+def late_car_template_scene(cfg, t, masks_cls):
+    """``torch_parity.template_scene`` with nothing but the wall before frame
+    ``LATE_CAR``."""
+    depth, masks, pos, quat, time = template_scene(cfg, t, masks_cls)
+    if t < LATE_CAR:
+        depth = np.full_like(depth, depth[0, 0])
+        masks = masks[:1]
+    return depth, masks, pos, quat, time
+
+
+class Case(NamedTuple):
+    cfg: object
+    params: dict
+    scene: object
+    entry: str             # the entry point of the map
+    templates: bool = False  # the bank data/templates on TEMPLATE_SCENE_GRID
+
+
 CASES = {
-    "superpoint": (tiny_test_config(), NOISY, dynamic_scene, "update"),
-    "superpoint_frames": (tiny_test_config(), NOISY, dynamic_scene, "update_from_frame"),
-    "zed2": (tiny_test_config(keypoint_mode=KEYPOINTS_BBOX3D), dict(NOISY, **ZED2_MOVE),
-             zed2_scene, "update"),
-    "zed2_independent": (tiny_test_config(keypoint_mode=KEYPOINTS_BBOX3D),
-                         dict(NOISY, **ZED2_MOVE, if_use_independent_filter=True), zed2_scene,
-                         "update"),
-    "smoothed_render": (tiny_test_config(), dict(NOISY, if_use_neighbor_smoothed_occupancy=True),
-                        dynamic_scene, "update"),
-    "movement_never": (tiny_test_config(movement_mode=MOVEMENT_NEVER), NOISY, dynamic_scene,
-                       "update"),
-    "movement_always": (tiny_test_config(movement_mode=MOVEMENT_ALWAYS), NOISY, dynamic_scene,
-                        "update_from_frame"),
+    "superpoint": Case(tiny_test_config(), NOISY, dynamic_scene, "update"),
+    "superpoint_frames": Case(tiny_test_config(), NOISY, dynamic_scene, "update_from_frame"),
+    "zed2": Case(tiny_test_config(keypoint_mode=KEYPOINTS_BBOX3D), dict(NOISY, **ZED2_MOVE),
+                 zed2_scene, "update"),
+    "zed2_independent": Case(tiny_test_config(keypoint_mode=KEYPOINTS_BBOX3D),
+                             dict(NOISY, **ZED2_MOVE, if_use_independent_filter=True),
+                             zed2_scene, "update"),
+    "smoothed_render": Case(tiny_test_config(),
+                            dict(NOISY, if_use_neighbor_smoothed_occupancy=True), dynamic_scene,
+                            "update"),
+    "movement_never": Case(tiny_test_config(movement_mode=MOVEMENT_NEVER), NOISY, dynamic_scene,
+                           "update"),
+    "movement_always": Case(tiny_test_config(movement_mode=MOVEMENT_ALWAYS), NOISY,
+                            dynamic_scene, "update_from_frame"),
+    # Template mode, noise on (the guessed birth's jitter too): the birth
+    # branch runs on frame LATE_CAR.  The car stands still, so nothing moves.
+    "templates": Case(tiny_test_config(**TEMPLATE_SCENE_CFG),
+                      dict(NOISY, if_use_template_matching=True, match_score_threshold=0.2),
+                      late_car_template_scene, "update", templates=True),
 }
+
+
+def _new_map(case: Case, device) -> SemanticDSPMap:
+    """The case's map, with the template bank loaded in template mode."""
+    dsp = SemanticDSPMap(case.cfg, FilterParams(**case.params), device=device)
+    if case.templates:
+        dsp._templates.grid = MatchGridConfig(**TEMPLATE_SCENE_GRID)
+        assert dsp.set_template_path(TEMPLATES) == 1
+    return dsp
+
+
+def _eager_step(case: Case, registry, device):
+    """``build_frame_step`` for the case, with template stages of its own
+    (their own sweep records) in template mode; returns (step, records)."""
+    params = FilterParams(**case.params)
+    if not case.templates:
+        return build_frame_step(case.cfg, params, registry), None
+    engine = TemplateEngine(case.cfg, params, registry, grid=MatchGridConfig(**TEMPLATE_SCENE_GRID))
+    engine.set_template_path(TEMPLATES)
+    stages = engine.stages(device)
+    return build_frame_step(case.cfg, params, registry, stages), stages.records
+
+
+def _assert_same_records(a, b, msg):
+    for stage in a:
+        for name, x, y in zip(a[stage]._fields, a[stage], b[stage]):
+            assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y), (
+                f"{stage} {name} {msg}")
 
 
 def _feed(dsp, entry, raw):
@@ -94,24 +160,34 @@ def _assert_same(state_a, state_b, res_a, res_b, diag_a, diag_b, msg):
         k: int(v) for k, v in diag_b._asdict().items()}, msg
 
 
-def _hold_against_eager(case, device, frames=10, on_frame=None):
+def _hold_against_eager(name, device, frames=10, on_frame=None):
     """The map's static step against ``build_frame_step`` on a state of its
-    own, bit for bit every frame; returns the map."""
-    cfg, params, scene, entry = CASES[case]
-    params = FilterParams(**params)
-    dsp = SemanticDSPMap(cfg, params, device=device)
-    step = build_frame_step(cfg, params, dsp.registry)
+    own, bit for bit every frame (in template mode the sweep records too);
+    returns the map."""
+    case = CASES[name]
+    cfg, entry = case.cfg, case.entry
+    dsp = _new_map(case, device)
+    step, records = _eager_step(case, dsp.registry, device)
     state = init_map_state(cfg, 0, device)
     moved = 0
+    births = []
     for t in range(frames):
-        raw = scene(cfg, t, MaskKpts)
+        raw = case.scene(cfg, t, MaskKpts)
         res, diag = _feed(dsp, entry, raw)
         state, res_e, diag_e = step(state, _eager_frame(dsp, entry, raw, device))
-        _assert_same(dsp.state, state, res, res_e, diag, diag_e, f"{case} frame {t}")
+        _assert_same(dsp.state, state, res, res_e, diag, diag_e, f"{name} frame {t}")
         moved += int(diag.moved_count)
+        if case.templates:
+            _assert_same_records(dsp._templates.records, records, f"{name} frame {t}")
+            births.append(int(records["birth"].count))
         if on_frame is not None:
             on_frame(t, dsp)
-    if cfg.movement_mode != MOVEMENT_NEVER:
+    if case.templates:
+        # One birth sweep, on frame LATE_CAR; no branch on any other frame.
+        assert births == [0] * LATE_CAR + [1] * (frames - LATE_CAR), births
+        assert int(records["rematch"].count) == 0
+        assert not bool(state.objects.to_match_templates.any())
+    elif cfg.movement_mode != MOVEMENT_NEVER:
         assert moved > 0, "the rigid moves never ran"
     return dsp
 
@@ -284,8 +360,8 @@ def test_captured_part_makes_no_host_read(case):
     it is split at the refit, the part before the SVD and the part after
     it, while the bridge between them makes the SVD's host reads and no
     other."""
-    cfg, params, scene, entry = CASES[case]
-    dsp = SemanticDSPMap(cfg, FilterParams(**params), device="cpu")
+    cfg, scene, entry = CASES[case].cfg, CASES[case].scene, CASES[case].entry
+    dsp = _new_map(CASES[case], "cpu")
     for t in range(2):
         _feed(dsp, entry, scene(cfg, t, MaskKpts))
     static = dsp._static
@@ -316,8 +392,8 @@ def test_unpack_objects_is_the_object_part_of_unpack_frame(case):
     """``unpack_objects`` gives ``unpack_frame``'s camera, time and instance
     fields bit for bit and None for the image and the dense tables, and the
     object layer makes the same table from it as from the whole frame."""
-    cfg, params, scene, _ = CASES[case]
-    params = FilterParams(**params)
+    cfg, scene = CASES[case].cfg, CASES[case].scene
+    params = FilterParams(**CASES[case].params)
     dsp = SemanticDSPMap(cfg, params, device="cpu")
     objects = build_frame_stages(cfg, params, dsp.registry).objects
     image = {"depth", "track_raster", "track_label_table", "inst_bbox_min", "inst_bbox_max"}
@@ -336,13 +412,13 @@ def test_unpack_objects_is_the_object_part_of_unpack_frame(case):
             assert torch.equal(getattr(a, field.name), getattr(b, field.name)), field.name
 
 
-@pytest.mark.parametrize("case", sorted(c for c in CASES if CASES[c][3] == "update"))
+@pytest.mark.parametrize("case", sorted(c for c in CASES if CASES[c].entry == "update"))
 def test_packed_frame_is_unpacked_whole_once_a_frame(case):
     """``update()`` unpacks the whole packed frame once a frame, inside the
     step; where the step is split at the refit, the part before the SVD
     unpacks only the object layer's fields."""
-    cfg, params, scene, entry = CASES[case]
-    dsp = SemanticDSPMap(cfg, FilterParams(**params), device="cpu")
+    cfg, scene, entry = CASES[case].cfg, CASES[case].scene, CASES[case].entry
+    dsp = _new_map(CASES[case], "cpu")
     _feed(dsp, entry, scene(cfg, 0, MaskKpts))
     static, calls = dsp._static, collections.Counter()
 
@@ -413,7 +489,7 @@ def test_graph_equals_eager_on_the_card(cuda, case):
     frame 1 on; each frame runs each of the five frame kernels once, all of
     them in the finishing graph where the step is split."""
     runs = []
-    kind = "packed" if CASES[case][3] == "update" else "frame"
+    kind = "packed" if CASES[case].entry == "update" else "frame"
 
     def on_frame(t, dsp):
         runs.append(_kernel_runs())
@@ -426,7 +502,7 @@ def test_graph_equals_eager_on_the_card(cuda, case):
     _hold_against_eager(case, cuda, on_frame=on_frame)
     # The eager step of the test launches each kernel once a frame too; the
     # smoothed render is plain PyTorch and launches no render kernel.
-    render = 0 if CASES[case][1].get("if_use_neighbor_smoothed_occupancy") else 2
+    render = 0 if CASES[case].params.get("if_use_neighbor_smoothed_occupancy") else 2
     per_frame = [[(b - a) for a, b in zip(x, y)] for x, y in zip([before] + runs, runs)]
     assert all(r == [2, 2, render, 2, 2] for r in per_frame), per_frame
 
@@ -503,3 +579,43 @@ def test_a_capture_that_fails_raises(cuda, monkeypatch, part, stage):
     dsp.update(*dynamic_scene(cfg, 0, MaskKpts))  # eager: the read is allowed
     with pytest.raises(RuntimeError, match=f"capturing the frame step \\({part}\\)"):
         dsp.update(*dynamic_scene(cfg, 1, MaskKpts))
+
+
+@pytest.mark.gpu
+def test_if_node_runs_only_the_taken_branch(cuda):
+    """``step_graph.slot_cond`` under capture: one capture, replayed with
+    ``pred`` true and false.  The outputs are ``do()``'s, then ``no()``'s;
+    a tensor that only ``do()``'s body touches changes only on the replays
+    that take the branch; the body allocates (a sort's scratch, the
+    products) from the graph's pool."""
+    x = torch.tensor([3.0, -1.0, 7.5, 0.25, 2.0], device=cuda)
+    pred = torch.zeros((), dtype=torch.bool, device=cuda)
+    count = torch.zeros((), dtype=torch.int64, device=cuda)
+    touched = torch.zeros((), dtype=torch.int64, device=cuda)
+
+    def do():
+        touched.add_(1)  # a side effect, to see whether the body ran
+        return torch.sort(x).values * 2.0 + 1.0, count + 1
+
+    def body():
+        y, c = step_graph.slot_cond(pred, do, lambda: (x, count))
+        count.copy_(c)
+        return y
+
+    body()  # eager: both branches run once (the warm-up)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    capture = step_graph.Capture(graph)
+    with step_graph.capturing(capture):
+        y = body()
+    count.zero_()
+    touched.zero_()
+    taken = 0
+    for p in (True, False, True, False, False):
+        pred.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        taken += p
+        want = torch.sort(x).values * 2.0 + 1.0 if p else x
+        assert torch.equal(y, want), (p, y, want)
+        assert int(count) == taken and int(touched) == taken, (p, int(count), int(touched))

@@ -3,8 +3,11 @@
 - the hypothesis sweep (``template_match``, ``template_match_bank``) on the
   box clouds of tests/test_templates.py, within that test's slack;
 - the gate, and the rematch and birth stages on a hand-built object table,
-  with the birth noise injected: gate and integer state equal, floats
-  within 1e-6;
+  given the gate as a device tensor, with the birth noise injected: gate and
+  integer state equal, floats within 1e-6;
+- ``_top_rows`` (the slots' rows, picked on the device), the branch helper
+  ``step_graph.slot_cond`` outside a capture, and the birth stage's draws,
+  which advance the generator alike whether a birth runs or not;
 - the rigid move skipping objects flagged ``to_match_previous`` in template
   mode;
 - the small template scene through both SemanticDSPMaps for 3 frames, with
@@ -28,6 +31,7 @@ from semantic_dsp_map_tpu.ops.projection import LabeledCloud as JCloud
 from semantic_dsp_map_tpu.state import init_map_state as j_init_state
 
 import semantic_dsp_map_tpu_torch as T
+from semantic_dsp_map_tpu_torch import step_graph
 from semantic_dsp_map_tpu_torch import template_engine as tte
 from semantic_dsp_map_tpu_torch.frontend import build_frame_input as t_build
 from semantic_dsp_map_tpu_torch.map import _move_and_cleanup as t_move
@@ -248,8 +252,8 @@ def test_template_stages_match_jax():
     key = jax.random.PRNGKey(11)
 
     jgate = jax.jit(jst.gate)(js.objects, jcloud)
-    tgate = tst.gate(tobjects, cloud).numpy()
-    np.testing.assert_array_equal(tgate, np.asarray(jgate))
+    tgate = tst.gate(tobjects, cloud)  # the stages take the gate as a device tensor
+    np.testing.assert_array_equal(tgate.numpy(), np.asarray(jgate))
 
     jp, j_ov = jax.jit(jst.rematch)(js.particles, js.scroll, jcloud, jnp.asarray(cam), jgate, jnp.int32(gt))
     tp, t_ov = tst.rematch(ts.particles, ts.scroll, cloud, torch.from_numpy(cam), tgate,
@@ -272,6 +276,83 @@ def test_template_stages_match_jax():
     assert_states_match(jax_state_to_numpy(js), map_state_to_numpy(ts), "after birth")
     assert int((ts.particles.status == STATUS_GUESSED_BORN).sum()) > rematched
     assert not bool(tobj.to_match_templates[0]) and bool(tobj.to_match_templates[1])
+
+
+def _mask(kind, O=64, seed=0):
+    rng = np.random.RandomState(seed)
+    if kind == "none":
+        return np.zeros(O, bool)
+    if kind == "all":
+        return np.ones(O, bool)
+    if kind == "one_last":
+        return np.arange(O) == O - 1
+    if kind == "two":
+        return np.isin(np.arange(O), (5, 40))
+    return rng.rand(O) < {"sparse": 0.05, "dense": 0.5}[kind]
+
+
+@pytest.mark.parametrize("kind", ["none", "all", "one_last", "two", "sparse", "dense"])
+@pytest.mark.parametrize("cap", [tte.TB_MAX, tte.RM_MAX, 3])
+def test_top_rows_matches_jax(kind, cap):
+    """The first ``cap`` True rows and their validity, as JAX's: no row, one,
+    exactly two, and more than the cap."""
+    mask = _mask(kind, seed=cap)
+    jrows, jvalid = jte._top_rows(jnp.asarray(mask), cap)
+    trows, tvalid = tte._top_rows(torch.from_numpy(mask), cap)
+    assert trows.dtype == torch.int64 and tvalid.dtype == torch.bool
+    np.testing.assert_array_equal(trows.numpy(), np.asarray(jrows))
+    np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
+    assert int(tvalid.sum()) == min(cap, int(mask.sum()))
+
+
+@pytest.mark.parametrize("pred", [False, True])
+def test_slot_cond_outside_capture_is_do_or_no(pred):
+    """Outside a capture the branch helper gives ``do()``'s outputs or
+    ``no()``'s bit for bit (NaN payloads, -0.0 and integers included)."""
+    rng = np.random.RandomState(2)
+    a = rng.randn(7, 3).astype(np.float32)
+    a[0, 0], a[1, 1], a[2, 2] = np.nan, -0.0, np.inf
+    b = np.zeros((7, 3), np.float32)
+    b[3, 1] = -0.0
+    do = lambda: (torch.from_numpy(a), torch.tensor([True, False]), torch.tensor(7, dtype=torch.int64))
+    no = lambda: (torch.from_numpy(b), torch.tensor([False, False]), torch.tensor(3, dtype=torch.int64))
+    got = step_graph.slot_cond(torch.tensor(pred), do, no)
+    want = do() if pred else no()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+        assert torch.equal(bits(g), bits(w))
+
+
+def test_birth_draws_alike_with_and_without_a_birth():
+    """The guessed-birth normals are drawn every frame, outside the branch:
+    the generator moves on by the same offset whether the gate has a
+    birth-eligible row or not, as a CUDA graph's replay moves it."""
+    cfg_j, cfg_t, registry, cloud, st = _stage_setup()
+    grid = ttm.MatchGridConfig(**TEMPLATE_SCENE_GRID)
+    tst = tte.build_template_stages(cfg_t, T.FilterParams(if_use_template_matching=True,
+                                                          match_score_threshold=0.2),
+                                    registry, grid, ttm.TemplateBank.from_folder(TEMPLATES, grid),
+                                    device="cpu")
+    tobjects = _to_t_objects(st["objects"])
+    gate = tst.gate(tobjects, cloud)
+    idle = gate.clone()
+    idle[:, 2] = 0  # no row birth-eligible
+    states, births = [], []
+    for g in (gate, idle):
+        ts = dataclasses.replace(map_state_from_numpy(st, device="cpu"), objects=tobjects)
+        gen = torch.Generator().manual_seed(5)
+        before = int(tst.records["birth"].count)
+        tst.birth(ts.particles, ts.scroll, tobjects, cloud, torch.zeros(3), g,
+                  torch.tensor(2, dtype=torch.int32), gen)
+        births.append(int(tst.records["birth"].count) - before)
+        states.append(gen.get_state())
+    assert births == [1, 0]
+    want = torch.Generator().manual_seed(5)
+    torch.randn((tte.TB_MAX * grid.max_template_points * tte.GUESSED_BIRTH_COPIES, 3),
+                generator=want)
+    assert torch.equal(states[0], states[1]) and torch.equal(states[0], want.get_state())
 
 
 # ---------------------------------------------------------------------------
