@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # all phases, as a check of a checkout
     python3 chip_smoke.py --phase kernels   # build + per-kernel checks only
     python3 chip_smoke.py --phase graph     # build + [graph] only
+    python3 chip_smoke.py --phase sharded   # build + [sharded]'s vkitti2 and zed2 runs only
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
     python3 chip_smoke.py --against DIR     # also time both PHD passes, the render,
                                             # the front scan and the gather built from
@@ -86,14 +87,24 @@ Phases (any failure raises, and the script exits nonzero):
      (step_graph.kernel_runs);
   5. [sharded]: the sharded step (parallel/shard_step.py) at one rank, in a
      process group of this process alone (NCCL): at the VKITTI2 preset with
-     the movers, 8 frames, unpacked and packed, in turns with the
-     single-device step and equal to it (integer state, voxel stamps, the
-     render and the counters bit for bit, floats within 1e-6), timed with
-     CUDA events; at the ZED2 preset, ``benchmarks.bench.run_sharded_check``;
-     PHD passes A and B, the render, the candidate scan and the movable scan
-     once a sharded frame.  Then those five kernels against their plain
-     versions at the shapes a rank of a D-rank run gives them (D = 1, 2, 4,
-     8; VKITTI2 and ZED2), and the weak-scaling report at one rank.
+     the movers, 8 frames, four ways in turns, timed with CUDA events: the
+     single-device eager step, the eager sharded step (the oracle), and the
+     captured sharded step (``build_shard_step``: frame 0 eager, frame 1
+     captured, replays of graphs "fit" and "finish" around the eager SVD
+     after) unpacked and packed; the captured ways bit-equal to the oracle
+     every frame (state, both generators, render, counters), the oracle
+     equal to the single-device step (integer state, voxel stamps, the
+     render and the counters bit for bit, floats within 1e-6); per-frame
+     medians, host API calls a frame by name, device busy share, the
+     bridge's host and device ms and the memory a capture takes; then 6
+     frames with the noise on, the captured ways against the oracle bit for
+     bit; at the ZED2 preset, ``benchmarks.bench.run_sharded_check``, whose
+     sharded step replays graph "step"; PHD passes A and B, the render, the
+     candidate scan and the movable scan run once a sharded frame
+     (``step_graph.kernel_runs``).  Then those five kernels against their
+     plain versions at the shapes a rank of a D-rank run gives them (D = 1,
+     2, 4, 8; VKITTI2 and ZED2), and the weak-scaling report at one rank
+     (both sides captured).
 Then one JSON line with the kernels' numbers, the card again, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no result.
@@ -103,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import sys
 import tempfile
@@ -2578,123 +2590,288 @@ def state_parting(a, b):
     return worst, differ, bits and not differ
 
 
-def drive_sharded_vkitti2(counters, card, frames=8):
+def sharded_parting(a, b, gen_a, gen_b):
+    """Names of what two sharded frames (state, render, counters; each way's
+    rank generator ``gen_*``) do not hold bit for bit, the state's
+    generator and the rank's included."""
+    import torch
+
+    (sa, ra, da), (sb, rb, db) = a, b
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    out = states_differ(sa, sb)
+    if not torch.equal(gen_a.get_state(), gen_b.get_state()):
+        out.append("rank_rng")
+    out += [f"render.{f}" for f in ra._fields
+            if not torch.equal(bits(getattr(ra, f)), bits(getattr(rb, f)))]
+    if {k: int(v) for k, v in da._asdict().items()} != {k: int(v) for k, v in db._asdict().items()}:
+        out.append("diagnostics")
+    return out
+
+
+#: The ways [sharded] runs the VKITTI2 frame in turns: the single-device
+#: eager step, the eager sharded step (the oracle), the captured sharded
+#: step on the FrameInput and on the packed buffer.
+SHARDED_WAYS = ("plain", "eager", "captured", "captured_packed")
+
+
+def drive_sharded_vkitti2(counters, card, frames=8, noise_frames=6):
     """The sharded step (parallel/shard_step.py) at one rank of the default
-    group, unpacked and packed, beside the single-device step, on the
-    VKITTI2 preset at full width with the movers in (prediction_stddev=0.0):
-    the three take each frame in turns (the order rotates frame by frame),
-    each timed with CUDA events.  After every frame the two sharded states
-    must equal the single-device one (integer tensors, voxel stamps and the
-    nine counters bit for bit, floats within 1e-6) and so must the renders
-    (occ, label, track bit for bit, weight_sum within 1e-6).  Each sharded
-    call runs with the launch counts set to 0 just before it and read just
-    after: the five kernels of the path must launch once a call.  Returns
-    the numbers."""
+    group, on the VKITTI2 preset at full width with the movers in
+    (prediction_stddev=0.0), four ways taken each frame in turns (the order
+    rotates frame by frame), each timed with CUDA events: the single-device
+    step (``build_frame_step``), the eager sharded step
+    (``build_shard_step_eager``, the oracle), and the captured sharded step
+    (``build_shard_step``: frame 0 eager, frame 1 captured, replays after;
+    graphs "fit" and "finish" around the refit's eager SVD) unpacked and
+    packed.  After every frame both captured ways must equal the oracle bit
+    for bit (every state tensor, the state's and the rank's generators, the
+    render, the counters), and the oracle the single-device step (integer
+    tensors, voxel stamps and the nine counters bit for bit, floats within
+    1e-6; occ, label and track bit for bit, weight_sum within 1e-6).  Each
+    sharded call runs with the launch counts set to 0 just before it and
+    read just after (``step_graph.kernel_runs``): the five kernels of the
+    path must run once a call.  The bridge is timed in the captured frames
+    (host ms, device ms between events); one more frame of each sharded way
+    runs under torch.profiler (host API calls by name, device busy share).
+    Then ``noise_frames`` frames with the preset's noise on (depth noise,
+    move jitter): the captured ways against the oracle, bit for bit, which
+    shows that replays draw from both generators.  Returns the numbers."""
     import torch
     from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, virtual_kitti2_config
     from semantic_dsp_map_tpu_torch.frontend import FrameInput, build_frame_input, pack_frame
     from semantic_dsp_map_tpu_torch.labels import LabelRegistry
     from semantic_dsp_map_tpu_torch.map import build_frame_step
-    from semantic_dsp_map_tpu_torch.parallel.shard_step import build_shard_step
+    from semantic_dsp_map_tpu_torch.parallel.shard_step import (
+        build_shard_step, build_shard_step_eager,
+    )
     from semantic_dsp_map_tpu_torch.parallel.sharding import gather_render, shard_state
     from semantic_dsp_map_tpu_torch.state import init_map_state
 
     scenes = bench_scenes()
     cfg = virtual_kitti2_config()
-    params = FilterParams(**dict(scenes.VK_PARAMS, prediction_stddev=0.0))
     registry = LabelRegistry.default()
     dev = torch.device("cuda")
-    steps = {"plain": build_frame_step(cfg, params, registry),
-             "sharded": build_shard_step(cfg, params, registry),
-             "sharded_packed": build_shard_step(cfg, params, registry, packed=True)}
-    states = {"plain": init_map_state(cfg, 0, dev)}
-    for name in ("sharded", "sharded_packed"):
-        states[name] = shard_state(cfg, init_map_state(cfg, 0, dev), 0, 1)
+    sharded = SHARDED_WAYS[1:]
+
+    def build(params, ways):
+        steps = {"plain": build_frame_step(cfg, params, registry),
+                 "eager": build_shard_step_eager(cfg, params, registry),
+                 "captured": build_shard_step(cfg, params, registry),
+                 "captured_packed": build_shard_step(cfg, params, registry, packed=True)}
+        states = {w: init_map_state(cfg, 0, dev) if w == "plain"
+                  else shard_state(cfg, init_map_state(cfg, 0, dev), 0, 1) for w in ways}
+        return {w: steps[w] for w in ways}, states
+
+    def inputs_of(t):
+        raw = (*scenes.synth_vkitti2_frame(cfg, t, MaskKpts), 0.1 * t)
+        f = FrameInput(*(torch.as_tensor(np.asarray(a)).to(dev)
+                         for a in build_frame_input(cfg, registry, *raw)))
+        return {"plain": f, "eager": f, "captured": f,
+                "captured_packed": torch.from_numpy(pack_frame(cfg, registry, *raw)).to(dev)}
+
+    def check_captured(tag, t, steps, out):
+        for way in ("captured", "captured_packed"):
+            parted = sharded_parting(out[way], out["eager"], steps[way].stages.rank_rng.gen,
+                                     steps["eager"].stages.rank_rng.gen)
+            if parted:
+                raise AssertionError(f"[sharded] {tag} frame {t}: {way} parts from the eager "
+                                     f"sharded step in {parted}")
+            kind = "packed" if way == "captured_packed" else "frame"
+            graphs = steps[way].static.graphs
+            want = set() if t == 0 else {(kind, "fit"), (kind, "finish")}
+            if set(graphs) != want or (t and any(graphs[kind, "fit"].launches.values())):
+                raise AssertionError(f"[sharded] {tag} frame {t}: {way} graphs {list(graphs)}")
+
     print(f"[sharded] vkitti2: grid {cfg.num_voxels} voxels x K={cfg.slots_per_voxel}, image "
           f"{cfg.width}x{cfg.height}, R={cfg.neighbor_half}: the table slab is "
           f"[{cfg.phd_pixel_table_slots}, {cfg.height + 2 * cfg.neighbor_half}, {cfg.width}]")
-    ms = {name: [] for name in steps}
+    steps, states = build(FilterParams(**dict(scenes.VK_PARAMS, prediction_stddev=0.0)),
+                          SHARDED_WAYS)
+    bridge = {"host_ms": [], "events": []}
+    static_bridge = None
+
+    def timed_bridge(fit):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        w0 = time.perf_counter()
+        static_bridge(fit)
+        bridge["host_ms"].append((time.perf_counter() - w0) * 1e3)
+        b.record()
+        bridge["events"].append((a, b))
+
+    ms = {w: [] for w in SHARDED_WAYS}
+    wall = {w: [] for w in SHARDED_WAYS}
+    work = {w: [] for w in SHARDED_WAYS}
     launches = dict.fromkeys((fn.__name__ for fn in counters), 0)
     worst, bits, moved = 0.0, True, []
-    names = list(steps)
     for t in range(frames):
-        raw = (*scenes.synth_vkitti2_frame(cfg, t, MaskKpts), 0.1 * t)
-        inputs = {"plain": FrameInput(*(torch.as_tensor(np.asarray(a)).to(dev)
-                                        for a in build_frame_input(cfg, registry, *raw))),
-                  "sharded_packed": torch.from_numpy(pack_frame(cfg, registry, *raw)).to(dev)}
-        inputs["sharded"] = inputs["plain"]
-        torch.cuda.synchronize()
+        if t == 1:
+            static_bridge = steps["captured"].static._bridge
+            steps["captured"].static._bridge = timed_bridge
+        inputs = inputs_of(t)
         out = {}
-        for name in names[t % 3 :] + names[: t % 3]:
-            if name != "plain":
+        for way in SHARDED_WAYS[t % 4 :] + SHARDED_WAYS[: t % 4]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            if way != "plain":
                 reset_launches(counters)
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            w0 = time.perf_counter()
             a.record()
-            out[name] = steps[name](states[name], inputs[name])
+            out[way] = steps[way](states[way], inputs[way])
             b.record()
             torch.cuda.synchronize()
-            ms[name].append(a.elapsed_time(b))
-            if name != "plain":
-                for fname, count in read_launches(counters).items():
-                    launches[fname] += count
-            states[name] = out[name][0]
+            wall[way].append((time.perf_counter() - w0) * 1e3)
+            ms[way].append(a.elapsed_time(b))
+            work[way].append(torch.cuda.max_memory_allocated() - resident)
+            if way != "plain":
+                runs = read_launches(counters)
+                if any(n != 1 for n in runs.values()):
+                    raise AssertionError(f"[sharded] vkitti2 frame {t} {way}: kernel runs {runs}")
+                for fname, n in runs.items():
+                    launches[fname] += n
+            states[way] = out[way][0]
+        check_captured("vkitti2", t, steps, out)
         _, r1, d1 = out["plain"]
         want = {k: int(v) for k, v in d1._asdict().items()}
         moved.append(want["moved_count"])
-        for name in ("sharded", "sharded_packed"):
-            _, r, d = out[name]
-            got = {k: int(v) for k, v in d._asdict().items()}
-            if got != want:
-                raise AssertionError(f"sharded vkitti2 frame {t} {name}: counters {got}, "
-                                     f"single-device {want}")
-            r = gather_render(r)
-            for field in ("occ", "label", "track"):
-                assert_equal(f"sharded vkitti2 frame {t} {name} {field}", getattr(r, field),
-                             getattr(r1, field))
-            err, differ, same = state_parting(states[name], states["plain"])
-            err = max(err, max_err(r.weight_sum, r1.weight_sum)[0])
-            if differ or err > 1e-6:
-                raise AssertionError(f"sharded vkitti2 frame {t} {name}: integer tensors {differ} "
-                                     f"differ, floats up to {err}")
-            worst, bits = max(worst, err), bits and same and torch.equal(r.weight_sum, r1.weight_sum)
-        print(f"[sharded] vkitti2 frame {t}: plain {ms['plain'][-1]:.3f} ms, sharded "
-              f"{ms['sharded'][-1]:.3f} ms, packed {ms['sharded_packed'][-1]:.3f} ms (events); "
-              f"equal to the single-device step; counters {want} ({card})")
-    del states, out
+        _, r, d = out["eager"]
+        got = {k: int(v) for k, v in d._asdict().items()}
+        if got != want:
+            raise AssertionError(f"sharded vkitti2 frame {t}: counters {got}, single-device {want}")
+        r = gather_render(r)
+        for field in ("occ", "label", "track"):
+            assert_equal(f"sharded vkitti2 frame {t} {field}", getattr(r, field), getattr(r1, field))
+        err, differ, same = state_parting(states["eager"], states["plain"])
+        err = max(err, max_err(r.weight_sum, r1.weight_sum)[0])
+        if differ or err > 1e-6:
+            raise AssertionError(f"sharded vkitti2 frame {t}: integer tensors {differ} differ, "
+                                 f"floats up to {err}")
+        worst, bits = max(worst, err), bits and same and torch.equal(r.weight_sum, r1.weight_sum)
+        print(f"[sharded] vkitti2 frame {t}: " + ", ".join(
+            f"{w} {ms[w][-1]:.3f} ms (host {wall[w][-1]:.3f})" for w in SHARDED_WAYS)
+            + f"; the captured ways bit-equal to the eager sharded step, which equals the "
+            f"single-device step; counters {want}"
+            + (f"; bridge host {bridge['host_ms'][-1]:.3f} ms, device "
+               f"{bridge['events'][-1][0].elapsed_time(bridge['events'][-1][1]):.3f} ms"
+               if t >= 1 else "") + f" ({card})")
     if not any(moved):
         raise AssertionError("sharded vkitti2: the rigid-move route moved no particle")
-    for fname in launches:
-        if launches[fname] != 2 * frames:
-            raise AssertionError(f"sharded vkitti2: {fname} launched {launches[fname]} times in "
-                                 f"{2 * frames} sharded frames")
-    med = {name: float(np.median(v)) for name, v in ms.items()}
-    print(f"[sharded] vkitti2 per-frame median over {frames} frames, in turns: single-device "
-          f"{med['plain']:.3f} ms, sharded at one rank {med['sharded']:.3f} ms, packed "
-          f"{med['sharded_packed']:.3f} ms; states bit-equal: {bits} (floats within {worst:.3e}); "
-          f"moved per frame {moved}; launches {launches} ({card})")
-    return {"frames": frames, "ms_median": med, "ms": ms, "bit_equal": bits,
-            "max_float_err": worst, "moved_count": moved, "launches": launches}
+    steps["captured"].static._bridge = static_bridge
+
+    # One more frame of each sharded way under the profiler.
+    t = frames
+    inputs = inputs_of(t)
+    prof, out = {}, {}
+    for way in sharded:
+        prof[way] = profile_frame(lambda: out.__setitem__(way, steps[way](states[way],
+                                                                           inputs[way])))
+        states[way] = out[way][0]
+    check_captured("vkitti2 profiled", t, steps, out)
+    timed = list(range(2, frames))
+    med = {w: float(np.median([ms[w][i] for i in timed])) for w in SHARDED_WAYS}
+    med_wall = {w: float(np.median([wall[w][i] for i in timed])) for w in SHARDED_WAYS}
+    device_b = [a.elapsed_time(b) for a, b in bridge["events"]]
+    bridge_ms = {"host_ms": bridge["host_ms"], "device_ms": device_b,
+                 "median_host_ms": float(np.median(bridge["host_ms"][1:])),
+                 "median_device_ms": float(np.median(device_b[1:]))}
+    memory = {"capture": work["captured"][1], "capture_packed": work["captured_packed"][1],
+              "replay": max(work["captured"][2:]), "eager": max(work["eager"]),
+              "reserved": torch.cuda.memory_reserved()}
+    api = {w: prof[w][0] for w in sharded}
+    busy = {w: {"busy_ms": prof[w][2], "wall_ms": prof[w][3], "kernels": prof[w][4]}
+            for w in sharded}
+    print(f"[sharded] vkitti2 per-frame medians over frames {timed}, in turns (events; host): "
+          + ", ".join(f"{w} {med[w]:.3f} ms ({med_wall[w]:.3f})" for w in SHARDED_WAYS)
+          + f"; captured against eager sharded {med['eager'] / med['captured']:.2f}x, against the "
+          f"single-device eager step {med['plain'] / med['captured']:.2f}x; the eager sharded step "
+          f"equals the single-device one bit for bit: {bits} (floats within {worst:.3e}); moved "
+          f"per frame {moved}; kernel runs {launches} ({card})")
+    print(f"[sharded] vkitti2 host API calls a frame (profiled frame {t}): "
+          + ", ".join(f"{w} {api[w]}" for w in sharded)
+          + f"; by name, captured: {prof['captured'][5]}; eager, the first ten: "
+          f"{dict(list(prof['eager'][5].items())[:10])}")
+    print(f"[sharded] vkitti2 device busy (profiled frame {t}): " + ", ".join(
+        f"{w} {busy[w]['busy_ms']:.3f} of {busy[w]['wall_ms']:.3f} ms "
+        f"({100 * busy[w]['busy_ms'] / busy[w]['wall_ms']:.1f}%, {busy[w]['kernels']} kernels)"
+        for w in sharded) + f" ({card})")
+    print(f"[sharded] vkitti2 the bridge (the eager SVD between the graphs), medians over frames "
+          f"2-{frames - 1}: host {bridge_ms['median_host_ms']:.3f} ms, device "
+          f"{bridge_ms['median_device_ms']:.3f} ms ({card})")
+    print(f"[sharded] vkitti2 memory a frame takes beyond the resident states: capture "
+          f"{memory['capture']} bytes (packed {memory['capture_packed']}), replay "
+          f"{memory['replay']} bytes, eager sharded {memory['eager']} bytes; reserved after "
+          f"{memory['reserved']} bytes")
+    del steps, states, out, inputs
+    torch.cuda.empty_cache()
+
+    # The noise on: both generators draw, the captured ways against the oracle.
+    noisy = FilterParams(**scenes.VK_PARAMS)
+    steps, states = build(noisy, sharded)
+    noise_ms = {w: [] for w in sharded}
+    noise_moved = []
+    for t in range(noise_frames):
+        inputs = inputs_of(t)
+        out = {}
+        for way in sharded[t % 3 :] + sharded[: t % 3]:
+            reset_launches(counters)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out[way] = steps[way](states[way], inputs[way])
+            b.record()
+            torch.cuda.synchronize()
+            noise_ms[way].append(a.elapsed_time(b))
+            runs = read_launches(counters)
+            if any(n != 1 for n in runs.values()):
+                raise AssertionError(f"[sharded] vkitti2 noise frame {t} {way}: kernel runs {runs}")
+            for fname, n in runs.items():
+                launches[fname] += n
+            states[way] = out[way][0]
+        check_captured("vkitti2 noise", t, steps, out)
+        noise_moved.append(int(out["eager"][2].moved_count))
+        print(f"[sharded] vkitti2 noise on (prediction_stddev {noisy.prediction_stddev}, depth "
+              f"noise) frame {t}: " + ", ".join(f"{w} {noise_ms[w][-1]:.3f} ms" for w in sharded)
+              + f"; the captured ways bit-equal to the eager sharded step, both generators "
+              f"included; moved {noise_moved[-1]} ({card})")
+    if not any(noise_moved):
+        raise AssertionError("sharded vkitti2 noise: the rigid move (the jitter's draws) moved nothing")
+    del steps, states, out, inputs
+    torch.cuda.empty_cache()
+    return {"frames": frames, "ms_median": med, "wall_ms_median": med_wall, "ms": ms,
+            "wall_ms": wall, "bit_equal_to_single_device": bits, "max_float_err": worst,
+            "moved_count": moved, "launches": launches, "api_calls": api,
+            "api_calls_by_name": {w: prof[w][5] for w in sharded}, "device_busy": busy,
+            "bridge": bridge_ms, "memory_bytes": memory, "noise_frames": noise_frames,
+            "noise_ms": noise_ms, "noise_moved": noise_moved}
 
 
 def check_sharded_zed2(counters, card):
     """``benchmarks.bench.run_sharded_check()`` on the card: the ZED2 preset's
     static scene, 8 frames through the single-device and the sharded step in
     turns (it raises if a render parts), then a warm-up and 8 timed sharded
-    frames.  The five kernels of the path must launch once a sharded frame."""
+    frames.  The sharded step (bbox3d: one graph, "step") must replay its
+    graph from its second frame on, and the five kernels of the path must
+    run once a sharded frame."""
+    from semantic_dsp_map_tpu_torch import step_graph
     from semantic_dsp_map_tpu_torch.benchmarks import bench
 
     reset_launches(counters)
     cell = bench.run_sharded_check()
     total = read_launches(counters)
+    replayed = dict(step_graph.replayed)
     n = 2 * cell["frames"] + 1
     for fname in (fn.__name__ for fn in counters):
-        if cell["kernel_launches"][fname] != n:
-            raise AssertionError(f"sharded zed2: {fname} launched {cell['kernel_launches'][fname]} "
-                                 f"times in {n} sharded frames")
+        if cell["kernel_launches"][fname] != n or replayed.get(fname) != n - 1:
+            raise AssertionError(f"sharded zed2: {fname} ran {cell['kernel_launches'][fname]} "
+                                 f"times in {n} sharded frames, {replayed.get(fname)} in replays")
+    if cell["graphs"] != [["frame", "step"]]:
+        raise AssertionError(f"sharded zed2: graphs {cell['graphs']}, want one, 'step'")
     print(f"[sharded] zed2 ({cell['config']}): render equal to the single-device step on "
           f"{cell['frames']} frames; {1e3 * cell['sec_per_frame']:.3f} ms/frame over {cell['frames']} "
-          f"timed frames (host clock, one synchronize); sharded launches {cell['kernel_launches']}, "
-          f"all launches of the check {total} ({card})")
+          f"timed frames (host clock, one synchronize); graph {cell['graphs']} replayed on "
+          f"{n - 1} of {n} sharded frames; sharded kernel runs {cell['kernel_launches']}, all "
+          f"of the check {total} ({card})")
     return cell
 
 
@@ -2779,11 +2956,33 @@ def check_slab_kernels(report, card):
     return rows_out
 
 
+def run_sharded(counters, card) -> dict:
+    """[sharded]'s runs in a process group of this process alone (NCCL on
+    the card): ``drive_sharded_vkitti2`` and ``check_sharded_zed2``."""
+    import torch
+    import torch.distributed as dist
+    from semantic_dsp_map_tpu_torch.parallel import distributed
+
+    distributed.initialize()
+    print(f"[sharded] process group: {dist.get_backend()}, {dist.get_world_size()} rank, torch "
+          f"{torch.__version__}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} ({card})")
+    try:
+        sharded = {"vkitti2": drive_sharded_vkitti2(counters, card)}
+        torch.cuda.empty_cache()
+        sharded["zed2"] = check_sharded_zed2(counters, card)
+    finally:
+        gc.collect()  # every graph that recorded a collective goes before the communicator
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return sharded
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "graph"), default="all",
+    ap.add_argument("--phase", choices=("all", "kernels", "graph", "sharded"), default="all",
                     help="'kernels' stops after the per-kernel checks; 'graph' runs the build "
-                         "and [graph] alone")
+                         "and [graph] alone; 'sharded' the build and [sharded]'s vkitti2 and "
+                         "zed2 runs alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     ap.add_argument("--against", metavar="DIR", type=Path,
@@ -2855,6 +3054,10 @@ def main() -> int:
     if args.phase == "graph":
         graph = {name: run_graph(name) for name in graph_paths}
         print(json.dumps({"graph": graph, "card": card}))
+        print(f"[card] {card}")
+        return 0
+    if args.phase == "sharded":
+        print(json.dumps({"sharded": run_sharded(fns, card), "card": card}))
         print(f"[card] {card}")
         return 0
     source = "semantic_dsp_map_tpu_torch/csrc/"
@@ -2999,16 +3202,9 @@ def main() -> int:
     # Phase 5: the sharded step at one rank, in a process group of this
     # process alone (NCCL on the card), then the kernels at slab shapes and
     # the weak-scaling report at one rank.
-    import torch.distributed as dist
     from semantic_dsp_map_tpu_torch.parallel import distributed
 
-    distributed.initialize()
-    print(f"[sharded] process group: {dist.get_backend()}, {dist.get_world_size()} rank ({card})")
-    sharded = {"vkitti2": drive_sharded_vkitti2(fns, card)}
-    torch.cuda.empty_cache()
-    sharded["zed2"] = check_sharded_zed2(fns, card)
-    dist.destroy_process_group()
-    torch.cuda.empty_cache()
+    sharded = run_sharded(fns, card)
     sharded["slab_shapes"] = check_slab_kernels(report, card)
     print(f"[sharded] the weak-scaling report at one rank ({card})")
     sharded["weak_scaling"] = distributed.main(["--devices", "1", "--preset", "medium"])

@@ -14,9 +14,9 @@ Cells (``--cells``, default all; scenes and parameters in ``scenes``):
   - ``vkitti2_hostile``: 20 moving cars, a near wall, ego yaw; the move cap
     of the VKITTI2 preset binds;
   - ``zed2_sharded`` (asked for by name only): the sharded step
-    (``parallel.shard_step``) at one rank on the ZED2 preset's static scene,
-    held to the single-device step's render frame by frame
-    (:func:`run_sharded_check`).
+    (``parallel.shard_step.build_shard_step``, one CUDA graph a frame on the
+    card) at one rank on the ZED2 preset's static scene, held to the
+    single-device step's render frame by frame (:func:`run_sharded_check`).
 
 Each cell builds one map, makes every frame before the clock starts, runs
 the warm-up frames, synchronizes, and then repeats the timed loop ``runs``
@@ -212,8 +212,9 @@ def run_sharded_check(iters: int = 8, device=None) -> dict:
     through the single-device step and the sharded step in turn, and the
     two renders' occ, label and track must be equal, else it raises.  Then
     ``iters`` more sharded frames are timed (host clock around the loop and
-    one synchronize).  Returns the cell's dictionary, with the kernel
-    launches of the sharded frames alone."""
+    one synchronize); on the card the sharded step replays its graph from
+    the second frame on.  Returns the cell's dictionary, with the kernel
+    launches of the sharded frames alone (``step_graph.kernel_runs``)."""
     device = resolve_device(device)
     cfg = _PRESETS["zed2"]()
     params = FilterParams(**SHARDED_PARAMS)
@@ -256,6 +257,8 @@ def run_sharded_check(iters: int = 8, device=None) -> dict:
         sync()
         dt = time.perf_counter() - t0
         launches = {k: launches[k] + v - before[k] for k, v in _launch_counts().items()}
+        graphs = sorted(list(key) for key in sharded.static.graphs)
+        del sharded  # its graphs go before the communicator they recorded
     return {
         "config": f"zed2_sharded_ranks{D}",
         "ranks": D,
@@ -264,6 +267,7 @@ def run_sharded_check(iters: int = 8, device=None) -> dict:
         "sec_per_frame": dt / iters,
         "render_equal_vs_plain": True,
         "kernel_launches": launches,
+        "graphs": graphs,
         "card": card_line(device),
     }
 

@@ -279,12 +279,18 @@ class FrameStages(NamedTuple):
     (an ``objects.ObjectFit``), ``objects.refit_svd`` of it (U, Vt), then
     ``objects_finish(fit, U, Vt)``, and ``step_graph`` captures the parts on
     either side of the SVD; elsewhere those two are None.  The object parts
-    read only the fields of ``f`` that :func:`unpack_objects` fills."""
+    read only the fields of ``f`` that :func:`unpack_objects` fills.
+    ``rank_rng`` is None for the map; the sharded stages
+    (``parallel.shard_step.build_shard_stages``) also draw from a generator
+    of the rank's own, and there it is that generator's keeper
+    (``shard_step.RankGenerator``: called with the state it returns the
+    generator, ``reseed(state)`` seeds it anew)."""
 
     objects: Callable
     rest: Callable
     objects_fit: Optional[Callable]
     objects_finish: Optional[Callable]
+    rank_rng: Optional[Callable] = None
 
 
 def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
@@ -496,8 +502,8 @@ class SemanticDSPMap:
         self.state = clear_map_state(self.state, self.cfg)
 
     def _run(self, kind: str, host):
-        """One frame from host data: ``kind`` "packed" is pack_frame's int32
-        array, "frame" a FrameInput of host arrays."""
+        """One frame: ``kind`` "packed" is pack_frame's int32 array, "frame"
+        a FrameInput."""
         if self._static is None:
             templates = self._templates.stages(self.device) if self._templates else None
             self._static = StaticStep(
@@ -513,8 +519,9 @@ class SemanticDSPMap:
         return result, diag
 
     def update_from_frame(self, frame: FrameInput):
-        """Run one frame from a host FrameInput (frontend.build_frame_input);
-        returns (RenderResult, StepDiagnostics)."""
+        """Run one frame from a FrameInput (frontend.build_frame_input) of
+        host arrays or of tensors on the device; returns (RenderResult,
+        StepDiagnostics)."""
         return self._run("frame", frame)
 
     def update(self, depth: np.ndarray, masks, cam_pos, cam_quat, time: float = 0.0):

@@ -8,8 +8,8 @@
   - :func:`spawn_ranks`: D local ranks as processes, in one group on a free
     port, every child joined under a timeout.
   - :func:`weak_scaling_report`: particle updates/s of the sharded step at
-    n ranks on an n-fold workload against the single-device step on the
-    base workload.
+    n ranks on an n-fold workload against the single-device map on the
+    base workload, both captured on the card.
 
 Run as a module for the report::
 
@@ -43,7 +43,7 @@ import torch.multiprocessing as mp
 from ..config import FilterParams, tiny_test_config
 from ..frontend import FrameInput, MaskKpts, build_frame_input
 from ..labels import LabelRegistry
-from ..map import build_frame_step
+from ..map import SemanticDSPMap
 from ..state import init_map_state, resolve_device
 from ..timing import card_line
 from .shard_step import build_shard_step, shard_caps
@@ -128,14 +128,16 @@ def _rank_main(fn, args, rank, D, device, port, timeout, results):
             dist.destroy_process_group()
 
 
-def spawn_ranks(fn, D: int, device="cpu", timeout: float = 300.0, args: Sequence = ()) -> list:
+def spawn_ranks(fn, D: int, device=None, timeout: float = 300.0, args: Sequence = ()) -> list:
     """Run ``fn(rank_device, *args)`` in D new processes, the ranks of one
     process group on a free port of 127.0.0.1, and return their results in
     rank order.  ``fn`` and ``args`` must pickle (``fn`` a module-level
-    function of a module the children can import); on the card rank r runs
-    on ``cuda:r``.  Each child runs one CPU thread.  Raises if a rank
-    raises or dies, or if the ranks take longer than ``timeout`` seconds;
-    no child outlives the call."""
+    function of a module the children can import).  ``device=None`` means
+    the card (rank r on ``cuda:r``, under NCCL) and raises without a CUDA
+    device; the CPU (gloo) is asked for by name (``"cpu"``).  Each child
+    runs one CPU thread.  Raises if a rank raises or dies, or if the ranks
+    take longer than ``timeout`` seconds; no child outlives the call."""
+    device = resolve_device(device)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
@@ -235,19 +237,31 @@ def _report_frame(cfg, registry, device) -> FrameInput:
 
 
 def _updates_per_sec(device, cfg, params, frames: int, sharded: bool) -> float:
-    """Particle updates/s of ``frames`` frames after one warm-up frame: the
-    sharded step on this rank of the default group, or the single-device
-    step.  The clock runs from a synchronized start to the read of the
-    summed counter."""
+    """Particle updates/s of ``frames`` frames after two warm-up frames (on
+    the card the eager one and the capture): the sharded step
+    (``build_shard_step``, captured on the card) on this rank of the default
+    group, or the single-device map's (``SemanticDSPMap.update_from_frame``,
+    captured on the card), as the JAX report times both sides jitted.  The
+    clock runs from a synchronized start to the read of the summed
+    counter."""
     registry = LabelRegistry.default()
     f = _report_frame(cfg, registry, device)
-    state = init_map_state(cfg, seed=0, device=device)
     if sharded:
-        state = shard_state(cfg, state, dist.get_rank(), dist.get_world_size())
-        step = build_shard_step(cfg, params, registry)
+        state = shard_state(cfg, init_map_state(cfg, seed=0, device=device), dist.get_rank(),
+                            dist.get_world_size())
+        shard = build_shard_step(cfg, params, registry)
+
+        def step():
+            nonlocal state
+            state, _result, diag = shard(state, f)
+            return diag
     else:
-        step = build_frame_step(cfg, params, registry)
-    state, _result, _diag = step(state, f)
+        dsp = SemanticDSPMap(cfg, params, registry, seed=0, device=device)
+
+        def step():
+            return dsp.update_from_frame(f)[1]
+    for _ in range(2):
+        step()
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
     sync()
     if sharded:
@@ -255,8 +269,7 @@ def _updates_per_sec(device, cfg, params, frames: int, sharded: bool) -> float:
     t0 = time.perf_counter()
     updates = torch.zeros((), dtype=torch.int64, device=device)
     for _ in range(frames):
-        state, _result, diag = step(state, f)
-        updates += diag.visible_count
+        updates += step().visible_count
     total = int(updates)
     dt = time.perf_counter() - t0
     return total / dt if dt > 0 else 0.0
@@ -266,8 +279,8 @@ def weak_scaling_report(n: int, frames: int = 10, preset: str = "tiny", device=N
     """Weak scaling: the whole workload grows n-fold with the rank count
     (``_grown_config``), so each rank holds a constant z-slab and a constant
     row slab.  Efficiency = updates/s at n ranks / (n x updates/s of the
-    single-device step on the base workload).  One rank runs in this
-    process; more are spawned (``spawn_ranks``).
+    single-device map on the base workload), both captured on the card.
+    One rank runs in this process; more are spawned (``spawn_ranks``).
 
     The JAX report's per-device compiled-FLOP ratio is an XLA compile-time
     count with no PyTorch analog; in its place the report gives the per-rank

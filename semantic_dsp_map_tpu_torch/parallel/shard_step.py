@@ -37,6 +37,16 @@ pixel with bit-equal camera depth may swap table slots; all sums downstream
 are order-independent, so results can differ only where such a tie straddles
 the rank-S cutoff.  At D = 1 the two orders are the same.
 
+The step is built in parts (:func:`build_shard_stages`, a ``map.FrameStages``
+whose object layer is the single-device one) and run, as the JAX package
+jits its ``shard_map`` step, on ``step_graph.StaticStep``: on the card the
+frame is CUDA graphs from the second frame on, the collectives recorded
+with the rest (:func:`build_shard_step`); the eager composition of the same
+parts (:func:`build_shard_step_eager`) is its oracle, bit for bit.  The
+card runs one rank (NCCL takes one rank a card): there the routes go to the
+rank itself and the halos send nothing; the routes and halos at D > 1 are
+held on the CPU (gloo), where nothing is captured.
+
 What the JAX step does not do is not done here either: there is no template
 stage (``_move_sharded`` only holds back objects flagged for re-matching,
 as the single-device step does) and the render is the occupancy render of
@@ -46,7 +56,8 @@ as the single-device step does) and the render is the occupancy render of
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -55,8 +66,10 @@ import torch.nn.functional as F
 from ..config import FilterParams, KEYPOINTS_BBOX3D, MapConfig, PARTICLE_OCC_INIT_WEIGHT
 from ..frontend import FrameInput, static_label_table
 from ..labels import LabelRegistry
-from ..map import StepDiagnostics, gumbel, rigid_move, unpack_frame
-from ..objects import ObservedInstances, expire_objects, object_level_update, ransac_draw_shape
+from ..map import (
+    FrameStages, StepDiagnostics, build_frame_stages, rigid_move, unpack_frame, unpack_objects,
+)
+from ..objects import expire_objects
 from ..ops import codecs
 from ..ops.birth import Candidates, _insert_core, newborn_candidates
 from ..ops.blocks import (
@@ -80,7 +93,8 @@ from ..ops.observe import (
 from ..ops.phd import PixelTable, stencil_pass_a_any, stencil_pass_b_any, table_from_entries
 from ..ops.projection import LabeledCloud, generate_labeled_cloud
 from ..ops.render import render_any
-from ..state import MapState, STATUS_INVALID, STATUS_REGULAR_BORN
+from ..state import MapState, STATUS_INVALID, STATUS_REGULAR_BORN, constant
+from ..step_graph import StaticStep
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +139,8 @@ def _route(fields: dict, valid, dest, D: int, cap: int, group=None) -> Routed:
     dkey = torch.where(valid & (dest >= 0) & (dest < D), dest, D).to(torch.int64)
     s_dest, s_idx = torch.sort(dkey, stable=True)
     # Rank within a bucket: position less the bucket's start (D+1 buckets).
-    counts = torch.bincount(dkey, minlength=D + 1)
+    counts = torch.zeros(D + 1, dtype=torch.int64, device=dev).index_add_(
+        0, dkey, torch.ones_like(dkey))
     rank_sorted = torch.arange(N, device=dev) - (torch.cumsum(counts, 0) - counts)[s_dest]
     ok = (s_dest < D) & (rank_sorted < cap)
     slot_sorted = torch.where(ok, s_dest * cap + rank_sorted, -1)
@@ -211,7 +226,7 @@ def _exchange_table_halo(t_loc: PixelTable, rank: int, D: int, ext0: int, group=
     planes = torch.cat([t_loc.px.view(torch.int32), t_loc.py.view(torch.int32),
                         t_loc.pz.view(torch.int32), t_loc.weight.view(torch.int32), t_loc.meta])
     fill = torch.zeros((5 * S, 1, 1), dtype=torch.int32, device=dev)
-    fill[4 * S :] = -1
+    fill[4 * S :].fill_(-1)
     top, bot = _halo_rows(planes, fill, rank, D, ext0, group)
     ext = torch.cat([top, planes, bot], dim=1)
     f32 = lambda i: ext[i * S : (i + 1) * S].view(torch.float32)
@@ -320,25 +335,42 @@ def cloud_slab(cfg: MapConfig, params: FilterParams, frame: FrameInput, r_wc, t_
 # ---------------------------------------------------------------------------
 
 
-def build_shard_step(cfg: MapConfig, params: FilterParams, registry: LabelRegistry, group=None,
-                     packed: bool = False):
-    """Returns ``step(state_slab, frame) -> (state_slab, render_slab,
-    StepDiagnostics)`` for this rank of ``group`` (None: the default group).
+class RankGenerator:
+    """The generator of this rank's own draws (the birth noise and the move
+    jitter), seeded from the state's seed and the rank: the JAX step's
+    ``fold_in(key, device)``.  Called with a state it returns the generator,
+    seeded anew whenever the state's generator is another object than the
+    last one seen (a new or restored state); ``reseed(state)`` seeds it
+    anew from ``state`` at once.  The generator is one object, seeded in
+    place, so that a CUDA graph that registered it draws from its offsets."""
 
-    ``state_slab`` is this rank's z-slab of the map state
-    (``sharding.shard_state``): its [V/D] and [V/D*K] tensors are updated in
-    place, as the single-device step updates the whole store.  ``frame`` is
-    the replicated FrameInput of device tensors or, with ``packed``, the
-    one-buffer frame of ``frontend.pack_frame`` as an int32 tensor, which
-    every rank decodes with ``map.unpack_frame``.  The render slab is the
-    rank's [V/D] share of the render; the counters are summed over the
-    ranks.
+    def __init__(self, rank: int):
+        self.rank = rank
+        self.of = None
+        self.gen = None
 
-    Draws: the object layer's come from the state's generator, which every
-    rank holds with the same seed and draws from with the same shapes, so
-    the replicated object tables stay equal.  The birth noise and the move
-    jitter come from a generator of this rank's own, seeded from the state's
-    seed and the rank (the JAX step's ``fold_in(key, device)``)."""
+    def __call__(self, state: MapState) -> torch.Generator:
+        if self.of is not state.rng:
+            self.reseed(state)
+        return self.gen
+
+    def reseed(self, state: MapState) -> None:
+        if self.gen is None:
+            self.gen = torch.Generator(device=state.voxel_stamp.device)
+        self.gen.manual_seed((state.rng.initial_seed() * 1_000_003 + self.rank + 1) % (1 << 63))
+        self.of = state.rng
+
+
+def build_shard_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
+                       group=None) -> FrameStages:
+    """The sharded step of this rank of ``group`` (None: the default group)
+    in parts, as ``map.build_frame_stages`` gives the map's: the object
+    layer is the single-device one (``objects``, and where the refit is
+    split, ``objects_fit`` and ``objects_finish``), replicated on every rank;
+    ``rest(state_slab, frame, objects)`` runs everything after it, from the
+    cloud slab to the counters' ``all_reduce``, and returns (state_slab,
+    render_slab, StepDiagnostics).  ``rank_rng`` is the rank's
+    :class:`RankGenerator`."""
     D = dist.get_world_size(group)
     rank = dist.get_rank(group)
     V, K = cfg.num_voxels, cfg.slots_per_voxel
@@ -367,14 +399,8 @@ def build_shard_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
     sky_instance = registry.static_label_to_instance.get(
         "Sky", registry.static_label_to_instance.get("sky", -1)
     ) if bbox3d else -1
-    own_rng = {"of": None, "gen": None}
-
-    def rank_generator(state: MapState) -> torch.Generator:
-        if own_rng["of"] is not state.rng:
-            g = torch.Generator(device=state.voxel_stamp.device)
-            g.manual_seed((state.rng.initial_seed() * 1_000_003 + rank + 1) % (1 << 63))
-            own_rng.update(of=state.rng, gen=g)
-        return own_rng["gen"]
+    rank_rng = RankGenerator(rank)
+    single = build_frame_stages(cfg, params, registry)
 
     # ------------------------------------------------------------------
     def _observe_sharded(particles, scroll, vox_axis, voxel_stamp, cloud_ext, depth_full,
@@ -441,7 +467,7 @@ def build_shard_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
 
         # Merge the results into the working set (home side) and write back.
         upd = ((back["m"] >> 8) & 1) == 1
-        init_w = torch.tensor(PARTICLE_OCC_INIT_WEIGHT, dtype=torch.float32, device=dev)
+        init_w = constant(PARTICLE_OCC_INIT_WEIGHT, torch.float32, dev)
         w_upd = torch.where(upd, back["w"], torch.where(far_free, init_w, ws.weight.reshape(-1)))
         shp = (A_loc, spb)
         write_back(cfg, flat, voxel_stamp, ws, w_upd.view(shp), (upd | far_free).view(shp),
@@ -562,24 +588,10 @@ def build_shard_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
                 blocks.overflow + routed.overflow + res.block_overflow)
 
     # ------------------------------------------------------------------
-    def step(state: MapState, frame: FrameInput):
+    def rest(state: MapState, frame: FrameInput, objects):
         gt = state.global_time + 1
         r_wc, t_wc, r_cw, t_cw = camera_matrices(frame.cam_pos, frame.cam_quat)
-        dev = frame.depth.device
-        gen = rank_generator(state)
-
-        # 1. Object layer, replicated: the same draws on every rank.
-        objects = state.objects
-        if cfg.consider_instance:
-            obs = ObservedInstances(
-                valid=frame.inst_valid, track=frame.inst_track, label=frame.inst_label,
-                kpts_curr=frame.kpts_curr, kpts_prev=frame.kpts_prev, kpts_count=frame.kpts_count,
-            )
-            draws = gumbel(ransac_draw_shape(cfg), state.rng, dev)
-            objects = object_level_update(
-                cfg, params, objects, obs, frame.cam_pos, r_cw, t_cw, frame.time,
-                state.prev_frame_time, gt, draws,
-            )
+        gen = rank_rng(state)
 
         # 2. Labeled cloud of the extended row slab.
         cloud_ext = cloud_slab(cfg, params, frame, r_wc, t_wc, rank, D, max_movable, sky_instance)
@@ -611,14 +623,88 @@ def build_shard_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
         dist.all_reduce(counters, group=group)
         return new_state, result, StepDiagnostics(*counters.unbind())
 
-    if not packed:
-        return step
+    # 1. The object layer, replicated: the same draws on every rank.
+    return single._replace(rest=rest, rank_rng=rank_rng)
 
+
+def _unpacker(cfg: MapConfig, registry: LabelRegistry, device) -> Callable:
+    """``map.unpack_frame`` with the registry's static label table on
+    ``device``, made here (a host copy) and never inside a capture."""
+    table = torch.from_numpy(static_label_table(registry)).to(device)
+    return functools.partial(unpack_frame, cfg, table)
+
+
+def build_shard_step_eager(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
+                           group=None, packed: bool = False):
+    """The sharded step of :func:`build_shard_stages`'s parts, composed
+    eagerly: the oracle of :func:`build_shard_step`, with the same
+    arguments and the same call.  Its ``stages`` attribute holds the parts
+    (``stages.rank_rng`` the rank's generator)."""
+    stages = build_shard_stages(cfg, params, registry, group)
     tables = {}
 
-    def step_packed(state: MapState, buf: torch.Tensor):
-        if buf.device not in tables:
-            tables[buf.device] = torch.from_numpy(static_label_table(registry)).to(buf.device)
-        return step(state, unpack_frame(cfg, tables[buf.device], buf))
+    def step(state: MapState, frame):
+        if packed:
+            if frame.device not in tables:
+                tables[frame.device] = _unpacker(cfg, registry, frame.device)
+            frame = tables[frame.device](frame)
+        return stages.rest(state, frame, stages.objects(state, frame))
 
-    return step_packed
+    step.stages = stages
+    return step
+
+
+class ShardStep:
+    """:func:`build_shard_step`'s step: the sharded parts on a
+    ``step_graph.StaticStep`` over the rank's state slab, built at the first
+    call (capturing on the card); ``static`` is that StaticStep."""
+
+    def __init__(self, cfg: MapConfig, registry: LabelRegistry, stages: FrameStages, packed: bool):
+        self.cfg, self.registry, self.stages = cfg, registry, stages
+        self.kind = "packed" if packed else "frame"
+        self.static = None
+
+    def __call__(self, state: MapState, frame):
+        if self.static is None:
+            device = state.voxel_stamp.device
+            self.static = StaticStep(
+                self.stages, _unpacker(self.cfg, self.registry, device),
+                functools.partial(unpack_objects, self.cfg), state,
+                capture=device.type == "cuda",
+            )
+        return self.static(self.kind, frame, state)
+
+
+def build_shard_step(cfg: MapConfig, params: FilterParams, registry: LabelRegistry, group=None,
+                     packed: bool = False) -> ShardStep:
+    """Returns ``step(state_slab, frame) -> (state_slab, render_slab,
+    StepDiagnostics)`` for this rank of ``group`` (None: the default group):
+    the counterpart of the JAX package's jitted ``shard_map`` step.
+
+    ``state_slab`` is this rank's z-slab of the map state
+    (``sharding.shard_state``).  ``frame`` is the replicated FrameInput of
+    device tensors or, with ``packed``, the one-buffer frame of
+    ``frontend.pack_frame`` as an int32 tensor, which every rank decodes with
+    ``map.unpack_frame`` inside the step.  The render slab is the rank's
+    [V/D] share of the render; the counters are summed over the ranks.
+
+    The step is :func:`build_shard_stages`'s parts on a
+    ``step_graph.StaticStep``: the state's tensors keep their addresses (the
+    first state's become the static ones, updated in place; a state put in
+    their place is copied into them), each frame is copied into a static
+    input, and on the card the first frame runs eagerly (it also makes
+    NCCL's communicator), the second is captured into CUDA graphs, the
+    collectives with the rest, and later frames are the copy and the
+    replays: graphs "fit" and "finish" around the refit's eager SVD, which
+    every rank runs alike, where ``step_graph.split_at_refit`` holds, else
+    one graph "step".  On the CPU (gloo) the same parts run eagerly.  A
+    capture or a replay that fails raises.  The result and the counters are
+    the caller's; the returned state is the static one.
+
+    Draws: the object layer's come from the state's generator, which every
+    rank holds with the same seed and draws from with the same shapes, so
+    the replicated object tables stay equal.  The birth noise and the move
+    jitter come from a generator of this rank's own (:class:`RankGenerator`);
+    both are registered with each graph.  :func:`build_shard_step_eager` is
+    the oracle: the same bits, frame for frame."""
+    return ShardStep(cfg, registry, build_shard_stages(cfg, params, registry, group), packed)

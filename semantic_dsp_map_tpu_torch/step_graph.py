@@ -9,15 +9,17 @@ from frame to frame:
 
 - **input**: a device ``int32`` buffer of ``pack_frame``'s length for
   ``update()`` (unpacked inside the step), one tensor per ``FrameInput``
-  field for ``update_from_frame()``; each frame is copied into them, a
-  synchronous copy, as the eager map's;
+  field for ``update_from_frame()``; each frame is copied into them: from
+  host memory a synchronous copy, as the eager map's, from the device (the
+  sharded step's callers) a device-to-device copy;
 - **state**: the particle store and the voxel stamps are updated in place by
   the step; the object table, the scroll state, the global time and the
   previous frame time come out of it as new tensors and are copied back into
   the static ones as its last operations (the counterpart of donation).  The
   map's ``state`` always names the static tensors.  A state put in their
   place from outside (``clear()``, a restored checkpoint) is copied into
-  them before the next frame, the generator's seed and offset included.
+  them before the next frame, the generator's seed and offset included
+  (and a rank generator of the stages reseeded).
   A part of the state that a caller holds across a frame takes the new
   values;
 - **output**: the RenderResult and StepDiagnostics of a replay live in the
@@ -28,9 +30,10 @@ On the card the first frame of each input kind runs eagerly (it loads the
 kernel library, sets the kernels' shared-memory attributes and warms the
 allocator); the second is captured with ``torch.cuda.graph`` and replayed;
 every later frame is the input copy and the replays.  The map's
-``torch.Generator`` is registered with each graph, so a replay draws from the
-Philox offsets the eager step would have drawn from, in the same order.  A
-capture or a replay that fails raises: there is no step back to eager.
+``torch.Generator`` (and the sharded stages' rank generator) is registered
+with each graph, so a replay draws from the Philox offsets the eager step
+would have drawn from, in the same order.  A capture or a replay that fails
+raises: there is no step back to eager.
 
 The superpoint object layer refits its RANSAC hypotheses with a Kabsch fit
 whose ``torch.linalg.svd`` reads cuSOLVER's convergence flags to the host, a
@@ -54,12 +57,24 @@ frame is one graph, "step".  Template mode is captured with the rest: its
 gate stays on the device, and each of its slots (:func:`slot_cond`) is a
 conditional IF node of the graph, whose body a replay runs only where the
 slot has work, as XLA runs only the taken branch of the JAX package's
-``lax.cond``.  The sharded step talks to other ranks through NCCL and stays
-eager (``parallel/shard_step.py``).
+``lax.cond``.
+
+The sharded step (``parallel/shard_step.build_shard_step``, the counterpart
+of the JAX package's jitted ``shard_map`` step) is a StaticStep over a
+rank's slab of the state, with the same parts and the same split: its
+stages (``shard_step.build_shard_stages``) take the object layer from
+``map.build_frame_stages`` and run the rest of the frame, the routes,
+halos and the counters' ``all_reduce`` included, inside graph "finish" or
+"step".  The collectives are recorded into the graph: the first frame runs
+eagerly and makes NCCL's communicator, so none is made under capture.  The
+sharded stages also draw from a generator of the rank's own
+(``FrameStages.rank_rng``): it is registered with every graph beside the
+state's, and reseeded where a state from outside is taken, as the eager
+sharded step reseeds it.
 
 On the CPU nothing is captured: the same static-state parts run eagerly,
 in the same order.  The eager ``map.build_frame_step`` stays the oracle of
-this step.
+this step, and ``shard_step.build_shard_step_eager`` of the sharded one.
 """
 
 from __future__ import annotations
@@ -217,9 +232,10 @@ class _Graph:
     """One captured part of the frame step and its outputs in the graph's
     memory, which each replay overwrites."""
 
-    def __init__(self, body: Callable, generator: torch.Generator, part: str):
+    def __init__(self, body: Callable, generators, part: str):
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
+        for generator in generators:
+            self.graph.register_generator_state(generator)
         self.capture = Capture(self.graph)
         before = [fn.launches for fn in FRAME_KERNELS]
         # Another map's graph destroyed during the capture (by the garbage
@@ -252,9 +268,10 @@ class StaticStep:
     ``objects_fit`` is set), ``unpack`` maps the packed buffer to a
     FrameInput on the device and ``unpack_objects`` to the part of it that
     the object layer reads (``map.unpack_objects``: the fit part's input),
-    ``state`` is the map's state, whose tensors become the static ones.
-    ``capture`` captures the step from each input kind's second frame on
-    (the card); without it every frame runs the same parts eagerly."""
+    ``state`` is the map's state (a rank's slab of it for the sharded
+    stages), whose tensors become the static ones.  ``capture`` captures
+    the step from each input kind's second frame on (the card); without it
+    every frame runs the same parts eagerly."""
 
     def __init__(self, stages, unpack: Callable, unpack_objects: Callable, state: MapState,
                  capture: bool):
@@ -267,12 +284,13 @@ class StaticStep:
         self.uv = None    # the bridge's static (U, Vt)
         self.frames = collections.Counter()
 
-    def __call__(self, kind: str, host, state: MapState):
-        """One frame from host data (``kind`` "packed": pack_frame's int32
-        array; "frame": a FrameInput of host arrays) on ``state``, the map's
-        state.  Returns (the static state, RenderResult, StepDiagnostics)."""
+    def __call__(self, kind: str, frame, state: MapState):
+        """One frame (``kind`` "packed": pack_frame's int32 array or tensor;
+        "frame": a FrameInput of arrays or tensors), from the host or the
+        device, on ``state``, the map's state.  Returns (the static state,
+        RenderResult, StepDiagnostics)."""
         self._take(state)
-        self._put(kind, host)
+        self._put(kind, frame)
         if self.split:
             fit = self._part(kind, "fit", lambda: self._fit(kind))
             self._bridge(fit)
@@ -290,7 +308,10 @@ class StaticStep:
         the second frame of ``kind`` and replayed at once."""
         graph = self.graphs.get((kind, part))
         if graph is None and self.capture and self.frames[kind] > 0:
-            graph = self.graphs[kind, part] = _Graph(body, self.state.rng, part)
+            generators = [self.state.rng]
+            if self.stages.rank_rng is not None:
+                generators.append(self.stages.rank_rng(self.state))
+            graph = self.graphs[kind, part] = _Graph(body, generators, part)
         return body() if graph is None else graph.replay()
 
     def _fit(self, kind: str):
@@ -323,20 +344,26 @@ class StaticStep:
         return result, diag
 
     def _take(self, state: MapState) -> None:
-        """Make ``state`` the map's: copied into the static tensors."""
-        if state is not self.state:
-            copy_into(self.state, state)
+        """Make ``state`` the map's: copied into the static tensors.  A state
+        with a generator of its own (a restored one) also reseeds the
+        stages' rank generator from it, as the eager sharded step does."""
+        if state is self.state:
+            return
+        foreign = state.rng is not self.state.rng
+        copy_into(self.state, state)
+        if foreign and self.stages.rank_rng is not None:
+            self.stages.rank_rng.reseed(self.state)
 
-    def _put(self, kind: str, host) -> None:
-        """Copy a frame's host data into the static input of ``kind``."""
+    def _put(self, kind: str, frame) -> None:
+        """Copy a frame into the static input of ``kind``."""
         device = self.state.voxel_stamp.device
         if kind == "packed":
-            src = torch.from_numpy(host)
+            src = _tensor(frame)
             if kind not in self.inputs:
                 self.inputs[kind] = torch.empty(src.shape, dtype=src.dtype, device=device)
             _copy_checked(self.inputs[kind], src, "packed frame")
             return
-        srcs = [torch.as_tensor(np.asarray(a)) for a in host]
+        srcs = [_tensor(a) for a in frame]
         if kind not in self.inputs:
             self.inputs[kind] = FrameInput(*(torch.empty_like(t, device=device) for t in srcs))
         for name, dst, src in zip(FrameInput._fields, self.inputs[kind], srcs):
@@ -345,6 +372,12 @@ class StaticStep:
     def _frame(self, kind: str) -> FrameInput:
         x = self.inputs[kind]
         return self.unpack(x) if kind == "packed" else x
+
+
+def _tensor(a) -> torch.Tensor:
+    """A tensor as it is (on the host or the device); an array as a host
+    tensor."""
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
 
 
 def _copy_checked(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:

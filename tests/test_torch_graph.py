@@ -14,13 +14,11 @@ they import no JAX, so on the card they run with
 
 import collections
 import dataclasses
-import traceback
 from typing import NamedTuple
 
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, SemanticDSPMap, tiny_test_config
 from semantic_dsp_map_tpu_torch import step_graph
@@ -41,6 +39,7 @@ from semantic_dsp_map_tpu_torch.state import (
 )
 from semantic_dsp_map_tpu_torch.template_engine import TemplateEngine
 
+from host_sync_audit import HostSyncAudit
 from torch_parity import (
     TEMPLATE_SCENE_CFG, TEMPLATE_SCENE_GRID, dynamic_scene, template_scene, zed2_scene,
 )
@@ -320,37 +319,6 @@ def test_split_at_refit_by_preset():
 # ---------------------------------------------------------------------------
 
 _A = torch.ops.aten
-#: Ops that, on a CUDA tensor, read the device to the host, size an output by
-#: the data, or copy from host memory (``torch.tensor`` of Python values is
-#: ``lift_fresh``): each synchronizes, and a capture refuses it.
-_HOST_SYNC = {
-    _A.lift_fresh.default, _A._local_scalar_dense.default, _A.nonzero.default,
-    _A.masked_select.default, _A.bincount.default, _A.repeat_interleave.Tensor,
-    _A.is_nonzero.default, _A.equal.default, _A._unique2.default,
-    _A.unique_consecutive.default, _A.unique_dim.default, _A._linalg_svd.default,
-    _A._linalg_check_errors.default,
-}
-_INDEXING = {_A.index.Tensor, _A.index_put_.default, _A.index_put.default,
-             _A._index_put_impl_.default}
-
-
-class HostSyncAudit(TorchDispatchMode):
-    """Counts, by op and the port's source line, the ops of ``_HOST_SYNC``
-    and indexing by a boolean mask (a ``nonzero`` on the card)."""
-
-    def __init__(self):
-        super().__init__()
-        self.hits = collections.Counter()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        hit = func in _HOST_SYNC or (func in _INDEXING and any(
-            i is not None and i.dtype in (torch.bool, torch.uint8) for i in args[1]))
-        if hit:
-            frames = [f for f in traceback.extract_stack()
-                      if "semantic_dsp_map_tpu_torch" in f.filename]
-            where = f"{frames[-1].filename.rsplit('/', 1)[-1]}:{frames[-1].lineno}"
-            self.hits[(str(func), where)] += 1
-        return func(*args, **(kwargs or {}))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

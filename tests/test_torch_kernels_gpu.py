@@ -832,7 +832,8 @@ def test_sharded_step_at_one_rank_matches_single_device(cuda, packed):
     """The sharded step in a process group of one rank (NCCL on the card),
     every kernel on: the tiny dynamic scene's counters, state and render
     equal to the single-device step's on the card, and the five kernels of
-    the path launched once a frame."""
+    the path run once a frame (``kernel_runs``: from the second frame on the
+    sharded step replays its graphs, which calls no wrapper)."""
     import torch.distributed as dist
 
     from semantic_dsp_map_tpu_torch.frontend import FrameInput, build_frame_input, pack_frame
@@ -862,10 +863,10 @@ def test_sharded_step_at_one_rank_matches_single_device(cuda, packed):
             f = FrameInput(*(torch.as_tensor(np.asarray(a)).to(cuda)
                              for a in build_frame_input(cfg, registry, *raw)))
             s1, r1, d1 = plain(s1, f)
-            before = [k.launches for k in kernels]
+            before = [kernel_runs(k) for k in kernels]
             s2, r2, d2 = sharded(s2, torch.from_numpy(pack_frame(cfg, registry, *raw)).to(cuda)
                                  if packed else f)
-            assert [k.launches - b for k, b in zip(kernels, before)] == [1] * len(kernels)
+            assert [kernel_runs(k) - b for k, b in zip(kernels, before)] == [1] * len(kernels)
             assert {k: int(v) for k, v in d2._asdict().items()} == {
                 k: int(v) for k, v in d1._asdict().items()}, f"frame {t}"
             r2 = gather_render(r2)
@@ -876,5 +877,142 @@ def test_sharded_step_at_one_rank_matches_single_device(cuda, packed):
         a, b = map_state_to_numpy(s1), map_state_to_numpy(s2)
         for key in a:
             np.testing.assert_array_equal(b[key], a[key], err_msg=key)
+        del sharded  # its graphs go before the communicator they recorded
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+def test_captured_sharded_step_equals_eager_on_the_card(cuda, packed):
+    """``build_shard_step`` at one NCCL rank (frame 0 eager, frame 1
+    captured, replays after: graphs "fit" and "finish" around the refit's
+    eager SVD) against its eager oracle ``build_shard_step_eager`` on the
+    card, 10 frames of the tiny dynamic scene with the noise on (depth
+    noise and move jitter from the rank's generator, RANSAC triples from
+    the state's): every tensor of the state by its bits, both generators,
+    the render and the nine counters equal after every frame, also after a
+    restored state (a generator of its own) is handed to both on frame 7;
+    the five kernels run once a captured frame, all in graph "finish"."""
+    import torch.distributed as dist
+
+    from semantic_dsp_map_tpu_torch.labels import LabelRegistry
+    from semantic_dsp_map_tpu_torch.parallel import distributed
+    from semantic_dsp_map_tpu_torch.parallel.shard_step import (
+        build_shard_step, build_shard_step_eager,
+    )
+    from semantic_dsp_map_tpu_torch.parallel.sharding import shard_state
+    from torch_parity import dynamic_scene
+    from torch_shard_worker import parted_names, restored_copy, step_input
+
+    cfg = tiny_test_config()
+    params = FilterParams(if_consider_depth_noise=True, nb_ptc_num_per_point=1,
+                          depth_noise_model_zero_order=0.2, prediction_stddev=0.01)
+    registry = LabelRegistry.default()
+    kernels = (phd_cuda.pass_a_cuda, phd_cuda.pass_b_cuda, render_core_cuda, front_candidates_cuda,
+               movable_voxels_cuda)
+    kind = "packed" if packed else "frame"
+    distributed.initialize(device=cuda, rank=0, world_size=1)
+    try:
+        captured = build_shard_step(cfg, params, registry, packed=packed)
+        eager = build_shard_step_eager(cfg, params, registry, packed=packed)
+        s_c = shard_state(cfg, init_map_state(cfg, 3, cuda), 0, 1)
+        s_e = shard_state(cfg, init_map_state(cfg, 3, cuda), 0, 1)
+        moved, saved = 0, None
+        for t in range(10):
+            if t == 5:
+                saved = restored_copy(s_e)
+            if t == 7:
+                s_c, s_e = restored_copy(saved), restored_copy(saved)
+            f = step_input(cfg, registry, dynamic_scene(cfg, t, MaskKpts), packed, cuda)
+            before = [kernel_runs(k) for k in kernels]
+            s_c, r_c, d_c = captured(s_c, f)
+            assert [kernel_runs(k) - b for k, b in zip(kernels, before)] == [1] * len(kernels)
+            s_e, r_e, d_e = eager(s_e, f)
+            parted = parted_names((s_c, r_c, d_c, captured.stages.rank_rng.gen),
+                             (s_e, r_e, d_e, eager.stages.rank_rng.gen))
+            assert not parted, f"frame {t}: {parted}"
+            graphs = captured.static.graphs
+            assert set(graphs) == (set() if t == 0 else {(kind, "fit"), (kind, "finish")}), t
+            if t:
+                assert not any(graphs[kind, "fit"].launches.values())
+            moved += int(d_c.moved_count)
+        assert moved > 0
+        del captured  # its graphs go before the communicator they recorded
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_collectives_record_into_a_graph(cuda):
+    """The sharded step's collectives under CUDA-graph capture at one NCCL
+    rank, as ``step_graph`` captures (``torch.cuda.graph``, its default
+    capture mode): ``all_to_all_single`` and ``all_reduce``, each captured
+    right after an eager one of its own kind (whose work the process group's
+    watchdog may still hold), 20 times over; each capture succeeds and each
+    replay gives what the eager collectives give on the replay's inputs."""
+    import torch.distributed as dist
+
+    from semantic_dsp_map_tpu_torch.parallel import distributed
+
+    distributed.initialize(device=cuda, rank=0, world_size=1)
+    try:
+        x = torch.arange(64, dtype=torch.int32, device=cuda).view(16, 4)
+        for i in range(20):
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x)
+            total = x.sum(dim=1, dtype=torch.int64)
+            dist.all_reduce(total)
+            assert torch.equal(out, x) and torch.equal(total, x.sum(dim=1, dtype=torch.int64))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                y = torch.empty_like(x)
+                dist.all_to_all_single(y, x * 2)
+                s = y.sum(dim=1, dtype=torch.int64)
+                dist.all_reduce(s)
+            x.add_(i)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y, x * 2), i
+            assert torch.equal(s, (x * 2).sum(dim=1, dtype=torch.int64)), i
+            del graph
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_a_sharded_capture_that_fails_raises(cuda, monkeypatch):
+    """The sharded step at one NCCL rank whose object layer reads the device
+    inside graph "fit" (before any collective is recorded): the first,
+    eager frame runs, the capture on the second raises, and nothing steps
+    back to eager."""
+    import torch.distributed as dist
+
+    from semantic_dsp_map_tpu_torch import map as map_module
+    from semantic_dsp_map_tpu_torch.labels import LabelRegistry
+    from semantic_dsp_map_tpu_torch.parallel import distributed
+    from semantic_dsp_map_tpu_torch.parallel.shard_step import build_shard_step
+    from semantic_dsp_map_tpu_torch.parallel.sharding import shard_state
+    from torch_parity import dynamic_scene
+    from torch_shard_worker import step_input
+
+    inner = map_module.object_fit
+
+    def reads_the_device(cfg, objects, *args):
+        int(objects.valid.sum())  # a host read
+        return inner(cfg, objects, *args)
+
+    monkeypatch.setattr(map_module, "object_fit", reads_the_device)
+    cfg = tiny_test_config()
+    registry = LabelRegistry.default()
+    distributed.initialize(device=cuda, rank=0, world_size=1)
+    try:
+        step = build_shard_step(cfg, FilterParams(), registry)
+        state = shard_state(cfg, init_map_state(cfg, 0, cuda), 0, 1)
+        state, _r, _d = step(state, step_input(cfg, registry, dynamic_scene(cfg, 0, MaskKpts),
+                                               False, cuda))
+        with pytest.raises(RuntimeError, match="capturing the frame step \\(fit\\)"):
+            step(state, step_input(cfg, registry, dynamic_scene(cfg, 1, MaskKpts), False, cuda))
+        del step
     finally:
         dist.destroy_process_group()

@@ -9,6 +9,11 @@ and 8), and the tests assert on its results.  The mirrors of
 tests/test_shard_step.py use its scenes, parameters and bounds: with the
 noise paths off the sharded step equals the single-device step bit for bit,
 packed and unpacked, and the JAX sharded step within its test's tolerances.
+``build_shard_step`` is the static path (the one the card captures), so
+these cases hold it; the ``static_*`` cases hold it against its eager oracle
+``build_shard_step_eager`` bit for bit, and the ``audit_*`` cases hold the
+capture contract on the CPU (no host read in the captured parts, a frame of
+another shape refused).
 """
 
 import concurrent.futures
@@ -74,6 +79,26 @@ MAPS = {
     "one_rank": (1, 7, CFG, EXACT, worker.raw_frames(CFG, 4, MaskKpts), False),
     "one_slot": (8, 7, ONE_SLOT_CFG, EXACT, worker.raw_frames(ONE_SLOT_CFG, 4, MaskKpts), False),
 }
+#: The static path (``build_shard_step``) against its eager oracle
+#: (``build_shard_step_eager``): name -> (ranks, seed, config, parameters,
+#: frames, packed, the frame on which both are handed a restored state).
+STATIC_NOISE = FilterParams(**worker.STATIC_NOISE_PARAMS)
+STATIC = {
+    **{f"static_{D}": (D, 7, CFG, EXACT, worker.raw_frames(CFG, 4, MaskKpts), False, None)
+       for D in (1, 2, 4, 8)},
+    **{f"static_packed_{D}": (D, 7, CFG, EXACT, worker.raw_frames(CFG, 4, MaskKpts), True, None)
+       for D in (1, 8)},
+    **{f"static_zed2_{D}": (D, 5, ZED2_CFG, EXACT,
+                            worker.raw_frames(ZED2_CFG, 4, MaskKpts, True, 4), False, None)
+       for D in (1, 8)},
+    "static_noise_4": (4, 11, CFG, STATIC_NOISE, worker.raw_frames(CFG, 5, MaskKpts), False, None),
+    "static_noise_packed_4": (4, 11, CFG, STATIC_NOISE, worker.raw_frames(CFG, 5, MaskKpts), True,
+                              None),
+    "static_restore_2": (2, 13, CFG, STATIC_NOISE, worker.raw_frames(CFG, 6, MaskKpts), False, 4),
+}
+#: The capture contract on the CPU: name -> (ranks, config, packed).
+AUDIT = {"audit_packed_1": (1, CFG, True), "audit_4": (4, CFG, False),
+         "audit_zed2_2": (2, ZED2_CFG, False)}
 #: (ranks, seed, bucket capacity): 64 holds every entry, 3 and 2 overflow.
 ROUTES = {"route_2": (2, 1, 64), "route_2_small": (2, 2, 3), "route_4": (4, 3, 64),
           "route_4_small": (4, 4, 2)}
@@ -85,6 +110,12 @@ CASES = {
        for name, (ranks, seed, cfg, params, frames, packed) in MAPS.items()},
     **{name: (ranks, "route_case", (seed, cap)) for name, (ranks, seed, cap) in ROUTES.items()},
     "halo": (8, "halo_case", HALO),
+    **{name: (ranks, "static_case", (cfg, params, frames, packed, seed, restore_at))
+       for name, (ranks, seed, cfg, params, frames, packed, restore_at) in STATIC.items()},
+    **{name: (ranks, "static_audit_case", (cfg, EXACT, worker.raw_frames(cfg, 4, MaskKpts,
+                                                                         cfg is ZED2_CFG),
+                                           packed, 3))
+       for name, (ranks, cfg, packed) in AUDIT.items()},
 }
 
 COUNTERS = ("block_overflow", "entry_overflow", "move_overflow", "birth_overflow")
@@ -210,6 +241,18 @@ def test_initialize_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distributed.initialize()
     assert not torch.distributed.is_initialized()
+
+
+def test_spawn_ranks_without_a_device_raises_without_cuda(monkeypatch):
+    """``spawn_ranks`` follows the package's device rule: with no device
+    given it means the card and raises where there is none, before any
+    process starts; the CPU is asked for by name."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(distributed.mp, "get_context", lambda *a: started.append(a))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn_ranks(worker.run_cases, 2, timeout=5.0, args=({},))
+    assert started == []
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +427,59 @@ def test_overflow_counters_fire(ranks):
         assert np.isfinite(res["state"][f"particles.{name}"]).all(), name
     assert res["diags"][-1]["born_count"] >= 0
     assert res["diags"][-1]["visible_count"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The static path (build_shard_step) against its eager oracle
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(STATIC))
+def test_static_step_equals_eager_sharded_step(ranks, name):
+    """``build_shard_step`` (state at fixed addresses, the frame copied into
+    a static input, split at the refit in superpoint mode; nothing captured
+    on the CPU) bit for bit its eager oracle ``build_shard_step_eager`` on
+    every rank and every frame: every tensor of the state, the state's and
+    the rank's generators, the render and the nine counters; the state's
+    tensors keep their addresses.  The noise cases draw from both
+    generators; the restore case hands both a restored state (a generator of
+    its own) on frame 4, on which the rank generator must be seeded anew as
+    the oracle seeds it."""
+    D, _seed, cfg, _params, _frames, _packed, _restore = STATIC[name]
+    res = _case(ranks, name)[:D]
+    for rank, r in enumerate(res):
+        assert all(not p for p in r["parted"]), (rank, r["parted"])
+        assert r["addresses_kept"], rank
+        assert r["split"] == (cfg.keypoint_mode != KEYPOINTS_BBOX3D)
+        assert r["diags"] == res[0]["diags"]
+    tot = {k: sum(d[k] for d in res[0]["diags"]) for k in ("visible_count", "born_count")}
+    assert all(v > 0 for v in tot.values()), tot
+    if cfg is CFG:  # the car moves from frame 3 on
+        assert sum(d["moved_count"] for d in res[0]["diags"]) > 0
+
+
+@pytest.mark.parametrize("name", sorted(AUDIT))
+def test_static_step_capture_contract(ranks, name):
+    """The parts that the card captures (graph "fit" before the refit's SVD
+    and graph "finish" after it; in bbox3d mode the one graph "step") run no
+    op that reads the device to the host, the routes' ``all_to_all_single``
+    and the counters' ``all_reduce`` included, on every rank; the bridge
+    makes the SVD's reads and no other; a frame of another shape than the
+    first raises."""
+    D, cfg, _packed = AUDIT[name]
+    svd = {"aten._linalg_svd.default", "aten._linalg_check_errors.default"}
+    for rank, r in enumerate(_case(ranks, name)[:D]):
+        assert r["split"] == (cfg.keypoint_mode != KEYPOINTS_BBOX3D)
+        body = r["collectives"]["_body"]
+        assert "c10d.allreduce_.default" in body and "c10d.alltoall_base_.default" in body, body
+        for part, hits in r["hits"].items():
+            if part != "_bridge":
+                assert hits == [], (rank, part, hits)
+        if r["split"]:
+            ops = {op for op, _ in r["hits"]["_bridge"]}
+            assert "aten._linalg_svd.default" in ops and ops <= svd, r["hits"]["_bridge"]
+            assert r["collectives"]["_fit"] == r["collectives"]["_bridge"] == []
+        assert r["error"] is not None and "shape" in r["error"], r["error"]
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,8 @@ that the port's sharded step runs without JAX.  Every function a rank runs
 takes the rank's device first (``parallel.distributed.spawn_ranks``).
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -13,10 +15,12 @@ import torch.distributed as dist
 from semantic_dsp_map_tpu_torch.frontend import FrameInput, build_frame_input, pack_frame
 from semantic_dsp_map_tpu_torch.labels import LabelRegistry
 from semantic_dsp_map_tpu_torch.parallel import shard_step
-from semantic_dsp_map_tpu_torch.parallel.shard_step import build_shard_step
+from semantic_dsp_map_tpu_torch.parallel.shard_step import build_shard_step, build_shard_step_eager
 from semantic_dsp_map_tpu_torch.parallel.sharding import gather_render, shard_state, unshard_state
 from semantic_dsp_map_tpu_torch.ops.phd import PixelTable
 from semantic_dsp_map_tpu_torch.state import init_map_state, map_state_to_numpy
+
+from host_sync_audit import HostSyncAudit
 
 #: The runtime parameters of tests/test_shard_step.py's exact scenarios:
 #: noise paths off, a movement filter that turns the car moving by frame 3.
@@ -32,6 +36,11 @@ NOISE_PARAMS = dict(
     prediction_stddev=0.0, occupancy_threshold=0.3, if_consider_depth_noise=True,
     depth_noise_model_zero_order=0.05, depth_noise_model_first_order=0.01,
 )
+#: The static path against its oracle with the noise on: depth noise (the
+#: birth's draws) and the rigid move's jitter, both from the rank's
+#: generator, RANSAC triples from the state's.
+STATIC_NOISE_PARAMS = dict(EXACT_PARAMS, if_consider_depth_noise=True,
+                           depth_noise_model_zero_order=0.05, prediction_stddev=0.01)
 #: Its overflow scenario.
 OVERFLOW_PARAMS = dict(
     detection_probability=0.9, noise_number=0.01, nb_ptc_num_per_point=1,
@@ -102,6 +111,132 @@ def run_map(device, cfg, params, frames, packed, seed, group):
     if rank == 0:
         out.update(state=whole, render=render)
     return out
+
+
+def step_input(cfg, registry, raw, packed, device):
+    """A raw frame as the sharded step's input on ``device``: the packed
+    buffer, or the FrameInput of tensors."""
+    if packed:
+        return torch.from_numpy(pack_frame(cfg, registry, *raw)).to(device)
+    return frame_tensors(cfg, registry, raw, device)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _leaves(state):
+    """(name, tensor) of every tensor of a map state."""
+    out = []
+    for field in dataclasses.fields(state):
+        v = getattr(state, field.name)
+        if isinstance(v, torch.Tensor):
+            out.append((field.name, v))
+        elif dataclasses.is_dataclass(v):
+            out += [(f"{field.name}.{k}", t) for k, t in _leaves(v)]
+    return out
+
+
+def restored_copy(state):
+    """A state from outside with ``state``'s values: every tensor cloned, a
+    generator of its own in the same state (as a restored checkpoint)."""
+    rng = torch.Generator(device=state.rng.device)
+    rng.set_state(state.rng.get_state())
+    clone = lambda obj: dataclasses.replace(obj, **{
+        f.name: (getattr(obj, f.name).clone() if isinstance(getattr(obj, f.name), torch.Tensor)
+                 else clone(getattr(obj, f.name)))
+        for f in dataclasses.fields(obj) if f.name != "rng"})
+    return dataclasses.replace(clone(state), rng=rng)
+
+
+def parted_names(a, b):
+    """Names of what two sharded steps' outputs do not hold bit for bit:
+    (state, render, counters, the state's generator, the rank generator)."""
+    (sa, ra, da, ga), (sb, rb, db, gb) = a, b
+    out = [n for (n, x), (_, y) in zip(_leaves(sa), _leaves(sb)) if not torch.equal(_bits(x), _bits(y))]
+    out += [f"render.{n}" for n in ra._fields
+            if not torch.equal(_bits(getattr(ra, n)), _bits(getattr(rb, n)))]
+    if {k: int(v) for k, v in da._asdict().items()} != {k: int(v) for k, v in db._asdict().items()}:
+        out.append("diagnostics")
+    if not torch.equal(sa.rng.get_state(), sb.rng.get_state()):
+        out.append("rng")
+    if not torch.equal(ga.get_state(), gb.get_state()):
+        out.append("rank_rng")
+    return out
+
+
+def static_case(device, cfg, params, frames, packed, seed, restore_at, group):
+    """``build_shard_step`` (the static path) against ``build_shard_step_eager``
+    (its oracle) on the same frames, each on a state of its own: after every
+    frame the states (every tensor by its bits), both generators, the renders
+    and the nine counters must be equal.  At frame ``restore_at`` each is
+    handed a state from outside: a copy of the oracle's state of two frames
+    before, with a generator of its own (a restored checkpoint).  Returns
+    what parted on each frame, the counters, whether the static state's
+    tensors kept their addresses (and the returned state is the static one),
+    and whether the step was split at the refit."""
+    registry = LabelRegistry.default()
+    D, rank = dist.get_world_size(group), dist.get_rank(group)
+    static = build_shard_step(cfg, params, registry, group=group, packed=packed)
+    eager = build_shard_step_eager(cfg, params, registry, group=group, packed=packed)
+    s_static = shard_state(cfg, init_map_state(cfg, seed, device), rank, D)
+    s_eager = shard_state(cfg, init_map_state(cfg, seed, device), rank, D)
+    first, kept, saved = s_static, True, {}
+    ptrs = {n: t.data_ptr() for n, t in _leaves(s_static)}
+    parted, diags = [], []
+    for t, raw in enumerate(frames):
+        if restore_at is not None and t == restore_at - 2:
+            saved = restored_copy(s_eager)
+        if t == restore_at:
+            s_static, s_eager = restored_copy(saved), restored_copy(saved)
+        f = step_input(cfg, registry, raw, packed, device)
+        s_static, r_s, d_s = static(s_static, f)
+        s_eager, r_e, d_e = eager(s_eager, f)
+        parted.append(parted_names((s_static, r_s, d_s, static.stages.rank_rng.gen),
+                              (s_eager, r_e, d_e, eager.stages.rank_rng.gen)))
+        diags.append({k: int(v) for k, v in d_s._asdict().items()})
+        kept &= s_static is first and {n: x.data_ptr() for n, x in _leaves(s_static)} == ptrs
+    return {"parted": parted, "diags": diags, "addresses_kept": kept,
+            "split": static.static.split}
+
+
+def static_audit_case(device, cfg, params, frames, packed, seed, group):
+    """The static path's parts on the CPU under a dispatch-mode audit, the
+    stand-in for a capture: two frames, then on the third the parts that the
+    card captures (``_fit`` and ``_body``, the collectives inside) must run
+    no op that reads the device to the host, and the bridge only the SVD's.
+    Then a frame of another shape must raise.  Returns each part's hits and
+    collectives, whether the step was split, and the error of the last
+    frame."""
+    registry = LabelRegistry.default()
+    D, rank = dist.get_world_size(group), dist.get_rank(group)
+    step = build_shard_step(cfg, params, registry, group=group, packed=packed)
+    state = shard_state(cfg, init_map_state(cfg, seed, device), rank, D)
+    for raw in frames[:2]:
+        state, _r, _d = step(state, step_input(cfg, registry, raw, packed, device))
+    static = step.static
+    parts = ("_fit", "_bridge", "_body") if static.split else ("_body",)
+    audits = {name: HostSyncAudit() for name in parts}
+
+    def audited(name, fn):
+        def run(*args):
+            with audits[name]:
+                return fn(*args)
+        return run
+
+    for name in parts:
+        setattr(static, name, audited(name, getattr(static, name)))
+    state, _r, _d = step(state, step_input(cfg, registry, frames[2], packed, device))
+    f = step_input(cfg, registry, frames[3], packed, device)
+    wrong = f[:-1] if packed else f._replace(depth=f.depth[:-1])
+    try:
+        step(state, wrong)
+        error = None
+    except ValueError as err:
+        error = str(err)
+    return {"split": static.split, "error": error,
+            "hits": {n: sorted(a.hits) for n, a in audits.items()},
+            "collectives": {n: sorted(a.collectives) for n, a in audits.items()}}
 
 
 def route_case(device, seed, cap, group):
