@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase kernels   # build + per-kernel checks only
     python3 chip_smoke.py --phase graph     # build + [graph] only
     python3 chip_smoke.py --phase sharded   # build + [sharded]'s vkitti2 and zed2 runs only
+    python3 chip_smoke.py --phase scan      # build + [scan] only (the sharded part too)
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
     python3 chip_smoke.py --against DIR     # also time both PHD passes, the render,
                                             # the front scan and the gather built from
@@ -80,11 +81,30 @@ Phases (any failure raises, and the script exits nonzero):
      frames.  Both per-frame medians, the SVD bridge's host and device ms,
      host API calls a frame (by name), device busy share, the memory a frame
      takes, the five kernels' device time inside a replay
-     (torch.profiler), and in template mode a replay's device time with a
-     taken branch.  Every main path's map replays its
+     (torch.profiler) and the top 15 ops of the replayed frame by device ms
+     with their launches, and in template mode a replay's device time with
+     a taken branch.  Every main path's map replays its
      graph; a path's launch counts are a wrapper's launches outside graphs
      plus those captured into a graph times its replays
      (step_graph.kernel_runs);
+  4c. [scan]: the segment scans (ops/blocks.py: segment_start_index,
+     group_rank, segment_cumsum) against the torch.cummax form the port
+     used before, written out here as the plain reference.  First the
+     frames, old against new: at vkitti2, zed2 and the hostile scene,
+     noise on, two maps fed
+     the same 10 frames in turns, one built as the package builds it and
+     one whose every frame runs with the modules that bind the scans
+     (ops.blocks, ops.observe, ops.birth, parallel.shard_step) holding the
+     cummax form (patched here only, inside the map's calls): bit-equal
+     every frame (state, generator, render, counters); update() medians,
+     the medians of 10 loops of 8 frames each with one synchronize a loop
+     (new, cummax, cummax, new, five times), device busy, host API calls and the top 15 ops of one profiled
+     replayed frame of each.  Then the primitives at every length those
+     frames ran them at and at 58,720,256: integers equal at start
+     densities 0 to 1, eagerly and (below 58.7M) in a CUDA graph; times
+     with CUDA events beside the cummax form, torch.cumsum on the same
+     length and the bytes' bound at 3.35 TB/s.  In [sharded], the same
+     old-against-new pair on the captured sharded step at one rank;
   5. [sharded]: the sharded step (parallel/shard_step.py) at one rank, in a
      process group of this process alone (NCCL): at the VKITTI2 preset with
      the movers, 8 frames, four ways in turns, timed with CUDA events: the
@@ -2227,6 +2247,17 @@ def profile_frame(run):
             dict(api.most_common()))
 
 
+def top_ops(by_name, n=15):
+    """The ``n`` ops of a profiled frame (``profile_frame``'s device ms by
+    kernel name) with the most device ms: [{op, ms, launches}]."""
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [{"op": op, "ms": ms, "launches": count} for op, (ms, count) in rows]
+
+
+def top_ops_line(rows) -> str:
+    return "; ".join(f"{r['ms']:.4f} ms x{r['launches']} {r['op'][:100]}" for r in rows)
+
+
 @contextlib.contextmanager
 def sync_debug_errors():
     """Inside the block an op that synchronizes the card with the host
@@ -2475,6 +2506,9 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10, template_pa
           + f"; movable scan bound on this store {bound_m['bound_ms']:.4f} ms by bytes ({n_set} "
           f"slots with a status, {n_alive} alive), share "
           f"{bound_m['bound_ms'] / in_graph['movable_voxels']:.3f} ({card})")
+    ops_g = top_ops(kernels_g)
+    print(f"[graph] {name}: the top {len(ops_g)} ops of the replayed frame {t} by device ms "
+          f"(profiler; ms, launches, op): {top_ops_line(ops_g)} ({card})")
     print(f"[graph] {name}: launches {launches} ({frames} frames each), captured {captured}, "
           f"replayed {replayed}")
     template = {}
@@ -2507,9 +2541,312 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10, template_pa
             "device_kernels": {"graph": n_g, "eager": n_e},
             "device_busy_ms": {"graph": busy_g, "eager": busy_e},
             "profiled_wall_ms": {"graph": wall_g, "eager": wall_e}, "memory_bytes": peak,
-            "kernel_ms_in_replay": in_graph, "movable_bound": bound_m,
+            "kernel_ms_in_replay": in_graph, "top_ops": ops_g, "movable_bound": bound_m,
             "movable_slots": {"status_set": n_set, "alive": n_alive}, "object_layer": objects,
             "launches": launches, "template": template}
+
+
+# ---------------------------------------------------------------------------
+# [scan]: the segment scans, the torch.cummax form against the package's
+# ---------------------------------------------------------------------------
+
+#: [scan]'s start densities (the share of elements that start a segment;
+#: element 0 always does) and the one its times are taken at.
+SCAN_DENSITIES = (0.0, 0.001, 0.01, 0.1, 0.5, 1.0)
+SCAN_TIMED_DENSITY = 0.1
+#: [scan]'s largest length: V*K at VKITTI2, prim_bench1's cummax line.
+SCAN_BIG = 58_720_256
+#: The two maps of [scan]'s frames: built as the package builds them, and
+#: built and captured with the scans in their torch.cummax form.
+SCAN_WAYS = ("new", "cummax")
+
+
+def segment_start_cummax(is_start):
+    """The port's ``ops.blocks.segment_start_index`` as it was before: a
+    running max of the starts' indices (``torch.cummax``).  [scan]'s plain
+    reference."""
+    import torch
+
+    idx = torch.arange(is_start.shape[0], device=is_start.device)
+    return torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+
+
+def group_rank_cummax(sorted_key):
+    """``ops.blocks.group_rank`` over ``segment_start_cummax``."""
+    import torch
+
+    n = sorted_key.shape[0]
+    is_start = torch.ones(n, dtype=torch.bool, device=sorted_key.device)
+    is_start[1:] = sorted_key[1:] != sorted_key[:-1]
+    return torch.arange(n, device=sorted_key.device) - segment_start_cummax(is_start)
+
+
+def segment_cumsum_cummax(values, is_start):
+    """observe's count of visible entries within a pixel's run as it was
+    before: the running count less its value before the run's start, the
+    start by ``segment_start_cummax``."""
+    import torch
+
+    start = segment_start_cummax(is_start)
+    cs = torch.cumsum(values, 0)
+    return cs - (cs[start] - values[start])
+
+
+@contextlib.contextmanager
+def cummax_scans(calls):
+    """Inside the block the modules that bind the segment scans
+    (``ops.blocks``, ``ops.observe``, ``ops.birth``, ``parallel.shard_step``)
+    hold the ``torch.cummax`` forms above, and ``calls`` (a Counter) counts
+    each call by (function, length).  A step built and captured inside the
+    block runs the old form in every replay.  Nothing of the package
+    changes outside the block."""
+    from semantic_dsp_map_tpu_torch.ops import birth, blocks, observe
+    from semantic_dsp_map_tpu_torch.parallel import shard_step
+
+    def counted(name, fn):
+        def run(x, *rest):
+            calls[name, x.shape[0]] += 1
+            return fn(x, *rest)
+        return run
+
+    patches = [
+        (blocks, "segment_start_index", counted("segment_start_index", segment_start_cummax)),
+        (observe, "segment_cumsum", counted("segment_cumsum", segment_cumsum_cummax))]
+    patches += [(m, "group_rank", counted("group_rank", group_rank_cummax))
+                for m in (blocks, birth, shard_step)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
+    for m, name, fn in patches:
+        setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def check_scans(lengths, card, reps=20):
+    """[scan]'s primitives at each length of ``lengths`` (length -> where
+    the frame runs it): ``segment_start_index``, ``group_rank`` and
+    ``segment_cumsum`` of ``ops.blocks`` against their ``torch.cummax``
+    forms, integers equal at every start density of SCAN_DENSITIES (keys
+    sorted, runs as the starts say); then, at SCAN_TIMED_DENSITY, each
+    timed with CUDA events (with the launches and with them queued behind
+    a device-side spin) beside its cummax form and ``torch.cumsum`` on the
+    same length, and beside its bound: the bytes it must move at the
+    memory rate (the bool starts 1 byte an element, int64 keys, values and
+    results 8), and ``segment_start_index``'s four parts alone
+    (device-only).  Below SCAN_BIG the three also run in one CUDA graph,
+    checked against the cummax forms after a replay and timed inside a
+    graph.  Returns a row a length."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import blocks
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    names = ("segment_start_index", "group_rank", "segment_cumsum")
+    rows = []
+    for n, used_by in sorted(lengths.items()):
+        row = {"n": n, "used_by": used_by, "densities": list(SCAN_DENSITIES)}
+        for d in SCAN_DENSITIES:
+            s = torch.rand(n, generator=gen, device="cuda") < d
+            s[0] = True
+            keys = torch.cumsum(s, 0) * 7
+            v = (torch.rand(n, generator=gen, device="cuda") < 0.6).to(torch.int64)
+            new = (blocks.segment_start_index(s), blocks.group_rank(keys),
+                   blocks.segment_cumsum(v, s))
+            old = (segment_start_cummax(s), group_rank_cummax(keys), segment_cumsum_cummax(v, s))
+            for name, x, y in zip(names, new, old):
+                assert_equal(f"[scan] {name} n={n} density {d}", x, y)
+            if d == SCAN_TIMED_DENSITY:
+                timed = (s, keys, v, old)
+            del new, old
+        s, keys, v, old = timed
+        fns = {"segment_start_index": (lambda: blocks.segment_start_index(s),
+                                       lambda: segment_start_cummax(s), 9 * n),
+               "group_rank": (lambda: blocks.group_rank(keys), lambda: group_rank_cummax(keys),
+                              16 * n),
+               "segment_cumsum": (lambda: blocks.segment_cumsum(v, s),
+                                  lambda: segment_cumsum_cummax(v, s), 17 * n)}
+        old_reps = 3 if n >= SCAN_BIG else reps
+        for name, (fn, fn_old, n_bytes) in fns.items():
+            row[name] = {"ms": cuda_ms(fn, reps), "device_only_ms": cuda_ms(fn, reps, queued=True),
+                         "cummax_ms": cuda_ms(fn_old, old_reps), **bound(n_bytes)}
+        cumsum = lambda: torch.cumsum(s, 0)
+        row["cumsum"] = {"ms": cuda_ms(cumsum, reps),
+                         "device_only_ms": cuda_ms(cumsum, reps, queued=True), **bound(9 * n)}
+        # segment_start_index's parts, device-only: the segment id, the two
+        # selects, the scatter (the non-starts all into one spare slot), the
+        # gather.
+        seg = torch.cumsum(s, 0) - 1
+        idx = torch.arange(n, device="cuda")
+        at, val = torch.where(s, seg, n), torch.where(s, idx, 0)
+        first = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+        parts = {"segment_id": lambda: torch.cumsum(s, 0) - 1,
+                 "selects": lambda: (torch.where(s, seg, n), torch.where(s, idx, 0)),
+                 "scatter": lambda: first.index_copy_(0, at, val), "gather": lambda: first[seg]}
+        row["segment_start_index"]["parts_device_only_ms"] = {
+            k: cuda_ms(fn, reps, queued=True) for k, fn in parts.items()}
+        del seg, idx, at, val, first, parts
+        if n < SCAN_BIG:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = (blocks.segment_start_index(s), blocks.group_rank(keys),
+                       blocks.segment_cumsum(v, s))
+            graph.replay()
+            torch.cuda.synchronize()
+            for name, x, y in zip(names, got, old):
+                assert_equal(f"[scan] {name} n={n} in a CUDA graph", x, y)
+            del graph, got
+            for name, (fn, _, _) in fns.items():
+                row[name]["graph_ms"] = graph_ms(fn)
+        del s, keys, v, old, timed
+        torch.cuda.empty_cache()
+        rows.append(row)
+        graph_note = ", eagerly and in a CUDA graph" if n < SCAN_BIG else ", eagerly"
+        print(f"[scan] n={n} ({'; '.join(used_by)}): equal to the cummax forms at start densities "
+              f"{list(SCAN_DENSITIES)}{graph_note}; at density {SCAN_TIMED_DENSITY}, ms (events "
+              f"around the call; device-only; in a graph) against the cummax form, and the bound: "
+              + "; ".join(
+                  f"{name} {row[name]['ms']:.4f} ({row[name]['device_only_ms']:.4f}; "
+                  f"{row[name].get('graph_ms', float('nan')):.4f}) against "
+                  f"{row[name]['cummax_ms']:.4f}, bound {row[name]['bound_ms']:.4f} by "
+                  f"{row[name]['bound_by']}" for name in names)
+              + f"; torch.cumsum of the starts {row['cumsum']['ms']:.4f} "
+              f"({row['cumsum']['device_only_ms']:.4f}), bound {row['cumsum']['bound_ms']:.4f}; "
+              f"segment_start_index's parts, device-only: " + ", ".join(
+                  f"{part} {t:.4f}"
+                  for part, t in row["segment_start_index"]["parts_device_only_ms"].items())
+              + f" ({card})")
+    return rows
+
+
+def drive_scan_frames(name, cfg, params, synth, counters, card, frames=10, loop=8, rounds=5):
+    """[scan]'s frames: two maps of one preset fed the same frames, the
+    preset's noise on: "new", built as the package builds it, and "cummax",
+    whose every frame (the eager first, the captured second, the replays
+    after) runs inside ``cummax_scans``.  ``frames`` frames in turns, each
+    timed with CUDA events around ``update()`` and on the host's clock with
+    a synchronize: state (the generator too), render and counters
+    bit-equal every frame.  Then ``rounds`` rounds of loops of ``loop``
+    frames with one synchronize at the end of each, as the bench loops run,
+    in turns (new, cummax, cummax, new; each pair on the same frames), and
+    last one more
+    replayed frame of each under torch.profiler (device busy, host API
+    calls, the top 15 ops).  The launch counts are set to 0 before the
+    first frame and read after the last.  Returns the numbers, the scans'
+    calls by (function, length) among them."""
+    import collections
+
+    import torch
+    from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap
+
+    reset_launches(counters)
+    calls = collections.Counter()
+    maps = {way: SemanticDSPMap(cfg, params, device="cuda") for way in SCAN_WAYS}
+    total = frames + 2 * rounds * loop + 1
+    scenes = [synth(cfg, t, MaskKpts) for t in range(total)]
+
+    def frame(way, t):
+        with cummax_scans(calls) if way == "cummax" else contextlib.nullcontext():
+            return maps[way].update(*scenes[t], 0.1 * t)
+
+    def check(tag, out):
+        parted = frame_parting(*((maps[w].state, *out[w]) for w in SCAN_WAYS))
+        if parted:
+            raise AssertionError(f"[scan] {name} {tag}: the cummax map parts from the package's "
+                                 f"in {parted}")
+
+    ms = {w: [] for w in SCAN_WAYS}
+    wall = {w: [] for w in SCAN_WAYS}
+    for t in range(frames):
+        out = {}
+        for way in SCAN_WAYS if t % 2 == 0 else SCAN_WAYS[::-1]:
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            w0 = time.perf_counter()
+            a.record()
+            out[way] = frame(way, t)
+            b.record()
+            torch.cuda.synchronize()
+            wall[way].append((time.perf_counter() - w0) * 1e3)
+            ms[way].append(a.elapsed_time(b))
+        check(f"frame {t}", out)
+        print(f"[scan] {name} frame {t}: " + ", ".join(
+            f"{w} {ms[w][-1]:.3f} ms (host {wall[w][-1]:.3f})" for w in SCAN_WAYS)
+            + f"; state, generator, render and counters bit-equal ({card})")
+    if {fn for fn, _ in calls} != {"segment_cumsum", "group_rank"}:
+        raise AssertionError(f"[scan] {name}: the cummax map's scans ran as {dict(calls)}")
+
+    loop_ms = {w: [] for w in SCAN_WAYS}
+    for i, way in enumerate(("new", "cummax", "cummax", "new") * rounds):
+        first = frames + (i // 2) * loop
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        for t in range(first, first + loop):
+            out[way] = frame(way, t)
+        torch.cuda.synchronize()
+        loop_ms[way].append((time.perf_counter() - w0) * 1e3 / loop)
+    check(f"after the loops (frame {total - 2})", out)
+    t = total - 1
+    prof = {}
+    for way in SCAN_WAYS:
+        prof[way] = profile_frame(lambda: out.__setitem__(way, frame(way, t)))
+    check(f"profiled frame {t}", out)
+    launches = read_launches(counters)
+    if any(n != 2 * total for n in launches.values()):
+        raise AssertionError(f"[scan] {name}: launches {launches} in {total} frames of each map")
+    api = {w: prof[w][0] for w in SCAN_WAYS}
+    if api["new"] != api["cummax"]:
+        raise AssertionError(f"[scan] {name}: host API calls a replayed frame {api}")
+    timed = list(range(2, frames))
+    med = {w: float(np.median([ms[w][i] for i in timed])) for w in SCAN_WAYS}
+    med_wall = {w: float(np.median([wall[w][i] for i in timed])) for w in SCAN_WAYS}
+    med_loop = {w: float(np.median(loop_ms[w])) for w in SCAN_WAYS}
+    ops = {w: top_ops(prof[w][1]) for w in SCAN_WAYS}
+    busy = {w: {"busy_ms": prof[w][2], "wall_ms": prof[w][3], "kernels": prof[w][4]}
+            for w in SCAN_WAYS}
+    print(f"[scan] {name}: medians over frames {timed}, in turns (update(), events; host): "
+          + ", ".join(f"{w} {med[w]:.3f} ms ({med_wall[w]:.3f})" for w in SCAN_WAYS)
+          + f"; {2 * rounds} loops each of {loop} frames, one synchronize a loop, ms a frame, "
+          f"median (all): " + ", ".join(
+              f"{w} {med_loop[w]:.3f} (" + " / ".join(f"{x:.3f}" for x in loop_ms[w]) + ")"
+              for w in SCAN_WAYS)
+          + f"; a replayed frame (profiled frame {t}): " + ", ".join(
+              f"{w} device busy {busy[w]['busy_ms']:.3f} of {busy[w]['wall_ms']:.3f} ms, "
+              f"{busy[w]['kernels']} kernels, {api[w]} host API calls" for w in SCAN_WAYS)
+          + f" ({card})")
+    for w in SCAN_WAYS:
+        print(f"[scan] {name} {w}: the top {len(ops[w])} ops of the replayed frame by device ms "
+              f"(profiler; ms, launches, op): {top_ops_line(ops[w])} ({card})")
+    print(f"[scan] {name}: the cummax map's scans by (function, length), calls: "
+          f"{sorted(calls.items())}; launches {launches} ({total} frames each)")
+    return {"ms": ms, "wall_ms": wall, "median_ms": med, "median_wall_ms": med_wall,
+            "loop_ms_per_frame": loop_ms, "median_loop_ms": med_loop, "api_calls": api, "device_busy": busy, "top_ops": ops,
+            "scan_calls": sorted(calls), "launches": launches}
+
+
+def run_scan(counters, card) -> dict:
+    """[scan]: the frames of ``drive_scan_frames`` at the VKITTI2 and the
+    ZED2 preset and on the hostile scene (the bench's host-bound cell),
+    then ``check_scans`` at every length those frames' scans ran at and at
+    SCAN_BIG."""
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, virtual_kitti2_config, zed2_config
+
+    scenes = bench_scenes()
+    frames = {}
+    for name, cfg, params, synth in (
+            ("vkitti2", virtual_kitti2_config(), scenes.VK_PARAMS, scenes.synth_vkitti2_frame),
+            ("zed2", zed2_config(), scenes.ZED2_PARAMS, scenes.synth_zed2_frame),
+            ("vkitti2_hostile", virtual_kitti2_config(), scenes.VK_PARAMS,
+             scenes.synth_hostile_frame)):
+        frames[name] = drive_scan_frames(name, cfg, FilterParams(**params), synth, counters, card)
+        torch.cuda.empty_cache()
+    lengths = {SCAN_BIG: ["V*K at VKITTI2"]}
+    for name, out in frames.items():
+        for fn, n in out["scan_calls"]:
+            lengths.setdefault(n, []).append(f"{name} {fn}")
+    return {"frames": frames, "lengths": check_scans(lengths, card)}
 
 
 def drive_rematch(counters, card, lost=5, frames=7):
@@ -2590,17 +2927,14 @@ def state_parting(a, b):
     return worst, differ, bits and not differ
 
 
-def sharded_parting(a, b, gen_a, gen_b):
-    """Names of what two sharded frames (state, render, counters; each way's
-    rank generator ``gen_*``) do not hold bit for bit, the state's
-    generator and the rank's included."""
+def frame_parting(a, b):
+    """Names of what two frames (state, render, counters) do not hold bit
+    for bit, the state's generator included."""
     import torch
 
     (sa, ra, da), (sb, rb, db) = a, b
     bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
     out = states_differ(sa, sb)
-    if not torch.equal(gen_a.get_state(), gen_b.get_state()):
-        out.append("rank_rng")
     out += [f"render.{f}" for f in ra._fields
             if not torch.equal(bits(getattr(ra, f)), bits(getattr(rb, f)))]
     if {k: int(v) for k, v in da._asdict().items()} != {k: int(v) for k, v in db._asdict().items()}:
@@ -2608,10 +2942,32 @@ def sharded_parting(a, b, gen_a, gen_b):
     return out
 
 
+def sharded_parting(a, b, gen_a, gen_b):
+    """``frame_parting`` of two sharded frames, each way's rank generator
+    ``gen_*`` included."""
+    out = frame_parting(a, b)
+    if not gen_a.get_state().equal(gen_b.get_state()):
+        out.append("rank_rng")
+    return out
+
+
 #: The ways [sharded] runs the VKITTI2 frame in turns: the single-device
 #: eager step, the eager sharded step (the oracle), the captured sharded
 #: step on the FrameInput and on the packed buffer.
 SHARDED_WAYS = ("plain", "eager", "captured", "captured_packed")
+
+
+def sharded_inputs(cfg, registry, t):
+    """Frame t of the VKITTI2 scene on the card, as a FrameInput and as the
+    packed buffer."""
+    import torch
+    from semantic_dsp_map_tpu_torch import MaskKpts
+    from semantic_dsp_map_tpu_torch.frontend import FrameInput, build_frame_input, pack_frame
+
+    raw = (*bench_scenes().synth_vkitti2_frame(cfg, t, MaskKpts), 0.1 * t)
+    f = FrameInput(*(torch.as_tensor(np.asarray(a)).to("cuda")
+                     for a in build_frame_input(cfg, registry, *raw)))
+    return f, torch.from_numpy(pack_frame(cfg, registry, *raw)).to("cuda")
 
 
 def drive_sharded_vkitti2(counters, card, frames=8, noise_frames=6):
@@ -2637,8 +2993,7 @@ def drive_sharded_vkitti2(counters, card, frames=8, noise_frames=6):
     move jitter): the captured ways against the oracle, bit for bit, which
     shows that replays draw from both generators.  Returns the numbers."""
     import torch
-    from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, virtual_kitti2_config
-    from semantic_dsp_map_tpu_torch.frontend import FrameInput, build_frame_input, pack_frame
+    from semantic_dsp_map_tpu_torch import FilterParams, virtual_kitti2_config
     from semantic_dsp_map_tpu_torch.labels import LabelRegistry
     from semantic_dsp_map_tpu_torch.map import build_frame_step
     from semantic_dsp_map_tpu_torch.parallel.shard_step import (
@@ -2663,11 +3018,8 @@ def drive_sharded_vkitti2(counters, card, frames=8, noise_frames=6):
         return {w: steps[w] for w in ways}, states
 
     def inputs_of(t):
-        raw = (*scenes.synth_vkitti2_frame(cfg, t, MaskKpts), 0.1 * t)
-        f = FrameInput(*(torch.as_tensor(np.asarray(a)).to(dev)
-                         for a in build_frame_input(cfg, registry, *raw)))
-        return {"plain": f, "eager": f, "captured": f,
-                "captured_packed": torch.from_numpy(pack_frame(cfg, registry, *raw)).to(dev)}
+        f, packed = sharded_inputs(cfg, registry, t)
+        return {"plain": f, "eager": f, "captured": f, "captured_packed": packed}
 
     def check_captured(tag, t, steps, out):
         for way in ("captured", "captured_packed"):
@@ -2796,6 +3148,9 @@ def drive_sharded_vkitti2(counters, card, frames=8, noise_frames=6):
         f"{w} {busy[w]['busy_ms']:.3f} of {busy[w]['wall_ms']:.3f} ms "
         f"({100 * busy[w]['busy_ms'] / busy[w]['wall_ms']:.1f}%, {busy[w]['kernels']} kernels)"
         for w in sharded) + f" ({card})")
+    ops_c = top_ops(prof["captured"][1])
+    print(f"[sharded] vkitti2 the top {len(ops_c)} ops of the captured way's profiled frame {t} "
+          f"by device ms (profiler; ms, launches, op): {top_ops_line(ops_c)} ({card})")
     print(f"[sharded] vkitti2 the bridge (the eager SVD between the graphs), medians over frames "
           f"2-{frames - 1}: host {bridge_ms['median_host_ms']:.3f} ms, device "
           f"{bridge_ms['median_device_ms']:.3f} ms ({card})")
@@ -2842,8 +3197,77 @@ def drive_sharded_vkitti2(counters, card, frames=8, noise_frames=6):
             "wall_ms": wall, "bit_equal_to_single_device": bits, "max_float_err": worst,
             "moved_count": moved, "launches": launches, "api_calls": api,
             "api_calls_by_name": {w: prof[w][5] for w in sharded}, "device_busy": busy,
+            "top_ops_captured": ops_c,
             "bridge": bridge_ms, "memory_bytes": memory, "noise_frames": noise_frames,
             "noise_ms": noise_ms, "noise_moved": noise_moved}
+
+
+def drive_sharded_scan(counters, card, frames=4):
+    """[scan] on the sharded step at one rank: two captured sharded steps
+    (``build_shard_step``) at the VKITTI2 preset with its noise on, one
+    built as the package builds it, one whose every call (the eager first
+    frame, the capture, the replays) runs inside ``cummax_scans``;
+    ``frames`` frames in turns, bit-equal every frame (state, both
+    generators, render, counters), then one more frame of each under
+    torch.profiler: device busy, host API calls and the top 15 ops of the
+    replayed frame.  The launch counts are set to 0 before the first frame
+    and read after the last.  Returns the numbers."""
+    import collections
+
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch.labels import LabelRegistry
+    from semantic_dsp_map_tpu_torch.parallel.shard_step import build_shard_step
+    from semantic_dsp_map_tpu_torch.parallel.sharding import shard_state
+    from semantic_dsp_map_tpu_torch.state import init_map_state
+
+    cfg, registry = virtual_kitti2_config(), LabelRegistry.default()
+    params = FilterParams(**bench_scenes().VK_PARAMS)
+    steps = {w: build_shard_step(cfg, params, registry) for w in SCAN_WAYS}
+    states = {w: shard_state(cfg, init_map_state(cfg, 0, "cuda"), 0, 1) for w in SCAN_WAYS}
+    calls = collections.Counter()
+    reset_launches(counters)
+    prof = {}
+    for t in range(frames + 1):
+        f = sharded_inputs(cfg, registry, t)[0]
+        out = {}
+        for way in SCAN_WAYS if t % 2 == 0 else SCAN_WAYS[::-1]:
+            def run(way=way):
+                with cummax_scans(calls) if way == "cummax" else contextlib.nullcontext():
+                    out[way] = steps[way](states[way], f)
+                torch.cuda.synchronize()
+            if t == frames:
+                prof[way] = profile_frame(run)
+            else:
+                run()
+            states[way] = out[way][0]
+        parted = sharded_parting(out["new"], out["cummax"], steps["new"].stages.rank_rng.gen,
+                                 steps["cummax"].stages.rank_rng.gen)
+        if parted:
+            raise AssertionError(f"[scan] sharded vkitti2 frame {t}: the cummax step parts from "
+                                 f"the package's in {parted}")
+    launches = read_launches(counters)
+    if any(n != 2 * (frames + 1) for n in launches.values()) or "group_rank" not in {
+            fn for fn, _ in calls}:
+        raise AssertionError(f"[scan] sharded vkitti2: launches {launches}, the cummax step's "
+                             f"scans {dict(calls)}")
+    ops = {w: top_ops(prof[w][1]) for w in SCAN_WAYS}
+    busy = {w: {"busy_ms": prof[w][2], "wall_ms": prof[w][3], "kernels": prof[w][4]}
+            for w in SCAN_WAYS}
+    api = {w: prof[w][0] for w in SCAN_WAYS}
+    print(f"[scan] sharded vkitti2 at one rank, noise on: {frames + 1} frames of both captured "
+          f"steps bit-equal (state, both generators, render, counters); the replayed frame "
+          f"{frames}: " + ", ".join(
+              f"{w} device busy {busy[w]['busy_ms']:.3f} of {busy[w]['wall_ms']:.3f} ms, "
+              f"{busy[w]['kernels']} kernels, {api[w]} host API calls" for w in SCAN_WAYS)
+          + f"; the cummax step's scans {sorted(calls.items())}; launches {launches} ({card})")
+    for w in SCAN_WAYS:
+        print(f"[scan] sharded vkitti2 {w}: the top {len(ops[w])} ops of the replayed frame by "
+              f"device ms (profiler; ms, launches, op): {top_ops_line(ops[w])} ({card})")
+    del steps, states, out
+    torch.cuda.empty_cache()
+    return {"frames": frames + 1, "device_busy": busy, "api_calls": api, "top_ops": ops,
+            "scan_calls": sorted(calls), "launches": launches}
 
 
 def check_sharded_zed2(counters, card):
@@ -2956,9 +3380,9 @@ def check_slab_kernels(report, card):
     return rows_out
 
 
-def run_sharded(counters, card) -> dict:
-    """[sharded]'s runs in a process group of this process alone (NCCL on
-    the card): ``drive_sharded_vkitti2`` and ``check_sharded_zed2``."""
+@contextlib.contextmanager
+def one_rank_group(card):
+    """A process group of this process alone (NCCL on the card)."""
     import torch
     import torch.distributed as dist
     from semantic_dsp_map_tpu_torch.parallel import distributed
@@ -2967,22 +3391,31 @@ def run_sharded(counters, card) -> dict:
     print(f"[sharded] process group: {dist.get_backend()}, {dist.get_world_size()} rank, torch "
           f"{torch.__version__}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} ({card})")
     try:
-        sharded = {"vkitti2": drive_sharded_vkitti2(counters, card)}
-        torch.cuda.empty_cache()
-        sharded["zed2"] = check_sharded_zed2(counters, card)
+        yield
     finally:
         gc.collect()  # every graph that recorded a collective goes before the communicator
         dist.destroy_process_group()
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+
+
+def run_sharded(counters, card) -> dict:
+    """[sharded]'s runs in a process group of this process alone:
+    ``drive_sharded_vkitti2``, [scan]'s ``drive_sharded_scan`` and
+    ``check_sharded_zed2``."""
+    with one_rank_group(card):
+        sharded = {"vkitti2": drive_sharded_vkitti2(counters, card)}
+        sharded["scan"] = drive_sharded_scan(counters, card)
+        sharded["zed2"] = check_sharded_zed2(counters, card)
     return sharded
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "graph", "sharded"), default="all",
+    ap.add_argument("--phase", choices=("all", "kernels", "graph", "sharded", "scan"),
+                    default="all",
                     help="'kernels' stops after the per-kernel checks; 'graph' runs the build "
                          "and [graph] alone; 'sharded' the build and [sharded]'s vkitti2 and "
-                         "zed2 runs alone")
+                         "zed2 runs alone; 'scan' the build and [scan] alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     ap.add_argument("--against", metavar="DIR", type=Path,
@@ -3058,6 +3491,13 @@ def main() -> int:
         return 0
     if args.phase == "sharded":
         print(json.dumps({"sharded": run_sharded(fns, card), "card": card}))
+        print(f"[card] {card}")
+        return 0
+    if args.phase == "scan":
+        scan = run_scan(fns, card)
+        with one_rank_group(card):
+            scan["sharded_vkitti2"] = drive_sharded_scan(fns, card)
+        print(json.dumps({"scan": scan, "card": card}))
         print(f"[card] {card}")
         return 0
     source = "semantic_dsp_map_tpu_torch/csrc/"
@@ -3174,6 +3614,10 @@ def main() -> int:
             report[key]["launches_by_path"]["graph_" + name] = graph[name]["launches"][fn.__name__]
     for key in counters:
         report[key]["graph_ms"] = report[key]["graph_ms_by_path"]["vkitti2"]
+    scan = run_scan(fns, card)
+    for key, fn in counters.items():
+        for name, out in scan["frames"].items():
+            report[key]["launches_by_path"]["scan_" + name] = out["launches"][fn.__name__]
 
     rematch_launches, rematch_frame = drive_rematch(fns, card)
     replay_launches, replay_ms = drive_replay(fns, card)
@@ -3212,6 +3656,7 @@ def main() -> int:
         by_path = report[key]["launches_by_path"]
         by_path["sharded_vkitti2"] = sharded["vkitti2"]["launches"][fn.__name__]
         by_path["sharded_zed2"] = sharded["zed2"]["kernel_launches"][fn.__name__]
+        by_path["scan_sharded_vkitti2"] = sharded["scan"]["launches"][fn.__name__]
 
     print(json.dumps({"kernels": list(report.values()), "frame_ms_median": medians,
                       "template": template, "smoothed_render_ms": smoothed_ms,
@@ -3219,7 +3664,7 @@ def main() -> int:
                       "replay_ms_per_frame": replay_ms, "soak": soak_report,
                       "stage_profile": stage_rows, "probes": probe_rows, "bench": bench_cells,
                       "expected": expected, "rematch_frame": rematch_frame, "sharded": sharded,
-                      "graph": graph,
+                      "graph": graph, "scan": scan,
                       "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

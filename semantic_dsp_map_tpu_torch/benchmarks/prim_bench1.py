@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..ops.blocks import segment_start_index
 from ..ops.probes_cuda import scale2_cuda
 from ..state import resolve_device
 from ..timing import bench, card_line
@@ -42,6 +43,8 @@ def run(device, iters: int = 10, n_big: int = N_BIG, n_tab: int = N_TAB, p: int 
     keys = randint(1 << 30, p)
     pred = torch.rand(n_big, generator=g, device=device) < 0.02
     pred_i32 = pred.to(i32)
+    starts = pred.clone()
+    starts[0] = True
     big_scratch, tab_scratch = big.clone(), tab.clone()
     exp_n = min(5_600_000, n_big)
     small = torch.ones(8, device=device)
@@ -72,6 +75,8 @@ def run(device, iters: int = 10, n_big: int = N_BIG, n_tab: int = N_TAB, p: int 
         (f"sort {p} key+3xf32 payload", sort_with_payload),
         (f"cumsum {n_big} i32", lambda: torch.cumsum(pred_i32, 0, dtype=i32)),
         (f"cummax {n_big} i32", lambda: torch.cummax(pred_i32, 0)[0]),
+        (f"segment start index {n_big} (cumsum, scatter, gather)",
+         lambda: segment_start_index(starts)),
         (f"nonzero on {n_big} bool", lambda: torch.nonzero(pred)),
         (f"full pass r+w {n_big} f32 (x*2)", lambda: big * 2.0),
         ("7-col slice pass [V,7]", lambda: big[: n_big // 7 * 7].view(-1, 7)[:, 3] * 2.0),

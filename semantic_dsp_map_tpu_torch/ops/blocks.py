@@ -84,10 +84,35 @@ def scatter_rows_flat(
     return field
 
 
+def segment_first(values: torch.Tensor, is_start: torch.Tensor) -> torch.Tensor:
+    """``values`` at the first element of each element's segment; a segment
+    starts where ``is_start`` (bool, same length) is set.  ``is_start[0]``
+    must be set: every caller sets it, and it is not checked, since a check
+    would read the device.
+
+    The counterpart of the JAX package's associative scans: a segment id by
+    ``cumsum``, one fixed-size scatter of the starts' values and one gather.
+    Every non-start element writes 0 into the buffer's spare last slot, so
+    the bytes do not depend on the order of the writes.  No host read and no
+    shape that depends on the data: the captured step runs it."""
+    n = is_start.shape[0]
+    seg = torch.cumsum(is_start, 0) - 1
+    first = torch.zeros(n + 1, dtype=values.dtype, device=values.device)
+    first.index_copy_(0, torch.where(is_start, seg, n), torch.where(is_start, values, 0))
+    return first[seg]
+
+
 def segment_start_index(is_start: torch.Tensor) -> torch.Tensor:
-    """Index of the first element of each element's segment."""
-    idx = torch.arange(is_start.shape[0], device=is_start.device)
-    return torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    """Index of the first element of each element's segment (``is_start[0]``
+    set, as for :func:`segment_first`)."""
+    return segment_first(torch.arange(is_start.shape[0], device=is_start.device), is_start)
+
+
+def segment_cumsum(values: torch.Tensor, is_start: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum of integer ``values`` that restarts at each
+    segment start (``is_start[0]`` set, as for :func:`segment_first`)."""
+    cs = torch.cumsum(values, 0)
+    return cs - segment_first(cs - values, is_start)
 
 
 def group_rank(sorted_key: torch.Tensor) -> torch.Tensor:

@@ -35,7 +35,7 @@ from .blocks import (
     gather_rows_flat,
     row_valid,
     scatter_rows_flat,
-    segment_start_index,
+    segment_cumsum,
     select_blocks,
     stable_lexsort,
 )
@@ -215,9 +215,7 @@ def observe_and_update(
     # ---- rank among visible entries of the same pixel (front-most first) ----
     is_start = torch.ones_like(real)
     is_start[1:] = pix_s[1:] != pix_s[:-1]
-    cs = torch.cumsum(visible.to(torch.int64), 0)
-    start = segment_start_index(is_start)
-    vrank = cs - (cs[start] - visible[start].to(torch.int64)) - 1
+    vrank = segment_cumsum(visible.to(torch.int64), is_start) - 1
     keep = visible & (vrank < S)
 
     # ---- PHD stencil over the dense pixel table ----

@@ -151,7 +151,7 @@ def test_pointer_check_wants_the_card():
 
 
 @pytest.mark.parametrize("module, kwargs, n_rows", [
-    (prim_bench1, dict(n_big=7 * 4096, n_tab=1000, p=512), 18),
+    (prim_bench1, dict(n_big=7 * 4096, n_tab=1000, p=512), 19),
     (prim_bench7, dict(h=12, w=16, n=1000), 4),
 ])
 def test_probe_modules_run_small(module, kwargs, n_rows):
