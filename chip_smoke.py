@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase graph     # build + [graph] only
     python3 chip_smoke.py --phase sharded   # build + [sharded]'s vkitti2 and zed2 runs only
     python3 chip_smoke.py --phase scan      # build + [scan] only (the sharded part too)
+    python3 chip_smoke.py --phase merge     # build + [merge] only (the sharded part too)
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
     python3 chip_smoke.py --against DIR     # also time both PHD passes, the render,
                                             # the front scan and the gather built from
@@ -17,7 +18,7 @@
 Phases (any failure raises, and the script exits nonzero):
   0. print the card (nvidia-smi name and power limit, torch's device name);
   1. build the CUDA kernels from semantic_dsp_map_tpu_torch/csrc;
-  2. check each of the seven kernels against its plain PyTorch version on
+  2. check each of the eight kernels against its plain PyTorch version on
      the card and time both with CUDA events, beside the kernel's bound
      (bytes over the memory rate or operations over their peak rate,
      whichever is larger, from this run's inputs): the five frame kernels at
@@ -26,7 +27,10 @@ Phases (any failure raises, and the script exits nonzero):
      gather and x2 probe kernels at the probes' shapes, in turns with the
      PyTorch call that computes the same function (the gather also with its
      indices sorted); the movable scan also a launch inside a CUDA graph
-     (no host time); then [launch]: each of the seven
+     (no host time); birth's merge (csrc/birth.cu) at the VKITTI2 birth,
+     the VKITTI2 moving-object cleanup and the ZED2 birth working sets on
+     the presets' full stores, bit for bit, ms, device-only ms, the bound
+     and its share; then [launch]: each of the eight
      wrappers' host time
      per launch beside the bare ctypes call of its entry point and beside
      torch.mul;
@@ -53,13 +57,15 @@ Phases (any failure raises, and the script exits nonzero):
      template matching (vkitti2_template: the data/templates bank, a car
      inside the template-birth window) and on the coda preset (always-moving
      objects), each for 3 warm-up + 5 synthetic
-     frames; check that every kernel ran once per frame and that the
+     frames; check that every frame kernel ran once per frame, the merge
+     kernel once per ``_insert_core``, and that the
      template birth swept, scored and made guessed particles; time the
      birth's sweep alone.  After the vkitti2 frames, one more frame's own
      pixel table, cloud and particle store go through both PHD passes, the
      candidate scan and the render alone (against their plain versions, then
-     timed): a frame's data is patchy and mostly empty where the checked
-     inputs are uniform.  Then the rematch path: the VKITTI2 scene with
+     timed), and its two merges' working sets through the merge kernel: a
+     frame's data is patchy and mostly empty where the checked inputs are
+     uniform.  Then the rematch path: the VKITTI2 scene with
      the car's keypoints withheld on frame 5, where the object layer's coast
      branch must run at full size.  Then the
      replay path: 13 VKITTI2 frames written
@@ -86,7 +92,10 @@ Phases (any failure raises, and the script exits nonzero):
      a taken branch.  Every main path's map replays its
      graph; a path's launch counts are a wrapper's launches outside graphs
      plus those captured into a graph times its replays
-     (step_graph.kernel_runs);
+     (step_graph.kernel_runs).  On every path the script drives, each frame
+     kernel runs once a frame and birth's merge once per ``_insert_core``:
+     twice a frame (birth, the moving-object cleanup), four times with a
+     template bank (``inserts_a_frame``);
   4c. [scan]: the segment scans (ops/blocks.py: segment_start_index,
      group_rank, segment_cumsum) against the torch.cummax form the port
      used before, written out here as the plain reference.  First the
@@ -105,6 +114,19 @@ Phases (any failure raises, and the script exits nonzero):
      with CUDA events beside the cummax form, torch.cumsum on the same
      length and the bytes' bound at 3.35 TB/s.  In [sharded], the same
      old-against-new pair on the captured sharded step at one rank;
+  4d. [merge]: birth's block merge, the kernel of csrc/birth.cu against
+     its plain version: at vkitti2, zed2, the hostile scene and
+     vkitti2_template ([graph]'s scene: the birth branch on frame 2, the
+     rematch branch on frame 5), noise on, two maps fed the same 10 frames
+     in turns, one built as the package builds it and one whose every
+     frame runs with ``merge_blocks_plain`` patched into ``ops.birth`` (here
+     only, inside the map's calls): bit-equal every frame (state,
+     generator, render, counters, sweep records); ``update()`` medians, 4
+     loops of 8 frames each, one profiled replay of each (device busy,
+     kernels, host API calls, the top 15 ops); the merge kernel ran once
+     per ``_insert_core`` call (counted in every module that binds it) and
+     only in the kernel map.  In [sharded], the same pair of captured
+     sharded steps at one rank;
   5. [sharded]: the sharded step (parallel/shard_step.py) at one rank, in a
      process group of this process alone (NCCL): at the VKITTI2 preset with
      the movers, 8 frames, four ways in turns, timed with CUDA events: the
@@ -120,8 +142,8 @@ Phases (any failure raises, and the script exits nonzero):
      frames with the noise on, the captured ways against the oracle bit for
      bit; at the ZED2 preset, ``benchmarks.bench.run_sharded_check``, whose
      sharded step replays graph "step"; PHD passes A and B, the render, the
-     candidate scan and the movable scan run once a sharded frame
-     (``step_graph.kernel_runs``).  Then those five kernels against their
+     candidate scan and the movable scan run once a sharded frame, birth's
+     merge twice (``step_graph.kernel_runs``).  Then those five kernels against their
      plain versions at the shapes a rank of a D-rank run gives them (D = 1,
      2, 4, 8; VKITTI2 and ZED2), and the weak-scaling report at one rank
      (both sides captured).
@@ -871,6 +893,166 @@ def check_observe(cfg, report, prefix=""):
          **{prefix + k: v for k, v in b_m.items()}})
 
 
+#: The merge kernel's checked shapes (csrc/birth.cu): (label, preset,
+#: target rows A, real rows, resample).  vkitti2: birth at the VKITTI2
+#: preset (max_birth_blocks = 1536 rows of 64 voxels, K = 7); vkitti2_move:
+#: the moving-object cleanup's insert there (2 x max_moving_blocks = 256
+#: rows); zed2: birth at the ZED2 preset (1024 rows of 128 voxels, K = 3).
+#: Some rows are padding, as where fewer blocks are targeted.
+MERGE_SHAPES = (("vkitti2", "vkitti2", 1536, 1400, True),
+                ("vkitti2_move", "vkitti2", 256, 200, False),
+                ("zed2", "zed2", 1024, 1000, True))
+
+
+def merge_inputs(cfg, A, n_real, seed=0):
+    """Random inputs of birth's merge on the card at ``cfg``'s store size:
+    the store's nine fields (statuses mostly UPDATED, a tenth of the voxels
+    with weights near 1e-4, whose resample wipes), the voxels' scroll
+    stamps (some slots stale), ``A`` rows of which the first ``n_real`` are
+    real (ascending unique block ids, then the padding ids nb + row) and 0
+    to K staged candidates a voxel.  Returns (flat, blocks, vox_axis,
+    staged)."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.birth import Staged
+    from semantic_dsp_map_tpu_torch.ops.blocks import ActiveBlocks, block_layout
+    from semantic_dsp_map_tpu_torch.state import Particles
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    K, V = cfg.slots_per_voxel, cfg.num_voxels
+    bv, nb, _spb = block_layout(cfg)
+    n = V * K
+    r = lambda *shape: torch.rand(shape, generator=gen, device="cuda")
+    ri = lambda hi, *shape: torch.randint(0, hi, shape, generator=gen, device="cuda",
+                                          dtype=torch.int32)
+    cut = lambda x, edges: torch.bucketize(x, torch.tensor(edges, device="cuda"))
+    scale = torch.where(r(V) < 0.1, 1e-4, 0.6).repeat_interleave(K)
+    flat = Particles(
+        px=torch.randn(n, generator=gen, device="cuda"),
+        py=torch.randn(n, generator=gen, device="cuda"),
+        pz=torch.randn(n, generator=gen, device="cuda"),
+        weight=r(n) * scale, label=ri(256, n).to(torch.uint8), track=ri(65536, n),
+        status=cut(r(n), [0.15, 0.85, 0.95]).to(torch.uint8), forget=ri(8, n).to(torch.uint8),
+        stamp=ri(8, n))
+    vax = cut(r(V), [0.8, 0.95]).to(torch.int32)
+    ids = nb + torch.arange(A, device="cuda")
+    ids[:n_real] = torch.sort(torch.randperm(nb, generator=gen, device="cuda")[:n_real]).values
+    blocks = ActiveBlocks(ids=ids, count=torch.tensor(n_real, device="cuda"),
+                          overflow=torch.zeros((), dtype=torch.int64, device="cuda"))
+    n_staged = torch.randint(0, K + 1, (A, bv, 1), generator=gen, device="cuda")
+    n_staged[n_real:] = 0
+    occ = torch.arange(K, device="cuda") < n_staged
+    meta = (ri(8, A, bv, K) << 27) | (ri(8, A, bv, K) << 24) | (ri(256, A, bv, K) << 16) | ri(
+        65536, A, bv, K)
+    zero = lambda x: torch.where(occ, x, torch.zeros_like(x))
+    staged = Staged(
+        *(zero(torch.randn((A, bv, K), generator=gen, device="cuda")) for _ in range(3)),
+        zero(r(A, bv, K)), zero(ri(8, A, bv, K) + 1), torch.where(occ, meta, -1))
+    return flat, blocks, vax, staged
+
+
+def merge_bound(cfg, blocks, staged, before, after, resample, accepted):
+    """The merge's bound on these inputs: what the function must move at
+    the memory rate, counted from this run's data.  Read: each real row's
+    slots' status, stamp and staged meta (9 B a slot), with ``resample``
+    the weights of every voxel that has a staged candidate (4 B a slot),
+    the staged position, weight and stamp of each accepted candidate (20
+    B), the real voxels' scroll stamps (4 B), every row's block id (8 B).
+    Written: each element of the store that changed from ``before`` to
+    ``after`` (the plain version's result), at its size, and the count
+    (8 B).  Returns (bound, real rows)."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.blocks import block_layout
+
+    bv, nb, spb = block_layout(cfg)
+    A = blocks.ids.shape[0]
+    real = blocks.ids < nb
+    n_real = int(real.sum())
+    read = n_real * spb * 9 + 20 * int(accepted) + 4 * n_real * bv + 8 * A
+    if resample:
+        targets = int(((staged.meta >= 0).any(dim=2) & real[:, None]).sum())
+        read += 4 * cfg.slots_per_voxel * targets
+    written = 8
+    for name, old in before.items():
+        new = getattr(after, name)
+        if new.dtype == torch.float32:
+            new, old = new.view(torch.int32), old.view(torch.int32)
+        written += int((new != old).sum()) * new.element_size()
+    return bound(read + written), n_real
+
+
+def check_merge_once(tag, cfg, flat, blocks, vax, staged, resample, card, reps=10):
+    """The merge kernel against merge_blocks_plain on the same inputs (each
+    on a copy of the store: both work in place): the store's bits and the
+    count equal.  Then both timed with CUDA events, each launch on the
+    store as it was (restored outside the events), the kernel also with
+    its launch queued (device-only).  Returns the numbers."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.birth import merge_blocks_plain
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import merge_blocks_cuda
+
+    fields = [f.name for f in dataclasses.fields(flat)]
+    keep = {k: getattr(flat, k).clone() for k in fields}
+    work = type(flat)(**{k: v.clone() for k, v in keep.items()})
+    _, acc_p = merge_blocks_plain(cfg, flat, blocks, vax, staged, resample)
+    _, acc_k = merge_blocks_cuda(cfg, work, blocks, vax, staged, resample)
+    torch.cuda.synchronize()
+    if acc_k.dtype != acc_p.dtype or acc_k.shape != acc_p.shape or int(acc_k) != int(acc_p):
+        raise AssertionError(f"[merge] {tag}: accepted {acc_k} against the plain {acc_p}")
+    err = 0.0
+    for k in fields:
+        a, b = getattr(work, k), getattr(flat, k)
+        if a.dtype == torch.float32:
+            err = max(err, max_err(a, b)[0])
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert_equal(f"[merge] {tag} {k}", a, b)
+    changed = int((flat.status != keep["status"]).sum())
+
+    def restore():
+        for k in fields:
+            getattr(work, k).copy_(keep[k])
+
+    run = lambda: merge_blocks_cuda(cfg, work, blocks, vax, staged, resample)
+    plain = lambda: merge_blocks_plain(cfg, work, blocks, vax, staged, resample)
+    ms, q_ms = cuda_ms(run, reps, setup=restore), cuda_ms(run, reps, queued=True, setup=restore)
+    plain_ms = cuda_ms(plain, 3, setup=restore)
+    b, n_real = merge_bound(cfg, blocks, staged, keep, flat, resample, acc_p)
+    share = b["bound_ms"] / q_ms
+    bv, K = staged.meta.shape[1:]
+    print(f"[merge] {tag}: A={blocks.ids.shape[0]} rows ({n_real} real) of {bv} voxels x K={K}, "
+          f"resample {resample}: store bits and accepted count ({int(acc_p)}) equal "
+          f"to the plain version, {changed} statuses changed; kernel {ms:.4f} ms ({q_ms:.4f} "
+          f"device-only), plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']}, share {share:.3f} of the device-only time ({card})")
+    del keep, work
+    return {"ms": ms, "device_only_ms": q_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "accepted": int(acc_p), "rows": blocks.ids.shape[0], "real_rows": n_real,
+            "resample": resample, "share": share, **b}
+
+
+def check_merge(report, card):
+    """Phase 2's merge kernel (csrc/birth.cu) against merge_blocks_plain at
+    MERGE_SHAPES on the presets' full stores (``merge_inputs``); the
+    VKITTI2 birth shape's numbers go to the report's top level."""
+    import torch
+    from semantic_dsp_map_tpu_torch import virtual_kitti2_config, zed2_config
+
+    cfgs = {"vkitti2": virtual_kitti2_config(), "zed2": zed2_config()}
+    entry = report["merge_blocks"]
+    for label, preset, A, n_real, resample in MERGE_SHAPES:
+        cfg = cfgs[preset]
+        args = merge_inputs(cfg, A, n_real)
+        out = check_merge_once(f"{label} shape", cfg, *args, resample, card)
+        entry.setdefault("by_shape", {})[label] = out
+        del args
+        torch.cuda.empty_cache()
+    top = entry["by_shape"]["vkitti2"]
+    entry.update({k: top[k] for k in ("ms", "device_only_ms", "plain_ms", "max_abs_err",
+                                      "bound_ms", "bound_by")})
+
+
 def compare_render(other, tag, cfg, p, vst, vax, thr, card):
     """The render from the package's library and from ``other`` on the store
     ``p``, each on its own copy: integers and statuses equal, sums within the
@@ -1147,9 +1329,11 @@ def launch_cost(entry_name, call, reps=200, rounds=3):
 
 
 def check_launch(report, card):
-    """[launch]: what a launch costs the host.  Each of the seven wrappers at
-    its main shapes (the five frame kernels at VKITTI2 shapes on the inputs
-    of phase 2, the probes at theirs): its host time per launch in runs of
+    """[launch]: what a launch costs the host.  Each of the eight wrappers at
+    its main shapes (the five frame kernels and birth's merge at VKITTI2
+    shapes on the inputs of phase 2, the probes at theirs; the merge works
+    in place, each launch on the store the last one left): its host time
+    per launch in runs of
     200, beside the bare ctypes call of the same entry point on the same
     pointers and beside torch.mul on [8, 128] f32.  The wrapper's own cost
     is the difference from the bare call."""
@@ -1157,6 +1341,7 @@ def check_launch(report, card):
     from semantic_dsp_map_tpu_torch import FilterParams, virtual_kitti2_config
     from semantic_dsp_map_tpu_torch.benchmarks import prim_bench7
     from semantic_dsp_map_tpu_torch.ops import observe_cuda, phd, phd_cuda, probes_cuda
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import merge_blocks_cuda
     from semantic_dsp_map_tpu_torch.ops.render_cuda import render_core_cuda
 
     dev = torch.device("cuda")
@@ -1168,6 +1353,8 @@ def check_launch(report, card):
     p, vst, vax = random_render_state(cfg)
     fargs, fp, fvax = observe_inputs(cfg)
     margs = (cfg, fp.track, fp.status, fp.stamp, fvax, 1)
+    _, _, birth_a, birth_real, _ = MERGE_SHAPES[0]
+    merge_args = merge_inputs(cfg, birth_a, birth_real)
     depth, rc = prim_bench7.make_inputs(dev)
     x = torch.randn((8, 128), device=dev)
     cases = (
@@ -1179,6 +1366,7 @@ def check_launch(report, card):
         ("movable_voxels", "dsp_movable_voxels", lambda: observe_cuda.movable_voxels_cuda(*margs)),
         ("gather", "dsp_gather", lambda: probes_cuda.gather_cuda(depth, rc)),
         ("scale2", "dsp_scale2", lambda: probes_cuda.scale2_cuda(x)),
+        ("merge_blocks", "dsp_merge_blocks", lambda: merge_blocks_cuda(cfg, *merge_args, True)),
     )
     mul = []
     for key, name, call in cases:
@@ -1326,8 +1514,7 @@ def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10, setup
             raise AssertionError(f"{name} frame {t}: weight_sum differs")
         moved += dgd["moved_count"]
     launches = read_launches(counters)
-    if any(c != frames for c in launches.values()):
-        raise AssertionError(f"{name}: launches {launches} in {frames} frames")
+    hold_runs(name, launches, frames, template=setup is not None)
     if need_moved and moved == 0:
         raise AssertionError(f"{name}: the rigid-move stage moved no particle")
     print(f"[tiny] {name}, {frames} frames: CUDA path equal to the CPU path "
@@ -1473,7 +1660,10 @@ def sweeps_of_frame(dsp, before: dict) -> list:
 def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=5,
                     template_path=None):
     """SemanticDSPMap.update() on ``cfg`` for warm-up + timed frames, with
-    the launch counts set to 0 just before and read just after.  With
+    the launch counts set to 0 just before and read just after: the frame
+    kernels once a frame, the merge kernel once per ``_insert_core``
+    (``hold_runs``; the captured graphs hold ``inserts_a_frame`` launches
+    of it, which every replay runs).  With
     ``template_path`` the map loads that bank and every frame that ran a
     template sweep is printed (``sweeps_of_frame``).  Returns (launches,
     median ms, map, per-frame ms, [(frame, sweep, GUESSED_BORN count after
@@ -1535,9 +1725,13 @@ def drive_main_path(name, cfg, params, synth, counters, card, warmup=3, frames=5
     print(f"[{name}] per-frame ms over the {frames} timed frames: median {np.median(timed):.3f}, "
           f"min {np.min(timed):.3f}, max {np.max(timed):.3f} ({card})")
     print(f"[{name}] last frame occ histogram {hist}; NaN weights {n_nan}; launches {launches}")
-    for fname, count in launches.items():
-        if count != n:
-            raise AssertionError(f"{name}: {fname} launched {count} times in {n} frames")
+    template = template_path is not None
+    hold_runs(name, launches, n, template)
+    in_graphs = sum(g.launches[MERGE_FN] for g in dsp._static.graphs.values())
+    if in_graphs != inserts_a_frame(template):
+        raise AssertionError(f"{name}: the captured frame holds {in_graphs} merge launches")
+    print(f"[{name}] the merge kernel ran {launches[MERGE_FN]} times in {n} frames: once per "
+          f"_insert_core ({in_graphs} in the captured frame)")
     if hist["1"] <= 0:
         raise AssertionError(f"{name}: no occupied voxel after the last frame")
     if not moved_any:
@@ -1591,13 +1785,15 @@ def check_real_frame(dsp, synth, t, card, other=None):
     candidate scan (the particle store before the frame) and to the render
     (the store after it, before the render's clamp and collection) then go
     through the four kernels alone: against the plain version once, then
-    timed.  With ``other`` (a build of another version of the sources) the
-    two versions are timed in turns.  Returns the numbers."""
+    timed; and the arguments of its two merges (the moving-object cleanup's
+    and birth's working sets) through the merge kernel.  With ``other`` (a
+    build of another version of the sources) the two versions are timed in
+    turns.  Returns the numbers."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts
     from semantic_dsp_map_tpu_torch.frontend import pack_frame
     from semantic_dsp_map_tpu_torch.map import build_frame_step, unpack_frame
-    from semantic_dsp_map_tpu_torch.ops import observe_cuda, phd_cuda, render_cuda
+    from semantic_dsp_map_tpu_torch.ops import birth, observe_cuda, phd_cuda, render_cuda
     from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
 
     depth, masks, pos, quat = synth(dsp.cfg, t, MaskKpts)
@@ -1610,7 +1806,8 @@ def check_real_frame(dsp, synth, t, card, other=None):
     with (CallRecorder(phd_cuda, "pass_a_cuda") as rec_a,
           CallRecorder(phd_cuda, "pass_b_cuda") as rec_b,
           CallRecorder(observe_cuda, "front_candidates_cuda") as rec_f,
-          CallRecorder(render_cuda, "render_core_cuda") as rec_r):
+          CallRecorder(render_cuda, "render_core_cuda") as rec_r,
+          CallRecorder(birth, "merge_blocks") as rec_m):
         dsp.state, _, _ = step(dsp.state, f)
     torch.cuda.synchronize()
     recorders = (rec_a, rec_b, rec_f, rec_r)
@@ -1699,6 +1896,15 @@ def check_real_frame(dsp, synth, t, card, other=None):
           f"({card})")
     if other is not None:
         out["render"].update(compare_render(other, "real frame", cfg, p, vst, vax, thr, card))
+    del p, vst, vax
+
+    # Birth's merge on the frame's two working sets: the moving-object
+    # cleanup's re-insert, then the birth.
+    if len(rec_m.calls) != 2:
+        raise AssertionError(f"real frame: {len(rec_m.calls)} merges, want 2")
+    for label, args in zip(("move_cleanup", "birth"), rec_m.calls):
+        out.setdefault("merge", {})[label] = check_merge_once(f"real frame {t} {label}", *args,
+                                                              card)
     return out
 
 
@@ -1875,11 +2081,39 @@ def read_launches(counters):
     return {fn.__name__: step_graph.kernel_runs(fn) for fn in counters}
 
 
+#: The wrapper of birth's merge kernel (ops/birth_cuda.py), by name.
+MERGE_FN = "merge_blocks_cuda"
+
+
+def inserts_a_frame(template=False) -> int:
+    """``_insert_core`` calls a frame, each one launch of birth's merge
+    kernel: birth's and the moving-object cleanup's, and with a template
+    bank the rematch and birth stages' too (outside the stages'
+    conditional nodes: they insert every frame, nothing valid where no
+    branch ran)."""
+    return 4 if template else 2
+
+
+def runs_a_frame(fname, template=False) -> int:
+    """How often the kernel of wrapper ``fname`` runs a frame: a frame
+    kernel once, birth's merge once per ``_insert_core``."""
+    return inserts_a_frame(template) if fname == MERGE_FN else 1
+
+
+def hold_runs(tag, launches, frames, template=False):
+    """Raise unless each kernel of ``launches`` ran ``runs_a_frame`` times
+    in each of ``frames`` frames."""
+    want = {f: frames * runs_a_frame(f, template) for f in launches}
+    if launches != want:
+        raise AssertionError(f"{tag}: kernel runs {launches} in {frames} frames, want {want}")
+
+
 def drive_replay(counters, card, n_frames=13, drop_first=2):
     """The replay path: ``n_frames`` VKITTI2 frames written with
     datasets.save_npz_frame, then replay.main on them with the default
     device (the card) and default runtime parameters, PLY clouds every 5
-    mapped frames.  Every mapped frame must launch each frame kernel once;
+    mapped frames.  Every mapped frame must launch each frame kernel once
+    and birth's merge once per ``_insert_core`` (``hold_runs``);
     the PLY files must read back; the last frame must leave occupied voxels.
     Returns (launches, ms per mapped frame)."""
     import torch
@@ -1917,9 +2151,7 @@ def drive_replay(counters, card, n_frames=13, drop_first=2):
             raise AssertionError(f"replay: the default device gave a result on {result.occ.device}")
         if summary["frames"] != mapped:
             raise AssertionError(f"replay: mapped {summary['frames']} frames, expected {mapped}")
-        for fname, count in launches.items():
-            if count != mapped:
-                raise AssertionError(f"replay: {fname} launched {count} times in {mapped} frames")
+        hold_runs("replay", launches, mapped)
         occupied = int((result.occ == 1).sum())
         if occupied <= 0:
             raise AssertionError("replay: no occupied voxel after the last frame")
@@ -1945,17 +2177,14 @@ def drive_soak(counters, card, frames=40):
     """The KITTI-360 soak (tools.soak.main: kitti360_config, nothing cut but
     the frame count) on the default device.  All three checks must be true;
     every frame, the five after the restore included, launches each frame
-    kernel once.  Returns (launches, report)."""
+    kernel once and birth's merge once per ``_insert_core``.  Returns (launches, report)."""
     from semantic_dsp_map_tpu_torch.tools import soak
 
     out = REPO / "chiprun_out" / "SOAK_KITTI360.json"
     reset_launches(counters)
     report = soak.main(["--frames", str(frames), "--out", str(out)])
     launches = read_launches(counters)
-    n = frames + soak.RESUME_FRAMES
-    for fname, count in launches.items():
-        if count != n:
-            raise AssertionError(f"soak: {fname} launched {count} times in {n} frames")
+    hold_runs("soak", launches, frames + soak.RESUME_FRAMES)
     for key in ("occupied_in_ego_window", "behind_region_unknown", "resumed_occ_equal"):
         if report[key] is not True:
             raise AssertionError(f"soak: {key} is {report[key]}")
@@ -2058,9 +2287,7 @@ def check_expected(counters, card, record=False):
             if not record:
                 raise AssertionError(f"expected {name}: the card parts from {path.name}: {lines}")
             print(f"[expected] {name} PARTS from {path.name} (recorded, not failed): {lines}")
-        for fname, count in launches.items():
-            if count != n:
-                raise AssertionError(f"expected {name}: {fname} launched {count} times in {n} frames")
+        hold_runs(f"expected {name}", launches, n)
         summary[name] = {"frames": n, "equal": not parted, "open": opened, "launches": launches}
         print(f"[expected] {name}: {n} frames on the card equal to {path.relative_to(REPO)} "
               f"({len(opened)} quantities OPEN, {12 * n - len(opened)} held to the JAX package's; "
@@ -2086,7 +2313,8 @@ def run_bench(counters, card):
     """``benchmarks.bench.main --iters 50`` on the card: four cells at full
     width, 3 warm-up frames and 3 timed loops of 50 / 25 / 25 / 25 frames
     each, one synchronize a loop.  Every cell must launch each frame kernel
-    once per frame, leave occupied voxels and no NaN weight; the template
+    once per frame (and all cells together birth's merge once per
+    ``_insert_core``), leave occupied voxels and no NaN weight; the template
     cell must sweep a birth and leave GUESSED_BORN particles; the hostile
     cell must move particles and overflow the move cap.  Each cell's peak
     counters are printed beside those the JAX package recorded for the same
@@ -2109,10 +2337,11 @@ def run_bench(counters, card):
 
     if list(cells) != ["zed2", "vkitti2", "vkitti2_template", "vkitti2_hostile"]:
         raise AssertionError(f"bench: cells {list(cells)}")
-    n_all = 0
+    n_all, merges = 0, 0
     for name, cell in cells.items():
         n = cell["warmup"] + len(cell["runs"]) * cell["frames"]
         n_all += n
+        merges += n * inserts_a_frame(name == "vkitti2_template")
         if cell["frames"] != (50 if name == "zed2" else 25) or len(cell["runs"]) < 3:
             raise AssertionError(f"bench {name}: {cell['frames']} frames x {len(cell['runs'])} runs")
         for fname, count in cell["kernel_launches"].items():
@@ -2143,9 +2372,9 @@ def run_bench(counters, card):
             if (peak[q] > 0) != (rec[q] > 0):
                 print(f"[bench] {name} FINDING: {q} is {peak[q]} on the card and {rec[q]} in the "
                       "JAX package's record")
-    for fname, count in launches.items():
-        if count != n_all:
-            raise AssertionError(f"bench: {fname} launched {count} times in {n_all} frames")
+    want = {f: merges if f == MERGE_FN else n_all for f in launches}
+    if launches != want:
+        raise AssertionError(f"bench: kernel runs {launches} in {n_all} frames, want {want}")
     tpl = cells["vkitti2_template"]
     if tpl["template_sweeps"].get("birth", 0) < 1 or tpl["guessed_born_in_warmup"] <= 0:
         raise AssertionError(f"bench vkitti2_template: sweeps {tpl['template_sweeps']}, "
@@ -2435,9 +2664,10 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10, template_pa
     captured, replayed = dict(step_graph.captured), dict(step_graph.replayed)
     # Each frame: the map's kernels (eager on frame 0, replayed after) and
     # the eager step's.
-    if any(n != 2 * frames for n in launches.values()) or any(
-            replayed.get(fn.__name__) != frames - 1 or captured.get(fn.__name__) != 1
-            for fn in counters):
+    template = template_path is not None
+    hold_runs(f"[graph] {name}", launches, 2 * frames, template)
+    if any(replayed.get(f) != (frames - 1) * runs_a_frame(f, template)
+           or captured.get(f) != runs_a_frame(f, template) for f in launches):
         raise AssertionError(f"[graph] {name}: launches {launches} in {frames} frames of each, "
                              f"captured {captured}, replayed {replayed}")
     want = {("packed", "fit"), ("packed", "finish")} if split else {("packed", "step")}
@@ -2720,47 +2950,54 @@ def check_scans(lengths, card, reps=20):
     return rows
 
 
-def drive_scan_frames(name, cfg, params, synth, counters, card, frames=10, loop=8, rounds=5):
-    """[scan]'s frames: two maps of one preset fed the same frames, the
-    preset's noise on: "new", built as the package builds it, and "cummax",
-    whose every frame (the eager first, the captured second, the replays
-    after) runs inside ``cummax_scans``.  ``frames`` frames in turns, each
-    timed with CUDA events around ``update()`` and on the host's clock with
-    a synchronize: state (the generator too), render and counters
-    bit-equal every frame.  Then ``rounds`` rounds of loops of ``loop``
-    frames with one synchronize at the end of each, as the bench loops run,
-    in turns (new, cummax, cummax, new; each pair on the same frames), and
-    last one more
-    replayed frame of each under torch.profiler (device busy, host API
-    calls, the top 15 ops).  The launch counts are set to 0 before the
-    first frame and read after the last.  Returns the numbers, the scans'
-    calls by (function, length) among them."""
-    import collections
-
+def drive_pair_frames(tag, name, cfg, params, synth, counters, card, patches, frames=10, loop=8,
+                      rounds=5, template_path=None):
+    """Two maps of one preset fed the same frames, the preset's noise on,
+    one a way: ``patches`` maps each of the two ways to a context factory,
+    and every frame of that way's map (the eager first, the captured
+    second, the replays after) runs inside it.  ``frames`` frames in turns,
+    each timed with CUDA events around ``update()`` and on the host's clock
+    with a synchronize: state (the generator too), render and counters
+    bit-equal every frame, and with ``template_path`` (both maps load that
+    bank) the sweep records too.  Then ``rounds`` rounds of loops of
+    ``loop`` frames with one synchronize at the end of each, as the bench
+    loops run, in turns (first, second, second, first; each pair on the
+    same frames), and last one more replayed frame of each under
+    torch.profiler (device busy, host API calls, the top 15 ops).  The
+    launch counts of ``counters`` are set to 0 before the first frame and
+    read after the last.  Returns the numbers, the template branches that
+    ran by frame among them; ``tag`` heads the printed lines."""
     import torch
     from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap
 
+    ways = tuple(patches)
     reset_launches(counters)
-    calls = collections.Counter()
-    maps = {way: SemanticDSPMap(cfg, params, device="cuda") for way in SCAN_WAYS}
+    maps = {way: SemanticDSPMap(cfg, params, device="cuda") for way in ways}
+    if template_path is not None:
+        for dsp in maps.values():
+            dsp.set_template_path(str(template_path))
     total = frames + 2 * rounds * loop + 1
     scenes = [synth(cfg, t, MaskKpts) for t in range(total)]
 
     def frame(way, t):
-        with cummax_scans(calls) if way == "cummax" else contextlib.nullcontext():
+        with patches[way]():
             return maps[way].update(*scenes[t], 0.1 * t)
 
-    def check(tag, out):
-        parted = frame_parting(*((maps[w].state, *out[w]) for w in SCAN_WAYS))
+    def check(label, out):
+        parted = frame_parting(*((maps[w].state, *out[w]) for w in ways))
+        if template_path is not None:
+            parted += records_differ(*(maps[w]._templates.records for w in ways))
         if parted:
-            raise AssertionError(f"[scan] {name} {tag}: the cummax map parts from the package's "
-                                 f"in {parted}")
+            raise AssertionError(f"[{tag}] {name} {label}: the {ways[1]} map parts from the "
+                                 f"{ways[0]} map in {parted}")
 
-    ms = {w: [] for w in SCAN_WAYS}
-    wall = {w: [] for w in SCAN_WAYS}
+    ms = {w: [] for w in ways}
+    wall = {w: [] for w in ways}
+    branches = {}
     for t in range(frames):
         out = {}
-        for way in SCAN_WAYS if t % 2 == 0 else SCAN_WAYS[::-1]:
+        counts = sweep_counts(maps[ways[0]]) if template_path is not None else None
+        for way in ways if t % 2 == 0 else ways[::-1]:
             torch.cuda.synchronize()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             w0 = time.perf_counter()
@@ -2771,14 +3008,18 @@ def drive_scan_frames(name, cfg, params, synth, counters, card, frames=10, loop=
             wall[way].append((time.perf_counter() - w0) * 1e3)
             ms[way].append(a.elapsed_time(b))
         check(f"frame {t}", out)
-        print(f"[scan] {name} frame {t}: " + ", ".join(
-            f"{w} {ms[w][-1]:.3f} ms (host {wall[w][-1]:.3f})" for w in SCAN_WAYS)
-            + f"; state, generator, render and counters bit-equal ({card})")
-    if {fn for fn, _ in calls} != {"segment_cumsum", "group_rank"}:
-        raise AssertionError(f"[scan] {name}: the cummax map's scans ran as {dict(calls)}")
+        ran = ([sw.stage for sw in sweeps_of_frame(maps[ways[0]], counts)]
+               if counts is not None else [])
+        if ran:
+            branches[t] = ran
+        print(f"[{tag}] {name} frame {t}: " + ", ".join(
+            f"{w} {ms[w][-1]:.3f} ms (host {wall[w][-1]:.3f})" for w in ways)
+            + f"; state, generator, render and counters bit-equal"
+            + (f", sweep records too; template branches run: {ran}" if counts is not None else "")
+            + f" ({card})")
 
-    loop_ms = {w: [] for w in SCAN_WAYS}
-    for i, way in enumerate(("new", "cummax", "cummax", "new") * rounds):
+    loop_ms = {w: [] for w in ways}
+    for i, way in enumerate((ways[0], ways[1], ways[1], ways[0]) * rounds):
         first = frames + (i // 2) * loop
         torch.cuda.synchronize()
         w0 = time.perf_counter()
@@ -2789,40 +3030,58 @@ def drive_scan_frames(name, cfg, params, synth, counters, card, frames=10, loop=
     check(f"after the loops (frame {total - 2})", out)
     t = total - 1
     prof = {}
-    for way in SCAN_WAYS:
+    for way in ways:
         prof[way] = profile_frame(lambda: out.__setitem__(way, frame(way, t)))
     check(f"profiled frame {t}", out)
     launches = read_launches(counters)
-    if any(n != 2 * total for n in launches.values()):
-        raise AssertionError(f"[scan] {name}: launches {launches} in {total} frames of each map")
-    api = {w: prof[w][0] for w in SCAN_WAYS}
-    if api["new"] != api["cummax"]:
-        raise AssertionError(f"[scan] {name}: host API calls a replayed frame {api}")
-    timed = list(range(2, frames))
-    med = {w: float(np.median([ms[w][i] for i in timed])) for w in SCAN_WAYS}
-    med_wall = {w: float(np.median([wall[w][i] for i in timed])) for w in SCAN_WAYS}
-    med_loop = {w: float(np.median(loop_ms[w])) for w in SCAN_WAYS}
-    ops = {w: top_ops(prof[w][1]) for w in SCAN_WAYS}
+    api = {w: prof[w][0] for w in ways}
+    if api[ways[0]] != api[ways[1]]:
+        raise AssertionError(f"[{tag}] {name}: host API calls a replayed frame {api}")
+    timed = [i for i in range(2, frames) if i not in branches]
+    med = {w: float(np.median([ms[w][i] for i in timed])) for w in ways}
+    med_wall = {w: float(np.median([wall[w][i] for i in timed])) for w in ways}
+    med_loop = {w: float(np.median(loop_ms[w])) for w in ways}
+    ops = {w: top_ops(prof[w][1]) for w in ways}
     busy = {w: {"busy_ms": prof[w][2], "wall_ms": prof[w][3], "kernels": prof[w][4]}
-            for w in SCAN_WAYS}
-    print(f"[scan] {name}: medians over frames {timed}, in turns (update(), events; host): "
-          + ", ".join(f"{w} {med[w]:.3f} ms ({med_wall[w]:.3f})" for w in SCAN_WAYS)
+            for w in ways}
+    print(f"[{tag}] {name}: medians over frames {timed}, in turns (update(), events; host): "
+          + ", ".join(f"{w} {med[w]:.3f} ms ({med_wall[w]:.3f})" for w in ways)
           + f"; {2 * rounds} loops each of {loop} frames, one synchronize a loop, ms a frame, "
           f"median (all): " + ", ".join(
               f"{w} {med_loop[w]:.3f} (" + " / ".join(f"{x:.3f}" for x in loop_ms[w]) + ")"
-              for w in SCAN_WAYS)
+              for w in ways)
           + f"; a replayed frame (profiled frame {t}): " + ", ".join(
               f"{w} device busy {busy[w]['busy_ms']:.3f} of {busy[w]['wall_ms']:.3f} ms, "
-              f"{busy[w]['kernels']} kernels, {api[w]} host API calls" for w in SCAN_WAYS)
+              f"{busy[w]['kernels']} kernels, {api[w]} host API calls" for w in ways)
           + f" ({card})")
-    for w in SCAN_WAYS:
-        print(f"[scan] {name} {w}: the top {len(ops[w])} ops of the replayed frame by device ms "
+    for w in ways:
+        print(f"[{tag}] {name} {w}: the top {len(ops[w])} ops of the replayed frame by device ms "
               f"(profiler; ms, launches, op): {top_ops_line(ops[w])} ({card})")
-    print(f"[scan] {name}: the cummax map's scans by (function, length), calls: "
-          f"{sorted(calls.items())}; launches {launches} ({total} frames each)")
+    del maps
     return {"ms": ms, "wall_ms": wall, "median_ms": med, "median_wall_ms": med_wall,
-            "loop_ms_per_frame": loop_ms, "median_loop_ms": med_loop, "api_calls": api, "device_busy": busy, "top_ops": ops,
-            "scan_calls": sorted(calls), "launches": launches}
+            "loop_ms_per_frame": loop_ms, "median_loop_ms": med_loop, "api_calls": api,
+            "device_busy": busy, "top_ops": ops, "launches": launches, "frames": total,
+            "branches": branches, "by_op": {w: prof[w][1] for w in ways}}
+
+
+def drive_scan_frames(name, cfg, params, synth, counters, card):
+    """[scan]'s frames (``drive_pair_frames``): "new", built as the package
+    builds it, and "cummax", whose every frame runs inside
+    ``cummax_scans``; the frame kernels run once a frame in each map.
+    Returns the numbers, the scans' calls by (function, length) among
+    them."""
+    import collections
+
+    calls = collections.Counter()
+    out = drive_pair_frames("scan", name, cfg, params, synth, counters, card,
+                            {"new": contextlib.nullcontext, "cummax": lambda: cummax_scans(calls)})
+    if {fn for fn, _ in calls} != {"segment_cumsum", "group_rank"}:
+        raise AssertionError(f"[scan] {name}: the cummax map's scans ran as {dict(calls)}")
+    hold_runs(f"[scan] {name}", out["launches"], 2 * out["frames"])
+    print(f"[scan] {name}: the cummax map's scans by (function, length), calls: "
+          f"{sorted(calls.items())}; launches {out['launches']} ({out['frames']} frames each)")
+    del out["by_op"], out["branches"]
+    return {**out, "scan_calls": sorted(calls)}
 
 
 def run_scan(counters, card) -> dict:
@@ -2847,6 +3106,131 @@ def run_scan(counters, card) -> dict:
         for fn, n in out["scan_calls"]:
             lengths.setdefault(n, []).append(f"{name} {fn}")
     return {"frames": frames, "lengths": check_scans(lengths, card)}
+
+
+# ---------------------------------------------------------------------------
+# [merge]: birth's block merge, the kernel against the plain version
+# ---------------------------------------------------------------------------
+
+#: The profiler's name of the merge kernel (csrc/birth.cu) holds this.
+MERGE_KERNEL = "merge_kernel"
+
+
+@contextlib.contextmanager
+def merge_way(way, calls):
+    """[merge]'s context for one way's frames: every module that binds
+    ``_insert_core`` (``ops.birth``, ``map``, ``template_engine``,
+    ``parallel.shard_step``) holds a wrapper that adds one to
+    ``calls[way]`` a call, and for the way "plain" ``ops.birth.merge_blocks``
+    is ``merge_blocks_plain``: a step built and captured inside runs the
+    plain merge in every replay.  Nothing of the package changes outside
+    the block."""
+    from semantic_dsp_map_tpu_torch import map as map_module, template_engine
+    from semantic_dsp_map_tpu_torch.ops import birth
+    from semantic_dsp_map_tpu_torch.parallel import shard_step
+
+    core = birth._insert_core
+
+    def counted(*args, **kwargs):
+        calls[way] += 1
+        return core(*args, **kwargs)
+
+    patches = [(m, "_insert_core", counted) for m in (birth, map_module, template_engine,
+                                                        shard_step)]
+    if way == "plain":
+        patches.append((birth, "merge_blocks", birth.merge_blocks_plain))
+    saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
+    for m, name, fn in patches:
+        setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def merge_checks(tag, out, calls, card, template=False):
+    """What [merge] holds each path to, from ``drive_pair_frames`` or
+    ``drive_sharded_pair``'s numbers: the frame kernels ran once a frame in
+    each map; both ways called ``_insert_core`` alike, ``inserts_a_frame``
+    times a frame, each call twice in Python (the eager frame, the capture;
+    a replay calls nothing); the merge kernel ran once per ``_insert_core``
+    of the kernel map's frames, and inside the profiled replay once per
+    insert, the plain map's never.  Returns (inserts a frame, the kernel's
+    ms in the kernel map's replay, the kernel's runs)."""
+    frames = out["frames"]
+    per_frame, odd = divmod(calls["kernel"], 2)
+    hits = {w: [(ms, n) for op, (ms, n) in out["by_op"][w].items() if MERGE_KERNEL in op]
+            for w in ("kernel", "plain")}
+    want = {f: frames * runs_a_frame(f, template) * (1 if f == MERGE_FN else 2)
+            for f in out["launches"]}
+    bad = [] if out["launches"] == want else [f"kernel runs {out['launches']}, want {want}"]
+    if odd or per_frame != inserts_a_frame(template) or calls["plain"] != calls["kernel"]:
+        bad.append(f"_insert_core calls {dict(calls)}")
+    if len(hits["kernel"]) != 1 or hits["kernel"][0][1] != per_frame or hits["plain"]:
+        bad.append(f"the merge kernel in the profiled replays {hits}")
+    if bad:
+        raise AssertionError(f"[merge] {tag} over {frames} frames of each map: {'; '.join(bad)}")
+    merges = out["launches"].pop(MERGE_FN)
+    in_replay = hits["kernel"][0][0]
+    print(f"[merge] {tag}: {per_frame} _insert_core calls a frame in both maps; the merge kernel "
+          f"ran {merges} times in {frames} frames of the kernel map (once per _insert_core), "
+          f"none in the plain map; inside the profiled replay {per_frame} launches, "
+          f"{in_replay:.4f} ms; the frame kernels once a frame in each map ({card})")
+    del out["by_op"]
+    return per_frame, in_replay, merges
+
+
+def run_merge(counters, card) -> dict:
+    """[merge]: two maps of each path fed the same noise-on frames in
+    turns (``drive_pair_frames``): "kernel", built as the package builds
+    it (the merge kernel of csrc/birth.cu on every path that inserts), and
+    "plain", whose every frame runs inside ``merge_way("plain")``: state,
+    generator, render, counters (and sweep records) bit-equal every frame;
+    update() medians, loops of 8, one profiled replay each.  Paths:
+    vkitti2, zed2, the hostile scene and vkitti2_template (the birth branch
+    on frame TPL_LATE_CAR, the rematch branch on TPL_LOST)."""
+    import collections
+
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, virtual_kitti2_config, zed2_config
+
+    scenes = bench_scenes()
+    vk = virtual_kitti2_config()
+    out = {}
+    for name, cfg, params, synth, tpl in (
+            ("vkitti2", vk, scenes.VK_PARAMS, scenes.synth_vkitti2_frame, None),
+            ("zed2", zed2_config(), scenes.ZED2_PARAMS, scenes.synth_zed2_frame, None),
+            ("vkitti2_hostile", vk, scenes.VK_PARAMS, scenes.synth_hostile_frame, None),
+            ("vkitti2_template", vk, scenes.TPL_PARAMS, late_template_frame, TEMPLATES)):
+        calls = collections.Counter()
+        res = drive_pair_frames(
+            "merge", name, cfg, FilterParams(**params), synth, counters, card,
+            {w: (lambda w=w: merge_way(w, calls)) for w in ("kernel", "plain")},
+            rounds=2, template_path=tpl)
+        if tpl is not None and (res["branches"].get(TPL_LATE_CAR) != ["birth"]
+                                or res["branches"].get(TPL_LOST) != ["rematch"]):
+            raise AssertionError(f"[merge] {name}: template branches ran on {res['branches']}")
+        res["inserts_per_frame"], res["kernel_ms_in_replay"], res["merge_runs"] = merge_checks(
+            name, res, calls, card, template=tpl is not None)
+        out[name] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_sharded_merge(counters, card, frames=4):
+    """[merge] on the sharded step at one rank (``drive_sharded_pair``):
+    one captured step built as the package builds it, one whose every call
+    runs inside ``merge_way("plain")``."""
+    import collections
+
+    calls = collections.Counter()
+    out = drive_sharded_pair("merge", counters, card,
+                             {w: (lambda w=w: merge_way(w, calls)) for w in ("kernel", "plain")},
+                             frames)
+    out["inserts_per_frame"], out["kernel_ms_in_replay"], out["merge_runs"] = merge_checks(
+        "sharded vkitti2", out, calls, card)
+    return out
 
 
 def drive_rematch(counters, card, lost=5, frames=7):
@@ -2894,9 +3278,7 @@ def drive_rematch(counters, card, lost=5, frames=7):
                   f"{want[:3, 3].tolist()} (velocity x {DEFAULT_PREDICT_DT} s), {got['moved_count']} "
                   f"particles moved ({card})")
     launches = read_launches(counters)
-    for fname, count in launches.items():
-        if count != frames:
-            raise AssertionError(f"rematch: {fname} launched {count} times in {frames} frames")
+    hold_runs("rematch", launches, frames)
     return launches, at
 
 
@@ -2986,7 +3368,8 @@ def drive_sharded_vkitti2(counters, card, frames=8, noise_frames=6):
     1e-6; occ, label and track bit for bit, weight_sum within 1e-6).  Each
     sharded call runs with the launch counts set to 0 just before it and
     read just after (``step_graph.kernel_runs``): the five kernels of the
-    path must run once a call.  The bridge is timed in the captured frames
+    path must run once a call, birth's merge once per ``_insert_core``
+    (``hold_runs``).  The bridge is timed in the captured frames
     (host ms, device ms between events); one more frame of each sharded way
     runs under torch.profiler (host API calls by name, device busy share).
     Then ``noise_frames`` frames with the preset's noise on (depth noise,
@@ -3079,8 +3462,7 @@ def drive_sharded_vkitti2(counters, card, frames=8, noise_frames=6):
             work[way].append(torch.cuda.max_memory_allocated() - resident)
             if way != "plain":
                 runs = read_launches(counters)
-                if any(n != 1 for n in runs.values()):
-                    raise AssertionError(f"[sharded] vkitti2 frame {t} {way}: kernel runs {runs}")
+                hold_runs(f"[sharded] vkitti2 frame {t} {way}", runs, 1)
                 for fname, n in runs.items():
                     launches[fname] += n
             states[way] = out[way][0]
@@ -3178,8 +3560,7 @@ def drive_sharded_vkitti2(counters, card, frames=8, noise_frames=6):
             torch.cuda.synchronize()
             noise_ms[way].append(a.elapsed_time(b))
             runs = read_launches(counters)
-            if any(n != 1 for n in runs.values()):
-                raise AssertionError(f"[sharded] vkitti2 noise frame {t} {way}: kernel runs {runs}")
+            hold_runs(f"[sharded] vkitti2 noise frame {t} {way}", runs, 1)
             for fname, n in runs.items():
                 launches[fname] += n
             states[way] = out[way][0]
@@ -3202,18 +3583,16 @@ def drive_sharded_vkitti2(counters, card, frames=8, noise_frames=6):
             "noise_ms": noise_ms, "noise_moved": noise_moved}
 
 
-def drive_sharded_scan(counters, card, frames=4):
-    """[scan] on the sharded step at one rank: two captured sharded steps
-    (``build_shard_step``) at the VKITTI2 preset with its noise on, one
-    built as the package builds it, one whose every call (the eager first
-    frame, the capture, the replays) runs inside ``cummax_scans``;
+def drive_sharded_pair(tag, counters, card, patches, frames=4):
+    """Two captured sharded steps (``build_shard_step``) at one rank, at the
+    VKITTI2 preset with its noise on, one a way: ``patches`` maps each of
+    the two ways to a context factory, and every call of that way's step
+    (the eager first frame, the capture, the replays) runs inside it;
     ``frames`` frames in turns, bit-equal every frame (state, both
     generators, render, counters), then one more frame of each under
     torch.profiler: device busy, host API calls and the top 15 ops of the
-    replayed frame.  The launch counts are set to 0 before the first frame
-    and read after the last.  Returns the numbers."""
-    import collections
-
+    replayed frame.  The launch counts of ``counters`` are set to 0 before
+    the first frame and read after the last.  Returns the numbers."""
     import torch
     from semantic_dsp_map_tpu_torch import FilterParams, virtual_kitti2_config
     from semantic_dsp_map_tpu_torch.labels import LabelRegistry
@@ -3221,19 +3600,19 @@ def drive_sharded_scan(counters, card, frames=4):
     from semantic_dsp_map_tpu_torch.parallel.sharding import shard_state
     from semantic_dsp_map_tpu_torch.state import init_map_state
 
+    ways = tuple(patches)
     cfg, registry = virtual_kitti2_config(), LabelRegistry.default()
     params = FilterParams(**bench_scenes().VK_PARAMS)
-    steps = {w: build_shard_step(cfg, params, registry) for w in SCAN_WAYS}
-    states = {w: shard_state(cfg, init_map_state(cfg, 0, "cuda"), 0, 1) for w in SCAN_WAYS}
-    calls = collections.Counter()
+    steps = {w: build_shard_step(cfg, params, registry) for w in ways}
+    states = {w: shard_state(cfg, init_map_state(cfg, 0, "cuda"), 0, 1) for w in ways}
     reset_launches(counters)
     prof = {}
     for t in range(frames + 1):
         f = sharded_inputs(cfg, registry, t)[0]
         out = {}
-        for way in SCAN_WAYS if t % 2 == 0 else SCAN_WAYS[::-1]:
+        for way in ways if t % 2 == 0 else ways[::-1]:
             def run(way=way):
-                with cummax_scans(calls) if way == "cummax" else contextlib.nullcontext():
+                with patches[way]():
                     out[way] = steps[way](states[way], f)
                 torch.cuda.synchronize()
             if t == frames:
@@ -3241,33 +3620,47 @@ def drive_sharded_scan(counters, card, frames=4):
             else:
                 run()
             states[way] = out[way][0]
-        parted = sharded_parting(out["new"], out["cummax"], steps["new"].stages.rank_rng.gen,
-                                 steps["cummax"].stages.rank_rng.gen)
+        parted = sharded_parting(out[ways[0]], out[ways[1]], steps[ways[0]].stages.rank_rng.gen,
+                                 steps[ways[1]].stages.rank_rng.gen)
         if parted:
-            raise AssertionError(f"[scan] sharded vkitti2 frame {t}: the cummax step parts from "
-                                 f"the package's in {parted}")
+            raise AssertionError(f"[{tag}] sharded vkitti2 frame {t}: the {ways[1]} step parts "
+                                 f"from the {ways[0]} step in {parted}")
     launches = read_launches(counters)
-    if any(n != 2 * (frames + 1) for n in launches.values()) or "group_rank" not in {
-            fn for fn, _ in calls}:
-        raise AssertionError(f"[scan] sharded vkitti2: launches {launches}, the cummax step's "
-                             f"scans {dict(calls)}")
-    ops = {w: top_ops(prof[w][1]) for w in SCAN_WAYS}
+    ops = {w: top_ops(prof[w][1]) for w in ways}
     busy = {w: {"busy_ms": prof[w][2], "wall_ms": prof[w][3], "kernels": prof[w][4]}
-            for w in SCAN_WAYS}
-    api = {w: prof[w][0] for w in SCAN_WAYS}
-    print(f"[scan] sharded vkitti2 at one rank, noise on: {frames + 1} frames of both captured "
+            for w in ways}
+    api = {w: prof[w][0] for w in ways}
+    print(f"[{tag}] sharded vkitti2 at one rank, noise on: {frames + 1} frames of both captured "
           f"steps bit-equal (state, both generators, render, counters); the replayed frame "
           f"{frames}: " + ", ".join(
               f"{w} device busy {busy[w]['busy_ms']:.3f} of {busy[w]['wall_ms']:.3f} ms, "
-              f"{busy[w]['kernels']} kernels, {api[w]} host API calls" for w in SCAN_WAYS)
-          + f"; the cummax step's scans {sorted(calls.items())}; launches {launches} ({card})")
-    for w in SCAN_WAYS:
-        print(f"[scan] sharded vkitti2 {w}: the top {len(ops[w])} ops of the replayed frame by "
+              f"{busy[w]['kernels']} kernels, {api[w]} host API calls" for w in ways)
+          + f"; launches {launches} ({card})")
+    for w in ways:
+        print(f"[{tag}] sharded vkitti2 {w}: the top {len(ops[w])} ops of the replayed frame by "
               f"device ms (profiler; ms, launches, op): {top_ops_line(ops[w])} ({card})")
     del steps, states, out
     torch.cuda.empty_cache()
     return {"frames": frames + 1, "device_busy": busy, "api_calls": api, "top_ops": ops,
-            "scan_calls": sorted(calls), "launches": launches}
+            "launches": launches, "by_op": {w: prof[w][1] for w in ways}}
+
+
+def drive_sharded_scan(counters, card, frames=4):
+    """[scan] on the sharded step at one rank (``drive_sharded_pair``): one
+    step built as the package builds it, one whose every call runs inside
+    ``cummax_scans``."""
+    import collections
+
+    calls = collections.Counter()
+    out = drive_sharded_pair("scan", counters, card, {"new": contextlib.nullcontext,
+                                                      "cummax": lambda: cummax_scans(calls)},
+                             frames)
+    hold_runs("[scan] sharded vkitti2", out["launches"], 2 * out["frames"])
+    if "group_rank" not in {fn for fn, _ in calls}:
+        raise AssertionError(f"[scan] sharded vkitti2: the cummax step's scans {dict(calls)}")
+    print(f"[scan] sharded vkitti2: the cummax step's scans {sorted(calls.items())}")
+    del out["by_op"]
+    return {**out, "scan_calls": sorted(calls)}
 
 
 def check_sharded_zed2(counters, card):
@@ -3276,7 +3669,8 @@ def check_sharded_zed2(counters, card):
     turns (it raises if a render parts), then a warm-up and 8 timed sharded
     frames.  The sharded step (bbox3d: one graph, "step") must replay its
     graph from its second frame on, and the five kernels of the path must
-    run once a sharded frame."""
+    run once a sharded frame; birth's merge runs once per ``_insert_core``
+    of every frame of the check."""
     from semantic_dsp_map_tpu_torch import step_graph
     from semantic_dsp_map_tpu_torch.benchmarks import bench
 
@@ -3285,7 +3679,11 @@ def check_sharded_zed2(counters, card):
     total = read_launches(counters)
     replayed = dict(step_graph.replayed)
     n = 2 * cell["frames"] + 1
-    for fname in (fn.__name__ for fn in counters):
+    # each frame of the check, single-device or sharded, runs pass A once
+    if total[MERGE_FN] != inserts_a_frame() * total["pass_a_cuda"]:
+        raise AssertionError(f"sharded zed2: kernel runs {total}")
+    cell["merge_runs"] = total[MERGE_FN]
+    for fname in cell["kernel_launches"]:
         if cell["kernel_launches"][fname] != n or replayed.get(fname) != n - 1:
             raise AssertionError(f"sharded zed2: {fname} ran {cell['kernel_launches'][fname]} "
                                  f"times in {n} sharded frames, {replayed.get(fname)} in replays")
@@ -3400,22 +3798,24 @@ def one_rank_group(card):
 
 def run_sharded(counters, card) -> dict:
     """[sharded]'s runs in a process group of this process alone:
-    ``drive_sharded_vkitti2``, [scan]'s ``drive_sharded_scan`` and
-    ``check_sharded_zed2``."""
+    ``drive_sharded_vkitti2``, [scan]'s ``drive_sharded_scan``, [merge]'s
+    ``drive_sharded_merge`` and ``check_sharded_zed2``."""
     with one_rank_group(card):
         sharded = {"vkitti2": drive_sharded_vkitti2(counters, card)}
         sharded["scan"] = drive_sharded_scan(counters, card)
+        sharded["merge"] = drive_sharded_merge(counters, card)
         sharded["zed2"] = check_sharded_zed2(counters, card)
     return sharded
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "graph", "sharded", "scan"),
+    ap.add_argument("--phase", choices=("all", "kernels", "graph", "sharded", "scan", "merge"),
                     default="all",
                     help="'kernels' stops after the per-kernel checks; 'graph' runs the build "
                          "and [graph] alone; 'sharded' the build and [sharded]'s vkitti2 and "
-                         "zed2 runs alone; 'scan' the build and [scan] alone")
+                         "zed2 runs alone; 'scan' the build and [scan] alone; 'merge' the "
+                         "build and [merge] alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     ap.add_argument("--against", metavar="DIR", type=Path,
@@ -3463,7 +3863,10 @@ def main() -> int:
 
     scenes = bench_scenes()
     vk_cfg, zed2_cfg, coda_cfg = virtual_kitti2_config(), zed2_config(), coda_config()
-    fns = step_graph.FRAME_KERNELS
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import merge_blocks_cuda
+
+    # every kernel wrapper of the main path: the frame kernels, birth's merge
+    fns = (*step_graph.FRAME_KERNELS, merge_blocks_cuda)
     # name -> (config, parameters, scene, keyword arguments of drive_graph)
     graph_paths = {
         "vkitti2": (vk_cfg, scenes.VK_PARAMS, scenes.synth_vkitti2_frame, {}),
@@ -3500,6 +3903,13 @@ def main() -> int:
         print(json.dumps({"scan": scan, "card": card}))
         print(f"[card] {card}")
         return 0
+    if args.phase == "merge":
+        merge = run_merge(fns, card)
+        with one_rank_group(card):
+            merge["sharded_vkitti2"] = drive_sharded_merge(fns, card)
+        print(json.dumps({"merge": merge, "card": card}))
+        print(f"[card] {card}")
+        return 0
     source = "semantic_dsp_map_tpu_torch/csrc/"
     report = {
         "phd_pass_a": dict(name="phd_pass_a", route="cuda", source=source + "phd.cu",
@@ -3517,9 +3927,13 @@ def main() -> int:
                        replaces="benchmarks/prim_bench7.py:28"),
         "scale2": dict(name="scale2", route="cuda", source=source + "probes.cu",
                        replaces="benchmarks/prim_bench1.py:63"),
+        # no pallas_call: the merge XLA fuses out of the JAX _insert_core
+        "merge_blocks": dict(name="merge_blocks", route="cuda", source=source + "birth.cu",
+                             replaces="semantic_dsp_map_tpu/ops/birth.py:279"),
     }
     # No single PyTorch call computes a frame kernel's function.
-    for key in ("phd_pass_a", "phd_pass_b", "render", "front_candidates", "movable_voxels"):
+    for key in ("phd_pass_a", "phd_pass_b", "render", "front_candidates", "movable_voxels",
+                "merge_blocks"):
         report[key]["library_ms"] = None
     # ms / plain_ms / max_abs_err at VKITTI2 shapes, zed2_* at ZED2 shapes,
     # coda_* at the coda preset's (960 x 540, K = 3 at 8.4M voxels)
@@ -3527,6 +3941,7 @@ def main() -> int:
         check_phd(cfg, report, prefix)
         check_render(cfg, report, prefix)
         check_observe(cfg, report, prefix)
+    check_merge(report, card)
     check_probes(report)
     check_launch(report, card)
     torch.cuda.empty_cache()
@@ -3544,7 +3959,9 @@ def main() -> int:
         print(f"[card] {card}")
         return 0
 
-    counters = {key: fn for (key, _), fn in zip(FRAME_KERNEL_NAMES, fns, strict=True)}
+    counters = {key: fn for (key, _), fn in zip(FRAME_KERNEL_NAMES, step_graph.FRAME_KERNELS,
+                                                strict=True)}
+    path_counters = {**counters, "merge_blocks": merge_blocks_cuda}
     check_scene_cuda_vs_cpu("dynamic scene", tiny_test_config(), FilterParams(**TINY_PARAMS),
                             tiny_scene, fns)
     for independent in (False, True):
@@ -3579,6 +3996,7 @@ def main() -> int:
             name, cfg, FilterParams(**params), synth, fns, card, template_path=tpl_path)
         if name == "vkitti2":
             real_frame = check_real_frame(dsp, synth, len(frame_ms), card, other)
+            report["merge_blocks"]["real_frame"] = real_frame["merge"]
         if tpl_path is not None:
             births = [(t, sw, n) for t, sw, n in sweeps if sw.stage == "birth"]
             if not births:
@@ -3601,7 +4019,7 @@ def main() -> int:
         if args.profile:
             profile_main_path(dsp, synth, card)
         del dsp
-        for key, fn in counters.items():
+        for key, fn in path_counters.items():
             report[key].setdefault("launches_by_path", {})[name] = launches[fn.__name__]
     torch.cuda.empty_cache()
 
@@ -3611,18 +4029,29 @@ def main() -> int:
         for key, fn in counters.items():
             report[key].setdefault("graph_ms_by_path", {})[name] = (
                 graph[name]["kernel_ms_in_replay"][key])
+        for key, fn in path_counters.items():
             report[key]["launches_by_path"]["graph_" + name] = graph[name]["launches"][fn.__name__]
     for key in counters:
         report[key]["graph_ms"] = report[key]["graph_ms_by_path"]["vkitti2"]
     scan = run_scan(fns, card)
-    for key, fn in counters.items():
+    for key, fn in path_counters.items():
         for name, out in scan["frames"].items():
             report[key]["launches_by_path"]["scan_" + name] = out["launches"][fn.__name__]
+    merge = run_merge(fns, card)
+    merge_entry = report["merge_blocks"]
+    for name, out in merge.items():
+        merge_entry["launches_by_path"]["merge_" + name] = out["merge_runs"]
+        # inside a replay: the frame's launches together, and one launch
+        merge_entry.setdefault("graph_ms_a_frame_by_path", {})[name] = out["kernel_ms_in_replay"]
+        merge_entry.setdefault("graph_ms_by_path", {})[name] = (
+            out["kernel_ms_in_replay"] / out["inserts_per_frame"])
+        merge_entry.setdefault("inserts_per_frame", {})[name] = out["inserts_per_frame"]
+    merge_entry["graph_ms"] = merge_entry["graph_ms_by_path"]["vkitti2"]
 
     rematch_launches, rematch_frame = drive_rematch(fns, card)
     replay_launches, replay_ms = drive_replay(fns, card)
     soak_launches, soak_report = drive_soak(fns, card)
-    for key, fn in counters.items():
+    for key, fn in path_counters.items():
         by_path = report[key]["launches_by_path"]
         by_path["rematch"] = rematch_launches[fn.__name__]
         by_path["replay"] = replay_launches[fn.__name__]
@@ -3652,11 +4081,20 @@ def main() -> int:
     sharded["slab_shapes"] = check_slab_kernels(report, card)
     print(f"[sharded] the weak-scaling report at one rank ({card})")
     sharded["weak_scaling"] = distributed.main(["--devices", "1", "--preset", "medium"])
-    for key, fn in counters.items():
+    for key, fn in path_counters.items():
         by_path = report[key]["launches_by_path"]
         by_path["sharded_vkitti2"] = sharded["vkitti2"]["launches"][fn.__name__]
-        by_path["sharded_zed2"] = sharded["zed2"]["kernel_launches"][fn.__name__]
         by_path["scan_sharded_vkitti2"] = sharded["scan"]["launches"][fn.__name__]
+    for key, fn in counters.items():
+        report[key]["launches_by_path"]["sharded_zed2"] = (
+            sharded["zed2"]["kernel_launches"][fn.__name__])
+    # the merge over the whole zed2 check: its single-device and sharded frames
+    merge_entry["launches_by_path"]["sharded_zed2_check"] = sharded["zed2"]["merge_runs"]
+    merge_entry["launches_by_path"]["merge_sharded_vkitti2"] = sharded["merge"]["merge_runs"]
+    merge_entry["graph_ms_a_frame_by_path"]["sharded_vkitti2"] = (
+        sharded["merge"]["kernel_ms_in_replay"])
+    merge_entry["graph_ms_by_path"]["sharded_vkitti2"] = (
+        sharded["merge"]["kernel_ms_in_replay"] / sharded["merge"]["inserts_per_frame"])
 
     print(json.dumps({"kernels": list(report.values()), "frame_ms_median": medians,
                       "template": template, "smoothed_render_ms": smoothed_ms,
@@ -3664,7 +4102,7 @@ def main() -> int:
                       "replay_ms_per_frame": replay_ms, "soak": soak_report,
                       "stage_profile": stage_rows, "probes": probe_rows, "bench": bench_cells,
                       "expected": expected, "rematch_frame": rematch_frame, "sharded": sharded,
-                      "graph": graph, "scan": scan,
+                      "graph": graph, "scan": scan, "merge": merge,
                       "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -114,6 +114,19 @@ class InsertResult(NamedTuple):
     block_overflow: torch.Tensor   # scalar
 
 
+class Staged(NamedTuple):
+    """The first K candidates of each voxel of the target blocks, staged at
+    (block row, voxel within the block, rank); each ``[A, bv, K]``.  A slot
+    without a candidate holds ``meta`` -1 and zeros."""
+
+    px: torch.Tensor     # f32
+    py: torch.Tensor     # f32
+    pz: torch.Tensor     # f32
+    w: torch.Tensor      # f32
+    stamp: torch.Tensor  # i32
+    meta: torch.Tensor   # i32: forget << 27 | status << 24 | label << 16 | track
+
+
 def _insert_core(
     cfg: MapConfig,
     particles: Particles,
@@ -210,6 +223,40 @@ def _insert_core(
     else:
         in_stamp = torch.where(occupied_stage, uniform_stamp, 0).to(torch.int32)
 
+    staged = Staged(in_px, in_py, in_pz, in_w, in_stamp, in_meta)
+    flat, accepted_count = merge_blocks(cfg, flat, blocks, vox_axis, staged, resample_targets)
+    return InsertResult(
+        particles=flat,
+        accepted_count=accepted_count,
+        block_overflow=blocks.overflow,
+    )
+
+
+def merge_blocks(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks, vox_axis: torch.Tensor,
+                 staged: Staged, resample_targets: bool):
+    """The merge stage of ``_insert_core``: on the card one launch of the
+    kernel of csrc/birth.cu (ops/birth_cuda.py, imported here only then),
+    on the CPU ``merge_blocks_plain``."""
+    if flat.px.is_cuda:
+        from .birth_cuda import merge_blocks_cuda
+
+        return merge_blocks_cuda(cfg, flat, blocks, vox_axis, staged, resample_targets)
+    return merge_blocks_plain(cfg, flat, blocks, vox_axis, staged, resample_targets)
+
+
+def merge_blocks_plain(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks,
+                       vox_axis: torch.Tensor, staged: Staged, resample_targets: bool):
+    """Gather the target blocks' rows of ``flat``, prune their stale slots,
+    optionally resample the voxels with a staged candidate, merge the
+    staged candidates into first-vacant slots and write the rows back IN
+    PLACE.  Returns (flat, accepted count as a 0-d int64 tensor).  The
+    oracle of ops.birth_cuda.merge_blocks_cuda."""
+    K = cfg.slots_per_voxel
+    A = blocks.ids.shape[0]
+    bv, _nb_full, spb = block_layout(cfg)
+    in_px, in_py, in_pz, in_w, in_stamp, in_meta = staged
+    occupied_stage = in_meta >= 0
+
     # ---- working set of the target blocks ----
     g = lambda f: gather_rows_flat(f, blocks, spb).view(A, bv, K)
     bpx, bpy, bpz = g(flat.px), g(flat.py), g(flat.pz)
@@ -255,13 +302,9 @@ def _insert_core(
         scatter_rows_flat(field, blocks, spb, vals)
 
     # Staged candidate r is accepted iff r < the voxel's vacancy count.
-    lane = torch.arange(K, device=dev)
+    lane = torch.arange(K, device=in_meta.device)
     accepted = occupied_stage & (lane < run[:, :, K - 1 :])
-    return InsertResult(
-        particles=flat,
-        accepted_count=accepted.sum(),
-        block_overflow=blocks.overflow,
-    )
+    return flat, accepted.sum()
 
 
 def insert_with_resample(

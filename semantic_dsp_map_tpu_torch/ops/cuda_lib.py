@@ -19,7 +19,8 @@ function objects of the loaded library, resolved once with their argtypes
 (pointers, ints and Python floats are converted by those).  The C function
 launches with ``cuLaunchKernel`` on a ``CUfunction`` looked up once
 (``csrc/launch.cuh``) and returns its error code; the wrapper
-raises ``error(err, name)`` if that is not 0.
+raises ``error(err, name)`` if that is not 0.  Each wrapper is registered
+with ``counted`` and adds one to its ``launches`` a launch.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("phd.cu", "render.cu", "observe.cu", "probes.cu", "graph.cu")
+SOURCES = ("phd.cu", "render.cu", "observe.cu", "probes.cu", "graph.cu", "birth.cu")
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: Precise math on purpose: pass B's "rightly updated" flag is compared bit
@@ -73,6 +74,10 @@ SIGNATURES = {
     "dsp_gather": [_P] * 3 + [ctypes.c_longlong, _P],
     # input, output; number of elements; stream
     "dsp_scale2": [_P] * 2 + [ctypes.c_longlong, _P],
+    # csrc/birth.cu: the store's nine fields (in place), vox_axis, ids, six
+    # staged buffers, the accepted count; A, bv, K, nb, resample, trigger;
+    # stream
+    "dsp_merge_blocks": [_P] * 18 + [ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, _I, _P],
     # csrc/graph.cu: a conditional IF node under capture (step_graph.slot_cond)
     "dsp_if_node_prepare": [],
     # capture stream, the device flag (bool), the side stream of the body
@@ -102,7 +107,8 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
     package's own sources; a measurement that holds them against another
     version of the same sources names that version's directory, which may
     lack a source that version did not have yet (``graph.cu`` before the
-    template slots were captured)."""
+    template slots were captured, ``birth.cu`` before birth's merge was a
+    kernel)."""
     sources = [src for src in SOURCES if csrc == CSRC or (csrc / src).exists()]
     out_dir = BUILD_ROOT / _source_hash(csrc)
     lib = out_dir / "libdsp_kernels.so"
@@ -184,6 +190,19 @@ def error(err: int, name: str) -> RuntimeError:
     """The error to raise when the C entry point ``name`` returned ``err``."""
     msg = entry.dsp_error_string(err).decode()
     return RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+#: Every kernel wrapper whose module has been imported (``counted``).
+WRAPPERS: list = []
+
+
+def counted(fn):
+    """Register the kernel wrapper ``fn`` in ``WRAPPERS`` with a launch
+    count of 0; the wrapper adds one to ``fn.launches`` where it launches
+    its kernel."""
+    fn.launches = 0
+    WRAPPERS.append(fn)
+    return fn
 
 
 def _refuse(t: torch.Tensor, name: str, index: int, dtype: torch.dtype, shape) -> None:

@@ -26,6 +26,7 @@ def _slots(cfg: MapConfig, vox_axis: torch.Tensor):
     return V, cfg.slots_per_voxel, (V * cfg.slots_per_voxel,)
 
 
+@cuda_lib.counted
 def front_candidates_cuda(cfg: MapConfig, px, py, pz, status, stamp, vox_axis, r_cw, t_cw):
     """(has_alive u8[V], has_cand u8[V]); see
     ops.observe.front_candidates_plain.  The kernel loads 16 bytes a thread:
@@ -55,6 +56,7 @@ def front_candidates_cuda(cfg: MapConfig, px, py, pz, status, stamp, vox_axis, r
     return ha, hc
 
 
+@cuda_lib.counted
 def movable_voxels_cuda(cfg: MapConfig, track, status, stamp, vox_axis, max_movable: int):
     """u8[V]; see ops.observe.movable_voxels_plain."""
     index = track.get_device()
@@ -73,7 +75,3 @@ def movable_voxels_cuda(cfg: MapConfig, track, status, stamp, vox_axis, max_mova
         raise cuda_lib.error(err, "dsp_movable_voxels")
     movable_voxels_cuda.launches += 1
     return hm
-
-
-front_candidates_cuda.launches = 0
-movable_voxels_cuda.launches = 0

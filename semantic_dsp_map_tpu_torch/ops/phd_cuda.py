@@ -37,6 +37,7 @@ def _check_r(cfg: MapConfig) -> int:
     return R
 
 
+@cuda_lib.counted
 def pass_a_cuda(
     cfg: MapConfig,
     params: FilterParams,
@@ -66,9 +67,7 @@ def pass_a_cuda(
     return ck
 
 
-pass_a_cuda.launches = 0
-
-
+@cuda_lib.counted
 def pass_b_cuda(
     cfg: MapConfig,
     params: FilterParams,
@@ -106,6 +105,3 @@ def pass_b_cuda(
         raise cuda_lib.error(err, "dsp_pass_b")
     pass_b_cuda.launches += 1
     return acc, right
-
-
-pass_b_cuda.launches = 0

@@ -18,6 +18,7 @@ from . import cuda_lib
 from .probes import gather_plain, scale2_plain
 
 
+@cuda_lib.counted
 def gather_cuda(depth: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
     """f32[N]; see ops.probes.gather_plain.  An empty index launches
     nothing and gives an empty tensor, as the plain version does."""
@@ -37,6 +38,7 @@ def gather_cuda(depth: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@cuda_lib.counted
 def scale2_cuda(x: torch.Tensor) -> torch.Tensor:
     """f32 of x's shape; see ops.probes.scale2_plain.  An empty tensor
     launches nothing."""
@@ -53,7 +55,3 @@ def scale2_cuda(x: torch.Tensor) -> torch.Tensor:
         raise cuda_lib.error(err, "dsp_scale2")
     scale2_cuda.launches += 1
     return out
-
-
-gather_cuda.launches = 0
-scale2_cuda.launches = 0

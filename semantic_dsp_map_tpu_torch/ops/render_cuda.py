@@ -21,6 +21,7 @@ from . import cuda_lib
 from .render import RenderResult, render_core_plain
 
 
+@cuda_lib.counted
 def render_core_cuda(cfg: MapConfig, p, voxel_stamp, vax, occupancy_threshold: float):
     """Returns (p, RenderResult); ``p.weight`` and ``p.status`` are updated
     in place."""
@@ -54,6 +55,3 @@ def render_core_cuda(cfg: MapConfig, p, voxel_stamp, vax, occupancy_threshold: f
         raise cuda_lib.error(err, "dsp_render")
     render_core_cuda.launches += 1
     return p, RenderResult(occ=occ, label=label, track=track, weight_sum=weight_sum)
-
-
-render_core_cuda.launches = 0

@@ -237,7 +237,9 @@ class _Graph:
         for generator in generators:
             self.graph.register_generator_state(generator)
         self.capture = Capture(self.graph)
-        before = [fn.launches for fn in FRAME_KERNELS]
+        # Every wrapper's launches (cuda_lib.WRAPPERS; a wrapper whose module
+        # the capture imports starts at 0).
+        before = {fn: fn.launches for fn in cuda_lib.WRAPPERS}
         # Another map's graph destroyed during the capture (by the garbage
         # collector, at any allocation) would invalidate it: the dead go
         # first, and the collector waits until the capture ends.
@@ -253,7 +255,7 @@ class _Graph:
         finally:
             if collecting:
                 gc.enable()
-        self.launches = {fn.__name__: fn.launches - n for fn, n in zip(FRAME_KERNELS, before)}
+        self.launches = {fn.__name__: fn.launches - before.get(fn, 0) for fn in cuda_lib.WRAPPERS}
         captured.update(self.launches)
 
     def replay(self):

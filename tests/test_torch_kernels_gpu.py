@@ -1060,3 +1060,136 @@ def test_segment_scans_match_cummax(cuda, n, captured):
         torch.cuda.synchronize()
         for name, x, y in zip(("segment_start_index", "group_rank", "segment_cumsum"), got, want):
             assert torch.equal(x, y), (name, density)
+
+
+#: Birth's merge at the working-set shapes of the main path: (preset's
+#: slots_n, bv, A, real rows, store blocks).  tiny: the tiny config's
+#: birth; vkitti2: max_birth_blocks = 1536 rows of 64 voxels, K = 7; the
+#: moving-object cleanup at VKITTI2 (2 x max_moving_blocks = 256 rows);
+#: zed2: 1024 rows of 128 voxels, K = 3.
+MERGE_SHAPES = {"tiny": (2, 128, 16, 11, 16), "vkitti2": (3, 64, 1536, 1400, 4096),
+                "vkitti2_move": (3, 64, 256, 200, 4096), "zed2": (2, 128, 1024, 1000, 2048)}
+
+
+def _merge_inputs(device, shape, seed):
+    """tests/torch_parity.merge_working_set at a MERGE_SHAPES entry, as
+    (cfg, flat, blocks, vox_axis, staged) on ``device``; the config's block
+    layout is the shape's."""
+    from semantic_dsp_map_tpu_torch.ops.birth import Staged
+    from semantic_dsp_map_tpu_torch.ops.blocks import ActiveBlocks, block_layout
+    from semantic_dsp_map_tpu_torch.state import Particles
+    from torch_parity import merge_working_set
+
+    slots_n, bv, A, n_real, nb = MERGE_SHAPES[shape]
+    # a grid of nb * bv voxels whose block layout has bv voxels a block
+    cfg = tiny_test_config(max_particle_num_per_voxel_n=slots_n,
+                           voxel_num_axis_x_n=(nb * bv).bit_length() - 1 - 8,
+                           voxel_num_axis_y_n=4, voxel_num_axis_z_n=4)
+    assert block_layout(cfg)[:2] == (bv, nb), block_layout(cfg)
+    d = merge_working_set(cfg.slots_per_voxel, bv, A, n_real, nb, seed)
+    T = lambda k: torch.from_numpy(d[k]).to(device)
+    flat = Particles(**{k: T(k) for k in ("px", "py", "pz", "weight", "label", "track", "status",
+                                          "forget", "stamp")})
+    blocks = ActiveBlocks(ids=T("ids"), count=torch.tensor(n_real, device=device),
+                          overflow=torch.zeros((), dtype=torch.int64, device=device))
+    staged = Staged(*(T(k) for k in ("in_px", "in_py", "in_pz", "in_w", "in_stamp", "in_meta")))
+    return cfg, flat, blocks, T("vox_axis"), staged
+
+
+def _same_store(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), f.name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("resample", [False, True])
+@pytest.mark.parametrize("shape", list(MERGE_SHAPES))
+def test_merge_kernel_matches_plain(cuda, shape, resample):
+    """Birth's merge kernel (csrc/birth.cu) against merge_blocks_plain on
+    the same inputs, padding rows among them: the store's bits and the
+    accepted count (a 0-d int64 tensor) equal; one launch."""
+    from semantic_dsp_map_tpu_torch.ops.birth import merge_blocks_plain
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import merge_blocks_cuda
+
+    cfg, flat_p, blocks, vax, staged = _merge_inputs(cuda, shape, seed=7)
+    flat_k = _merge_inputs(cuda, shape, seed=7)[1]
+    _, acc_p = merge_blocks_plain(cfg, flat_p, blocks, vax, staged, resample)
+    before = merge_blocks_cuda.launches
+    _, acc_k = merge_blocks_cuda(cfg, flat_k, blocks, vax, staged, resample)
+    torch.cuda.synchronize()
+    assert merge_blocks_cuda.launches == before + 1
+    assert acc_k.dtype == acc_p.dtype and acc_k.shape == acc_p.shape == ()
+    assert int(acc_k) == int(acc_p) > 0
+    _same_store(flat_k, flat_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("resample", [False, True])
+@pytest.mark.parametrize("shape", ["tiny", "vkitti2", "zed2"])
+def test_merge_kernel_in_a_cuda_graph(cuda, shape, resample):
+    """The merge kernel captured into a CUDA graph (its accepted count
+    zeroed inside the graph) and replayed on new inputs copied into the
+    captured ones: the plain version's bits every replay."""
+    from semantic_dsp_map_tpu_torch.ops.birth import merge_blocks_plain
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import merge_blocks_cuda
+
+    cfg, flat, blocks, vax, staged = _merge_inputs(cuda, shape, seed=1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture asks
+        merge_blocks_cuda(cfg, flat, blocks, vax, staged, resample)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, acc = merge_blocks_cuda(cfg, flat, blocks, vax, staged, resample)
+    for seed in (2, 3):
+        _, new, new_blocks, new_vax, new_staged = _merge_inputs(cuda, shape, seed=seed)
+        for f in dataclasses.fields(flat):
+            getattr(flat, f.name).copy_(getattr(new, f.name))
+        blocks.ids.copy_(new_blocks.ids)
+        vax.copy_(new_vax)
+        for x, y in zip(staged, new_staged):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        _, acc_p = merge_blocks_plain(cfg, new, new_blocks, new_vax, new_staged, resample)
+        assert int(acc) == int(acc_p) > 0
+        _same_store(flat, new)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["dtype", "shape", "strided", "cpu"])
+def test_merge_wrapper_refuses_what_its_kernel_does_not_take(cuda, fault):
+    """merge_blocks_cuda raises a ValueError that names the argument,
+    before any launch, for each tensor of another dtype, another shape, a
+    strided layout, or on the CPU among CUDA tensors: the store's fields
+    but px (whose device decides, and whose length sizes the others), the
+    scroll stamps, the block ids and the six staged buffers (named in_*)."""
+    from semantic_dsp_map_tpu_torch.ops.birth import Staged
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import merge_blocks_cuda
+
+    cfg, flat, blocks, vax, staged = _merge_inputs(cuda, "tiny", seed=5)
+    merge_blocks_cuda(cfg, flat, blocks, vax, staged, True)  # as they are, they pass
+    torch.cuda.synchronize()
+
+    def faulty(t):
+        if fault == "dtype" and t.dtype == torch.int64:
+            return t.int()
+        return _faulty(t, fault)
+
+    cases = [(f.name, lambda bad, f=f.name: (dataclasses.replace(flat, **{f: bad}), blocks, vax,
+                                             staged), getattr(flat, f.name))
+             for f in dataclasses.fields(flat) if f.name != "px"]
+    cases.append(("vox_axis", lambda bad: (flat, blocks, bad, staged), vax))
+    cases.append(("ids", lambda bad: (flat, blocks._replace(ids=bad), vax, staged), blocks.ids))
+    cases += [("in_" + name, lambda bad, name=name: (flat, blocks, vax,
+                                                     staged._replace(**{name: bad})),
+               getattr(staged, name)) for name in Staged._fields]
+    for name, args_with, t in cases:
+        before = merge_blocks_cuda.launches
+        with pytest.raises(ValueError, match=f"^{name}: "):
+            merge_blocks_cuda(cfg, *args_with(faulty(t)), True)
+        assert merge_blocks_cuda.launches == before, name

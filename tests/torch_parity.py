@@ -342,3 +342,44 @@ def render_store(V, K, seed, kind="mixed"):
         track=(d["track"] % 4).astype(np.int32), label=rng.randint(0, 8, n).astype(np.uint8),
         vax=d["axis"][0], voxel_stamp=rng.randint(0, 4, V).astype(np.int32),
     )
+
+
+def merge_working_set(K: int, bv: int, A: int, n_real: int, nb: int, seed: int) -> dict:
+    """Random inputs of birth's merge stage (``ops.birth.merge_blocks_plain``)
+    over a store of ``nb`` blocks of ``bv`` voxels of K slots: the store's
+    nine fields, the voxels' scroll stamps (some slots stale), ``A`` target
+    rows of which the first ``n_real`` are real (ascending unique block ids,
+    then the padding ids nb + row), and the staged candidates [A, bv, K]
+    (0 to K a voxel, as a prefix, meta -1 elsewhere).  A tenth of the
+    voxels hold weights near 1e-4, whose resample wipes; UPDATED is the
+    likeliest status, so most targeted voxels walk.
+    Returns numpy arrays by name."""
+    rng = np.random.RandomState(seed)
+    V = nb * bv
+    n = V * K
+    vox_scale = np.where(rng.rand(V) < 0.1, 1e-4, 0.6).astype(np.float32)
+    out = dict(
+        px=rng.randn(n).astype(np.float32), py=rng.randn(n).astype(np.float32),
+        pz=rng.randn(n).astype(np.float32),
+        weight=(rng.rand(n).astype(np.float32) * np.repeat(vox_scale, K)),
+        label=rng.randint(0, 256, n).astype(np.uint8),
+        track=rng.randint(0, 65536, n).astype(np.int32),
+        status=rng.choice([0, 1, 2, 3], n, p=[0.15, 0.7, 0.1, 0.05]).astype(np.uint8),
+        forget=rng.randint(0, 8, n).astype(np.uint8),
+        stamp=rng.randint(0, 8, n).astype(np.int32),
+        vox_axis=rng.choice([0, 1, 2], V, p=[0.8, 0.15, 0.05]).astype(np.int32),
+    )
+    ids = nb + np.arange(A, dtype=np.int64)
+    ids[:n_real] = np.sort(rng.choice(nb, n_real, replace=False))
+    out["ids"], out["count"] = ids, np.int64(n_real)
+    n_staged = rng.randint(0, K + 1, (A, bv))
+    n_staged[n_real:] = 0
+    occupied = np.arange(K)[None, None, :] < n_staged[:, :, None]
+    meta = ((rng.randint(0, 8, occupied.shape) << 27) | (rng.randint(0, 8, occupied.shape) << 24)
+            | (rng.randint(0, 256, occupied.shape) << 16) | rng.randint(0, 65536, occupied.shape))
+    out["in_meta"] = np.where(occupied, meta, -1).astype(np.int32)
+    for name in ("in_px", "in_py", "in_pz"):
+        out[name] = np.where(occupied, rng.randn(*occupied.shape), 0.0).astype(np.float32)
+    out["in_w"] = np.where(occupied, rng.rand(*occupied.shape), 0.0).astype(np.float32)
+    out["in_stamp"] = np.where(occupied, rng.randint(1, 9, occupied.shape), 0).astype(np.int32)
+    return out
