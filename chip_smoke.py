@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase sharded   # build + [sharded]'s vkitti2 and zed2 runs only
     python3 chip_smoke.py --phase scan      # build + [scan] only (the sharded part too)
     python3 chip_smoke.py --phase merge     # build + [merge] only (the sharded part too)
+    python3 chip_smoke.py --phase k31       # build + [k31] only
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
     python3 chip_smoke.py --against DIR     # also time both PHD passes, the render,
                                             # the front scan and the gather built from
@@ -27,7 +28,8 @@ Phases (any failure raises, and the script exits nonzero):
      gather and x2 probe kernels at the probes' shapes, in turns with the
      PyTorch call that computes the same function (the gather also with its
      indices sorted); the movable scan also a launch inside a CUDA graph
-     (no host time); birth's merge (csrc/birth.cu) at the VKITTI2 birth,
+     (no host time), its bound (``movable_bound``) printed once beside the
+     two reckonings it replaced; birth's merge (csrc/birth.cu) at the VKITTI2 birth,
      the VKITTI2 moving-object cleanup and the ZED2 birth working sets on
      the presets' full stores, bit for bit, ms, device-only ms, the bound
      and its share; then [launch]: each of the eight
@@ -40,6 +42,14 @@ Phases (any failure raises, and the script exits nonzero):
      scene (20 movers, the move cap binding), every kernel on; and the
      neighbour-smoothed render on a random state, against the CPU at ZED2
      shapes and timed on the card at VKITTI2 and ZED2 shapes;
+  3k. [k31]: a store of 31 slots a voxel (``max_particle_num_per_voxel_n``
+     5, the largest K the kernels take) at the reduced VKITTI2 grid: the
+     reduced hostile scene through update() on two maps on the card in
+     turns, one with the four per-voxel kernels and one with their plain
+     versions, bit-equal every frame and every kernel counted; the four
+     kernels on that map's store against their plain versions, timed; the
+     K = 63 store refused on the card by the map (and, first in [sharded],
+     by the sharded step in its NCCL group);
   3a. [expected]: hold the card to the full-size files data/bench_expected/:
      8 frames each of the hostile and the vkitti2 scene, and of the hostile
      scene with its cars off the voxel boundaries, at the VKITTI2 preset
@@ -871,18 +881,24 @@ def check_observe(cfg, report, prefix=""):
           f"front kernel {ms_f:.4f} ms ({q_f:.4f} with the launch queued), plain "
           f"{ms_f_plain:.3f} ms; movable kernel {ms_m:.4f} ms "
           f"({q_m:.4f} queued, {g_m:.4f} inside a graph), plain {ms_m_plain:.3f} ms")
-    # Bounds from this store (front_bound); the movable scan as reckoned
-    # since it was written: status and stamp of every slot, the track (4 B)
-    # of the alive slots.
+    # Bounds from this store (front_bound, movable_bound); beside the
+    # movable scan's, the two reckonings it replaced: every slot's stamp
+    # read (phase 2 before), every voxel's scroll stamp read ([graph] before).
     b_f, n_alive, (b_f_stamps, b_f_all) = front_bound(args, ha_k, hc_k)
-    b_m = bound(nbytes(p.status, p.stamp, vax, hm_k) + 4 * n_alive)
+    b_m, n_set, _, n_vox = movable_bound(cfg, p.status, p.stamp, vax)
+    old_m = {"every_stamp": bound(nbytes(p.status, p.stamp, vax, hm_k) + 4 * n_alive)["bound_ms"],
+             "every_voxel_stamp": bound(nbytes(p.status, vax, hm_k) + 4 * (n_set + n_alive))[
+                 "bound_ms"]}
     note_f = cache_note(report["front_candidates"], prefix, *args[1:])
     note_m = cache_note(report["movable_voxels"], prefix, p.track, p.status, p.stamp, vax)
     print(f"[observe] {prefix}{n_alive} of {n} slots alive; bounds: front "
           f"{b_f['bound_ms']:.4f} ms (every slot's stamp read: {b_f_stamps:.4f} ms; all {n} "
           f"slots' positions too: {b_f_all:.4f} ms){note_f}, "
-          f"movable {b_m['bound_ms']:.4f} ms (all tracks read: "
-          f"{bound(nbytes(p.track, p.status, p.stamp, vax, hm_k))['bound_ms']:.4f} ms){note_m}, by bytes")
+          f"movable {b_m['bound_ms']:.4f} ms ({n_set} slots and {n_vox} voxels with a status; "
+          f"the old reckonings: every slot's stamp read {old_m['every_stamp']:.4f} ms, every "
+          f"voxel's scroll stamp read {old_m['every_voxel_stamp']:.4f} ms; all tracks read too: "
+          f"{bound(nbytes(p.track, p.status, p.stamp, vax, hm_k))['bound_ms']:.4f} ms){note_m}, "
+          f"by bytes")
     report["front_candidates"].update(
         {prefix + "max_abs_err": 0.0, prefix + "ms": ms_f, prefix + "queued_ms": q_f,
          prefix + "plain_ms": ms_f_plain,
@@ -890,7 +906,7 @@ def check_observe(cfg, report, prefix=""):
     report["movable_voxels"].update(
         {prefix + "max_abs_err": 0.0, prefix + "ms": ms_m, prefix + "queued_ms": q_m,
          prefix + "plain_ms": ms_m_plain, prefix + "in_graph_ms": g_m,
-         **{prefix + k: v for k, v in b_m.items()}})
+         prefix + "old_bounds_ms": old_m, **{prefix + k: v for k, v in b_m.items()}})
 
 
 #: The merge kernel's checked shapes (csrc/birth.cu): (label, preset,
@@ -1520,6 +1536,140 @@ def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10, setup
     print(f"[tiny] {name}, {frames} frames: CUDA path equal to the CPU path "
           f"(moved {moved}, last diag {dgd}, launches {launches})")
     return cpu, gpu
+
+
+def check_k31(counters, card, frames=6):
+    """[k31]: a store of 31 slots a voxel (``max_particle_num_per_voxel_n``
+    5, the largest K the kernels take) at the reduced VKITTI2 grid
+    (``scenes.REDUCED_VKITTI2``, 131,072 voxels, 4.1M slots), the reduced
+    hostile scene through ``update()`` on two maps on the card in turns: one
+    as the package builds it, one that runs the plain versions of the four
+    per-voxel kernels (``use_pallas_render`` and ``use_pallas_observe`` off,
+    ``merge_way("plain")``; the PHD kernels run in both): state, generator,
+    render and counters bit-equal every frame, each kernel counted as often
+    as the frames run it.  Then the four kernels on the map's store against
+    their plain versions (the render, the front and movable scans byte for
+    byte, birth's merge on a working set of that grid bit for bit), each
+    timed; last the K = 63 store refused on the card by the map (the
+    sharded step's refusal: ``check_k63_sharded``).  Returns the numbers."""
+    import collections
+
+    import torch
+    from semantic_dsp_map_tpu_torch import (
+        FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config,
+    )
+    from semantic_dsp_map_tpu_torch.ops import codecs
+    from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
+    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
+    from semantic_dsp_map_tpu_torch.ops.observe_cuda import (
+        front_candidates_cuda, movable_voxels_cuda,
+    )
+
+    scenes = bench_scenes()
+    cfg = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, max_particle_num_per_voxel_n=5)
+    plain_cfg = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, max_particle_num_per_voxel_n=5,
+                                      use_pallas_render=False, use_pallas_observe=False)
+    params = FilterParams(**scenes.VK_PARAMS)
+    ways = ("kernel", "plain")
+    maps = {"kernel": SemanticDSPMap(cfg, params, device="cuda"),
+            "plain": SemanticDSPMap(plain_cfg, params, device="cuda")}
+    calls = collections.Counter()
+    reset_launches(counters)
+    born = moved = 0
+    for t in range(frames):
+        out = {}
+        for way in ways if t % 2 == 0 else ways[::-1]:
+            with merge_way(way, calls):
+                out[way] = maps[way].update(*reduced_hostile_scene(cfg, t, MaskKpts))
+        parted = frame_parting(*((maps[w].state, *out[w]) for w in ways))
+        if parted:
+            raise AssertionError(f"[k31] frame {t}: the plain versions' map parts from the "
+                                 f"kernels' in {parted}")
+        born += int(out["kernel"][1].born_count)
+        moved += int(out["kernel"][1].moved_count)
+    launches = read_launches(counters)
+    # the PHD passes run in both maps, the four per-voxel kernels in one
+    want = {f: frames * (2 if f.startswith("pass_") else runs_a_frame(f)) for f in launches}
+    if launches != want or born == 0 or moved == 0:
+        raise AssertionError(f"[k31] kernel runs {launches} (want {want}), born {born}, "
+                             f"moved {moved}")
+    print(f"[k31] K={cfg.slots_per_voxel} reduced hostile scene, {frames} frames, noise on, two "
+          f"maps on the card in turns, the four per-voxel kernels against their plain versions: "
+          f"state, generator, render and counters bit-equal every frame (born {born}, moved "
+          f"{moved}); kernel runs {launches} ({card})")
+    gpu = maps["kernel"]
+    del maps
+    out = {"launches": launches, "born": born, "moved": moved, "frames": frames,
+           "K": cfg.slots_per_voxel,
+           "voxels": cfg.num_voxels}
+    st = gpu.state
+    p, vst = st.particles, st.voxel_stamp
+    vax = codecs.axis_stamps_per_voxel(cfg, st.scroll)
+    n_set = int((p.status != 0).sum())
+    if n_set == 0:
+        raise AssertionError("[k31] the map's store holds no particle")
+    thr = 0.4
+    _, _, errs, bits = check_render_once("[k31] the map's store", cfg, p, vst, vax, thr)
+    run, restore = render_runner(cfg, p, vst, vax, thr)
+    out["render"] = {"ms": cuda_ms(run, 10, setup=restore),
+                     "device_only_ms": cuda_ms(run, 10, queued=True, setup=restore),
+                     "max_abs_err": max(errs), "sums_bit_equal": bits}
+    quat = torch.tensor([0.9833, 0.0428, 0.1737, 0.0076], device="cuda")
+    _, _, r_cw, t_cw = camera_matrices(torch.tensor([0.3, -0.2, 0.5], device="cuda"),
+                                       quat / quat.norm())
+    fargs = (cfg, p.px, p.py, p.pz, p.status, p.stamp, vax, r_cw, t_cw)
+    for name, got, want in zip(("has_alive", "has_cand"), front_candidates_cuda(*fargs),
+                               front_candidates_plain(*fargs)):
+        assert_equal(f"[k31] front {name}", got, want)
+    margs = (cfg, p.track, p.status, p.stamp, vax, gpu.registry.max_movable_instance_id)
+    hm = movable_voxels_cuda(*margs)
+    assert_equal("[k31] movable", hm, movable_voxels_plain(*margs))
+    for key, fn in (("front_candidates", lambda: front_candidates_cuda(*fargs)),
+                    ("movable_voxels", lambda: movable_voxels_cuda(*margs))):
+        out[key] = {"ms": cuda_ms(fn, 10), "device_only_ms": cuda_ms(fn, 10, queued=True)}
+    out["movable_voxels"]["bound_ms"] = movable_bound(cfg, p.status, p.stamp, vax)[0]["bound_ms"]
+    out["merge_blocks"] = check_merge_once("k31 shape", cfg, *merge_inputs(cfg, cfg.max_birth_blocks,
+                                                                           400), True, card)
+    print(f"[k31] K={cfg.slots_per_voxel} at {cfg.num_voxels} voxels, the map's store ({n_set} "
+          f"slots with a status): render, front and movable scans equal to their plain versions "
+          f"(render sums bit-equal: {bits}); device-only ms: render "
+          f"{out['render']['device_only_ms']:.4f}, front {out['front_candidates']['device_only_ms']:.4f}, "
+          f"movable {out['movable_voxels']['device_only_ms']:.4f} (bound "
+          f"{out['movable_voxels']['bound_ms']:.4f}), merge {out['merge_blocks']['device_only_ms']:.4f} "
+          f"({card})")
+    del gpu, p
+    torch.cuda.empty_cache()
+
+    big = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, max_particle_num_per_voxel_n=6)
+    try:
+        SemanticDSPMap(big, params, device="cuda")
+    except ValueError as e:
+        out["refused"] = {"map": str(e)}
+    else:
+        raise AssertionError(f"[k31] K={big.slots_per_voxel}: the map was built on the card")
+    print(f"[k31] K={big.slots_per_voxel} refused on the card by the map: {out['refused']['map']}")
+    return out
+
+
+def check_k63_sharded(card) -> str:
+    """The sharded step refuses a store of 63 slots a voxel in an NCCL
+    group (the card's), with the map's message.  Run inside a process group
+    (``one_rank_group``): [sharded]'s, whose captures come after it, since a
+    group made and destroyed before other captures leaves threads that can
+    invalidate them."""
+    from semantic_dsp_map_tpu_torch import FilterParams, virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch.labels import LabelRegistry
+    from semantic_dsp_map_tpu_torch.parallel.shard_step import build_shard_step
+
+    scenes = bench_scenes()
+    big = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, max_particle_num_per_voxel_n=6)
+    try:
+        build_shard_step(big, FilterParams(**scenes.VK_PARAMS), LabelRegistry.default())
+    except ValueError as e:
+        print(f"[k31] K={big.slots_per_voxel} refused on the card by the sharded step: {e} ({card})")
+        return str(e)
+    raise AssertionError(f"[k31] K={big.slots_per_voxel}: the sharded step was built in an NCCL "
+                         f"group")
 
 
 def check_template_scene(counters):
@@ -2435,20 +2585,19 @@ def states_differ(a, b):
     return out
 
 
-def movable_bound(cfg, state):
-    """The movable scan's bound on ``state``'s store (the store a frame's
-    scan reads), counting what this store needs: the status of every slot,
-    the stamp of the slots whose status is set, the track of the alive ones,
-    the voxel axis stamps and the output, at the memory rate.  Returns
-    (bound, slots with a status, alive slots)."""
-    from semantic_dsp_map_tpu_torch.ops import codecs
-    from semantic_dsp_map_tpu_torch.state import STATUS_INVALID
-
-    p, V, K = state.particles, cfg.num_voxels, cfg.slots_per_voxel
-    vax = codecs.axis_stamps_per_voxel(cfg, state.scroll)
-    n_set = int((p.status != STATUS_INVALID).sum())
-    n_alive = int(codecs.particle_alive(p.status.view(V, K), p.stamp.view(V, K), vax).sum())
-    return bound(nbytes(p.status, vax) + V + 4 * n_set + 4 * n_alive), n_set, n_alive
+def movable_bound(cfg, status, stamp, vax):
+    """The movable scan's bound on this store, counting what these inputs
+    need: the status of every slot (1 B), the output byte of every voxel,
+    the scroll stamp (4 B) of the voxels with a status set, the stamp (4 B)
+    of the slots with a status set and the track (4 B) of the live ones, at
+    the memory rate.  Returns (bound, slots with a status, live slots,
+    voxels with a status)."""
+    K = cfg.slots_per_voxel
+    has_status = status != 0
+    n_set = int(has_status.sum())
+    n_vox = int(has_status.view(-1, K).any(1).sum())
+    n_alive = int((has_status & (stamp >= vax.repeat_interleave(K))).sum())
+    return bound(status.numel() + vax.numel() + 4 * (n_vox + n_set + n_alive)), n_set, n_alive, n_vox
 
 
 def profile_frame(run):
@@ -2560,6 +2709,7 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10, template_pa
     from semantic_dsp_map_tpu_torch.frontend import pack_frame
     from semantic_dsp_map_tpu_torch.map import build_frame_stages, unpack_frame
     from semantic_dsp_map_tpu_torch.objects import refit_svd
+    from semantic_dsp_map_tpu_torch.ops import codecs
     from semantic_dsp_map_tpu_torch.state import init_map_state
     from semantic_dsp_map_tpu_torch.template_engine import TemplateEngine
 
@@ -2687,7 +2837,9 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10, template_pa
                      "median_wait_ms": float(np.median(bridge["wait_ms"][1:]))}
 
     t = frames
-    bound_m, n_set, n_alive = movable_bound(cfg, dsp.state)
+    p = dsp.state.particles
+    bound_m, n_set, n_alive, _ = movable_bound(
+        cfg, p.status, p.stamp, codecs.axis_stamps_per_voxel(cfg, dsp.state.scroll))
     prof = {"graph": profile_frame(lambda: graph_frame(t)),
             "eager": profile_frame(lambda: eager_frame(t))}
     parted = states_differ(dsp.state, box["state"])
@@ -3799,9 +3951,11 @@ def one_rank_group(card):
 def run_sharded(counters, card) -> dict:
     """[sharded]'s runs in a process group of this process alone:
     ``drive_sharded_vkitti2``, [scan]'s ``drive_sharded_scan``, [merge]'s
-    ``drive_sharded_merge`` and ``check_sharded_zed2``."""
+    ``drive_sharded_merge`` and ``check_sharded_zed2``, after the K = 63
+    refusal (``check_k63_sharded``)."""
     with one_rank_group(card):
-        sharded = {"vkitti2": drive_sharded_vkitti2(counters, card)}
+        sharded = {"k63_refused": check_k63_sharded(card)}
+        sharded["vkitti2"] = drive_sharded_vkitti2(counters, card)
         sharded["scan"] = drive_sharded_scan(counters, card)
         sharded["merge"] = drive_sharded_merge(counters, card)
         sharded["zed2"] = check_sharded_zed2(counters, card)
@@ -3810,12 +3964,13 @@ def run_sharded(counters, card) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "graph", "sharded", "scan", "merge"),
+    ap.add_argument("--phase", choices=("all", "kernels", "graph", "sharded", "scan", "merge",
+                                        "k31"),
                     default="all",
                     help="'kernels' stops after the per-kernel checks; 'graph' runs the build "
                          "and [graph] alone; 'sharded' the build and [sharded]'s vkitti2 and "
                          "zed2 runs alone; 'scan' the build and [scan] alone; 'merge' the "
-                         "build and [merge] alone")
+                         "build and [merge] alone; 'k31' the build and [k31] alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     ap.add_argument("--against", metavar="DIR", type=Path,
@@ -3903,6 +4058,13 @@ def main() -> int:
         print(json.dumps({"scan": scan, "card": card}))
         print(f"[card] {card}")
         return 0
+    if args.phase == "k31":
+        k31 = check_k31(fns, card)
+        with one_rank_group(card):
+            k31["refused"]["shard_step"] = check_k63_sharded(card)
+        print(json.dumps({"k31": k31, "card": card}))
+        print(f"[card] {card}")
+        return 0
     if args.phase == "merge":
         merge = run_merge(fns, card)
         with one_rank_group(card):
@@ -3976,6 +4138,10 @@ def main() -> int:
         "reduced hostile scene", virtual_kitti2_config(**scenes.REDUCED_VKITTI2),
         FilterParams(**dict(scenes.VK_PARAMS, prediction_stddev=0.0)), reduced_hostile_scene, fns,
         frames=6)
+    k31 = check_k31(fns, card)
+    for key, fn in path_counters.items():
+        report[key].setdefault("launches_by_path", {})["k31"] = k31["launches"][fn.__name__]
+    report["merge_blocks"]["by_shape"]["k31"] = k31["merge_blocks"]
     smoothed_ms = {"vkitti2": check_smoothed_render(vk_cfg, "vkitti2", against_cpu=False),
                    "zed2": check_smoothed_render(zed2_cfg, "zed2")}
     torch.cuda.empty_cache()
@@ -4102,7 +4268,7 @@ def main() -> int:
                       "replay_ms_per_frame": replay_ms, "soak": soak_report,
                       "stage_profile": stage_rows, "probes": probe_rows, "bench": bench_cells,
                       "expected": expected, "rematch_frame": rematch_frame, "sharded": sharded,
-                      "graph": graph, "scan": scan, "merge": merge,
+                      "graph": graph, "scan": scan, "merge": merge, "k31": k31,
                       "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

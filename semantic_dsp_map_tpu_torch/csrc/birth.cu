@@ -2,40 +2,80 @@
 // stage of _insert_core, which every path that inserts particles runs
 // (birth, the moving-object cleanup, the template stages, the sharded step).
 //
-// Replaces the merge that XLA fuses out of semantic_dsp_map_tpu/ops/birth.py
-// (_insert_core, lines 279-402: lane shifts on the [A, spb] layout), which
-// has no pl.pallas_call of its own.  Oracle: merge_blocks_plain in
-// semantic_dsp_map_tpu_torch/ops/birth.py, some 400 small PyTorch launches
-// a call on the card (row gathers, the stale prune, the resample walk, a
-// cumsum along K, gathers, selects, row scatters); this is one launch.
+// Replaces no TPU kernel: the JAX package has no pl.pallas_call here, XLA
+// fuses the merge out of semantic_dsp_map_tpu/ops/birth.py (_insert_core,
+// lines 279-402: lane shifts on the [A, spb] layout).  Oracle:
+// merge_blocks_plain in semantic_dsp_map_tpu_torch/ops/birth.py, some 400
+// small PyTorch launches a call on the card; this is one launch.
 //
-// One thread per (block row a, voxel j of the block), A x bv threads.  The
-// thread works on its voxel's K slots in registers:
+// What the merge computes, per voxel of a target block row (A rows of bv
+// voxels of K slots; a row's slots are one contiguous run of the store):
 //   1. a padding row (ids[a] >= nb) is skipped: the plain version's scatter
 //      sends padding rows to a real row with that row's own bytes (or, with
 //      no real row, to the last row with its current bytes), the same store;
-//   2. it reads what the merge decides on: the K slots' status and stamp,
-//      the voxel's scroll stamp and the K staged candidates' meta;
-//   3. the stale prune: a slot with a status set and a stamp below the
+//   2. the stale prune: a slot with a status set and a stamp below the
 //      voxel's scroll stamp becomes INVALID, BEFORE the resample reads the
 //      status (the plain version prunes first, so the walk never sees a
 //      stale UPDATED particle);
-//   4. with resample on and at least one staged candidate, it reads the K
-//      weights and runs the resample walk of resample_slots (below);
-//   5. the first-vacant merge: the vacant slot with vacant-rank c takes
+//   3. with resample on and at least one staged candidate, the resample walk
+//      of resample_slots (below) on the K weights;
+//   4. the first-vacant merge: the vacant slot with vacant-rank c takes
 //      staged candidate c where its meta >= 0; meta unpacks as the plain
 //      version's (& 0xFFFF track, >> 16 & 0xFF label, >> 24 & 0x7 status,
 //      >> 27 & 0x7 forget);
-//   6. it writes in place what changed: the nine fields of a slot that took
-//      a candidate, else the status where the prune or the walk changed it
-//      and the weight where the walk set it.  The plain version writes every
-//      field of every slot back, the unchanged ones with their own bytes:
-//      the same store.  It adds its accepted count (staged candidates r with
-//      r < the voxel's vacancy count) to a 64-bit device counter: one atomic
-//      a warp.  The count is an integer, so the order of the atomics changes
-//      nothing.
+//   5. the write-back in place of what changed: the nine fields of a slot
+//      that took a candidate, else the status where the prune or the walk
+//      changed it and the weight where the walk set it.  The plain version
+//      writes every field of every slot back, the unchanged ones with their
+//      own bytes: the same store.  The accepted count (staged candidates r
+//      with r < the voxel's vacancy count) goes to a 64-bit device counter.
+//      It is an integer, so the order of the atomics changes nothing.
 // Real block ids are unique (listed ascending from a sorted stream), so
 // each slot has one writer and the in-place writes do not race.
+//
+// What bounds it: device memory.  A real row's slots' status, stamp and
+// staged meta are read (9 B a slot), the weights of a resampled voxel
+// (4 B a slot), and each accepted candidate's staged position, weight and
+// stamp (20 B); what changes is written: a status byte, a resampled weight,
+// the 27 B of a slot that took a candidate.  At VKITTI2's birth (1536 rows
+// of 448 slots) that is about 17 MB, 0.005 ms at 3.35 TB/s.
+//
+// What held the first design (a thread per voxel, K slots in registers) at
+// a tenth of that: latency.  Each thread walked a chain of dependent loads
+// (ids -> scroll stamp -> K statuses -> K stamps -> K metas -> K weights ->
+// the staged fields of each taken slot, one taken slot after another), each
+// load strided by K across the warp, and at the moving-object cleanup (256
+// rows) only 64 blocks had work.  Here a CUDA block owns a tile of
+// merge_vox<K>() voxels, whole block rows, a thread a voxel:
+//   a. the tile's block ids go to shared memory (the one load everything
+//      else waits for), and each thread asks for its voxel's scroll stamp;
+//   b. the tile's real rows' status, stamp and staged meta runs (and, with
+//      resample on, the weights) are copied into shared memory with
+//      cp.async, 16 bytes a thread, neighbouring threads on neighbouring
+//      addresses, every copy of the tile asked for before any is waited on
+//      (a row run is 16-byte aligned when bv * K is a multiple of 16, as on
+//      every grid of 32 voxels or more; a smaller grid's rows are copied an
+//      element at a time).  With resample on nearly every real row holds a
+//      candidate (the rows are the blocks that received them), so the
+//      weights come with the rest instead of one round trip later;
+//   c. each thread runs its voxel's prune, walk and vacancy ranks out of
+//      shared memory (a stride of K words: conflict-free for odd K);
+//   d. the staged position, weight and stamp of the taken slots are the
+//      only loads that depend on data: a voxel's are asked for together,
+//      eight slots at a time, before any of its stores, which go straight
+//      to the store, only where something changed;
+//   e. the accepted count: a shared-memory sum, one global atomic a tile.
+// Tiles of 128 voxels (64 at K = 31, 512 at K = 1): 2 rows a block at
+// VKITTI2, so its 256-row cleanup has 128 blocks on 132 SMs (64 before).
+// On an H100 this halves the cleanup and shortens a real frame's two
+// merges, but leaves a synthetic birth in which a quarter of the slots take
+// a candidate where it was (0.047 ms against a bound of 0.005 ms): there
+// the scattered stores of the taken slots' nine fields fill 32-byte sectors
+// a few bytes at a time.  Staging all nine fields and writing whole rows
+// back (by cp.async, or one TMA bulk copy a row and field) took that
+// birth to 0.036 / 0.035 ms, but real frames change few slots a row, and
+// there moving whole rows lost to this design in every scene measured
+// (PERF.md, section 6).
 //
 // Bit-equality hazards, each kept as the plain version computes it (the
 // library is built with -fmad=false, so nothing is contracted):
@@ -52,16 +92,8 @@
 //     gives the same bits;
 //   - the wipe applies when wsum < 0.01f (PyTorch compares an f32 tensor
 //     with a Python scalar in f32).
-//
-// What bounds it: device memory.  A real row's slots' status, stamp and
-// staged meta are read (9 B a slot), the weights of a resampled voxel
-// (4 B a slot), and each accepted candidate's staged position, weight and
-// stamp (20 B); what changes is written: a status byte, a resampled weight,
-// the 27 B of a slot that took a candidate.  At VKITTI2's birth (1536 rows
-// of 448 slots) that is about 10 MB, 0.003 ms at 3.35 TB/s.  A warp's 32
-// voxels are 32 * K neighbouring slots, so its strided loads of one slot
-// index touch the same lines as its loads of the next; L1 keeps them.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,7 +103,15 @@ namespace {
 
 constexpr int STATUS_INVALID = 0;  // state.py
 constexpr int STATUS_UPDATED = 1;  // state.py
-constexpr int BLOCK = 256;
+
+// Voxels (and threads) a block: whole block rows, since a row has at most
+// 512 slots (ops/blocks.py block_layout), hence bv <= the largest power of
+// two <= 512 / K.  At K = 31 a tile of 128 voxels would take 51.6 KB of
+// shared memory, past the 48 KB of a static allocation, so 64 there.
+template <int K>
+__host__ __device__ constexpr int merge_vox() {
+  return K == 1 ? 512 : (K == 31 ? 64 : 128);
+}
 
 struct Store {
   float* px;
@@ -93,6 +133,37 @@ struct Staged {
   const int* stamp;
   const int* meta;
 };
+
+// Which row runs may be copied 16 bytes at a time (bit 0: the status
+// bytes; bit 1: the 4-byte fields), from dsp_merge_blocks.
+constexpr int WIDE_BYTES = 1;
+constexpr int WIDE_WORDS = 2;
+
+// Copies the tile's real rows of one field into shared memory: row r of the
+// tile comes from row src_row(r) of `src` (a block id of the store, or the
+// staged buffer's own row), `row_len` elements a row.  `wide`: rows and
+// bases are 16-byte aligned, so the copy goes by cp.async, 16 bytes a
+// thread; else an element at a time.
+template <int K, typename T, typename Row>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int tile_len, int row_len,
+                                           int bv_log2, bool wide, const long long* s_id,
+                                           long long nb, Row src_row) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  if (wide) {
+    constexpr int E = 16 / sizeof(T);
+    for (int e = tid * E; e < tile_len; e += nt * E) {
+      const int r = (e / K) >> bv_log2;
+      if (s_id[r] >= nb) continue;
+      __pipeline_memcpy_async(dst + e, src + src_row(r) * row_len + (e - r * row_len), 16);
+    }
+  } else {
+    for (int e = tid; e < tile_len; e += nt) {
+      const int r = (e / K) >> bv_log2;
+      if (s_id[r] >= nb) continue;
+      dst[e] = src[src_row(r) * row_len + (e - r * row_len)];
+    }
+  }
+}
 
 // resampleParticlesInVoxel (semantic_dsp_map.h:1448-1519) on one voxel's
 // K slots, as ops/birth.py's resample_slots computes it for a targeted
@@ -146,75 +217,148 @@ __device__ __forceinline__ unsigned resample(int (&st)[K], float (&w)[K], int tr
 }
 
 template <int K>
-__global__ void __launch_bounds__(BLOCK) merge_kernel(
-    Store s, Staged in, const int* __restrict__ vax, const long long* __restrict__ ids,
+__global__ void __launch_bounds__(merge_vox<K>()) merge_kernel(
+    Store s, const float* __restrict__ in_px, const float* __restrict__ in_py,
+    const float* __restrict__ in_pz, const float* __restrict__ in_w,
+    const int* __restrict__ in_stamp, const int* __restrict__ in_meta,
+    const int* __restrict__ vax, const long long* __restrict__ ids,
     unsigned long long* __restrict__ accepted, long long rows, int bv_log2, long long nb,
-    int do_resample, int trigger, float inv_trigger) {
-  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  unsigned acc = 0;
-  const long long id = i < (rows << bv_log2) ? ids[i >> bv_log2] : nb;
-  if (id < nb) {
-    const long long vox = (id << bv_log2) + (i & ((1LL << bv_log2) - 1));
+    int do_resample, int trigger, float inv_trigger, int wide) {
+  constexpr int VOX = merge_vox<K>();
+  constexpr int SLOTS = VOX * K;
+  constexpr int CH = K < 8 ? K : 8;  // taken slots whose staged loads fly together
+  __shared__ __align__(16) uint8_t s_status[SLOTS];
+  __shared__ __align__(16) int s_stamp[SLOTS];
+  __shared__ __align__(16) int s_meta[SLOTS];
+  __shared__ __align__(16) float s_w[SLOTS];
+  __shared__ long long s_id[VOX];
+  __shared__ unsigned s_acc;
+
+  const int tid = threadIdx.x;
+  const int bv = 1 << bv_log2;
+  const int rpb = VOX >> bv_log2;  // block rows a tile
+  const long long a0 = (long long)blockIdx.x * rpb;
+  const int row_len = K << bv_log2;
+  const int tile_rows = (int)(rows - a0 < rpb ? rows - a0 : rpb);
+  const int tile_len = tile_rows * row_len;  // slots of the tile's rows
+
+  // a. the tile's block ids (rows past the end as padding), then the one
+  // load of this thread's own that waits on nothing else.
+  if (tid < rpb) s_id[tid] = tid < tile_rows ? ids[a0 + tid] : nb;
+  if (tid == 0) s_acc = 0u;
+  __syncthreads();
+  const int r = tid >> bv_log2;
+  const long long id = s_id[r];
+  const bool mine = id < nb;  // a voxel of a real row
+  const long long vox = (id << bv_log2) + (tid & (bv - 1));
+  const int va = mine ? vax[vox] : 0;
+
+  // b. the tile's runs, all asked for before any is waited on.
+  const bool wide_b = wide & WIDE_BYTES, wide_w = wide & WIDE_WORDS;
+  auto by_id = [&](int rr) { return s_id[rr]; };
+  auto by_row = [&](int rr) { return a0 + rr; };
+  stage_rows<K>(s_status, s.status, tile_len, row_len, bv_log2, wide_b, s_id, nb, by_id);
+  stage_rows<K>(s_stamp, s.stamp, tile_len, row_len, bv_log2, wide_w, s_id, nb, by_id);
+  stage_rows<K>(s_meta, in_meta, tile_len, row_len, bv_log2, wide_w, s_id, nb, by_row);
+  if (do_resample)
+    stage_rows<K>(s_w, s.weight, tile_len, row_len, bv_log2, wide_w, s_id, nb, by_id);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  unsigned acc = 0u;
+  if (mine) {
+    // c. prune, walk and vacancy ranks out of shared memory.
+    const int l0 = tid * K;  // this voxel's slots in the tile
     const long long base = vox * K;
-    const long long sbase = i * K;  // the staged [A, bv, K] buffers
-    const int va = vax[vox];
-    int st[K], old[K], meta[K];
+    const long long sbase = ((a0 << bv_log2) + tid) * K;  // the staged [A, bv, K] buffers
+    int st[K], old[K];
     float w[K];
     bool any_staged = false;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      st[k] = old[k] = s.status[base + k];
-      meta[k] = in.meta[sbase + k];
-      any_staged = any_staged || meta[k] >= 0;
+      st[k] = old[k] = s_status[l0 + k];
+      any_staged = any_staged || s_meta[l0 + k] >= 0;
       // Stale slots count as vacant and are pruned (operations.h:810-816).
-      if (st[k] != STATUS_INVALID && s.stamp[base + k] < va) st[k] = STATUS_INVALID;
+      if (st[k] != STATUS_INVALID && s_stamp[l0 + k] < va) st[k] = STATUS_INVALID;
     }
     unsigned kept = 0u;  // the slots whose weight the walk set
     if (do_resample && any_staged) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) w[k] = s.weight[base + k];
+      for (int k = 0; k < K; ++k) w[k] = s_w[l0 + k];
       kept = resample<K>(st, w, trigger, inv_trigger);
     }
-    int c = 0;  // vacant slots so far: the next vacant slot's vacant-rank
+    int src[K];  // the staged candidate slot k takes, or -1
+    int c = 0;   // vacant slots so far: the next vacant slot's vacant-rank
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const bool vacant = st[k] == STATUS_INVALID;
-      int m = -1;
-#pragma unroll
-      for (int r = 0; r < K; ++r) m = vacant && r == c ? meta[r] : m;
-      if (m >= 0) {  // the slot takes staged candidate c
-        s.px[base + k] = in.px[sbase + c];
-        s.py[base + k] = in.py[sbase + c];
-        s.pz[base + k] = in.pz[sbase + c];
-        s.weight[base + k] = in.w[sbase + c];
-        s.stamp[base + k] = in.stamp[sbase + c];
-        s.track[base + k] = m & 0xFFFF;
-        s.label[base + k] = (uint8_t)((m >> 16) & 0xFF);
-        s.status[base + k] = (uint8_t)((m >> 24) & 0x7);
-        s.forget[base + k] = (uint8_t)((m >> 27) & 0x7);
-      } else {
-        if (st[k] != old[k]) s.status[base + k] = (uint8_t)st[k];
-        if (kept >> k & 1u) s.weight[base + k] = w[k];
-      }
+      src[k] = vacant && s_meta[l0 + c] >= 0 ? c : -1;
       c += vacant;
     }
 #pragma unroll
-    for (int k = 0; k < K; ++k) acc += (k < c && meta[k] >= 0);
+    for (int k = 0; k < K; ++k) acc += (k < c && s_meta[l0 + k] >= 0);
+
+    // d. the taken slots' staged fields, CH slots' loads in flight together,
+    // then the writes.
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += CH) {
+      float x[CH], y[CH], z[CH], ww[CH];
+      int sp[CH];
+#pragma unroll
+      for (int j = 0; j < CH && k0 + j < K; ++j) {
+        const int c_k = src[k0 + j];
+        if (c_k >= 0) {
+          x[j] = in_px[sbase + c_k];
+          y[j] = in_py[sbase + c_k];
+          z[j] = in_pz[sbase + c_k];
+          ww[j] = in_w[sbase + c_k];
+          sp[j] = in_stamp[sbase + c_k];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < CH && k0 + j < K; ++j) {
+        const int k = k0 + j;
+        const int c_k = src[k];
+        if (c_k >= 0) {  // the slot takes staged candidate c_k
+          const int m = s_meta[l0 + c_k];
+          s.px[base + k] = x[j];
+          s.py[base + k] = y[j];
+          s.pz[base + k] = z[j];
+          s.weight[base + k] = ww[j];
+          s.stamp[base + k] = sp[j];
+          s.track[base + k] = m & 0xFFFF;
+          s.label[base + k] = (uint8_t)((m >> 16) & 0xFF);
+          s.status[base + k] = (uint8_t)((m >> 24) & 0x7);
+          s.forget[base + k] = (uint8_t)((m >> 27) & 0x7);
+        } else {
+          if (st[k] != old[k]) s.status[base + k] = (uint8_t)st[k];
+          if (kept >> k & 1u) s.weight[base + k] = w[k];
+        }
+      }
+    }
   }
-  acc = __reduce_add_sync(0xffffffffu, acc);
-  if ((threadIdx.x & 31) == 0 && acc != 0) atomicAdd(accepted, (unsigned long long)acc);
+  // e. the accepted count, one global atomic a tile.
+  if (acc != 0u) atomicAdd(&s_acc, acc);
+  __syncthreads();
+  if (tid == 0 && s_acc != 0u) atomicAdd(accepted, (unsigned long long)s_acc);
 }
 
 template <int K>
 int launch_merge(const Store& s, const Staged& in, const int* vax, const long long* ids,
                  unsigned long long* accepted, long long rows, int bv_log2, long long nb,
-                 int do_resample, int trigger, cudaStream_t stream) {
-  const long long threads = rows << bv_log2;
-  const unsigned grid = (unsigned)((threads + BLOCK - 1) / BLOCK);
+                 int do_resample, int trigger, int wide, cudaStream_t stream) {
+  constexpr int VOX = merge_vox<K>();
+  if ((VOX >> bv_log2) < 1) return (int)cudaErrorInvalidValue;  // a row wider than a tile
+  const long long rpb = VOX >> bv_log2;
+  const unsigned grid = (unsigned)((rows + rpb - 1) / rpb);
   static CUfunction fn = nullptr;
-  return dsp::launch(merge_kernel<K>, fn, grid, BLOCK, 0, stream, s, in, vax, ids, accepted,
-                     rows, bv_log2, nb, do_resample, trigger, 1.0f / (float)trigger);
+  return dsp::launch(merge_kernel<K>, fn, grid, VOX, 0, stream, s, in.px, in.py, in.pz, in.w,
+                     in.stamp, in.meta, vax, ids, accepted, rows, bv_log2, nb, do_resample,
+                     trigger, 1.0f / (float)trigger, wide);
 }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
@@ -232,15 +376,21 @@ extern "C" int dsp_merge_blocks(
   if (rows <= 0 || bv <= 0 || (bv & (bv - 1)) != 0 || nb <= 0 || trigger <= 0)
     return (int)cudaErrorInvalidValue;
   const int bv_log2 = __builtin_ctz((unsigned)bv);
+  const long long row_len = (long long)bv * K;
+  int wide = 0;
+  if (row_len % 16 == 0 && aligned16(status)) wide |= WIDE_BYTES;
+  if (row_len % 4 == 0 && aligned16(stamp) && aligned16(weight) && aligned16(in_meta))
+    wide |= WIDE_WORDS;
   const Store s{px, py, pz, weight, label, track, status, forget, stamp};
   const Staged in{in_px, in_py, in_pz, in_w, in_stamp, in_meta};
   unsigned long long* acc = reinterpret_cast<unsigned long long*>(accepted);
   cudaStream_t st = (cudaStream_t)stream;
   switch (K) {
-    case 1: return launch_merge<1>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, st);
-    case 3: return launch_merge<3>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, st);
-    case 7: return launch_merge<7>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, st);
-    case 15: return launch_merge<15>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, st);
+    case 1: return launch_merge<1>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, wide, st);
+    case 3: return launch_merge<3>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, wide, st);
+    case 7: return launch_merge<7>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, wide, st);
+    case 15: return launch_merge<15>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, wide, st);
+    case 31: return launch_merge<31>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, wide, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

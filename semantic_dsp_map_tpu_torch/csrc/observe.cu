@@ -48,9 +48,32 @@
 // are masked.  The store's arrays must be 16-byte aligned (whole tensors
 // are).  The TPU kernel's one-hot MXU reduction has no counterpart here.
 //
-// Movable (one thread per voxel looping over its K slots in registers):
-// above half of its bound as it is.
-//
+// Movable: the first design, a thread per voxel looping over its K slots,
+// read the scroll stamp of every voxel (4 B a voxel: a third of what it read
+// at VKITTI2) and made K byte loads strided by K across a warp.  Here a block
+// owns MOV_SPAN neighbouring voxels, one contiguous run of slots, and
+//   1. loads the span's status as 16-byte pieces, neighbouring threads on
+//      neighbouring addresses, all of a thread's at once;
+//   2. only where a group of four slots has a status set, reads the group's
+//      stamps (16 bytes) and its voxels' scroll stamps, all in flight
+//      together (a thread without a status set, as most of a map, goes
+//      straight to zero flags);
+//   3. only where a slot is alive, reads the group's tracks, and puts a flag
+//      byte a slot in shared memory;
+//   4. after the one barrier (__syncthreads_or: a span without a status set
+//      writes its zeros), ORs the flag bytes per voxel, four voxels a thread
+//      (K words at a stride of K words: conflict-free), and writes them as
+//      4-byte stores.
+// Staging the span's voxel stamps in shared memory instead (a barrier after
+// the status, another after the stamps) was as fast on a real VKITTI2 frame
+// but a tenth slower on the dense ZED2 store; the scroll stamps of a group's
+// voxels are two loads that L1 mostly serves.
+// Its bound counts what the inputs need: the status of every slot, the
+// output byte of every voxel, the stamp of the voxels and of the slots with
+// a status set and the track of the live slots.  The last span and its last
+// group may be ragged and are masked; status, stamp and track (and at K = 1
+// the voxel stamps) must be 16-byte aligned (whole tensors are).
+
 // Pixel truncation decides has_cand and is compared bit for bit with the
 // plain version, so the projection keeps its expression order: camera
 // coordinates r0*x + r1*y + r2*z + t added left to right, then
@@ -248,29 +271,188 @@ __global__ void __launch_bounds__(FRONT_NT) front_kernel(
   }
 }
 
+constexpr int MOV_NT = 256;
+constexpr int MOV_SPAN = 4 * MOV_NT;  // voxels a block; four a thread at the end
+
+// Steps 2 and 3 of the movable scan, for a thread whose status pieces `q`
+// have a status set: where a group of four slots has one, its stamps (16
+// bytes) and the scroll stamps of its voxels (at most two for K >= 3; four
+// neighbouring ones, 16 bytes, for K = 1), all in flight together; then the
+// tracks where a slot is alive; a flag byte a slot into `s_flag`.
+template <int K, int ROUNDS>
+__device__ __forceinline__ void movable_flags(
+    const uint4 (&q)[ROUNDS], const int* __restrict__ track, const int* __restrict__ stamp,
+    const int* __restrict__ vax, long long v0, int nv, long long slot0, int nslots,
+    int max_movable, uint8_t* s_flag) {
+  constexpr int CHUNKS = MOV_SPAN * K / 16;
+  const int tid = threadIdx.x;
+  int4 sp[ROUNDS][4], va[ROUNDS][4];
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const unsigned word[4] = {q[r].x, q[r].y, q[r].z, q[r].w};
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int li = 16 * (tid + r * MOV_NT) + 4 * g;
+      sp[r][g] = va[r][g] = make_int4(0, 0, 0, 0);
+      if (word[g] == 0u) continue;
+      if (li + 3 < nslots) {
+        sp[r][g] = *reinterpret_cast<const int4*>(stamp + slot0 + li);
+      } else {
+        int t[4] = {0, 0, 0, 0};
+        for (int j = 0; li + j < nslots; ++j) t[j] = stamp[slot0 + li + j];
+        sp[r][g] = make_int4(t[0], t[1], t[2], t[3]);
+      }
+      if (K == 1) {
+        if (li + 3 < nv) {
+          va[r][g] = *reinterpret_cast<const int4*>(vax + v0 + li);
+        } else {
+          int t[4] = {0, 0, 0, 0};
+          for (int j = 0; li + j < nv; ++j) t[j] = vax[v0 + li + j];
+          va[r][g] = make_int4(t[0], t[1], t[2], t[3]);
+        }
+      } else {
+        const int last = li + 3 < nslots ? li + 3 : nslots - 1;
+        va[r][g].x = vax[v0 + li / K];
+        va[r][g].y = vax[v0 + last / K];
+      }
+    }
+  }
+  unsigned alive[ROUNDS][4];  // a bit a slot of the group
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const unsigned word[4] = {q[r].x, q[r].y, q[r].z, q[r].w};
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int li = 16 * (tid + r * MOV_NT) + 4 * g;
+      const int t[4] = {sp[r][g].x, sp[r][g].y, sp[r][g].z, sp[r][g].w};
+      const int v4[4] = {va[r][g].x, va[r][g].y, va[r][g].z, va[r][g].w};
+      alive[r][g] = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool set = ((word[g] >> (8 * j)) & 0xffu) != STATUS_INVALID;
+        const int vs = K == 1 ? v4[j] : ((li + j) / K == li / K ? v4[0] : v4[1]);
+        if (set && t[j] >= vs) alive[r][g] |= 1u << j;
+      }
+    }
+  }
+  // then the tracks where a slot is alive, and a flag byte a slot
+  int4 tk[ROUNDS][4];
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int li = 16 * (tid + r * MOV_NT) + 4 * g;
+      tk[r][g] = make_int4(-1, -1, -1, -1);
+      if (alive[r][g] == 0u) continue;
+      if (li + 3 < nslots) {
+        tk[r][g] = *reinterpret_cast<const int4*>(track + slot0 + li);
+      } else {
+        int t[4] = {-1, -1, -1, -1};
+        for (int j = 0; li + j < nslots; ++j) t[j] = track[slot0 + li + j];
+        tk[r][g] = make_int4(t[0], t[1], t[2], t[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int c = tid + r * MOV_NT;
+    if (c >= CHUNKS) break;
+    unsigned f[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int t[4] = {tk[r][g].x, tk[r][g].y, tk[r][g].z, tk[r][g].w};
+      f[g] = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool mov = (alive[r][g] >> j & 1u) && t[j] >= 0 && t[j] <= max_movable;
+        f[g] |= (unsigned)mov << (8 * j);
+      }
+    }
+    *reinterpret_cast<uint4*>(s_flag + 16 * c) = make_uint4(f[0], f[1], f[2], f[3]);
+  }
+
+}
+
+// Blocks an SM the registers must leave room for: most of a map's spans
+// only stream their status, and the more warps an SM holds the more of it
+// is in flight.  At K = 7 the compiler's own choice (90 registers) left
+// two blocks; three (85 at most) took a seventh off a real VKITTI2 frame's
+// scan on an H100, while at K = 3 a cap of three let it grow to 71
+// registers and lose, so five there (51 at most, the 48 it takes unasked).
 template <int K>
-__global__ void movable_kernel(
+__host__ __device__ constexpr int movable_min_blocks() {
+  return K <= 3 ? 5 : (K <= 7 ? 3 : 1);
+}
+
+template <int K>
+__global__ void __launch_bounds__(MOV_NT, movable_min_blocks<K>()) movable_kernel(
     const int* __restrict__ track, const uint8_t* __restrict__ status,
     const int* __restrict__ stamp, const int* __restrict__ vax,
     uint8_t* __restrict__ hm, long long V, int max_movable) {
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  const long long base = v * K;
-  const int va = vax[v];
-  bool any = false;
+  constexpr int CHUNKS = MOV_SPAN * K / 16;  // 16-byte pieces of a whole span's status
+  constexpr int ROUNDS = (CHUNKS + MOV_NT - 1) / MOV_NT;
+  __shared__ __align__(16) uint8_t s_flag[MOV_SPAN * K];  // a byte a slot
+  const int tid = threadIdx.x;
+  const long long v0 = (long long)blockIdx.x * MOV_SPAN;
+  const int nv = (int)(V - v0 < MOV_SPAN ? V - v0 : MOV_SPAN);
+  // v0 * K is a multiple of 16: every whole piece is 16-byte aligned.
+  const long long slot0 = v0 * K;
+  const int nslots = nv * K;
+
+  // 1. The status, all of a thread's pieces at once (0 = INVALID beyond the
+  // store).
+  uint4 q[ROUNDS];
+  unsigned any_status = 0u;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const long long i = base + k;
-    if (status[i] == STATUS_INVALID || stamp[i] < va) continue;
-    const int t = track[i];
-    any = any || (t >= 0 && t <= max_movable);
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int li = 16 * (tid + r * MOV_NT);
+    q[r] = make_uint4(0u, 0u, 0u, 0u);
+    if (li + 15 < nslots) {
+      q[r] = *reinterpret_cast<const uint4*>(status + slot0 + li);
+    } else if (li < nslots) {
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+      for (int j = 0; li + j < nslots; ++j) w[j / 4] |= (unsigned)status[slot0 + li + j] << (8 * (j % 4));
+      q[r] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    any_status |= q[r].x | q[r].y | q[r].z | q[r].w;
   }
-  hm[v] = any;
+
+  // 2-3. Where this thread has a status set: stamps and voxel stamps, then
+  // tracks, and a flag byte a slot; else zero flags, as for most of a map.
+  if (any_status != 0u) {
+    movable_flags<K, ROUNDS>(q, track, stamp, vax, v0, nv, slot0, nslots, max_movable, s_flag);
+  } else {
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int c = tid + r * MOV_NT;
+      if (c < CHUNKS) *reinterpret_cast<uint4*>(s_flag + 16 * c) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
+  // 4. Four voxels a thread: their 4 * K flag bytes are K whole words.  A
+  // span without a single slot in use, as most of a map, writes its zeros.
+  const long long vq = v0 + 4 * tid;
+  const bool in_use = __syncthreads_or(any_status != 0u);
+  if (4 * tid < nv) {
+    unsigned m4 = 0u;
+    if (in_use) {
+      const unsigned* words = reinterpret_cast<const unsigned*>(s_flag) + tid * K;
+      unsigned f[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int w = 0; w < K; ++w) {
+        const unsigned word = words[w];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) f[(4 * w + j) / K] |= (word >> (8 * j)) & 0xffu;
+      }
+      m4 = f[0] | f[1] << 8 | f[2] << 16 | f[3] << 24;
+    }
+    if (4 * tid + 3 < nv) {
+      *reinterpret_cast<unsigned*>(hm + vq) = m4;
+    } else {
+      for (int u = 0; 4 * tid + u < nv; ++u) hm[vq + u] = (m4 >> (8 * u)) & 0xffu;
+    }
+  }
 }
-
-constexpr int BLOCK = 256;
-
-unsigned grid_for(long long V) { return (unsigned)((V + BLOCK - 1) / BLOCK); }
 
 template <int K>
 int launch_front(const float* px, const float* py, const float* pz,
@@ -287,8 +469,9 @@ template <int K>
 int launch_movable(const int* track, const uint8_t* status, const int* stamp,
                    const int* vax, uint8_t* hm, long long V, int max_movable,
                    cudaStream_t s) {
+  const unsigned grid = (unsigned)((V + MOV_SPAN - 1) / MOV_SPAN);
   static CUfunction fn = nullptr;
-  return dsp::launch(movable_kernel<K>, fn, grid_for(V), BLOCK, 0, s, track,
+  return dsp::launch(movable_kernel<K>, fn, grid, MOV_NT, 0, s, track,
                      status, stamp, vax, hm, V, max_movable);
 }
 
@@ -311,6 +494,7 @@ extern "C" int dsp_front_candidates(
     case 3: return launch_front<3>(px, py, pz, status, stamp, vax, pose, ha, hc, V, cam, s);
     case 7: return launch_front<7>(px, py, pz, status, stamp, vax, pose, ha, hc, V, cam, s);
     case 15: return launch_front<15>(px, py, pz, status, stamp, vax, pose, ha, hc, V, cam, s);
+    case 31: return launch_front<31>(px, py, pz, status, stamp, vax, pose, ha, hc, V, cam, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -319,12 +503,17 @@ extern "C" int dsp_movable_voxels(
     const int* track, const uint8_t* status, const int* stamp, const int* vax,
     uint8_t* hm, long long V, int K, int max_movable, void* stream) {
   if (V <= 0) return (int)cudaErrorInvalidValue;
+  // the kernel loads 16 bytes of each field and stores four voxels at a time
+  if (((uintptr_t)track | (uintptr_t)status | (uintptr_t)stamp) % 16 != 0 || (uintptr_t)hm % 4 != 0 ||
+      (K == 1 && (uintptr_t)vax % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   switch (K) {
     case 1: return launch_movable<1>(track, status, stamp, vax, hm, V, max_movable, s);
     case 3: return launch_movable<3>(track, status, stamp, vax, hm, V, max_movable, s);
     case 7: return launch_movable<7>(track, status, stamp, vax, hm, V, max_movable, s);
     case 15: return launch_movable<15>(track, status, stamp, vax, hm, V, max_movable, s);
+    case 31: return launch_movable<31>(track, status, stamp, vax, hm, V, max_movable, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -275,6 +275,7 @@ extern "C" int dsp_render(
     case 3: return launch<3>(weight, stamp, status, track, label, vax, vst, occ, lab, trk, ws, V, thr, init_w, s);
     case 7: return launch<7>(weight, stamp, status, track, label, vax, vst, occ, lab, trk, ws, V, thr, init_w, s);
     case 15: return launch<15>(weight, stamp, status, track, label, vax, vst, occ, lab, trk, ws, V, thr, init_w, s);
+    case 31: return launch<31>(weight, stamp, status, track, label, vax, vst, occ, lab, trk, ws, V, thr, init_w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -40,6 +40,7 @@ def merge_blocks_cuda(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks,
     index = flat.px.get_device()
     if index < 0:
         raise ValueError(f"px: expected a CUDA tensor, got {flat.px.device}")
+    cuda_lib.check_slots(cfg, flat.px.device)
     K = cfg.slots_per_voxel
     n = flat.px.shape
     V = n[0] // K

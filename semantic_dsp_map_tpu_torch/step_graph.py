@@ -140,9 +140,10 @@ def copy_into(static, new) -> None:
 
 
 class Capture:
-    """What ``slot_cond`` needs of the capture underway: the CUDA graph, a
-    side stream on which each branch's body is captured (into the body
-    graph of its node), and the memory pool of the bodies' tensors.
+    """What ``slot_cond`` needs of the capture underway: the CUDA graph, the
+    stream it is captured on, a side stream on which each branch's body is
+    captured (into the body graph of its node), and the memory pool of the
+    bodies' tensors.
 
     A body is a capture of its own, whose allocations the allocator does
     not give the graph's pool (and refuses to route there a second time);
@@ -153,6 +154,12 @@ class Capture:
 
     def __init__(self, graph: torch.cuda.CUDAGraph):
         self.graph = graph
+        # The stream the graph is captured on and the bodies' side stream:
+        # two streams taken in a row from PyTorch's pool, which hands out its
+        # 32 a device in turn, so never the same one.  A side stream taken
+        # alone is, every 32nd time, torch.cuda.graph's own default capture
+        # stream, and ending a body's capture then ends the graph's.
+        self.main = torch.cuda.Stream()
         self.stream = torch.cuda.Stream()
         self.device = torch.cuda.current_device()
         self.pool = torch.cuda.graph_pool_handle()
@@ -168,14 +175,14 @@ _capturing: list = []  # the Capture of the capture underway, if any
 
 @contextlib.contextmanager
 def capturing(capture: Capture):
-    """``torch.cuda.graph(capture.graph)``, with ``capture`` the one that
-    ``slot_cond`` captures its branches for."""
+    """``torch.cuda.graph(capture.graph)`` on ``capture.main``, with
+    ``capture`` the one that ``slot_cond`` captures its branches for."""
     err = cuda_lib.entry.dsp_if_node_prepare()
     if err:
         raise cuda_lib.error(err, "dsp_if_node_prepare")
     _capturing.append(capture)
     try:
-        with torch.cuda.graph(capture.graph):
+        with torch.cuda.graph(capture.graph, stream=capture.main):
             yield
     finally:
         _capturing.pop()

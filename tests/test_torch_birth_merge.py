@@ -1,8 +1,8 @@
 """Birth's merge stage (``ops.birth.merge_blocks_plain``, the CPU path of
 ``_insert_core`` and the oracle of the CUDA kernel of csrc/birth.cu)
 against the JAX package's ``_insert_core``: every vacancy pattern of a K = 3
-voxel with 0 to K staged candidates, K = 7 at random on the grid and on a
-voxel slab, stale slots, a voxel whose resample wipes and one that walks,
+voxel with 0 to K staged candidates, K = 7 and K = 31 at random on the grid
+and on a voxel slab, stale slots, a voxel whose resample wipes and one that walks,
 resample on and off.  Integers equal, floats at rtol 2e-5 (the merge moves
 floats and the resample walk is a sequential f32 walk in both, so they are
 equal in practice).  Also: the CPU path never imports ops/birth_cuda.py,
@@ -179,6 +179,37 @@ def test_k7_at_random(seed, resample, form):
     ))
     voxels = rng.choice(V, 60, replace=False)
     d = _voxel_candidates(cfg_j, js, voxels, rng.randint(0, K + 3, 60), rng, extra=400)
+    slab = (1, 4) if form == "slab" else None
+    tr, jr = _run_both(cfg_j, cfg_t, js, d, resample, slab)
+    _assert_same(tr, jr)
+    assert int(tr.accepted_count) > 0
+
+
+@pytest.mark.parametrize("form", ["grid", "slab"])
+@pytest.mark.parametrize("resample", [False, True])
+def test_k31_at_random(resample, form):
+    """K = 31 (max_particle_num_per_voxel_n = 5, the largest K the CUDA
+    kernels take; rows of 16 voxels): a random store with stale slots,
+    voxels of the first 16 blocks with up to K + 3 candidates each (a voxel
+    resamples when more than 16 of its slots are UPDATED), on the whole
+    grid and on one rank's z-slab of four."""
+    cfg_j, cfg_t = _configs(5)
+    K, V = cfg_t.slots_per_voxel, cfg_t.num_voxels
+    bv = tbirth.block_layout(cfg_t)[0]
+    assert (K, bv) == (31, 16)
+    rng = np.random.RandomState(31)
+    n = V * K
+    js = _jax_state(cfg_j, dict(
+        px=rng.randn(n).astype(np.float32),
+        weight=np.where(rng.rand(n) < 0.1, 1e-4, rng.rand(n) * 0.8).astype(np.float32),
+        status=rng.choice([0, 1, 2], n, p=[0.3, 0.6, 0.1]).astype(np.uint8),
+        track=rng.randint(0, 6, n).astype(np.uint16),
+        label=rng.randint(0, 9, n).astype(np.uint8),
+        forget=rng.randint(0, 4, n).astype(np.uint8),
+        stamp=rng.randint(0, 5, n).astype(np.int32),
+    ))
+    voxels = rng.choice(16 * bv, 48, replace=False)
+    d = _voxel_candidates(cfg_j, js, voxels, rng.randint(0, K + 4, 48), rng, extra=40)
     slab = (1, 4) if form == "slab" else None
     tr, jr = _run_both(cfg_j, cfg_t, js, d, resample, slab)
     _assert_same(tr, jr)

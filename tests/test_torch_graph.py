@@ -550,6 +550,37 @@ def test_a_capture_that_fails_raises(cuda, monkeypatch, part, stage):
 
 
 @pytest.mark.gpu
+def test_if_nodes_in_many_captures_in_a_row(cuda):
+    """Forty captures, each with two conditional nodes, one after another in
+    one process, as a long run makes them: PyTorch's pool hands out its 32
+    streams a device in turn, and every capture's side stream must stay
+    apart from the stream the graph is captured on (a side stream taken
+    alone was, every 32nd time, that stream, and ending the first body's
+    capture ended the graph's: the second node found no capture)."""
+    x = torch.arange(5, dtype=torch.float32, device=cuda)
+    pred = torch.ones((), dtype=torch.bool, device=cuda)
+
+    def body():
+        y = step_graph.slot_cond(pred, lambda: (x + 1.0,), lambda: (x,))[0]
+        return step_graph.slot_cond(pred, lambda: (y * 2.0,), lambda: (y,))[0]
+
+    body()
+    torch.cuda.synchronize()
+    for i in range(40):
+        graph = torch.cuda.CUDAGraph()
+        capture = step_graph.Capture(graph)
+        assert capture.stream.cuda_stream != capture.main.cuda_stream
+        with step_graph.capturing(capture):
+            y = body()
+        for p in (True, False):
+            pred.fill_(p)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y, (x + 1.0) * 2.0 if p else x), (i, p)
+        pred.fill_(True)
+
+
+@pytest.mark.gpu
 def test_if_node_runs_only_the_taken_branch(cuda):
     """``step_graph.slot_cond`` under capture: one capture, replayed with
     ``pred`` true and false.  The outputs are ``do()``'s, then ``no()``'s;

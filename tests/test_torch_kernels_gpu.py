@@ -326,7 +326,7 @@ def _render_edge_store(V, K, device, seed, kind):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("V", [1, 1023, 4099, 3 * 1024 + 1])
-@pytest.mark.parametrize("slots_n", [1, 2, 3, 4])  # K = 1, 3, 7, 15
+@pytest.mark.parametrize("slots_n", [1, 2, 3, 4, 5])  # K = 1, 3, 7, 15, 31
 @pytest.mark.parametrize("kind", STORE_EDGES)
 def test_render_kernel_at_the_edges(cuda, kind, slots_n, V):
     """The render with every K it is built for, voxel counts that are no
@@ -436,7 +436,7 @@ def test_observe_kernels_match_plain(cuda, quat, slots_n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("V", [1, 1023, 4099, 3 * 1024 + 1])
-@pytest.mark.parametrize("slots_n", [1, 2, 3, 4])  # K = 1, 3, 7, 15
+@pytest.mark.parametrize("slots_n", [1, 2, 3, 4, 5])  # K = 1, 3, 7, 15, 31
 @pytest.mark.parametrize("kind", STORE_EDGES)
 def test_front_kernel_at_the_edges(cuda, kind, slots_n, V):
     """The candidate scan with every K it is built for, voxel counts that
@@ -467,7 +467,84 @@ def test_front_kernel_at_the_edges(cuda, kind, slots_n, V):
     elif kind == "sparse" and V > 1000:
         assert 0 < int(want[0].sum()) < V // 20
     if V > 1000 and kind in ("mixed", "all_alive"):
-        assert 0 < int(want[1].sum()) < V
+        # 31 live slots a voxel put a candidate in every voxel of these stores
+        assert 0 < int(want[1].sum()) < V or (K == 31 and kind == "all_alive" and want[1].all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [1, 1023, 4099, 3 * 1024 + 1])
+@pytest.mark.parametrize("slots_n", [1, 2, 3, 4, 5])  # K = 1, 3, 7, 15, 31
+@pytest.mark.parametrize("kind", STORE_EDGES)
+def test_movable_kernel_at_the_edges(cuda, kind, slots_n, V):
+    """The movable scan with every K it is built for, voxel counts that are
+    no multiple of a block's span (1024) or of the four voxels a thread
+    writes, slot counts that are no multiple of the 16 status bytes a
+    thread loads, and stores with every slot dead (every span ends after its
+    status), every slot alive and all but one stretch of slots empty; bytes
+    equal, in a CUDA graph too."""
+    cfg = tiny_test_config(max_particle_num_per_voxel_n=slots_n)
+    K = cfg.slots_per_voxel
+    d = particle_store(V * K, (V, 1, 1), seed=V + slots_n, max_movable=2, kind=kind)
+    T = lambda a: torch.from_numpy(a).to(cuda)
+    args = (cfg, T(d["track"]), T(d["status"]), T(d["stamp"]), T(d["axis"][0]), 2)
+    want = movable_voxels_plain(*args)
+    before = movable_voxels_cuda.launches
+    got = movable_voxels_cuda(*args)
+    torch.cuda.synchronize()
+    assert movable_voxels_cuda.launches == before + 1
+    assert got.shape == (V,) and got.dtype == torch.uint8 and torch.equal(got, want)
+    if kind == "all_dead":
+        assert not want.any()
+    elif V > 1000:
+        # 31 live slots a voxel hold a movable track in nearly every voxel
+        assert 0 < int(want.sum()) < V or (K == 31 and kind == "all_alive" and want.all())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = movable_voxels_cuda(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, want)
+
+
+@pytest.mark.gpu
+def test_movable_kernel_refuses_a_misaligned_store(cuda):
+    """The movable scan loads 16 bytes a thread: a store that starts off a
+    16-byte boundary raises, it is not read askew."""
+    cfg = tiny_test_config()
+    K, V = cfg.slots_per_voxel, 64
+    d = particle_store(V * K + 1, (V, 1, 1), seed=1, max_movable=2)
+    T = lambda a: torch.from_numpy(a).to(cuda)
+    status = T(d["status"])[1:]
+    assert status.is_contiguous() and status.data_ptr() % 16 != 0
+    with pytest.raises(RuntimeError):
+        movable_voxels_cuda(cfg, T(d["track"])[1:], status, T(d["stamp"])[1:], T(d["axis"][0]), 2)
+
+
+@pytest.mark.gpu
+def test_a_store_above_the_kernels_k_raises_on_the_card(cuda):
+    """K = 63 (max_particle_num_per_voxel_n = 6) passes the config's check
+    but not the kernels': the map and every per-voxel wrapper raise a
+    ValueError that names the limit, and nothing is launched."""
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import merge_blocks_cuda
+
+    cfg = tiny_test_config(max_particle_num_per_voxel_n=6)
+    assert cfg.slots_per_voxel == 63
+    with pytest.raises(ValueError, match="K <= 31"):
+        SemanticDSPMap(cfg, device=cuda)
+    s = init_map_state(cfg, 0, cuda)
+    p = s.particles
+    vax = codecs.axis_stamps_per_voxel(cfg, s.scroll)
+    r_cw, t_cw = torch.eye(3, device=cuda), torch.zeros(3, device=cuda)
+    calls = [(render_core_cuda, (cfg, p, s.voxel_stamp, vax, 0.4)),
+             (front_candidates_cuda, (cfg, p.px, p.py, p.pz, p.status, p.stamp, vax, r_cw, t_cw)),
+             (movable_voxels_cuda, (cfg, p.track, p.status, p.stamp, vax, 2)),
+             (merge_blocks_cuda, (cfg, p, *_merge_inputs(cuda, "tiny", seed=1)[2:], True))]
+    for fn, args in calls:
+        before = fn.launches
+        with pytest.raises(ValueError, match="max_particle_num_per_voxel_n = 6"):
+            fn(*args)
+        assert fn.launches == before
+    assert SemanticDSPMap(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.gpu
@@ -1066,9 +1143,11 @@ def test_segment_scans_match_cummax(cuda, n, captured):
 #: slots_n, bv, A, real rows, store blocks).  tiny: the tiny config's
 #: birth; vkitti2: max_birth_blocks = 1536 rows of 64 voxels, K = 7; the
 #: moving-object cleanup at VKITTI2 (2 x max_moving_blocks = 256 rows);
-#: zed2: 1024 rows of 128 voxels, K = 3.
+#: zed2: 1024 rows of 128 voxels, K = 3; k31: a store of 31 slots a voxel
+#: (max_particle_num_per_voxel_n = 5), rows of 16 voxels.
 MERGE_SHAPES = {"tiny": (2, 128, 16, 11, 16), "vkitti2": (3, 64, 1536, 1400, 4096),
-                "vkitti2_move": (3, 64, 256, 200, 4096), "zed2": (2, 128, 1024, 1000, 2048)}
+                "vkitti2_move": (3, 64, 256, 200, 4096), "zed2": (2, 128, 1024, 1000, 2048),
+                "k31": (5, 16, 256, 201, 4096)}
 
 
 def _merge_inputs(device, shape, seed):
@@ -1128,7 +1207,7 @@ def test_merge_kernel_matches_plain(cuda, shape, resample):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("resample", [False, True])
-@pytest.mark.parametrize("shape", ["tiny", "vkitti2", "zed2"])
+@pytest.mark.parametrize("shape", ["tiny", "vkitti2", "zed2", "k31"])
 def test_merge_kernel_in_a_cuda_graph(cuda, shape, resample):
     """The merge kernel captured into a CUDA graph (its accepted count
     zeroed inside the graph) and replayed on new inputs copied into the

@@ -3,7 +3,8 @@ kernels (interpret mode on the CPU): the dense candidate scan
 (front_candidates) and the movable-voxel scan (movable_voxels), on
 numpy-seeded stores with mixed status, stamps and tracks, a scrolled map and
 an identity or rotated pose, and on stores with every slot dead, every slot
-alive and all but one stretch of slots empty, at K = 3 and K = 7.  Outputs are u8 flags and must be equal.
+alive and all but one stretch of slots empty, at K = 3 and K = 7 (the
+movable scan at K = 31 too).  Outputs are u8 flags and must be equal.
 Also: the CUDA wrappers run the plain scans on CPU tensors and count no
 launch."""
 
@@ -122,6 +123,28 @@ def test_front_candidates_plain_matches_pallas_at_the_edges(kind, slots_n):
         assert int(ha.sum()) == V and 0 < int(hc.sum()) < V
     else:
         assert 0 < int(ha.sum()) < V // 20
+
+
+@pytest.mark.parametrize("slots_n", [2, 3, 5])  # K = 3, 7 and 31
+@pytest.mark.parametrize("kind", ["mixed", "all_dead", "all_alive", "sparse"])
+def test_movable_voxels_plain_matches_pallas_at_the_edges(kind, slots_n):
+    """The movable scan's plain version, the oracle of the CUDA kernel, held
+    to the Pallas kernel byte for byte up to the 31 slots a voxel the CUDA
+    kernels take, on stores with no live slot, only live slots and one
+    stretch of slots in use."""
+    cfg_j = j_tiny(max_particle_num_per_voxel_n=slots_n)
+    cfg_t = tiny_test_config(max_particle_num_per_voxel_n=slots_n)
+    d = _store(cfg_t, 6, kind)
+    jp, jsc = _jax_inputs(cfg_j, d)
+    hm_j = movable_voxels(cfg_j, jp, jsc, MAX_MOVABLE, True)
+    t, vax = _torch_inputs(cfg_t, d)
+    hm = movable_voxels_plain(cfg_t, t["track"], t["status"], t["stamp"], vax, MAX_MOVABLE)
+    np.testing.assert_array_equal(hm.numpy(), np.asarray(hm_j))
+    V = cfg_t.num_voxels
+    if kind == "all_dead":
+        assert int(hm.sum()) == 0
+    else:
+        assert 0 < int(hm.sum()) <= V
 
 
 @pytest.mark.parametrize("seed", [3, 8])

@@ -88,7 +88,7 @@ def test_render_matches_jax(source, thr):
     np.testing.assert_allclose(tp.weight.numpy(), np.asarray(jp.weight), rtol=2e-5)
 
 
-@pytest.mark.parametrize("slots_n", [1, 2, 3])  # K = 1, 3, 7
+@pytest.mark.parametrize("slots_n", [1, 2, 3, 5])  # K = 1, 3, 7, 31
 @pytest.mark.parametrize("kind", STORE_EDGES)
 def test_render_plain_matches_pallas_at_the_edges(kind, slots_n):
     """render_core_plain against the Pallas render (interpret mode) on the
