@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase scan      # build + [scan] only (the sharded part too)
     python3 chip_smoke.py --phase merge     # build + [merge] only (the sharded part too)
     python3 chip_smoke.py --phase k31       # build + [k31] only
+    python3 chip_smoke.py --phase visible   # build + [visible] only
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
     python3 chip_smoke.py --against DIR     # also time both PHD passes, the render,
                                             # the front scan and the gather built from
@@ -137,6 +138,21 @@ Phases (any failure raises, and the script exits nonzero):
      per ``_insert_core`` call (counted in every module that binds it) and
      only in the kernel map.  In [sharded], the same pair of captured
      sharded steps at one rank;
+  4e. [visible]: the JAX package's VisibleSet surface and
+     ``insert_particles`` at full width: a VKITTI2 map (the default preset,
+     1242 x 375, S = 12, R = 5, 8,388,608 voxels, K = 7) driven three frames
+     of the vkitti2 scene; on frame 3's cloud, (a) ``compute_ck_kappa`` and
+     ``phd_weight_update`` over the VisibleSet of every live slot of the
+     store in view (a tenth marked invisible, padding past the real
+     entries) with both CUDA passes against the plain stencils on the card,
+     each update on a copy of the store: floats within the tolerance,
+     status and stamp equal, forget counts equal away from the flag's
+     threshold, the passes' launches counted (A twice, B once), each pass
+     timed beside its bound; (b) ``insert_particles`` of the frame's newborn
+     candidates with the merge kernel's acceptance instance against
+     ``merge_blocks_plain`` on the card and against the count-only
+     instance: stores bit-equal, ``accepted`` equal, its sum the count; the
+     two instances timed in turns beside the bound;
   5. [sharded]: the sharded step (parallel/shard_step.py) at one rank, in a
      process group of this process alone (NCCL): at the VKITTI2 preset with
      the movers, 8 frames, four ways in turns, timed with CUDA events: the
@@ -1902,9 +1918,9 @@ class CallRecorder:
 
     def __init__(self, module, name):
         self.module, self.name, self.fn = module, name, getattr(module, name)
-        self.calls, self.launches = [], 0
+        self.calls, self.kwargs, self.launches = [], [], 0
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         import dataclasses
 
         import torch
@@ -1919,7 +1935,8 @@ class CallRecorder:
             return a
 
         self.calls.append(tuple(keep(a) for a in args))
-        return self.fn(*args)
+        self.kwargs.append(kwargs)
+        return self.fn(*args, **kwargs)
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -3385,6 +3402,287 @@ def drive_sharded_merge(counters, card, frames=4):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [visible]: the PHD update over a VisibleSet, and insert_particles
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` is ``value`` inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def store_copy(p):
+    """A copy of a particle store (the functions [visible] runs work in place)."""
+    import dataclasses
+
+    return type(p)(**{f.name: getattr(p, f.name).clone() for f in dataclasses.fields(p)})
+
+
+def assert_same_store(tag, a, b):
+    """Every field of two stores equal, floats by their bits."""
+    import dataclasses
+
+    import torch
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert_equal(f"{tag} {f.name}", x, y)
+
+
+def visible_set_of_store(cfg, p, r_cw, t_cw, pad=4096, seed=0):
+    """The VisibleSet of every live slot of the store ``p`` whose position
+    projects into the image within the depth range (``project_to_image``):
+    each entry's voxel and slot, pixel, position, weight, track and forget
+    count; about a tenth marked invisible (seeded), and ``pad`` padding
+    entries past the real ones.  Returns (set, real entries)."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.geometry import project_to_image
+    from semantic_dsp_map_tpu_torch.ops.projection import VisibleSet
+    from semantic_dsp_map_tpu_torch.state import STATUS_INVALID
+
+    K = cfg.slots_per_voxel
+    idx = torch.nonzero(p.status != STATUS_INVALID).squeeze(1)
+    pos = torch.stack([p.px[idx], p.py[idx], p.pz[idx]], dim=-1)
+    row, col, _, ok = project_to_image(cfg, r_cw, t_cw, pos)
+    idx, row, col, pos = idx[ok], row[ok], col[ok], pos[ok]
+    n = idx.numel()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    visible = torch.rand(n, generator=gen, device="cuda") >= 0.1
+
+    def padded(x, fill):
+        return torch.cat([x, torch.full((pad, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)])
+
+    i32 = torch.int32
+    vis = VisibleSet(
+        vox=padded((idx // K).to(i32), -1), slot=padded((idx % K).to(i32), 0),
+        row=padded(row, 0), col=padded(col, 0), pos=padded(pos, 0.0),
+        weight=padded(p.weight[idx], 0.0), track=padded(p.track[idx].to(i32), -1),
+        forget=padded(p.forget[idx].to(i32), 0), visible=padded(visible, False),
+        count=visible.sum().to(i32))
+    return vis, n
+
+
+def visible_phd(cfg, params, dsp, vis, cloud, card):
+    """[visible] (a): ``compute_ck_kappa`` and ``phd_weight_update`` over
+    ``vis`` with the CUDA passes, then with the plain stencils on the card
+    (``use_pallas_phd`` off), each update on a copy of the map's store:
+    ck_kappa and the new weights within the tolerance, status and stamp and
+    every other field equal, forget counts equal away from the 0.1
+    threshold of the "rightly updated" flag (``window_census``).  The
+    passes' launches are counted over the two kernel calls alone.  Then
+    each pass alone on this table, timed, beside its bound.  Returns the
+    numbers."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import phd, phd_cuda
+
+    plain_cfg = dataclasses.replace(cfg, use_pallas_phd=False)
+    gt = dsp.state.global_time + 1  # frame 3's time: every slot written gets a new stamp
+    p_k, p_p = store_copy(dsp.state.particles), store_copy(dsp.state.particles)
+    passes = (phd_cuda.pass_a_cuda, phd_cuda.pass_b_cuda)
+    reset_launches(passes)
+    ck_k = phd.compute_ck_kappa(cfg, params, vis, cloud)
+    phd.phd_weight_update(cfg, params, vis, cloud, p_k, gt)
+    torch.cuda.synchronize()
+    launches = read_launches(passes)
+    if launches != {"pass_a_cuda": 2, "pass_b_cuda": 1}:
+        raise AssertionError(f"[visible] launches of the PHD passes {launches}, want A 2, B 1")
+    ck_p = phd.compute_ck_kappa(plain_cfg, params, vis, cloud)
+    phd.phd_weight_update(plain_cfg, params, vis, cloud, p_p, gt)
+    torch.cuda.synchronize()
+    if read_launches(passes) != launches:
+        raise AssertionError("[visible] the plain update launched a PHD kernel")
+    assert_close("[visible] ck_kappa", ck_k, ck_p)
+    assert_close("[visible] weight", p_k.weight, p_p.weight)
+    for name in ("status", "stamp", "px", "py", "pz", "label", "track"):
+        assert_equal(f"[visible] {name}", getattr(p_k, name), getattr(p_p, name))
+
+    t = phd.build_pixel_table(cfg, vis)
+    S, H, W = t.px.shape
+    occupied = t.meta >= 0
+    ff = phd.forgetting_factor(t.meta & 0xFF, params.forgetting_rate, params.max_forget_count)
+    weff = torch.where(occupied, t.weight if params.if_use_independent_filter else t.weight * ff,
+                       0.0)
+    a_args = pass_a_inputs(cfg, params, t, cloud, weff)
+    b_args = pass_b_inputs(cfg, params, t, cloud, ck_k)
+    # forget counts may part only where the flag's pdf lies within 1e-6 of
+    # its threshold (the flag does not read ck_kappa)
+    near, _ = window_census(b_args)
+    key, rank, keep = phd._pixel_entries(cfg, vis)
+    dest = torch.where(keep, rank.long() * (H * W) + key, 0)
+    slot = vis.vox.long() * cfg.slots_per_voxel + vis.slot.long()
+    allowed = torch.zeros_like(p_k.forget, dtype=torch.bool)
+    allowed[slot[keep]] = near.reshape(-1)[dest[keep]]
+    differ = p_k.forget != p_p.forget
+    if bool((differ & ~allowed).any()):
+        raise AssertionError(f"[visible] {int((differ & ~allowed).sum())} forget counts differ "
+                             "away from the threshold")
+    n_near = int(near.sum())
+
+    ck_raw = phd_cuda.pass_a_cuda(*a_args)
+    acc, right = phd_cuda.pass_b_cuda(*b_args)
+    census = pass_a_census(a_args)
+    bound_a, _, _ = pass_a_bound(a_args, ck_raw, census)
+    bound_b, _, terms_b = pass_b_bound(b_args, acc, right)
+    run_a, run_b = lambda: phd_cuda.pass_a_cuda(*a_args), lambda: phd_cuda.pass_b_cuda(*b_args)
+    ms_a, q_a = cuda_ms(run_a, 10), cuda_ms(run_a, 10, queued=True)
+    ms_b, q_b = cuda_ms(run_b, 10), cuda_ms(run_b, 10, queued=True)
+    plain_a = cuda_ms(lambda: phd.pass_a_raw(*a_args), 3)
+    plain_b = cuda_ms(lambda: phd.pass_b_raw(*b_args), 3)
+    P, n_real = vis.vox.shape[0], int((vis.vox >= 0).sum())
+    n_vis, dropped = int(vis.count), int(t.dropped)
+    out = {"P": P, "real": n_real, "visible": n_vis, "dropped_rank_ge_S": dropped,
+           "table_entries": int(occupied.sum()), "forget_differing": int(differ.sum()),
+           "near_threshold": n_near, "launches": launches,
+           "ck_max_abs_err": max_err(ck_k, ck_p)[0],
+           "weight_max_abs_err": max_err(p_k.weight, p_p.weight)[0],
+           "updated_slots": int((p_k.stamp != dsp.state.particles.stamp).sum()),
+           "pass_a": {"ms": ms_a, "queued_ms": q_a, "plain_ms": plain_a, **census, **bound_a},
+           "pass_b": {"ms": ms_b, "queued_ms": q_b, "plain_ms": plain_b, "terms": terms_b,
+                      **bound_b}}
+    print(f"[visible] VisibleSet of the store's live slots in view: P={P} ({n_real} real, "
+          f"{n_vis} visible, {P - n_real} padding), {dropped} dropped at rank >= S={S}, "
+          f"{out['table_entries']} table entries; {out['updated_slots']} slots updated")
+    print(f"[visible] compute_ck_kappa + phd_weight_update, kernels against the plain stencils "
+          f"on the card: ck_kappa max abs {out['ck_max_abs_err']:.3e}, weight max abs "
+          f"{out['weight_max_abs_err']:.3e} (rtol {RTOL} / atol {ATOL}); status, stamp and the "
+          f"rest equal; forget differing {out['forget_differing']} (entries near the threshold "
+          f"{n_near}); launches {launches} ({card})")
+    print(f"[visible] pass A {ms_a:.4f} ms ({q_a:.4f} device-only), plain {plain_a:.3f} ms, "
+          f"bound {bound_a['bound_ms']:.4f} ms by {bound_a['bound_by']}; pass B {ms_b:.4f} ms "
+          f"({q_b:.4f} device-only), plain {plain_b:.3f} ms, bound {bound_b['bound_ms']:.4f} ms "
+          f"by {bound_b['bound_by']} ({card})")
+    return out
+
+
+def visible_insert(cfg, params, dsp, cloud, card, reps=10):
+    """[visible] (b): ``insert_particles`` of frame 3's newborn candidates on
+    three copies of the map's store: on the card (the merge kernel's
+    acceptance instance, its launch counted over this call alone), with
+    ``merge_blocks_plain`` patched into ``ops.birth`` on the card, and
+    ``_insert_core`` alone (the count-only instance): the stores equal bit
+    for bit, ``accepted`` and the voxels equal, ``accepted.sum()`` the
+    count-only launch's count.  Then both instances on the recorded merge
+    arguments, each launch from the store as it was, in turns (acceptance,
+    count-only, count-only, acceptance), beside the plain version and the
+    bound (``merge_bound`` plus the mask's bytes).  Returns the numbers."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import birth
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import (
+        merge_blocks_accepted_cuda, merge_blocks_cuda,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    gt = dsp.state.global_time + 1
+    cand = birth.newborn_candidates(cfg, params, cloud, gt, gen)
+    scroll, base = dsp.state.scroll, dsp.state.particles
+    p_k, p_p, p_c = store_copy(base), store_copy(base), store_copy(base)
+    wrappers = (merge_blocks_accepted_cuda, merge_blocks_cuda)
+    reset_launches(wrappers)
+    with CallRecorder(birth, "merge_blocks") as rec:
+        _, acc_k, vox_k = birth.insert_particles(cfg, p_k, scroll, cand)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    if launches != {"merge_blocks_accepted_cuda": 1, "merge_blocks_cuda": 0}:
+        raise AssertionError(f"[visible] insert_particles launched {launches}")
+    with patched(birth, "merge_blocks", birth.merge_blocks_plain):
+        _, acc_p, vox_p = birth.insert_particles(cfg, p_p, scroll, cand)
+    res_c = birth._insert_core(cfg, p_c, scroll, cand, resample_targets=False)
+    torch.cuda.synchronize()
+    assert_same_store("[visible] insert_particles store, kernel", p_k, p_p)
+    assert_same_store("[visible] insert_particles store, count-only", p_c, p_p)
+    assert_equal("[visible] accepted", acc_k, acc_p)
+    assert_equal("[visible] voxel", vox_k, vox_p)
+    n_acc = int(acc_k.sum())
+    if n_acc != int(res_c.accepted_count) or n_acc == 0:
+        raise AssertionError(f"[visible] {n_acc} accepted, the count-only launch counted "
+                             f"{int(res_c.accepted_count)}")
+
+    cfg_m, flat, blocks, vax, staged, resample = rec.calls[0]
+    keep = store_copy(flat)
+    _, _, mask_p = birth.merge_blocks_plain(cfg_m, flat, blocks, vax, staged, resample,
+                                            want_accepted=True)
+    work = store_copy(keep)
+
+    def restore():
+        for name in keep.__dataclass_fields__:
+            getattr(work, name).copy_(getattr(keep, name))
+
+    acc_run = lambda: merge_blocks_accepted_cuda(cfg_m, work, blocks, vax, staged, resample)
+    cnt_run = lambda: merge_blocks_cuda(cfg_m, work, blocks, vax, staged, resample)
+    _, _, mask_k = acc_run()
+    torch.cuda.synchronize()
+    assert_equal("[visible] the acceptance instance's mask", mask_k, mask_p)
+    assert_same_store("[visible] the acceptance instance's store", work, flat)
+    both = lambda f: (cuda_ms(f, reps, setup=restore), cuda_ms(f, reps, queued=True, setup=restore))
+    turns = {"accepted": [both(acc_run)], "count_only": [both(cnt_run)]}
+    turns["count_only"].append(both(cnt_run))
+    turns["accepted"].append(both(acc_run))
+    plain_ms = cuda_ms(lambda: birth.merge_blocks_plain(cfg_m, work, blocks, vax, staged, resample,
+                                                        want_accepted=True), 3, setup=restore)
+    b, n_real = merge_bound(cfg_m, blocks, staged, {k: getattr(keep, k) for k in
+                                                    keep.__dataclass_fields__},
+                            flat, resample, n_acc)
+    b_count = b["bound_ms"]
+    b = bound(b["bound_ms"] * 1e-3 * HBM_BYTES_PER_S + mask_p.numel())
+    ms = float(np.median([t[0] for t in turns["accepted"]]))
+    q_ms = float(np.median([t[1] for t in turns["accepted"]]))
+    out = {"candidates": cand.pos.shape[0], "accepted": n_acc, "rows": blocks.ids.shape[0],
+           "real_rows": n_real, "launches": launches, "turns_ms": turns, "ms": ms,
+           "device_only_ms": q_ms, "plain_ms": plain_ms, "max_abs_err": 0.0,
+           "count_only_bound_ms": b_count, **b}
+    f = lambda t: f"{t[0]:.4f} ({t[1]:.4f})"
+    print(f"[visible] insert_particles: {out['candidates']} newborn candidates of frame 3, "
+          f"{n_acc} accepted into {n_real} of {out['rows']} rows; the acceptance instance's "
+          f"store and mask equal to merge_blocks_plain's, its sum the count-only launch's count; "
+          f"launches {launches} ({card})")
+    print(f"[visible] merge in turns, ms (device-only): acceptance {f(turns['accepted'][0])}, "
+          f"count-only {f(turns['count_only'][0])}, count-only {f(turns['count_only'][1])}, "
+          f"acceptance {f(turns['accepted'][1])}; plain {plain_ms:.3f} ms; bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']} (count-only {b_count:.4f}) ({card})")
+    return out
+
+
+def run_visible(card) -> dict:
+    """[visible]: a VKITTI2 map at full width (the default preset: 1242 x
+    375, S = 12, R = 5, 8,388,608 voxels, K = 7) driven three frames of
+    ``synth_vkitti2_frame``; then, on frame 3's cloud, the PHD update over
+    the VisibleSet of the store's live slots in view (``visible_phd``) and
+    ``insert_particles`` of the frame's newborn candidates
+    (``visible_insert``)."""
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, SemanticDSPMap
+    from semantic_dsp_map_tpu_torch import virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
+
+    scenes = bench_scenes()
+    cfg, params = virtual_kitti2_config(), FilterParams(**scenes.VK_PARAMS)
+    synth = scenes.synth_vkitti2_frame
+    dsp = SemanticDSPMap(cfg, params, device="cuda")
+    for t in range(3):
+        dsp.update(*synth(cfg, t, MaskKpts), 0.1 * t)
+    _, f, cloud = frame_cloud(dsp, synth, 3)
+    _, _, r_cw, t_cw = camera_matrices(f.cam_pos, f.cam_quat)
+    vis, _ = visible_set_of_store(cfg, dsp.state.particles, r_cw, t_cw)
+    out = {"phd": visible_phd(cfg, params, dsp, vis, cloud, card)}
+    del vis
+    torch.cuda.empty_cache()
+    out["insert"] = visible_insert(cfg, params, dsp, cloud, card)
+    del dsp
+    torch.cuda.empty_cache()
+    return out
+
+
 def drive_rematch(counters, card, lost=5, frames=7):
     """The VKITTI2 scene with the car's keypoints withheld on frame ``lost``,
     after the car has moved for three frames and has a velocity: the object
@@ -3965,12 +4263,13 @@ def run_sharded(counters, card) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "graph", "sharded", "scan", "merge",
-                                        "k31"),
+                                        "k31", "visible"),
                     default="all",
                     help="'kernels' stops after the per-kernel checks; 'graph' runs the build "
                          "and [graph] alone; 'sharded' the build and [sharded]'s vkitti2 and "
                          "zed2 runs alone; 'scan' the build and [scan] alone; 'merge' the "
-                         "build and [merge] alone; 'k31' the build and [k31] alone")
+                         "build and [merge] alone; 'k31' the build and [k31] alone; 'visible' "
+                         "the build and [visible] alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     ap.add_argument("--against", metavar="DIR", type=Path,
@@ -4065,6 +4364,10 @@ def main() -> int:
         print(json.dumps({"k31": k31, "card": card}))
         print(f"[card] {card}")
         return 0
+    if args.phase == "visible":
+        print(json.dumps({"visible": run_visible(card), "card": card}))
+        print(f"[card] {card}")
+        return 0
     if args.phase == "merge":
         merge = run_merge(fns, card)
         with one_rank_group(card):
@@ -4092,10 +4395,15 @@ def main() -> int:
         # no pallas_call: the merge XLA fuses out of the JAX _insert_core
         "merge_blocks": dict(name="merge_blocks", route="cuda", source=source + "birth.cu",
                              replaces="semantic_dsp_map_tpu/ops/birth.py:279"),
+        # its instance that writes each staged candidate's acceptance: the
+        # JAX insert_particles' per-candidate mask ([visible])
+        "merge_blocks_accepted": dict(name="merge_blocks_accepted", route="cuda",
+                                      source=source + "birth.cu",
+                                      replaces="semantic_dsp_map_tpu/ops/birth.py:404"),
     }
     # No single PyTorch call computes a frame kernel's function.
     for key in ("phd_pass_a", "phd_pass_b", "render", "front_candidates", "movable_voxels",
-                "merge_blocks"):
+                "merge_blocks", "merge_blocks_accepted"):
         report[key]["library_ms"] = None
     # ms / plain_ms / max_abs_err at VKITTI2 shapes, zed2_* at ZED2 shapes,
     # coda_* at the coda preset's (960 x 540, K = 3 at 8.4M voxels)
@@ -4213,6 +4521,15 @@ def main() -> int:
             out["kernel_ms_in_replay"] / out["inserts_per_frame"])
         merge_entry.setdefault("inserts_per_frame", {})[name] = out["inserts_per_frame"]
     merge_entry["graph_ms"] = merge_entry["graph_ms_by_path"]["vkitti2"]
+    visible = run_visible(card)
+    for key, fname in (("phd_pass_a", "pass_a_cuda"), ("phd_pass_b", "pass_b_cuda")):
+        report[key]["launches_by_path"]["visible"] = visible["phd"]["launches"][fname]
+    ins = visible["insert"]
+    report["merge_blocks_accepted"].update(
+        launches=ins["launches"]["merge_blocks_accepted_cuda"],
+        launches_by_path={"visible": ins["launches"]["merge_blocks_accepted_cuda"]},
+        **{k: ins[k] for k in ("ms", "device_only_ms", "plain_ms", "max_abs_err", "bound_ms",
+                               "bound_by")})
 
     rematch_launches, rematch_frame = drive_rematch(fns, card)
     replay_launches, replay_ms = drive_replay(fns, card)
@@ -4269,7 +4586,7 @@ def main() -> int:
                       "stage_profile": stage_rows, "probes": probe_rows, "bench": bench_cells,
                       "expected": expected, "rematch_frame": rematch_frame, "sharded": sharded,
                       "graph": graph, "scan": scan, "merge": merge, "k31": k31,
-                      "card": card}))
+                      "visible": visible, "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

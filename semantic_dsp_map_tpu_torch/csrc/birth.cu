@@ -77,6 +77,17 @@
 // there moving whole rows lost to this design in every scene measured
 // (PERF.md, section 6).
 //
+// Two instances of the kernel for each K: the count-only one, which every
+// path of the frame runs (dsp_merge_blocks), and one that also writes each
+// staged slot's acceptance, a byte a slot of the staged [A, bv, K] layout
+// (dsp_merge_blocks_accepted): the per-candidate mask of the JAX package's
+// insert_particles (semantic_dsp_map_tpu/ops/birth.py:404), which reads
+// _insert_core's accepted_staged.  Staged candidate k of a voxel is
+// accepted iff k < the voxel's vacancy count, the value the count sums.
+// The mask adds A * bv * K bytes written (688 KB at VKITTI2's birth, about
+// 0.0002 ms at 3.35 TB/s); each thread stores its voxel's K bytes, padding
+// rows zeros, so the caller need not clear the buffer.
+//
 // Bit-equality hazards, each kept as the plain version computes it (the
 // library is built with -fmad=false, so nothing is contracted):
 //   - the walk's sums are sequential f32 additions in slot order, a
@@ -216,14 +227,18 @@ __device__ __forceinline__ unsigned resample(int (&st)[K], float (&w)[K], int tr
   return kept;
 }
 
-template <int K>
+// ACC: the instance that also writes each staged slot's acceptance, a byte
+// a slot of the [A, bv, K] staged layout, into `lanes` (insert_particles'
+// per-candidate mask); the count-only instance (ACC false, `lanes` unused)
+// is the one every path of the frame runs.
+template <int K, bool ACC>
 __global__ void __launch_bounds__(merge_vox<K>()) merge_kernel(
     Store s, const float* __restrict__ in_px, const float* __restrict__ in_py,
     const float* __restrict__ in_pz, const float* __restrict__ in_w,
     const int* __restrict__ in_stamp, const int* __restrict__ in_meta,
     const int* __restrict__ vax, const long long* __restrict__ ids,
-    unsigned long long* __restrict__ accepted, long long rows, int bv_log2, long long nb,
-    int do_resample, int trigger, float inv_trigger, int wide) {
+    unsigned long long* __restrict__ accepted, uint8_t* __restrict__ lanes, long long rows,
+    int bv_log2, long long nb, int do_resample, int trigger, float inv_trigger, int wide) {
   constexpr int VOX = merge_vox<K>();
   constexpr int SLOTS = VOX * K;
   constexpr int CH = K < 8 ? K : 8;  // taken slots whose staged loads fly together
@@ -298,6 +313,11 @@ __global__ void __launch_bounds__(merge_vox<K>()) merge_kernel(
     }
 #pragma unroll
     for (int k = 0; k < K; ++k) acc += (k < c && s_meta[l0 + k] >= 0);
+    if constexpr (ACC) {
+      // staged candidate k is accepted iff k < the voxel's vacancy count
+#pragma unroll
+      for (int k = 0; k < K; ++k) lanes[sbase + k] = (uint8_t)(k < c && s_meta[l0 + k] >= 0);
+    }
 
     // d. the taken slots' staged fields, CH slots' loads in flight together,
     // then the writes.
@@ -338,27 +358,66 @@ __global__ void __launch_bounds__(merge_vox<K>()) merge_kernel(
       }
     }
   }
+  if constexpr (ACC) {
+    // a padding row of the staged buffers accepts nothing
+    if (!mine && r < tile_rows) {
+      const long long sbase = ((a0 << bv_log2) + tid) * K;
+#pragma unroll
+      for (int k = 0; k < K; ++k) lanes[sbase + k] = 0;
+    }
+  }
   // e. the accepted count, one global atomic a tile.
   if (acc != 0u) atomicAdd(&s_acc, acc);
   __syncthreads();
   if (tid == 0 && s_acc != 0u) atomicAdd(accepted, (unsigned long long)s_acc);
 }
 
-template <int K>
+template <int K, bool ACC>
 int launch_merge(const Store& s, const Staged& in, const int* vax, const long long* ids,
-                 unsigned long long* accepted, long long rows, int bv_log2, long long nb,
-                 int do_resample, int trigger, int wide, cudaStream_t stream) {
+                 unsigned long long* accepted, uint8_t* lanes, long long rows, int bv_log2,
+                 long long nb, int do_resample, int trigger, int wide, cudaStream_t stream) {
   constexpr int VOX = merge_vox<K>();
   if ((VOX >> bv_log2) < 1) return (int)cudaErrorInvalidValue;  // a row wider than a tile
   const long long rpb = VOX >> bv_log2;
   const unsigned grid = (unsigned)((rows + rpb - 1) / rpb);
   static CUfunction fn = nullptr;
-  return dsp::launch(merge_kernel<K>, fn, grid, VOX, 0, stream, s, in.px, in.py, in.pz, in.w,
-                     in.stamp, in.meta, vax, ids, accepted, rows, bv_log2, nb, do_resample,
-                     trigger, 1.0f / (float)trigger, wide);
+  return dsp::launch(merge_kernel<K, ACC>, fn, grid, VOX, 0, stream, s, in.px, in.py, in.pz,
+                     in.w, in.stamp, in.meta, vax, ids, accepted, lanes, rows, bv_log2, nb,
+                     do_resample, trigger, 1.0f / (float)trigger, wide);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// What the two C entry points share: the checks, the copy widths and the
+// dispatch on K.
+template <bool ACC>
+int merge_blocks(float* px, float* py, float* pz, float* weight, uint8_t* label, int* track,
+                 uint8_t* status, uint8_t* forget, int* stamp, const int* vax,
+                 const long long* ids, const float* in_px, const float* in_py,
+                 const float* in_pz, const float* in_w, const int* in_stamp, const int* in_meta,
+                 long long* accepted, uint8_t* lanes, long long rows, int bv, int K, long long nb,
+                 int do_resample, int trigger, void* stream) {
+  if (rows <= 0 || bv <= 0 || (bv & (bv - 1)) != 0 || nb <= 0 || trigger <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int bv_log2 = __builtin_ctz((unsigned)bv);
+  const long long row_len = (long long)bv * K;
+  int wide = 0;
+  if (row_len % 16 == 0 && aligned16(status)) wide |= WIDE_BYTES;
+  if (row_len % 4 == 0 && aligned16(stamp) && aligned16(weight) && aligned16(in_meta))
+    wide |= WIDE_WORDS;
+  const Store s{px, py, pz, weight, label, track, status, forget, stamp};
+  const Staged in{in_px, in_py, in_pz, in_w, in_stamp, in_meta};
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(accepted);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (K) {
+    case 1: return launch_merge<1, ACC>(s, in, vax, ids, acc, lanes, rows, bv_log2, nb, do_resample, trigger, wide, st);
+    case 3: return launch_merge<3, ACC>(s, in, vax, ids, acc, lanes, rows, bv_log2, nb, do_resample, trigger, wide, st);
+    case 7: return launch_merge<7, ACC>(s, in, vax, ids, acc, lanes, rows, bv_log2, nb, do_resample, trigger, wide, st);
+    case 15: return launch_merge<15, ACC>(s, in, vax, ids, acc, lanes, rows, bv_log2, nb, do_resample, trigger, wide, st);
+    case 31: return launch_merge<31, ACC>(s, in, vax, ids, acc, lanes, rows, bv_log2, nb, do_resample, trigger, wide, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
@@ -373,24 +432,21 @@ extern "C" int dsp_merge_blocks(
     const float* in_px, const float* in_py, const float* in_pz, const float* in_w,
     const int* in_stamp, const int* in_meta, long long* accepted, long long rows, int bv,
     int K, long long nb, int do_resample, int trigger, void* stream) {
-  if (rows <= 0 || bv <= 0 || (bv & (bv - 1)) != 0 || nb <= 0 || trigger <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int bv_log2 = __builtin_ctz((unsigned)bv);
-  const long long row_len = (long long)bv * K;
-  int wide = 0;
-  if (row_len % 16 == 0 && aligned16(status)) wide |= WIDE_BYTES;
-  if (row_len % 4 == 0 && aligned16(stamp) && aligned16(weight) && aligned16(in_meta))
-    wide |= WIDE_WORDS;
-  const Store s{px, py, pz, weight, label, track, status, forget, stamp};
-  const Staged in{in_px, in_py, in_pz, in_w, in_stamp, in_meta};
-  unsigned long long* acc = reinterpret_cast<unsigned long long*>(accepted);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (K) {
-    case 1: return launch_merge<1>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, wide, st);
-    case 3: return launch_merge<3>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, wide, st);
-    case 7: return launch_merge<7>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, wide, st);
-    case 15: return launch_merge<15>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, wide, st);
-    case 31: return launch_merge<31>(s, in, vax, ids, acc, rows, bv_log2, nb, do_resample, trigger, wide, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return merge_blocks<false>(px, py, pz, weight, label, track, status, forget, stamp, vax, ids,
+                             in_px, in_py, in_pz, in_w, in_stamp, in_meta, accepted, nullptr,
+                             rows, bv, K, nb, do_resample, trigger, stream);
+}
+
+// dsp_merge_blocks, and after the count the acceptance of each staged slot
+// (uint8 [A, bv, K], every byte written: 1 where that staged candidate was
+// accepted): insert_particles' instance.
+extern "C" int dsp_merge_blocks_accepted(
+    float* px, float* py, float* pz, float* weight, uint8_t* label, int* track,
+    uint8_t* status, uint8_t* forget, int* stamp, const int* vax, const long long* ids,
+    const float* in_px, const float* in_py, const float* in_pz, const float* in_w,
+    const int* in_stamp, const int* in_meta, long long* accepted, uint8_t* lanes,
+    long long rows, int bv, int K, long long nb, int do_resample, int trigger, void* stream) {
+  return merge_blocks<true>(px, py, pz, weight, label, track, status, forget, stamp, vax, ids,
+                            in_px, in_py, in_pz, in_w, in_stamp, in_meta, accepted, lanes, rows,
+                            bv, K, nb, do_resample, trigger, stream);
 }

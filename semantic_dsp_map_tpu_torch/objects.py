@@ -467,3 +467,16 @@ def expire_objects(params: FilterParams, objects: ObjectTable, global_time):
         has_last_kpts=objects.has_last_kpts & ~expired,
     )
     return objects, expired
+
+
+def track_lookup_table(objects: ObjectTable, size: int = 65536) -> torch.Tensor:
+    """Dense track id -> object row table (replaces ObjectParticleHashMap's
+    keying, object_layer.h:20-52): i32[size], -1 where no live object owns
+    the id.  A negative id or one of ``size`` or more is dropped (it goes to
+    a spare trailing slot), never wrapped."""
+    dev = objects.valid.device
+    ok = objects.valid & (objects.track_id >= 0) & (objects.track_id < size)
+    tid = torch.where(ok, objects.track_id, size).long()
+    rows = torch.arange(objects.valid.shape[0], dtype=torch.int32, device=dev)
+    table = torch.full((size + 1,), -1, dtype=torch.int32, device=dev)
+    return table.index_put_((tid,), rows)[:size]

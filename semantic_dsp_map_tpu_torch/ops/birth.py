@@ -112,6 +112,12 @@ class InsertResult(NamedTuple):
     particles: Particles
     accepted_count: torch.Tensor   # scalar
     block_overflow: torch.Tensor   # scalar
+    #: bool[A, bv, K]: which staged candidates were accepted; None unless
+    #: ``need_src``
+    accepted_staged: Optional[torch.Tensor] = None
+    #: i32[A, bv, K]: each staged candidate's index in the batch, N where
+    #: nothing is staged; None unless ``need_src``
+    staged_src: Optional[torch.Tensor] = None
 
 
 class Staged(NamedTuple):
@@ -139,6 +145,7 @@ def _insert_core(
     vox: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
     vox_axis: Optional[torch.Tensor] = None,
+    need_src: bool = False,
 ) -> InsertResult:
     """Sort candidates by (voxel, priority), stage the first K per voxel
     into the target blocks, optionally resample the targeted voxels, merge
@@ -149,7 +156,9 @@ def _insert_core(
     store, and a caller may pass each candidate's voxel id (``vox``, with
     ``valid``) and the store's per-voxel scroll stamps (``vox_axis``) in
     slab-local ids (parallel/shard_step.py does); left None they are
-    derived from ``scroll`` for the whole grid."""
+    derived from ``scroll`` for the whole grid.  With ``need_src`` the
+    result also says which staged candidate was accepted and where each
+    came from (``insert_particles`` asks; the frame's callers do not)."""
     K = cfg.slots_per_voxel
     V = particles.px.shape[0] // K
     bv, _nb_full, spb = block_layout(cfg)
@@ -224,33 +233,38 @@ def _insert_core(
         in_stamp = torch.where(occupied_stage, uniform_stamp, 0).to(torch.int32)
 
     staged = Staged(in_px, in_py, in_pz, in_w, in_stamp, in_meta)
-    flat, accepted_count = merge_blocks(cfg, flat, blocks, vox_axis, staged, resample_targets)
-    return InsertResult(
-        particles=flat,
-        accepted_count=accepted_count,
-        block_overflow=blocks.overflow,
-    )
+    if not need_src:
+        flat, accepted_count = merge_blocks(cfg, flat, blocks, vox_axis, staged, resample_targets)
+        return InsertResult(flat, accepted_count, blocks.overflow)
+    staged_src = stage(cand.pos.shape[0], order, torch.int32)
+    flat, accepted_count, accepted_staged = merge_blocks(
+        cfg, flat, blocks, vox_axis, staged, resample_targets, want_accepted=True)
+    return InsertResult(flat, accepted_count, blocks.overflow, accepted_staged, staged_src)
 
 
 def merge_blocks(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks, vox_axis: torch.Tensor,
-                 staged: Staged, resample_targets: bool):
-    """The merge stage of ``_insert_core``: on the card one launch of the
+                 staged: Staged, resample_targets: bool, want_accepted: bool = False):
+    """The merge stage of ``_insert_core``: on the card one launch of a
     kernel of csrc/birth.cu (ops/birth_cuda.py, imported here only then),
     on the CPU ``merge_blocks_plain``."""
     if flat.px.is_cuda:
         from .birth_cuda import merge_blocks_cuda
 
-        return merge_blocks_cuda(cfg, flat, blocks, vox_axis, staged, resample_targets)
-    return merge_blocks_plain(cfg, flat, blocks, vox_axis, staged, resample_targets)
+        return merge_blocks_cuda(cfg, flat, blocks, vox_axis, staged, resample_targets,
+                                 want_accepted)
+    return merge_blocks_plain(cfg, flat, blocks, vox_axis, staged, resample_targets,
+                              want_accepted)
 
 
 def merge_blocks_plain(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks,
-                       vox_axis: torch.Tensor, staged: Staged, resample_targets: bool):
+                       vox_axis: torch.Tensor, staged: Staged, resample_targets: bool,
+                       want_accepted: bool = False):
     """Gather the target blocks' rows of ``flat``, prune their stale slots,
     optionally resample the voxels with a staged candidate, merge the
     staged candidates into first-vacant slots and write the rows back IN
-    PLACE.  Returns (flat, accepted count as a 0-d int64 tensor).  The
-    oracle of ops.birth_cuda.merge_blocks_cuda."""
+    PLACE.  Returns (flat, accepted count as a 0-d int64 tensor), and with
+    ``want_accepted`` also which staged candidates were accepted (bool
+    ``[A, bv, K]``).  The oracle of ops.birth_cuda.merge_blocks_cuda."""
     K = cfg.slots_per_voxel
     A = blocks.ids.shape[0]
     bv, _nb_full, spb = block_layout(cfg)
@@ -304,6 +318,8 @@ def merge_blocks_plain(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks,
     # Staged candidate r is accepted iff r < the voxel's vacancy count.
     lane = torch.arange(K, device=in_meta.device)
     accepted = occupied_stage & (lane < run[:, :, K - 1 :])
+    if want_accepted:
+        return flat, accepted.sum(), accepted
     return flat, accepted.sum()
 
 
@@ -322,6 +338,23 @@ def insert_with_resample(
         uniform_weight=uniform_weight, uniform_stamp=uniform_stamp,
     )
     return res.particles, res.accepted_count, res.block_overflow
+
+
+def insert_particles(cfg: MapConfig, particles: Particles, scroll: ScrollState,
+                     cand: Candidates):
+    """Insert candidates into first-vacant slots of their target voxels, IN
+    PLACE.  Returns (particles, accepted bool[N], target voxel i32[N]), the
+    voxel ``num_voxels`` where a candidate is invalid or out of the map.
+    The per-candidate mask costs a scatter and, on the card, the merge
+    kernel's instance that writes it; the frame uses
+    :func:`insert_with_resample`, which needs only the count."""
+    res = _insert_core(cfg, particles, scroll, cand, resample_targets=False, need_src=True)
+    N = cand.pos.shape[0]
+    accepted = torch.zeros(N + 1, dtype=torch.bool, device=cand.pos.device)
+    accepted.index_copy_(0, res.staged_src.reshape(-1).long(), res.accepted_staged.reshape(-1))
+    vox, _, _, _, in_map = codecs.global_pos_to_voxel(cfg, scroll, cand.pos)
+    vox = torch.where(cand.valid & in_map, vox, cfg.num_voxels).to(torch.int32)
+    return res.particles, accepted[:N], vox
 
 
 def newborn_candidates(

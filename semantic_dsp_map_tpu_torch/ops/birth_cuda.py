@@ -12,7 +12,12 @@ plain version by the store's device, and imports this module only for a
 store on the card.  Bound and design: see the note at the top of
 csrc/birth.cu.
 
-``merge_blocks_cuda.launches`` counts kernel launches.
+``merge_blocks_accepted_cuda`` runs the kernel's instance that also writes
+which staged candidate was accepted, a byte a staged slot: what the JAX
+package's ``insert_particles`` reads (``ops.birth.insert_particles``).
+
+``merge_blocks_cuda.launches`` and ``merge_blocks_accepted_cuda.launches``
+count each instance's launches.
 """
 
 from __future__ import annotations
@@ -31,11 +36,10 @@ _FIELDS = ("px", "py", "pz", "weight", "label", "track", "status", "forget", "st
 _STAGED = tuple("in_" + name for name in Staged._fields)
 
 
-@cuda_lib.counted
-def merge_blocks_cuda(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks,
-                      vox_axis: torch.Tensor, staged: Staged, resample_targets: bool):
-    """(flat, accepted count); see ops.birth.merge_blocks_plain.  Works on
-    a rank's slab as on the whole store: the voxel count is the store's.  A
+def _merge_args(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks, vox_axis: torch.Tensor,
+                staged: Staged):
+    """(device index, shape [A, bv, K], the checked pointers of the store,
+    vox_axis, ids and staged buffers, the trailing ints A, bv, K, nb).  A
     tensor that is not on the store's CUDA device raises ValueError."""
     index = flat.px.get_device()
     if index < 0:
@@ -58,13 +62,53 @@ def merge_blocks_cuda(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks,
     shape = (A, bv, K)
     ptrs += cuda_lib.pointers(index, f32, shape, staged[:4], _STAGED[:4])
     ptrs += cuda_lib.pointers(index, i32, shape, staged[4:], _STAGED[4:])
+    return index, shape, ptrs, (A, bv, K, V // bv)
+
+
+def _trigger(cfg: MapConfig) -> int:
+    return (1 << cfg.max_particle_num_per_voxel_n) >> 1
+
+
+@cuda_lib.counted
+def merge_blocks_cuda(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks,
+                      vox_axis: torch.Tensor, staged: Staged, resample_targets: bool,
+                      want_accepted: bool = False):
+    """(flat, accepted count); see ops.birth.merge_blocks_plain.  Works on
+    a rank's slab as on the whole store: the voxel count is the store's.  A
+    tensor that is not on the store's CUDA device raises ValueError.  With
+    ``want_accepted`` the kernel's instance that also writes which staged
+    candidate was accepted runs instead (``merge_blocks_accepted_cuda``,
+    counted there): (flat, accepted count, bool [A, bv, K])."""
+    if want_accepted:
+        return merge_blocks_accepted_cuda(cfg, flat, blocks, vox_axis, staged, resample_targets)
+    index, _shape, ptrs, dims = _merge_args(cfg, flat, blocks, vox_axis, staged)
     accepted = torch.zeros((), dtype=torch.int64, device=flat.px.device)
-    trigger = (1 << cfg.max_particle_num_per_voxel_n) >> 1
     err = cuda_lib.entry.dsp_merge_blocks(
-        *ptrs, accepted.data_ptr(), A, bv, K, V // bv, int(resample_targets), trigger,
+        *ptrs, accepted.data_ptr(), *dims, int(resample_targets), _trigger(cfg),
         cuda_lib.stream_ptr(index),
     )
     if err:
         raise cuda_lib.error(err, "dsp_merge_blocks")
     merge_blocks_cuda.launches += 1
     return flat, accepted
+
+
+@cuda_lib.counted
+def merge_blocks_accepted_cuda(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks,
+                               vox_axis: torch.Tensor, staged: Staged, resample_targets: bool):
+    """The merge with the per-candidate acceptance (the instance of
+    csrc/birth.cu's kernel that writes a byte a staged slot): (flat,
+    accepted count, accepted bool [A, bv, K]), the plain version's
+    ``merge_blocks_plain(..., want_accepted=True)``.  What
+    ``ops.birth.insert_particles`` runs on the card."""
+    index, shape, ptrs, dims = _merge_args(cfg, flat, blocks, vox_axis, staged)
+    accepted = torch.zeros((), dtype=torch.int64, device=flat.px.device)
+    mask = torch.empty(shape, dtype=torch.uint8, device=flat.px.device)
+    err = cuda_lib.entry.dsp_merge_blocks_accepted(
+        *ptrs, accepted.data_ptr(), mask.data_ptr(), *dims, int(resample_targets),
+        _trigger(cfg), cuda_lib.stream_ptr(index),
+    )
+    if err:
+        raise cuda_lib.error(err, "dsp_merge_blocks_accepted")
+    merge_blocks_accepted_cuda.launches += 1
+    return flat, accepted, mask.view(torch.bool)

@@ -78,6 +78,9 @@ SIGNATURES = {
     # staged buffers, the accepted count; A, bv, K, nb, resample, trigger;
     # stream
     "dsp_merge_blocks": [_P] * 18 + [ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, _I, _P],
+    # the same, then the per-lane acceptance (u8 [A, bv, K]) after the count
+    "dsp_merge_blocks_accepted": [_P] * 19 + [ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I,
+                                              _I, _P],
     # csrc/graph.cu: a conditional IF node under capture (step_graph.slot_cond)
     "dsp_if_node_prepare": [],
     # capture stream, the device flag (bool), the side stream of the body

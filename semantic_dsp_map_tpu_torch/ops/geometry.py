@@ -51,6 +51,17 @@ def project_to_image_xyz(cfg: MapConfig, r_cw, t_cw, x, y, z):
     return _project_cam(cfg, cx, cy, cz)
 
 
+def point_in_frustum(cfg: MapConfig, r_cw, t_cw, pos):
+    """isPointInFrustum (operations.h:1240-1258): depth range and the
+    symmetric half-FOV tangent test, for world points [..., 3]."""
+    cam = pos @ r_cw.T + t_cw
+    x, y, z = cam[..., 0], cam[..., 1], cam[..., 2]
+    ok = (z >= cfg.depth_range_min) & (z <= cfg.depth_range_max)
+    ok &= x.abs() <= z * cfg.tan_half_fov_x
+    ok &= y.abs() <= z * cfg.tan_half_fov_y
+    return ok
+
+
 def _project_cam(cfg: MapConfig, cx, cy, cz):
     in_depth = (cz >= cfg.depth_range_min) & (cz <= cfg.depth_range_max)
     zsafe = torch.where(cz == 0, torch.full_like(cz, 1e-6), cz)

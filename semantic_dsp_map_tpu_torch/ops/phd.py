@@ -18,6 +18,10 @@ port of the JAX package's XLA stencils and the oracle of the CUDA kernels in
 ops/phd_cuda.py, which take the same arguments.  ``stencil_passes``
 dispatches: the kernels when the table is on a CUDA device and
 ``cfg.use_pallas_phd`` is set, the plain stencils otherwise.
+
+``compute_ck_kappa`` and ``phd_weight_update`` run the passes over a
+``VisibleSet`` (the JAX package's test and diagnostic surface of the
+filter), with the same dispatch: on the card, both CUDA passes.
 """
 
 from __future__ import annotations
@@ -35,8 +39,10 @@ from ..config import (
     MIN_RIGHTLY_UPDATED_PDF,
     MapConfig,
 )
+from ..state import Particles, STATUS_UPDATED
+from .blocks import group_rank, stable_lexsort
 from .geometry import forgetting_factor
-from .projection import LabeledCloud
+from .projection import LabeledCloud, VisibleSet
 
 _COEF3 = GAUSSIAN_PDF_COEF ** 3
 
@@ -275,3 +281,86 @@ def stencil_passes(cfg: MapConfig, params: FilterParams, t: PixelTable, cloud: L
     ck_kappa = stencil_pass_a_any(cfg, params, t, cloud)
     new_w, new_f = stencil_pass_b_any(cfg, params, t, cloud, ck_kappa)
     return ck_kappa, new_w, new_f
+
+
+# ---------------------------------------------------------------------------
+# VisibleSet-based wrappers (the unit-test / oracle surface; the frame step
+# builds its entries in ops/observe.py instead)
+# ---------------------------------------------------------------------------
+
+
+def _rank_in_pixel(key, weight, P):
+    """Rank among same-pixel entries, higher weight first, ties in entry
+    order (the JAX package's ``jnp.lexsort((-weight, key))``: a stable sort
+    that holds -0.0 equal to 0.0 and puts NaN last, as ``torch.sort``
+    does).  i32[P]."""
+    order = stable_lexsort(key, -weight)
+    rank = torch.empty(P, dtype=torch.int32, device=key.device)
+    return rank.index_copy_(0, order, group_rank(key[order]).to(torch.int32))
+
+
+def _pixel_entries(cfg: MapConfig, vis: VisibleSet):
+    """(pixel key i32[P], rank in its pixel, kept bool[P]): the real visible
+    entries with rank < S are kept; others have key H*W."""
+    H, W, S = cfg.height, cfg.width, cfg.phd_pixel_table_slots
+    real = (vis.vox >= 0) & vis.visible
+    key = torch.where(real, vis.row * W + vis.col, H * W)
+    rank = _rank_in_pixel(key, vis.weight, vis.vox.shape[0])
+    return key, rank, real & (rank < S)
+
+
+def build_pixel_table(cfg: MapConfig, vis: VisibleSet) -> PixelTable:
+    """Scatter a VisibleSet into the dense table (tests/diagnostics)."""
+    key, rank, keep = _pixel_entries(cfg, vis)
+    return table_from_entries(
+        cfg, key, rank, keep,
+        vis.pos[:, 0], vis.pos[:, 1], vis.pos[:, 2],
+        vis.weight, vis.track, vis.forget,
+    )
+
+
+def compute_ck_kappa(cfg: MapConfig, params: FilterParams, vis: VisibleSet,
+                     cloud: LabeledCloud) -> torch.Tensor:
+    """Pass A alone over a VisibleSet (tests/diagnostics): ck_kappa f32[H, W]."""
+    return stencil_pass_a_any(cfg, params, build_pixel_table(cfg, vis), cloud)
+
+
+def _write_kept(field: torch.Tensor, idx, ok, vals) -> None:
+    """``field[idx[i]] = vals[i]`` IN PLACE where ``ok[i]``.  The other
+    entries are redirected to the first ok entry with its value (or, with no
+    ok entry, to element 0 with its current value), so every duplicate
+    index carries identical bytes; no host read."""
+    if idx.shape[0] == 0:
+        return
+    first = ok.to(torch.uint8).argmax().view(1)
+    has = ok.any()
+    tgt = torch.where(ok, idx, torch.where(has, idx.index_select(0, first), 0))
+    vals = vals.to(field.dtype)
+    fill = torch.where(has, vals.index_select(0, first), field[:1])
+    field.index_copy_(0, tgt, torch.where(ok, vals, fill))
+
+
+def phd_weight_update(cfg: MapConfig, params: FilterParams, vis: VisibleSet, cloud: LabeledCloud,
+                      particles: Particles, global_time) -> Particles:
+    """Both PHD passes over a VisibleSet, then the write-back IN PLACE into
+    ``particles`` at ``vox * K + slot`` of each table entry: the new weight
+    and forget count, status UPDATED and stamp ``global_time``.  Entries
+    that did not enter the table (padding, invisible, rank >= S) and
+    table entries with a negative meta (which the passes read as empty)
+    are not written.  Returns ``particles``."""
+    H, W = cfg.height, cfg.width
+    K = cfg.slots_per_voxel
+    t = build_pixel_table(cfg, vis)
+    _, new_weight, new_forget = stencil_passes(cfg, params, t, cloud)
+
+    key, rank, keep = _pixel_entries(cfg, vis)
+    dest = torch.where(keep, rank.long() * (H * W) + key, 0)
+    ok = keep & (t.meta.reshape(-1)[dest] >= 0)
+    idx = vis.vox.long() * K + vis.slot.long()
+    P = idx.shape[0]
+    stamp = torch.as_tensor(global_time, dtype=torch.int32, device=idx.device).expand(P)
+    _write_kept(particles.weight, idx, ok, new_weight.reshape(-1)[dest])
+    _write_kept(particles.forget, idx, ok, new_forget.reshape(-1)[dest])
+    _write_kept(particles.status, idx, ok, torch.full_like(idx, STATUS_UPDATED))
+    _write_kept(particles.stamp, idx, ok, stamp)
+    return particles

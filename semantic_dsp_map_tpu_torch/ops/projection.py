@@ -6,11 +6,12 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import FilterParams, MapConfig
 from ..labels import BACKGROUND_INSTANCE_ID
-from ..state import constant
+from ..state import constant, resolve_device
 
 
 class LabeledCloud(NamedTuple):
@@ -102,3 +103,34 @@ def generate_labeled_cloud(
         track=track,
         valid=valid,
     )
+
+
+class VisibleSet(NamedTuple):
+    """Compacted candidate-particle buffer (replaces the pixel pyramid maps,
+    buffer.h:89-93).  Entries beyond the real count are padding with
+    vox == -1; particles are addressed by their (voxel, slot) coordinates.
+    ``visible`` tells truly visible entries (in the reference's pyramid) from
+    candidates compacted only for their side effects.  The PHD update over
+    it (``ops.phd.phd_weight_update``) is the test and diagnostic surface of
+    the filter; the frame step builds its entries in ops/observe.py."""
+
+    vox: torch.Tensor      # i32[P] voxel index, -1 pad
+    slot: torch.Tensor     # i32[P] slot index within the voxel
+    row: torch.Tensor      # i32[P]
+    col: torch.Tensor      # i32[P]
+    pos: torch.Tensor      # f32[P, 3]
+    weight: torch.Tensor   # f32[P]
+    track: torch.Tensor    # i32[P]
+    forget: torch.Tensor   # i32[P]
+    visible: torch.Tensor  # bool[P] in-pyramid (unoccluded, not far-free)
+    count: torch.Tensor    # i32 scalar, number of visible entries
+
+
+def visible_set_from_numpy(d: dict, device=None) -> VisibleSet:
+    """A VisibleSet from numpy arrays (or Python scalars) keyed by its field
+    names, in the fields' dtypes, on ``device`` (the card if None)."""
+    dev = resolve_device(device)
+    dtypes = dict(pos=np.float32, weight=np.float32, visible=np.bool_)
+    as_tensor = lambda name: torch.from_numpy(
+        np.array(d[name], dtype=dtypes.get(name, np.int32))).to(dev)
+    return VisibleSet(**{name: as_tensor(name) for name in VisibleSet._fields})

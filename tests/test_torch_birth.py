@@ -165,3 +165,109 @@ def test_birth_and_resample_matches_jax():
     assert int(tborn) == int(jborn) > 0
     assert int(tov) == int(jov)
     _assert_particles(tp, jp)
+
+
+# ---------------------------------------------------------------------------
+# insert_particles: the per-candidate acceptance (need_src)
+# ---------------------------------------------------------------------------
+
+def _insert_both(cfg_j, cfg_t, js, jc, tc):
+    """insert_particles on both sides; the port's store is a fresh copy of
+    the JAX one.  Returns (JAX result, port result)."""
+    ts = map_state_from_numpy(jax_state_to_numpy(js), device="cpu")
+    jr = jbirth.insert_particles(cfg_j, js.particles, js.scroll, jc)
+    tr = tbirth.insert_particles(cfg_t, ts.particles, ts.scroll, tc)
+    assert tr[0] is ts.particles  # written in place
+    assert tr[1].dtype == torch.bool and tr[2].dtype == torch.int32
+    _assert_particles(tr[0], jr[0])
+    np.testing.assert_array_equal(tr[1].numpy(), np.asarray(jr[1]), err_msg="accepted")
+    np.testing.assert_array_equal(tr[2].numpy(), np.asarray(jr[2]), err_msg="vox")
+    return jr, tr
+
+
+def _few(pos, weight, label, priority, stamp=2):
+    n = len(pos)
+    d = dict(
+        pos=np.asarray(pos, np.float32), weight=np.asarray(weight, np.float32),
+        label=np.asarray(label, np.int32), track=np.full(n, 7, np.int32),
+        status=np.full(n, 2, np.int32), stamp=np.full(n, stamp, np.int32),
+        forget=np.zeros(n, np.int32), priority=np.asarray(priority, np.int32),
+        valid=np.ones(n, bool),
+    )
+    return jbirth.Candidates(**{k: jnp.asarray(v) for k, v in d.items()}), \
+        tbirth.Candidates(**{k: torch.from_numpy(v) for k, v in d.items()})
+
+
+def test_insert_particles_first_vacant_and_capacity_matches_jax():
+    """tests/test_birth.py's first case: 4 candidates into one voxel of K = 3
+    slots with slot 1 taken; the two lowest priorities are accepted."""
+    K = CFG_J.slots_per_voxel
+    js = j_init(CFG_J)
+    p0 = np.array([[0.1, 0.1, 0.1]], np.float32)
+    v0 = int(np.asarray(jcodecs.global_pos_to_voxel(CFG_J, js.scroll, jnp.asarray(p0))[0])[0])
+    p = js.particles
+    js = js.replace(particles=p.replace(status=p.status.at[v0 * K + 1].set(1),
+                                        stamp=p.stamp.at[v0 * K + 1].set(1)))
+    jc, tc = _few(np.repeat(p0, 4, 0), [0.1, 0.2, 0.3, 0.4], [0, 1, 2, 3], [5, 2, 9, 0])
+    _, tr = _insert_both(CFG_J, CFG_T, js, jc, tc)
+    np.testing.assert_array_equal(tr[1].numpy(), [False, True, False, True])
+
+
+def test_insert_particles_out_of_map_dropped_matches_jax():
+    """tests/test_birth.py's second case: an out-of-map candidate is not
+    accepted and its voxel is num_voxels."""
+    jc, tc = _few([[100.0, 0, 0], [0.1, 0.1, 0.1]], [0.05, 0.05], [0, 0], [0, 1], stamp=1)
+    _, tr = _insert_both(CFG_J, CFG_T, j_init(CFG_J), jc, tc)
+    np.testing.assert_array_equal(tr[1].numpy(), [False, True])
+    assert int(tr[2][0]) == CFG_T.num_voxels
+
+
+@pytest.mark.parametrize("blocks", [None, 4])
+def test_insert_particles_crowded_matches_jax(blocks):
+    """A seeded batch: more candidates than K a voxel, stale and live slots,
+    invalid and out-of-map candidates, and with ``blocks`` a birth capacity
+    of 4 target blocks that overflows (candidates of the blocks past it are
+    not accepted)."""
+    kw = {} if blocks is None else dict(max_birth_blocks=blocks)
+    cfg_j, cfg_t = j_tiny(**kw), tiny_test_config(**kw)
+    js = _state(11)
+    jc, tc = _candidates(np.random.RandomState(12), 700, np.array([0.3, -0.1, 0.6]))
+    jr, tr = _insert_both(cfg_j, cfg_t, js, jc, tc)
+    acc, vox = tr[1].numpy(), tr[2].numpy()
+    counts = np.bincount(vox[vox < cfg_t.num_voxels], minlength=cfg_t.num_voxels)
+    assert counts.max() > cfg_t.slots_per_voxel  # voxels with more candidates than slots
+    assert (vox == cfg_t.num_voxels).sum() > 30  # invalid or out of the map
+    assert 0 < acc.sum() < (vox < cfg_t.num_voxels).sum()
+    res = jbirth._insert_core(cfg_j, js.particles, js.scroll, jc, resample_targets=False)
+    if blocks:
+        assert int(res.block_overflow) > 0
+    assert int(acc.sum()) == int(res.accepted_count)
+
+
+@pytest.mark.parametrize("resample", [False, True])
+def test_insert_core_need_src_matches_jax(resample):
+    """``_insert_core(need_src=True)``: the staged acceptance and source
+    index equal the JAX package's ([A, spb] there, [A, bv, K] here), and the
+    store and count equal those of ``need_src=False``, which leaves both
+    None."""
+    js = _state(5)
+    jc, tc = _candidates(np.random.RandomState(6), 300, np.array([0.3, -0.1, 0.6]))
+    jr = jbirth._insert_core(CFG_J, js.particles, js.scroll, jc, resample_targets=resample)
+    with_src = map_state_from_numpy(jax_state_to_numpy(js), device="cpu")
+    without = map_state_from_numpy(jax_state_to_numpy(js), device="cpu")
+    tr = tbirth._insert_core(CFG_T, with_src.particles, with_src.scroll, tc,
+                             resample_targets=resample, need_src=True)
+    t0 = tbirth._insert_core(CFG_T, without.particles, without.scroll, tc,
+                             resample_targets=resample)
+    assert t0.accepted_staged is None and t0.staged_src is None
+    A = tr.accepted_staged.shape[0]
+    np.testing.assert_array_equal(tr.accepted_staged.reshape(A, -1).numpy(),
+                                  np.asarray(jr.accepted_staged))
+    np.testing.assert_array_equal(tr.staged_src.reshape(A, -1).numpy(), np.asarray(jr.staged_src))
+    assert int(tr.accepted_count) == int(t0.accepted_count) == int(jr.accepted_count) > 0
+    assert int(tr.accepted_staged.sum()) == int(tr.accepted_count)
+    for f in tbirth.Particles.__dataclass_fields__:
+        a, b = getattr(tr.particles, f), getattr(t0.particles, f)
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b), f
+    _assert_particles(tr.particles, jr.particles)

@@ -1272,3 +1272,114 @@ def test_merge_wrapper_refuses_what_its_kernel_does_not_take(cuda, fault):
         with pytest.raises(ValueError, match=f"^{name}: "):
             merge_blocks_cuda(cfg, *args_with(faulty(t)), True)
         assert merge_blocks_cuda.launches == before, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("captured", [False, True])
+@pytest.mark.parametrize("resample", [False, True])
+@pytest.mark.parametrize("shape", list(MERGE_SHAPES))
+def test_merge_acceptance_instance_matches_plain(cuda, shape, resample, captured):
+    """The merge kernel's instance that writes the per-lane acceptance
+    (``merge_blocks_accepted_cuda``, what ``insert_particles`` runs) against
+    ``merge_blocks_plain(..., want_accepted=True)``: the store's bits, the
+    count and the [A, bv, K] mask equal, padding rows all False; eagerly,
+    or captured into a CUDA graph and replayed on new inputs.  The
+    count-only instance on a third copy gives the same bits and count."""
+    from semantic_dsp_map_tpu_torch.ops.birth import merge_blocks_plain
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import (
+        merge_blocks_accepted_cuda, merge_blocks_cuda,
+    )
+
+    cfg, flat, blocks, vax, staged = _merge_inputs(cuda, shape, seed=1 if captured else 7)
+    run = lambda: merge_blocks_cuda(cfg, flat, blocks, vax, staged, resample, want_accepted=True)
+    if captured:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up off the default stream, as capture asks
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _, acc, mask = run()
+    seeds = (2, 3) if captured else (7,)
+    for seed in seeds:
+        _, new, new_blocks, new_vax, new_staged = _merge_inputs(cuda, shape, seed=seed)
+        count_only = _merge_inputs(cuda, shape, seed=seed)[1]
+        before = (merge_blocks_accepted_cuda.launches, merge_blocks_cuda.launches)
+        if captured:
+            for f in dataclasses.fields(flat):
+                getattr(flat, f.name).copy_(getattr(new, f.name))
+            blocks.ids.copy_(new_blocks.ids)
+            vax.copy_(new_vax)
+            for x, y in zip(staged, new_staged):
+                x.copy_(y)
+            graph.replay()
+        else:
+            _, acc, mask = run()
+            assert (merge_blocks_accepted_cuda.launches, merge_blocks_cuda.launches) == (
+                before[0] + 1, before[1])
+        _, acc_c = merge_blocks_cuda(cfg, count_only, new_blocks, new_vax, new_staged, resample)
+        torch.cuda.synchronize()
+        _, acc_p, mask_p = merge_blocks_plain(cfg, new, new_blocks, new_vax, new_staged, resample,
+                                              want_accepted=True)
+        assert mask.dtype == torch.bool and mask.shape == mask_p.shape == staged.meta.shape
+        assert torch.equal(mask, mask_p)
+        assert int(acc) == int(acc_c) == int(acc_p) == int(mask.sum()) > 0
+        assert not bool(mask[int(blocks.count):].any())
+        _same_store(flat, new)
+        _same_store(count_only, new)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("filt", ["joint", "independent"])
+def test_phd_weight_update_kernels_match_plain(cuda, filt):
+    """``compute_ck_kappa`` and ``phd_weight_update`` over a VisibleSet on
+    the card: with ``use_pallas_phd`` (both CUDA passes, each launched once)
+    against the plain stencils on the same card, on copies of one store: the
+    floats within rtol 2e-5 / atol 1e-6, forget, status and stamp equal; a
+    crowded pixel ranks past S."""
+    from semantic_dsp_map_tpu_torch.ops.projection import visible_set_from_numpy
+    from semantic_dsp_map_tpu_torch.state import Particles
+    from torch_parity import merge_working_set
+
+    rng = np.random.RandomState(3)
+    cfg = tiny_test_config(phd_neighbor_half=2, phd_pixel_table_slots=4)
+    plain_cfg = dataclasses.replace(cfg, use_pallas_phd=False)
+    params = FilterParams(detection_probability=0.9, noise_number=0.05, forgetting_rate=1.0,
+                          max_forget_count=3, id_transition_probability=0.2,
+                          if_use_independent_filter=filt == "independent")
+    H, W, K, V = cfg.height, cfg.width, cfg.slots_per_voxel, cfg.num_voxels
+    P, n = 400, 360
+    row, col = rng.randint(0, H, P), rng.randint(0, W, P)
+    row[:12], col[:12] = 5, 7  # a pixel of 12 entries, 4 slots
+    cloud_pos = (rng.randn(H, W, 3) * 0.5).astype(np.float32)
+    vis = dict(vox=np.where(np.arange(P) < n, rng.permutation(V)[:P], -1),
+               slot=rng.randint(0, K, P), row=row, col=col,
+               pos=cloud_pos[row, col] + rng.randn(P, 3) * 0.1,
+               weight=rng.choice([0.1, 0.2, 0.3], P), track=rng.randint(0, 3, P),
+               forget=rng.randint(0, 6, P), visible=rng.rand(P) < 0.9, count=0)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    sigma = (0.05 + rng.rand(H, W) * 0.2).astype(np.float32)
+    cloud = LabeledCloud(pos=T(cloud_pos), sigma=T(sigma),
+                         label=T(np.zeros((H, W), np.int32)),
+                         track=T(rng.randint(0, 3, (H, W)).astype(np.int32)),
+                         valid=T(rng.rand(H, W) > 0.3))
+    v = visible_set_from_numpy(vis, cuda)
+    d = merge_working_set(K, V, 1, 1, 1, seed=5)  # a random store of V * K slots
+    store = lambda: Particles(**{k: T(d[k].copy()) for k in (
+        "px", "py", "pz", "weight", "label", "track", "status", "forget", "stamp")})
+    ck_k = phd.compute_ck_kappa(cfg, params, v, cloud)
+    ck_p = phd.compute_ck_kappa(plain_cfg, params, v, cloud)
+    torch.testing.assert_close(ck_k, ck_p, rtol=2e-5, atol=1e-6)
+    runs = (phd_cuda.pass_a_cuda.launches, phd_cuda.pass_b_cuda.launches)
+    p_k, p_p = store(), store()
+    phd.phd_weight_update(cfg, params, v, cloud, p_k, 7)
+    phd.phd_weight_update(plain_cfg, params, v, cloud, p_p, 7)
+    torch.cuda.synchronize()
+    assert (phd_cuda.pass_a_cuda.launches, phd_cuda.pass_b_cuda.launches) == (
+        runs[0] + 1, runs[1] + 1)
+    assert int(phd.build_pixel_table(cfg, v).dropped) > 0
+    torch.testing.assert_close(p_k.weight, p_p.weight, rtol=2e-5, atol=1e-6)
+    for name in ("forget", "status", "stamp", "px", "track"):
+        assert torch.equal(getattr(p_k, name), getattr(p_p, name)), name
+    assert int((p_k.stamp == 7).sum()) > 100

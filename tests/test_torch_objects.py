@@ -22,6 +22,7 @@ from semantic_dsp_map_tpu.config import tiny_test_config as j_tiny
 from semantic_dsp_map_tpu.objects import ObservedInstances as JObs
 from semantic_dsp_map_tpu.objects import expire_objects as j_expire
 from semantic_dsp_map_tpu.objects import object_level_update as j_update
+from semantic_dsp_map_tpu.objects import track_lookup_table as j_lookup
 from semantic_dsp_map_tpu.ops.geometry import camera_matrices as j_cam
 from semantic_dsp_map_tpu.ops.transforms import kabsch as j_kabsch
 from semantic_dsp_map_tpu.ops.transforms import ransac_transform as j_ransac
@@ -36,6 +37,7 @@ from semantic_dsp_map_tpu_torch.objects import (
     object_fit,
     object_level_update,
     refit_svd,
+    track_lookup_table,
 )
 from semantic_dsp_map_tpu_torch.ops.transforms import (
     _compose,
@@ -382,3 +384,24 @@ def test_object_parts_equal_object_level_update():
         prev = cur
     assert len(seen) == 5 and all(seen.values()), seen
     assert bool(whole.valid.any()) and bool(whole.has_tmatrix.any())
+
+
+@pytest.mark.parametrize("size", [65536, 64])
+def test_track_lookup_table_matches_jax(size):
+    """Live rows keyed by their track ids; invalid rows, negative ids and
+    ids of ``size`` or more own no entry (dropped, not wrapped)."""
+    rng = np.random.RandomState(9)
+    jo = j_init_objects(j_tiny())
+    O = jo.valid.shape[0]
+    ids = rng.permutation(np.arange(-5, size + 5))[:O].astype(np.int32)
+    ids[:4] = [-1, size, size + 3, -size]
+    valid = rng.rand(O) < 0.7
+    valid[:4] = True
+    jo = jo.replace(valid=jnp.asarray(valid), track_id=jnp.asarray(ids))
+    want = np.asarray(j_lookup(jo, size))
+    got = track_lookup_table(_objects_to_torch(jo), size)
+    assert got.dtype == torch.int32 and got.shape == (size,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    owned = valid & (ids >= 0) & (ids < size)
+    assert (got.numpy() >= 0).sum() == owned.sum() > 0
+    assert got[-1] == -1 or owned[int(got[-1])]

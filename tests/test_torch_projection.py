@@ -111,6 +111,38 @@ def test_forgetting_factor_equals_jitted_jax_bit_for_bit(rate):
     assert got[0] == 1 and not got[5:].any() and (got[1:5] > 0).all()
 
 
+@pytest.mark.parametrize("pose", sorted(POSES))
+@pytest.mark.parametrize("preset", ["virtual_kitti2_config", "zed2_config"])
+def test_point_in_frustum_equals_jax(preset, pose):
+    """Seeded points, and points 1e-3 inside and outside each edge of the
+    frustum: the depth range and both half-FOV planes on either side."""
+    jcfg, tcfg = getattr(J, preset)(), getattr(T, preset)()
+    quat, cam_pos = POSES[pose]
+    _, _, r_cw, t_cw = jgeom.camera_matrices(jnp.asarray(cam_pos, jnp.float32),
+                                             jnp.asarray(quat, jnp.float32))
+    rng = np.random.RandomState(3)
+    dmin, dmax = tcfg.depth_range_min, tcfg.depth_range_max
+    tx, ty = tcfg.tan_half_fov_x, tcfg.tan_half_fov_y
+    z = rng.uniform(dmin, dmax, 64)
+    cam = [np.stack([rng.uniform(-1.3, 1.3, 64) * tx * z, rng.uniform(-1.3, 1.3, 64) * ty * z,
+                     rng.uniform(dmin - 1, dmax + 1, 64)], -1)]
+    for e in (-1e-3, 1e-3):
+        zs = rng.uniform(dmin + 0.01, dmax - 0.01, 8)
+        cam += [np.stack([(1 + e) * s * tx * zs, 0.2 * ty * zs, zs], -1) for s in (-1, 1)]
+        cam += [np.stack([0.2 * tx * zs, (1 + e) * s * ty * zs, zs], -1) for s in (-1, 1)]
+        cam += [np.stack([0 * zs, 0 * zs, np.full(8, d + e * s)], -1)
+                for d, s in ((dmin, 1), (dmax, -1))]
+    cam = np.concatenate(cam).astype(np.float32)
+    # world points whose camera coordinates are ``cam``: p = R_wc (c - t_cw)
+    r = np.asarray(r_cw, np.float64)
+    pts = ((cam - np.asarray(t_cw, np.float64)) @ r).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p: jgeom.point_in_frustum(jcfg, r_cw, t_cw, p))(pts))
+    got = tgeom.point_in_frustum(tcfg, torch.from_numpy(np.array(r_cw)),
+                                 torch.from_numpy(np.array(t_cw)), torch.from_numpy(pts))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < want.size
+
+
 def test_package_exports_every_name_of_the_jax_package():
     missing = sorted(set(J.__all__) - set(T.__all__))
     assert not missing, f"the port's __all__ lacks {missing}"
