@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase merge     # build + [merge] only (the sharded part too)
     python3 chip_smoke.py --phase k31       # build + [k31] only
     python3 chip_smoke.py --phase visible   # build + [visible] only
+    python3 chip_smoke.py --phase wide      # build + [wide] only (the sharded K = 63 step too)
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
     python3 chip_smoke.py --against DIR     # also time both PHD passes, the render,
                                             # the front scan and the gather built from
@@ -44,13 +45,30 @@ Phases (any failure raises, and the script exits nonzero):
      neighbour-smoothed render on a random state, against the CPU at ZED2
      shapes and timed on the card at VKITTI2 and ZED2 shapes;
   3k. [k31]: a store of 31 slots a voxel (``max_particle_num_per_voxel_n``
-     5, the largest K the kernels take) at the reduced VKITTI2 grid: the
-     reduced hostile scene through update() on two maps on the card in
-     turns, one with the four per-voxel kernels and one with their plain
-     versions, bit-equal every frame and every kernel counted; the four
-     kernels on that map's store against their plain versions, timed; the
-     K = 63 store refused on the card by the map (and, first in [sharded],
-     by the sharded step in its NCCL group);
+     5, the largest K of the kernels' main instances) at the reduced
+     VKITTI2 grid: the reduced hostile scene through update() on two maps on
+     the card in turns, one with the four per-voxel kernels and one with
+     their plain versions, bit-equal every frame and every kernel counted;
+     the four kernels on that map's store against their plain versions,
+     timed;
+  3w. [wide]: the stores and stencils past the main instances, which the
+     kernels' generic (K > 31) and wide (pass A past R = 13, pass B past its
+     shared memory) instances run.  (a) The full VKITTI2 grid at K = 63
+     (528,482,304 slots, a 14.3 GB store): 6 frames of the vkitti2 scene
+     with its noise on through update(), each kernel's launches counted;
+     then on the map's store after one more (eager) frame the render, the
+     front and movable scans, birth's merge in both instances (count-only
+     on the frame's two working sets, the acceptance instance on its
+     birth's) and both PHD passes against their plain versions on the card,
+     each timed with its bound, and the peak memory.  (b) The reduced grid
+     at K = 63 and 127: the two maps of [k31] in turns, bit-equal every
+     frame, and the four kernels on the store; in [sharded]'s process
+     group, the captured sharded step at K = 63 against the eager one, 3
+     frames bit-equal.  (c) A real VKITTI2 frame's pixel table through
+     passes A and B at R = 9, 12 and 16, and a VKITTI2 map's at S = 512,
+     against the plain stencils (floats within rtol 2e-5 / atol 1e-6, flags
+     equal away from the threshold), each timed with its bound; then 4
+     VKITTI2 frames at R = 12 through update();
   3a. [expected]: hold the card to the full-size files data/bench_expected/:
      8 frames each of the hostile and the vkitti2 scene, and of the hostile
      scene with its cars off the voxel boundaries, at the VKITTI2 preset
@@ -579,11 +597,15 @@ def check_pass_b(tag, args):
 
 def pass_b_bound(args, acc, right):
     """(bound dict, bytes, terms) of pass B on ``args``: one term per occupied
-    entry and valid observation pixel of its window; every input read once,
-    every output written once."""
+    entry and valid observation pixel of its window; what these inputs need
+    read once: the track of every entry, the position and forgetting factor
+    (16 B) only of the occupied ones (an empty entry's decide nothing, and
+    counting every entry's put the bound above the kernel's time at
+    S = 512), the observation planes; every output written once."""
     cfg, _, px, py, pz, trk_eff, ff_eff, isg, ox, oy, oz, valid, otrk, ck = args
-    terms = int(((trk_eff != -2).sum(0).double() * window_counts(valid, cfg.neighbor_half)).sum())
-    n = nbytes(px, py, pz, trk_eff, ff_eff, isg, ox, oy, oz, valid, otrk, ck, acc, right)
+    occupied = (trk_eff != -2).sum(0).double()
+    terms = int((occupied * window_counts(valid, cfg.neighbor_half)).sum())
+    n = nbytes(trk_eff, isg, ox, oy, oz, valid, otrk, ck, acc, right) + 16 * int(occupied.sum())
     return bound(n, phd_op_seconds(terms)), n, terms
 
 
@@ -996,7 +1018,8 @@ def merge_bound(cfg, blocks, staged, before, after, resample, accepted):
     import torch
     from semantic_dsp_map_tpu_torch.ops.blocks import block_layout
 
-    bv, nb, spb = block_layout(cfg)
+    bv, _, spb = block_layout(cfg)
+    nb = before["status"].numel() // spb  # the store's blocks (a cut store has fewer)
     A = blocks.ids.shape[0]
     real = blocks.ids < nb
     n_real = int(real.sum())
@@ -1013,26 +1036,39 @@ def merge_bound(cfg, blocks, staged, before, after, resample, accepted):
     return bound(read + written), n_real
 
 
-def check_merge_once(tag, cfg, flat, blocks, vax, staged, resample, card, reps=10):
+def check_merge_once(tag, cfg, flat, blocks, vax, staged, resample, card, reps=10,
+                     accepted=False):
     """The merge kernel against merge_blocks_plain on the same inputs (each
     on a copy of the store: both work in place): the store's bits and the
-    count equal.  Then both timed with CUDA events, each launch on the
-    store as it was (restored outside the events), the kernel also with
-    its launch queued (device-only).  Returns the numbers."""
+    count equal.  With ``accepted`` its acceptance instance
+    (``merge_blocks_accepted_cuda``) against ``merge_blocks_plain(...,
+    want_accepted=True)``, the per-candidate mask equal too, its bytes in
+    the bound.  Then both timed with CUDA events, each launch on the store
+    as it was (restored outside the events), the kernel also with its
+    launch queued (device-only).  Returns the numbers."""
     import dataclasses
 
     import torch
     from semantic_dsp_map_tpu_torch.ops.birth import merge_blocks_plain
-    from semantic_dsp_map_tpu_torch.ops.birth_cuda import merge_blocks_cuda
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import (
+        merge_blocks_accepted_cuda, merge_blocks_cuda,
+    )
 
     fields = [f.name for f in dataclasses.fields(flat)]
     keep = {k: getattr(flat, k).clone() for k in fields}
     work = type(flat)(**{k: v.clone() for k, v in keep.items()})
-    _, acc_p = merge_blocks_plain(cfg, flat, blocks, vax, staged, resample)
-    _, acc_k = merge_blocks_cuda(cfg, work, blocks, vax, staged, resample)
+    kernel = merge_blocks_accepted_cuda if accepted else merge_blocks_cuda
+    plain = lambda store: merge_blocks_plain(cfg, store, blocks, vax, staged, resample,
+                                             want_accepted=accepted)
+    got, want = kernel(cfg, work, blocks, vax, staged, resample), plain(flat)
     torch.cuda.synchronize()
+    acc_k, acc_p = got[1], want[1]
     if acc_k.dtype != acc_p.dtype or acc_k.shape != acc_p.shape or int(acc_k) != int(acc_p):
         raise AssertionError(f"[merge] {tag}: accepted {acc_k} against the plain {acc_p}")
+    mask_bytes = 0
+    if accepted:
+        assert_equal(f"[merge] {tag} acceptance mask", got[2], want[2])
+        mask_bytes = got[2].numel()
     err = 0.0
     for k in fields:
         a, b = getattr(work, k), getattr(flat, k)
@@ -1046,18 +1082,21 @@ def check_merge_once(tag, cfg, flat, blocks, vax, staged, resample, card, reps=1
         for k in fields:
             getattr(work, k).copy_(keep[k])
 
-    run = lambda: merge_blocks_cuda(cfg, work, blocks, vax, staged, resample)
-    plain = lambda: merge_blocks_plain(cfg, work, blocks, vax, staged, resample)
+    run = lambda: kernel(cfg, work, blocks, vax, staged, resample)
     ms, q_ms = cuda_ms(run, reps, setup=restore), cuda_ms(run, reps, queued=True, setup=restore)
-    plain_ms = cuda_ms(plain, 3, setup=restore)
+    plain_ms = cuda_ms(lambda: plain(work), 3, setup=restore)
     b, n_real = merge_bound(cfg, blocks, staged, keep, flat, resample, acc_p)
+    if accepted:
+        b = bound(b["bound_ms"] * 1e-3 * HBM_BYTES_PER_S + mask_bytes)
     share = b["bound_ms"] / q_ms
     bv, K = staged.meta.shape[1:]
-    print(f"[merge] {tag}: A={blocks.ids.shape[0]} rows ({n_real} real) of {bv} voxels x K={K}, "
-          f"resample {resample}: store bits and accepted count ({int(acc_p)}) equal "
-          f"to the plain version, {changed} statuses changed; kernel {ms:.4f} ms ({q_ms:.4f} "
-          f"device-only), plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms by "
-          f"{b['bound_by']}, share {share:.3f} of the device-only time ({card})")
+    what = "store bits, mask" if accepted else "store bits"
+    print(f"[merge] {tag}{' (acceptance instance)' if accepted else ''}: A={blocks.ids.shape[0]} "
+          f"rows ({n_real} real) of {bv} voxels x K={K}, resample {resample}: {what} and "
+          f"accepted count ({int(acc_p)}) equal to the plain version, {changed} statuses "
+          f"changed; kernel {ms:.4f} ms ({q_ms:.4f} device-only), plain {plain_ms:.3f} ms; bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share {share:.3f} of the device-only time "
+          f"({card})")
     del keep, work
     return {"ms": ms, "device_only_ms": q_ms, "plain_ms": plain_ms, "max_abs_err": err,
             "accepted": int(acc_p), "rows": blocks.ids.shape[0], "real_rows": n_real,
@@ -1554,37 +1593,26 @@ def check_scene_cuda_vs_cpu(name, cfg, params, scene, counters, frames=10, setup
     return cpu, gpu
 
 
-def check_k31(counters, card, frames=6):
-    """[k31]: a store of 31 slots a voxel (``max_particle_num_per_voxel_n``
-    5, the largest K the kernels take) at the reduced VKITTI2 grid
-    (``scenes.REDUCED_VKITTI2``, 131,072 voxels, 4.1M slots), the reduced
-    hostile scene through ``update()`` on two maps on the card in turns: one
-    as the package builds it, one that runs the plain versions of the four
+def drive_k_pair(tag, counters, card, slots_n, frames):
+    """A store of 2^slots_n - 1 slots a voxel at the reduced VKITTI2 grid
+    (``scenes.REDUCED_VKITTI2``, 131,072 voxels), the reduced hostile scene
+    through ``update()`` on two maps on the card in turns: one as the
+    package builds it, one that runs the plain versions of the four
     per-voxel kernels (``use_pallas_render`` and ``use_pallas_observe`` off,
     ``merge_way("plain")``; the PHD kernels run in both): state, generator,
     render and counters bit-equal every frame, each kernel counted as often
-    as the frames run it.  Then the four kernels on the map's store against
-    their plain versions (the render, the front and movable scans byte for
-    byte, birth's merge on a working set of that grid bit for bit), each
-    timed; last the K = 63 store refused on the card by the map (the
-    sharded step's refusal: ``check_k63_sharded``).  Returns the numbers."""
+    as the frames run it.  Returns (the numbers, the kernels' map)."""
     import collections
 
-    import torch
     from semantic_dsp_map_tpu_torch import (
         FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config,
     )
-    from semantic_dsp_map_tpu_torch.ops import codecs
-    from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
-    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
-    from semantic_dsp_map_tpu_torch.ops.observe_cuda import (
-        front_candidates_cuda, movable_voxels_cuda,
-    )
 
     scenes = bench_scenes()
-    cfg = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, max_particle_num_per_voxel_n=5)
-    plain_cfg = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, max_particle_num_per_voxel_n=5,
-                                      use_pallas_render=False, use_pallas_observe=False)
+    n = dict(max_particle_num_per_voxel_n=slots_n)
+    cfg = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, **n)
+    plain_cfg = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, **n, use_pallas_render=False,
+                                      use_pallas_observe=False)
     params = FilterParams(**scenes.VK_PARAMS)
     ways = ("kernel", "plain")
     maps = {"kernel": SemanticDSPMap(cfg, params, device="cuda"),
@@ -1599,7 +1627,7 @@ def check_k31(counters, card, frames=6):
                 out[way] = maps[way].update(*reduced_hostile_scene(cfg, t, MaskKpts))
         parted = frame_parting(*((maps[w].state, *out[w]) for w in ways))
         if parted:
-            raise AssertionError(f"[k31] frame {t}: the plain versions' map parts from the "
+            raise AssertionError(f"[{tag}] frame {t}: the plain versions' map parts from the "
                                  f"kernels' in {parted}")
         born += int(out["kernel"][1].born_count)
         moved += int(out["kernel"][1].moved_count)
@@ -1607,25 +1635,56 @@ def check_k31(counters, card, frames=6):
     # the PHD passes run in both maps, the four per-voxel kernels in one
     want = {f: frames * (2 if f.startswith("pass_") else runs_a_frame(f)) for f in launches}
     if launches != want or born == 0 or moved == 0:
-        raise AssertionError(f"[k31] kernel runs {launches} (want {want}), born {born}, "
+        raise AssertionError(f"[{tag}] kernel runs {launches} (want {want}), born {born}, "
                              f"moved {moved}")
-    print(f"[k31] K={cfg.slots_per_voxel} reduced hostile scene, {frames} frames, noise on, two "
+    print(f"[{tag}] K={cfg.slots_per_voxel} reduced hostile scene, {frames} frames, noise on, two "
           f"maps on the card in turns, the four per-voxel kernels against their plain versions: "
           f"state, generator, render and counters bit-equal every frame (born {born}, moved "
           f"{moved}); kernel runs {launches} ({card})")
-    gpu = maps["kernel"]
-    del maps
     out = {"launches": launches, "born": born, "moved": moved, "frames": frames,
-           "K": cfg.slots_per_voxel,
-           "voxels": cfg.num_voxels}
+           "K": cfg.slots_per_voxel, "voxels": cfg.num_voxels}
+    return out, maps["kernel"]
+
+
+def check_k31(counters, card, frames=6):
+    """[k31]: a store of 31 slots a voxel (``max_particle_num_per_voxel_n``
+    5, the largest K of the kernels' main instances) at the reduced VKITTI2
+    grid, the two maps of ``drive_k_pair`` in turns, bit-equal every frame.
+    Then the four kernels on the map's store against their plain versions
+    (the render, the front and movable scans byte for byte, birth's merge on
+    a working set of that grid bit for bit), each timed.  Larger K run in
+    [wide].  Returns the numbers."""
+    import torch
+
+    out, gpu = drive_k_pair("k31", counters, card, 5, frames)
+    store_kernels("k31", out, gpu, card)
+    del gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def store_kernels(tag, out, gpu, card):
+    """The four per-voxel kernels on the store of the map ``gpu`` against
+    their plain versions: the render, the front and movable scans byte for
+    byte, birth's merge on a working set of that grid (``merge_inputs``) bit
+    for bit; each timed (ms and device-only ms) into ``out``."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import codecs
+    from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
+    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
+    from semantic_dsp_map_tpu_torch.ops.observe_cuda import (
+        front_candidates_cuda, movable_voxels_cuda,
+    )
+
+    cfg = gpu.cfg
     st = gpu.state
     p, vst = st.particles, st.voxel_stamp
     vax = codecs.axis_stamps_per_voxel(cfg, st.scroll)
     n_set = int((p.status != 0).sum())
     if n_set == 0:
-        raise AssertionError("[k31] the map's store holds no particle")
+        raise AssertionError(f"[{tag}] the map's store holds no particle")
     thr = 0.4
-    _, _, errs, bits = check_render_once("[k31] the map's store", cfg, p, vst, vax, thr)
+    _, _, errs, bits = check_render_once(f"[{tag}] the map's store", cfg, p, vst, vax, thr)
     run, restore = render_runner(cfg, p, vst, vax, thr)
     out["render"] = {"ms": cuda_ms(run, 10, setup=restore),
                      "device_only_ms": cuda_ms(run, 10, queued=True, setup=restore),
@@ -1636,56 +1695,398 @@ def check_k31(counters, card, frames=6):
     fargs = (cfg, p.px, p.py, p.pz, p.status, p.stamp, vax, r_cw, t_cw)
     for name, got, want in zip(("has_alive", "has_cand"), front_candidates_cuda(*fargs),
                                front_candidates_plain(*fargs)):
-        assert_equal(f"[k31] front {name}", got, want)
+        assert_equal(f"[{tag}] front {name}", got, want)
     margs = (cfg, p.track, p.status, p.stamp, vax, gpu.registry.max_movable_instance_id)
     hm = movable_voxels_cuda(*margs)
-    assert_equal("[k31] movable", hm, movable_voxels_plain(*margs))
+    assert_equal(f"[{tag}] movable", hm, movable_voxels_plain(*margs))
     for key, fn in (("front_candidates", lambda: front_candidates_cuda(*fargs)),
                     ("movable_voxels", lambda: movable_voxels_cuda(*margs))):
         out[key] = {"ms": cuda_ms(fn, 10), "device_only_ms": cuda_ms(fn, 10, queued=True)}
     out["movable_voxels"]["bound_ms"] = movable_bound(cfg, p.status, p.stamp, vax)[0]["bound_ms"]
-    out["merge_blocks"] = check_merge_once("k31 shape", cfg, *merge_inputs(cfg, cfg.max_birth_blocks,
-                                                                           400), True, card)
-    print(f"[k31] K={cfg.slots_per_voxel} at {cfg.num_voxels} voxels, the map's store ({n_set} "
+    out["merge_blocks"] = check_merge_once(
+        f"{tag} shape", cfg, *merge_inputs(cfg, cfg.max_birth_blocks, 400), True, card)
+    print(f"[{tag}] K={cfg.slots_per_voxel} at {cfg.num_voxels} voxels, the map's store ({n_set} "
           f"slots with a status): render, front and movable scans equal to their plain versions "
           f"(render sums bit-equal: {bits}); device-only ms: render "
           f"{out['render']['device_only_ms']:.4f}, front {out['front_candidates']['device_only_ms']:.4f}, "
           f"movable {out['movable_voxels']['device_only_ms']:.4f} (bound "
           f"{out['movable_voxels']['bound_ms']:.4f}), merge {out['merge_blocks']['device_only_ms']:.4f} "
           f"({card})")
-    del gpu, p
+    del p
+
+
+# ---------------------------------------------------------------------------
+# [wide]: the stores and stencils past the main instances
+# ---------------------------------------------------------------------------
+
+
+def compact_rows(cfg, flat, blocks, vax):
+    """Birth's merge working set with the store cut to its target rows: the
+    real rows' slots of ``flat`` copied into a store of their own, in order,
+    their voxels' scroll stamps, the ids renumbered (real rows 0 .. n - 1,
+    padding rows n + row).  The kernel and the plain version compute each
+    row from its own slots alone, so this is the same work on a store that
+    can be copied where the whole one (14.3 GB at K = 63) could not.
+    Returns (flat, blocks, vox_axis)."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.blocks import block_layout
+
+    bv, nb, spb = block_layout(cfg)
+    ids = blocks.ids
+    real = ids < nb
+    n = int(real.sum())
+    rows = ids[:n]
+    slots = (rows[:, None] * spb + torch.arange(spb, device=ids.device)).reshape(-1)
+    voxels = (rows[:, None] * bv + torch.arange(bv, device=ids.device)).reshape(-1)
+    sub = type(flat)(**{f.name: getattr(flat, f.name)[slots].contiguous()
+                        for f in dataclasses.fields(flat)})
+    new_ids = torch.arange(ids.shape[0], device=ids.device)
+    new_ids[n:] += n
+    return sub, blocks._replace(ids=new_ids), vax[voxels].contiguous()
+
+
+class MergeRecorder:
+    """Stands in for ``ops.birth.merge_blocks`` for one frame: keeps each
+    call's working set with the store cut to its target rows
+    (``compact_rows``, copied before the merge changes them) and passes the
+    call on."""
+
+    def __init__(self):
+        from semantic_dsp_map_tpu_torch.ops import birth
+
+        self.module, self.fn, self.calls = birth, birth.merge_blocks, []
+
+    def __call__(self, cfg, flat, blocks, vax, staged, resample, *args, **kwargs):
+        sub, sub_blocks, sub_vax = compact_rows(cfg, flat, blocks, vax)
+        self.calls.append((cfg, sub, sub_blocks, sub_vax,
+                           type(staged)(*(x.clone() for x in staged)), resample))
+        return self.fn(cfg, flat, blocks, vax, staged, resample, *args, **kwargs)
+
+    def __enter__(self):
+        self.module.merge_blocks = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.merge_blocks = self.fn
+
+
+def wide_k63(counters, card, frames=6):
+    """[wide] (a): the full VKITTI2 grid at K = 63
+    (``virtual_kitti2_config(max_particle_num_per_voxel_n=6)``: 8,388,608
+    voxels, 528,482,304 slots, a 14.3 GB store) at 1242 x 375:
+    ``frames`` frames of the vkitti2 scene with its noise on through
+    ``update()`` (captured from the second frame on), each kernel's
+    launches counted (``drive_main_path``).  Then one more frame through
+    the eager step, its PHD passes' arguments and its two merges' working
+    sets recorded, and on the map's store after it each kernel against its
+    plain version on the card, timed with its bound: the render, the front
+    and movable scans (byte for byte), both merge instances on the frame's
+    birth working set and the count-only one on its moving-object cleanup's
+    (bit for bit; ``compact_rows``), both PHD passes; and the peak memory.
+    One map only: a second 14.3 GB store with the plain versions'
+    temporaries beside it would not leave room on an 80 GB card for frames
+    in turns, so the kernels are held to their plain versions on the one
+    store.  Returns the numbers."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch.frontend import pack_frame
+    from semantic_dsp_map_tpu_torch.map import build_frame_step, unpack_frame
+    from semantic_dsp_map_tpu_torch.ops import codecs, phd_cuda
+    from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
+    from semantic_dsp_map_tpu_torch.ops.observe import front_candidates_plain, movable_voxels_plain
+    from semantic_dsp_map_tpu_torch.ops.observe_cuda import (
+        front_candidates_cuda, movable_voxels_cuda,
+    )
+    from semantic_dsp_map_tpu_torch.ops.render import render_core_plain
+
+    scenes = bench_scenes()
+    synth = scenes.synth_vkitti2_frame
+    cfg = virtual_kitti2_config(max_particle_num_per_voxel_n=6)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches, median_ms, dsp, frame_ms, _ = drive_main_path(
+        "wide_k63", cfg, FilterParams(**scenes.VK_PARAMS), synth, counters, card, warmup=3,
+        frames=frames - 3)
+    peak_frames = torch.cuda.max_memory_allocated()
+    p = dsp.state.particles
+    store = sum(nbytes(getattr(p, f.name)) for f in dataclasses.fields(p))
+    print(f"[wide] wide_k63: {frames} frames through update() (median {median_ms:.3f} ms), the "
+          f"store {store / 1e9:.2f} GB, peak memory {peak_frames / 1e9:.2f} GB; launches "
+          f"{launches} ({card})")
+    out = {"frames": frames, "frame_ms": frame_ms, "median_ms": median_ms, "launches": launches,
+           "store_bytes": store, "peak_bytes_frames": peak_frames,
+           "slots": cfg.num_voxels * cfg.slots_per_voxel}
+
+    # one more frame, eager, its passes' arguments and merges' working sets kept
+    t = frames
+    depth, masks, pos, quat = synth(cfg, t, MaskKpts)
+    step = build_frame_step(cfg, dsp.params, dsp.registry)
+    buf = pack_frame(cfg, dsp.registry, depth, masks, pos, quat, 0.1 * t - dsp._time_origin)
+    f = unpack_frame(cfg, dsp._static_table, torch.from_numpy(buf).cuda())
+    with (CallRecorder(phd_cuda, "pass_a_cuda") as rec_a,
+          CallRecorder(phd_cuda, "pass_b_cuda") as rec_b, MergeRecorder() as rec_m):
+        dsp.state, _, _ = step(dsp.state, f)
+    torch.cuda.synchronize()
+    del step, f
+    if (len(rec_a.calls), len(rec_b.calls), len(rec_m.calls)) != (1, 1, 2):
+        raise AssertionError(f"[wide] wide_k63 frame {t}: {len(rec_a.calls)} pass A, "
+                             f"{len(rec_b.calls)} pass B, {len(rec_m.calls)} merge calls")
+    st = dsp.state
+    p, vst = st.particles, st.voxel_stamp
+    vax = codecs.axis_stamps_per_voxel(cfg, st.scroll)
+    thr = dsp.params.occupancy_threshold
+
+    pk, r_k, (e1, e2), bits = check_render_once("wide_k63 store", cfg, p, vst, vax, thr)
+    c = render_census(cfg, p, pk, vax, vst, r_k)
+    del pk, r_k
+    run, restore = render_runner(cfg, p, vst, vax, thr)
+    out["render"] = {"ms": cuda_ms(run, 5, setup=restore),
+                     "device_only_ms": cuda_ms(run, 5, queued=True, setup=restore),
+                     "plain_ms": cuda_ms(lambda: render_core_plain(cfg, p, vst, vax, thr), 1),
+                     "max_abs_err": max(e1, e2), "sums_bit_equal": bits,
+                     "with_status": c["with_status"], "alive": c["alive"], **c["bound"]}
+    del run, restore
     torch.cuda.empty_cache()
 
-    big = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, max_particle_num_per_voxel_n=6)
-    try:
-        SemanticDSPMap(big, params, device="cuda")
-    except ValueError as e:
-        out["refused"] = {"map": str(e)}
-    else:
-        raise AssertionError(f"[k31] K={big.slots_per_voxel}: the map was built on the card")
-    print(f"[k31] K={big.slots_per_voxel} refused on the card by the map: {out['refused']['map']}")
+    _, _, r_cw, t_cw = camera_matrices(torch.as_tensor(np.asarray(pos), device="cuda"),
+                                       torch.as_tensor(np.asarray(quat), device="cuda"))
+    fargs = (cfg, p.px, p.py, p.pz, p.status, p.stamp, vax, r_cw, t_cw)
+    ha, hc = front_candidates_cuda(*fargs)
+    ha_p, hc_p = front_candidates_plain(*fargs)
+    assert_equal("[wide] wide_k63 front has_alive", ha, ha_p)
+    assert_equal("[wide] wide_k63 front has_cand", hc, hc_p)
+    del ha_p, hc_p
+    fb, n_alive, _ = front_bound(fargs, ha, hc)
+    run = lambda: front_candidates_cuda(*fargs)
+    out["front_candidates"] = {
+        "ms": cuda_ms(run, 5), "device_only_ms": cuda_ms(run, 5, queued=True),
+        "plain_ms": cuda_ms(lambda: front_candidates_plain(*fargs), 1), "max_abs_err": 0.0,
+        "alive_slots": n_alive, "candidate_voxels": int(hc.sum()), **fb}
+    margs = (cfg, p.track, p.status, p.stamp, vax, dsp.registry.max_movable_instance_id)
+    hm = movable_voxels_cuda(*margs)
+    assert_equal("[wide] wide_k63 movable", hm, movable_voxels_plain(*margs))
+    run = lambda: movable_voxels_cuda(*margs)
+    out["movable_voxels"] = {
+        "ms": cuda_ms(run, 5), "device_only_ms": cuda_ms(run, 5, queued=True),
+        "plain_ms": cuda_ms(lambda: movable_voxels_plain(*margs), 1), "max_abs_err": 0.0,
+        "movable_voxels": int(hm.sum()), **movable_bound(cfg, p.status, p.stamp, vax)[0]}
+    for key, what in (("render", f"occ, label, track, status equal, sums bit-equal: {bits}"),
+                      ("front_candidates", f"bytes equal, {n_alive} live slots, "
+                                           f"{int(hc.sum())} candidate voxels"),
+                      ("movable_voxels", f"bytes equal, {int(hm.sum())} movable voxels")):
+        o = out[key]
+        print(f"[wide] wide_k63 {key} on the map's store: {what}; kernel {o['ms']:.4f} ms "
+              f"({o['device_only_ms']:.4f} device-only), plain {o['plain_ms']:.3f} ms, bound "
+              f"{o['bound_ms']:.4f} ms by {o['bound_by']}, share "
+              f"{o['bound_ms'] / o['device_only_ms']:.3f} ({card})")
+    del fargs, margs, ha, hc, hm, run
+    torch.cuda.empty_cache()
+
+    move, birth_set = rec_m.calls
+    out["merge"] = {"move_cleanup": check_merge_once("wide_k63 move cleanup", *move, card),
+                    "birth": check_merge_once("wide_k63 birth", *birth_set, card)}
+    out["merge_accepted"] = check_merge_once("wide_k63 birth", *birth_set, card, accepted=True)
+    out["phd"] = wide_pass(f"wide_k63 frame {t}", rec_a.calls[0], rec_b.calls[0], card)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"[wide] wide_k63: peak memory {out['peak_bytes'] / 1e9:.2f} GB with the plain "
+          f"versions' checks ({card})")
+    del dsp, st, p, vst, vax, rec_a, rec_b, rec_m, move, birth_set
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
-def check_k63_sharded(card) -> str:
-    """The sharded step refuses a store of 63 slots a voxel in an NCCL
-    group (the card's), with the map's message.  Run inside a process group
-    (``one_rank_group``): [sharded]'s, whose captures come after it, since a
-    group made and destroyed before other captures leaves threads that can
-    invalidate them."""
-    from semantic_dsp_map_tpu_torch import FilterParams, virtual_kitti2_config
-    from semantic_dsp_map_tpu_torch.labels import LabelRegistry
-    from semantic_dsp_map_tpu_torch.parallel.shard_step import build_shard_step
+#: [wide] (c): the half-widths and the table depth past the presets'.
+WIDE_R = (9, 12, 16)
+WIDE_S = 512
+
+
+def recorded_passes(cfg, params, t0=3):
+    """A VKITTI2 map at ``cfg`` driven ``t0`` frames through ``update()``,
+    then one eager frame whose PHD pass arguments are recorded: (pass A's,
+    pass B's) arguments of that real frame."""
+    import torch
+    from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap
+    from semantic_dsp_map_tpu_torch.frontend import pack_frame
+    from semantic_dsp_map_tpu_torch.map import build_frame_step, unpack_frame
+    from semantic_dsp_map_tpu_torch.ops import phd_cuda
+
+    synth = bench_scenes().synth_vkitti2_frame
+    dsp = SemanticDSPMap(cfg, params, device="cuda")
+    for t in range(t0):
+        dsp.update(*synth(cfg, t, MaskKpts), 0.1 * t)
+    step = build_frame_step(cfg, params, dsp.registry)
+    buf = pack_frame(cfg, dsp.registry, *synth(cfg, t0, MaskKpts), 0.1 * t0)
+    f = unpack_frame(cfg, dsp._static_table, torch.from_numpy(buf).cuda())
+    with (CallRecorder(phd_cuda, "pass_a_cuda") as rec_a,
+          CallRecorder(phd_cuda, "pass_b_cuda") as rec_b):
+        dsp.state, _, _ = step(dsp.state, f)
+    torch.cuda.synchronize()
+    if (len(rec_a.calls), len(rec_b.calls)) != (1, 1):
+        raise AssertionError(f"[wide] {len(rec_a.calls)} pass A and {len(rec_b.calls)} pass B "
+                             "calls")
+    return rec_a.calls[0], rec_b.calls[0]
+
+
+def wide_pass(tag, a_args, b_args, card):
+    """Passes A and B on recorded arguments against the plain stencils
+    (``check_pass_a``, ``check_pass_b``: floats within rtol 2e-5 / atol
+    1e-6, pass A's two launches bit-equal, the flags equal away from the
+    threshold), each timed with its bound.  Returns the numbers."""
+    from semantic_dsp_map_tpu_torch.ops import phd, phd_cuda
+
+    out = {}
+    ck, (a_abs, _) = check_pass_a(tag, a_args)
+    census = pass_a_census(a_args)
+    b, _, _ = pass_a_bound(a_args, ck, census)
+    run = lambda: phd_cuda.pass_a_cuda(*a_args)
+    out["pass_a"] = {"ms": cuda_ms(run, 5), "device_only_ms": cuda_ms(run, 5, queued=True),
+                     "plain_ms": cuda_ms(lambda: phd.pass_a_raw(*a_args), 1), "max_abs_err": a_abs,
+                     "terms": census["terms"], "live_entries": census["live_entries"], **b}
+    acc, right, (b_abs, _), n_near = check_pass_b(tag, b_args)
+    b, _, terms = pass_b_bound(b_args, acc, right)
+    run = lambda: phd_cuda.pass_b_cuda(*b_args)
+    out["pass_b"] = {"ms": cuda_ms(run, 5), "device_only_ms": cuda_ms(run, 5, queued=True),
+                     "plain_ms": cuda_ms(lambda: phd.pass_b_raw(*b_args), 1), "max_abs_err": b_abs,
+                     "terms": terms, "near_threshold": n_near, **b}
+    S, H, W = a_args[2].shape
+    for key in ("pass_a", "pass_b"):
+        o = out[key]
+        print(f"[wide] {tag} {key} (S={S}, R={a_args[0].neighbor_half}, {H}x{W}): within rtol "
+              f"{RTOL} of the plain stencil (max abs {o['max_abs_err']:.3e}), {o['terms']} terms; "
+              f"kernel {o['ms']:.4f} ms ({o['device_only_ms']:.4f} device-only), plain "
+              f"{o['plain_ms']:.3f} ms; bound {o['bound_ms']:.4f} ms by {o['bound_by']}, share "
+              f"{o['bound_ms'] / o['device_only_ms']:.3f} ({card})")
+    return out
+
+
+def wide_stencils(counters, card, r12_frames=4):
+    """[wide] (c): a real VKITTI2 frame's pixel table (the default preset,
+    S = 12) through passes A and B at R = 9, 12 and 16 against the plain
+    stencils (``wide_pass``); a VKITTI2 map at S = 512 (the table of a real
+    frame, R = 5) likewise; then ``r12_frames`` VKITTI2 frames at
+    ``phd_neighbor_half=12`` through ``update()``, both passes counted once
+    a frame.  Returns the numbers."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch import (
+        FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config,
+    )
 
     scenes = bench_scenes()
-    big = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, max_particle_num_per_voxel_n=6)
-    try:
-        build_shard_step(big, FilterParams(**scenes.VK_PARAMS), LabelRegistry.default())
-    except ValueError as e:
-        print(f"[k31] K={big.slots_per_voxel} refused on the card by the sharded step: {e} ({card})")
-        return str(e)
-    raise AssertionError(f"[k31] K={big.slots_per_voxel}: the sharded step was built in an NCCL "
-                         f"group")
+    params = FilterParams(**scenes.VK_PARAMS)
+    out = {}
+    a_args, b_args = recorded_passes(virtual_kitti2_config(), params)
+    for R in WIDE_R:
+        cfg = dataclasses.replace(a_args[0], phd_neighbor_half=R)
+        out[f"R{R}"] = wide_pass(f"real frame R={R}", (cfg, *a_args[1:]), (cfg, *b_args[1:]), card)
+    del a_args, b_args
+    torch.cuda.empty_cache()
+    a_args, b_args = recorded_passes(virtual_kitti2_config(phd_pixel_table_slots=WIDE_S), params)
+    out[f"S{WIDE_S}"] = wide_pass(f"real frame S={WIDE_S}", a_args, b_args, card)
+    del a_args, b_args
+    torch.cuda.empty_cache()
+
+    cfg = virtual_kitti2_config(phd_neighbor_half=12)
+    dsp = SemanticDSPMap(cfg, params, device="cuda")
+    passes = [fn for fn in counters if fn.__name__.startswith("pass_")]
+    reset_launches(passes)
+    for t in range(r12_frames):
+        _, diag = dsp.update(*scenes.synth_vkitti2_frame(cfg, t, MaskKpts), 0.1 * t)
+    launches = read_launches(passes)
+    if launches != {fn.__name__: r12_frames for fn in passes} or int(diag.visible_count) == 0:
+        raise AssertionError(f"[wide] R=12 map: launches {launches}, diag {diag}")
+    out["r12_map"] = {"frames": r12_frames, "launches": launches,
+                      "diag": {k: int(v) for k, v in diag._asdict().items()}}
+    print(f"[wide] R=12: {r12_frames} VKITTI2 frames through update(), launches {launches}, last "
+          f"frame {out['r12_map']['diag']} ({card})")
+    del dsp
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_k63_sharded(card, frames=3):
+    """[wide] (b): the sharded step at K = 63 on the reduced VKITTI2 grid in
+    the one-rank process group (NCCL): the captured step
+    (``build_shard_step``: frame 0 eager, frame 1 captured, replays after)
+    against the eager one (``build_shard_step_eager``), the reduced hostile
+    scene, bit-equal every frame (state, both generators, render,
+    counters).  Run inside [sharded]'s group (``one_rank_group``), whose
+    captures come after it: a group made and destroyed before other
+    captures leaves threads that can invalidate them.  Returns the
+    numbers."""
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch.frontend import FrameInput, build_frame_input
+    from semantic_dsp_map_tpu_torch.labels import LabelRegistry
+    from semantic_dsp_map_tpu_torch.parallel.shard_step import (
+        build_shard_step, build_shard_step_eager,
+    )
+    from semantic_dsp_map_tpu_torch.parallel.sharding import shard_state
+    from semantic_dsp_map_tpu_torch.state import init_map_state
+
+    scenes = bench_scenes()
+    cfg = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, max_particle_num_per_voxel_n=6)
+    params, registry = FilterParams(**scenes.VK_PARAMS), LabelRegistry.default()
+    ways = ("eager", "captured")
+    steps = {"eager": build_shard_step_eager(cfg, params, registry),
+             "captured": build_shard_step(cfg, params, registry)}
+    states = {w: shard_state(cfg, init_map_state(cfg, 0, "cuda"), 0, 1) for w in ways}
+    born = 0
+    for t in range(frames):
+        f = FrameInput(*(torch.as_tensor(np.asarray(a)).to("cuda") for a in build_frame_input(
+            cfg, registry, *reduced_hostile_scene(cfg, t, MaskKpts))))
+        out = {}
+        for way in ways if t % 2 == 0 else ways[::-1]:
+            out[way] = steps[way](states[way], f)
+            states[way] = out[way][0]
+        torch.cuda.synchronize()
+        parted = sharded_parting(out["captured"], out["eager"],
+                                 steps["captured"].stages.rank_rng.gen,
+                                 steps["eager"].stages.rank_rng.gen)
+        if parted:
+            raise AssertionError(f"[wide] sharded K=63 frame {t}: the captured step parts from the "
+                                 f"eager one in {parted}")
+        born += int(out["eager"][2].born_count)
+    graphs = sorted(steps["captured"].static.graphs)
+    if not graphs or born == 0:
+        raise AssertionError(f"[wide] sharded K=63: graphs {graphs}, born {born}")
+    print(f"[wide] sharded step K={cfg.slots_per_voxel} at one rank ({cfg.num_voxels} voxels): "
+          f"{frames} frames of the captured step (graphs {graphs}) bit-equal to the eager one "
+          f"(state, both generators, render, counters), born {born} ({card})")
+    del steps, states, out
+    torch.cuda.empty_cache()
+    return {"frames": frames, "K": cfg.slots_per_voxel, "graphs": [list(g) for g in graphs],
+            "born": born}
+
+
+def run_wide(counters, card) -> dict:
+    """[wide]: (a) ``wide_k63``; (b) the reduced grid at K = 63 and 127,
+    two maps in turns (``drive_k_pair``) and the four kernels on the
+    kernels' map's store (``store_kernels``); (c) ``wide_stencils``.  The
+    sharded step at K = 63 (``check_k63_sharded``) runs in [sharded]'s
+    process group.  Returns the numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"k63_full": wide_k63(counters, card)}
+    for slots_n in (6, 7):
+        tag = f"wide_k{(1 << slots_n) - 1}"
+        pair, gpu = drive_k_pair(tag, counters, card, slots_n, 4)
+        store_kernels(tag, pair, gpu, card)
+        out[tag + "_reduced"] = pair
+        del gpu
+        torch.cuda.empty_cache()
+    out["stencils"] = wide_stencils(counters, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[wide] (a)-(c) in {out['seconds']:.1f} s ({card})")
+    return out
 
 
 def check_template_scene(counters):
@@ -2413,7 +2814,9 @@ def check_expected(counters, card, record=False):
     printed and does not fail the run, so that ``tests/make_bench_expected.py
     card`` can enter the card's values into the files.  Returns the summary
     per scene."""
-    from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch import (
+        FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config,
+    )
 
     scenes = bench_scenes()
     cfg = virtual_kitti2_config()
@@ -3692,7 +4095,9 @@ def drive_rematch(counters, card, lost=5, frames=7):
     import dataclasses
 
     import torch
-    from semantic_dsp_map_tpu_torch import FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config
+    from semantic_dsp_map_tpu_torch import (
+        FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config,
+    )
     from semantic_dsp_map_tpu_torch.objects import DEFAULT_PREDICT_DT
 
     scenes = bench_scenes()
@@ -4247,12 +4652,12 @@ def one_rank_group(card):
 
 
 def run_sharded(counters, card) -> dict:
-    """[sharded]'s runs in a process group of this process alone:
-    ``drive_sharded_vkitti2``, [scan]'s ``drive_sharded_scan``, [merge]'s
-    ``drive_sharded_merge`` and ``check_sharded_zed2``, after the K = 63
-    refusal (``check_k63_sharded``)."""
+    """[sharded]'s runs in a process group of this process alone: [wide]'s
+    sharded step at K = 63 (``check_k63_sharded``), ``drive_sharded_vkitti2``,
+    [scan]'s ``drive_sharded_scan``, [merge]'s ``drive_sharded_merge`` and
+    ``check_sharded_zed2``."""
     with one_rank_group(card):
-        sharded = {"k63_refused": check_k63_sharded(card)}
+        sharded = {"k63": check_k63_sharded(card)}
         sharded["vkitti2"] = drive_sharded_vkitti2(counters, card)
         sharded["scan"] = drive_sharded_scan(counters, card)
         sharded["merge"] = drive_sharded_merge(counters, card)
@@ -4263,13 +4668,14 @@ def run_sharded(counters, card) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "graph", "sharded", "scan", "merge",
-                                        "k31", "visible"),
+                                        "k31", "visible", "wide"),
                     default="all",
                     help="'kernels' stops after the per-kernel checks; 'graph' runs the build "
                          "and [graph] alone; 'sharded' the build and [sharded]'s vkitti2 and "
                          "zed2 runs alone; 'scan' the build and [scan] alone; 'merge' the "
                          "build and [merge] alone; 'k31' the build and [k31] alone; 'visible' "
-                         "the build and [visible] alone")
+                         "the build and [visible] alone; 'wide' the build and [wide] alone (its "
+                         "sharded step in a process group of its own)")
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     ap.add_argument("--against", metavar="DIR", type=Path,
@@ -4358,10 +4764,14 @@ def main() -> int:
         print(f"[card] {card}")
         return 0
     if args.phase == "k31":
-        k31 = check_k31(fns, card)
+        print(json.dumps({"k31": check_k31(fns, card), "card": card}))
+        print(f"[card] {card}")
+        return 0
+    if args.phase == "wide":
+        wide = run_wide(fns, card)
         with one_rank_group(card):
-            k31["refused"]["shard_step"] = check_k63_sharded(card)
-        print(json.dumps({"k31": k31, "card": card}))
+            wide["sharded_k63"] = check_k63_sharded(card)
+        print(json.dumps({"wide": wide, "card": card}))
         print(f"[card] {card}")
         return 0
     if args.phase == "visible":
@@ -4450,6 +4860,22 @@ def main() -> int:
     for key, fn in path_counters.items():
         report[key].setdefault("launches_by_path", {})["k31"] = k31["launches"][fn.__name__]
     report["merge_blocks"]["by_shape"]["k31"] = k31["merge_blocks"]
+    torch.cuda.empty_cache()
+    wide = run_wide(fns, card)
+    full = wide["k63_full"]
+    for key, fn in path_counters.items():
+        report[key]["launches_by_path"]["wide_k63"] = full["launches"][fn.__name__]
+    # the generic instances (K > 31) at the full grid's shapes, and the
+    # passes' wide instances on real frames
+    for key in ("render", "front_candidates", "movable_voxels"):
+        report[key]["wide_k63"] = full[key]
+    report["merge_blocks"]["wide_k63"] = full["merge"]
+    report["merge_blocks_accepted"]["wide_k63"] = full["merge_accepted"]
+    for key in ("pass_a", "pass_b"):
+        report["phd_" + key]["wide"] = {**{k: v[key] for k, v in wide["stencils"].items()
+                                           if k != "r12_map"}, "k63_frame": full["phd"][key]}
+        report["phd_" + key]["launches_by_path"]["wide_r12"] = (
+            wide["stencils"]["r12_map"]["launches"][key + "_cuda"])
     smoothed_ms = {"vkitti2": check_smoothed_render(vk_cfg, "vkitti2", against_cpu=False),
                    "zed2": check_smoothed_render(zed2_cfg, "zed2")}
     torch.cuda.empty_cache()
@@ -4561,6 +4987,7 @@ def main() -> int:
     from semantic_dsp_map_tpu_torch.parallel import distributed
 
     sharded = run_sharded(fns, card)
+    wide["sharded_k63"] = sharded["k63"]
     sharded["slab_shapes"] = check_slab_kernels(report, card)
     print(f"[sharded] the weak-scaling report at one rank ({card})")
     sharded["weak_scaling"] = distributed.main(["--devices", "1", "--preset", "medium"])
@@ -4586,7 +5013,7 @@ def main() -> int:
                       "stage_profile": stage_rows, "probes": probe_rows, "bench": bench_cells,
                       "expected": expected, "rematch_frame": rematch_frame, "sharded": sharded,
                       "graph": graph, "scan": scan, "merge": merge, "k31": k31,
-                      "visible": visible, "card": card}))
+                      "wide": wide, "visible": visible, "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

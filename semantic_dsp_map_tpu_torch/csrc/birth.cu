@@ -88,6 +88,12 @@
 // 0.0002 ms at 3.35 TB/s); each thread stores its voxel's K bytes, padding
 // rows zeros, so the caller need not clear the buffer.
 //
+// Both variants have instances for K = 1, 3, 7, 15 and 31 and a generic
+// instance for every other K (merge_generic_kernel, below): past K = 31 a
+// voxel's slots no longer fit a thread's registers or a tile in 48 KB, so
+// a warp shares a voxel and walks it in chunks of 32, the resample walk
+// still sequential in slot order.
+//
 // Bit-equality hazards, each kept as the plain version computes it (the
 // library is built with -fmad=false, so nothing is contracted):
 //   - the walk's sums are sequential f32 additions in slot order, a
@@ -372,6 +378,178 @@ __global__ void __launch_bounds__(merge_vox<K>()) merge_kernel(
   if (tid == 0 && s_acc != 0u) atomicAdd(accepted, (unsigned long long)s_acc);
 }
 
+// The generic instance, for every K past 31, in both variants (count-only
+// and ACC).  The design above holds a voxel's K slots in one thread: st[K],
+// w[K], src[K] and a 32-bit kept mask in registers (220 registers at
+// K = 31) and a tile of K * merge_vox<K>() slots in shared memory.  Here a
+// warp owns a voxel and walks its slots in chunks of 32, a slot a lane,
+// neighbouring lanes on neighbouring words, so nothing grows with K (no
+// shared memory but the tile's count):
+//   a. the prune, the staged flags and, with resample on, the weight sum of
+//      the UPDATED slots in slot order: every lane adds the chunk's 32
+//      terms one after another, each broadcast by a shuffle, so every lane
+//      holds the plain version's sum; their count by ballot;
+//   b. the walk, again in slot order and sequential: each lane runs the
+//      same walk (wpp, the threshold's bounded loop of K + 8 additions, the
+//      wipe below 0.01) on the values broadcast by shuffle, and keeps the
+//      result of its own slot; the walk's state is the same in every lane,
+//      so it is the one walk of resample_slots.  In the same chunk pass the
+//      vacancy ranks (integers: a ballot and a popcount), the taken slots'
+//      staged fields and the writes, each slot by the lane that read it;
+//   c. the accepted count (staged candidates k below the vacancy count) and,
+//      in the ACC variant, each staged slot's acceptance byte.
+// Offsets are 64-bit: a full grid at K = 255 holds 2^31 slots.  Bound as
+// above by device memory, held back by latency (three chunk passes a
+// voxel, the walk's shuffles): on an H100, a real VKITTI2 birth at K = 63
+// (1,536 rows of 8 voxels) took 0.021 ms against a bound of 0.0035 ms.
+constexpr int GEN_NT = 256;
+
+__device__ __forceinline__ uint8_t pruned(const Store& s, long long i, int va, uint8_t* raw) {
+  const uint8_t st = s.status[i];
+  *raw = st;
+  return st != STATUS_INVALID && s.stamp[i] < va ? (uint8_t)STATUS_INVALID : st;
+}
+
+template <bool ACC>
+__global__ void __launch_bounds__(GEN_NT) merge_generic_kernel(
+    Store s, const float* __restrict__ in_px, const float* __restrict__ in_py,
+    const float* __restrict__ in_pz, const float* __restrict__ in_w,
+    const int* __restrict__ in_stamp, const int* __restrict__ in_meta,
+    const int* __restrict__ vax, const long long* __restrict__ ids,
+    unsigned long long* __restrict__ accepted, uint8_t* __restrict__ lanes, long long rows,
+    int bv_log2, int K, long long nb, int do_resample, int trigger, float inv_trigger) {
+  constexpr unsigned ALL = 0xffffffffu;
+  __shared__ unsigned s_acc;
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;  // the lanes below this one
+  if (threadIdx.x == 0) s_acc = 0u;
+  __syncthreads();
+  // this warp's voxel: row a of the staged [A, bv, K] buffers, voxel vi of it
+  const long long wv = (long long)blockIdx.x * (GEN_NT / 32) + threadIdx.x / 32;
+  const long long a = wv >> bv_log2;
+  const long long sbase = wv * K;  // (a * bv + vi) * K
+  unsigned acc = 0u;
+  if (a < rows) {
+    const long long id = ids[a];
+    if (id < nb) {
+      const long long vox = (id << bv_log2) + (wv & ((1LL << bv_log2) - 1));
+      const long long base = vox * K;
+      const int va = vax[vox];
+      // a. prune, staged flags, the UPDATED weights' sum in slot order
+      bool any_staged = false;
+      float wsum = 0.f;
+      int count = 0;
+      for (int c0 = 0; c0 < K; c0 += 32) {
+        const int k = c0 + lane;
+        const bool in = k < K;
+        uint8_t raw = 0;
+        const uint8_t st = in ? pruned(s, base + k, va, &raw) : (uint8_t)STATUS_INVALID;
+        const bool upd = st == STATUS_UPDATED;
+        any_staged = __any_sync(ALL, in && in_meta[sbase + k] >= 0) || any_staged;
+        count += __popc(__ballot_sync(ALL, upd));
+        if (do_resample) {
+          const float wt = upd ? s.weight[base + k] : 0.f;
+          const int n = K - c0 < 32 ? K - c0 : 32;
+          for (int j = 0; j < n; ++j) wsum = wsum + __shfl_sync(ALL, wt, j);
+        }
+      }
+      const bool resample = do_resample && any_staged && count > trigger;
+      const bool wipe = resample && wsum < 0.01f;
+      const bool walk = resample && !wipe;
+      const float q = wsum * inv_trigger;
+      const float wpp = q != q ? q : fminf(q, 1.f);
+      float csum = 0.f, thresh = wpp;
+      // b. the walk, the vacancy ranks, the merge and the writes
+      int vac = 0;  // vacant slots before the chunk
+      for (int c0 = 0; c0 < K; c0 += 32) {
+        const int k = c0 + lane;
+        const bool in = k < K;
+        uint8_t raw = 0;
+        uint8_t st = in ? pruned(s, base + k, va, &raw) : (uint8_t)STATUS_INVALID;
+        const bool upd = st == STATUS_UPDATED;
+        float w = 0.f;
+        bool kept = false;
+        if (wipe && upd) st = STATUS_INVALID;
+        if (walk) {
+          if (upd) w = s.weight[base + k];
+          const int n = K - c0 < 32 ? K - c0 : 32;
+          for (int j = 0; j < n; ++j) {
+            const bool uj = __shfl_sync(ALL, upd, j);
+            const float wj = __shfl_sync(ALL, w, j);
+            if (!uj) continue;  // neither the sums nor the threshold move
+            const float csum_k = csum + wj;
+            if (csum_k < thresh) {
+              if (lane == j) st = STATUS_INVALID;
+            } else {
+              float next = thresh + wpp;
+              for (int i = 0; i < K + 8; ++i) {
+                if (!(csum_k > next)) break;
+                next = next + wpp;
+              }
+              if (lane == j) {
+                w = wpp;
+                kept = true;
+              }
+              thresh = next;
+            }
+            csum = csum_k;
+          }
+        }
+        const bool vacant = in && st == STATUS_INVALID;
+        const unsigned vb = __ballot_sync(ALL, vacant);
+        const int rank = vac + __popc(vb & lt);  // the slot's vacant-rank
+        vac += __popc(vb);
+        const int m = vacant ? in_meta[sbase + rank] : -1;
+        if (m >= 0) {  // the slot takes staged candidate `rank`
+          const long long src = sbase + rank;
+          const float x = in_px[src], y = in_py[src], z = in_pz[src], ww = in_w[src];
+          const int sp = in_stamp[src];
+          s.px[base + k] = x;
+          s.py[base + k] = y;
+          s.pz[base + k] = z;
+          s.weight[base + k] = ww;
+          s.stamp[base + k] = sp;
+          s.track[base + k] = m & 0xFFFF;
+          s.label[base + k] = (uint8_t)((m >> 16) & 0xFF);
+          s.status[base + k] = (uint8_t)((m >> 24) & 0x7);
+          s.forget[base + k] = (uint8_t)((m >> 27) & 0x7);
+        } else if (in) {
+          if (st != raw) s.status[base + k] = st;
+          if (kept) s.weight[base + k] = w;
+        }
+      }
+      // c. the accepted count and each staged slot's acceptance
+      for (int c0 = 0; c0 < K; c0 += 32) {
+        const int k = c0 + lane;
+        const bool ok = k < K && k < vac && in_meta[sbase + k] >= 0;
+        acc += __popc(__ballot_sync(ALL, ok));
+        if constexpr (ACC) {
+          if (k < K) lanes[sbase + k] = (uint8_t)ok;
+        }
+      }
+    } else if constexpr (ACC) {
+      // a padding row of the staged buffers accepts nothing
+      for (int k = lane; k < K; k += 32) lanes[sbase + k] = 0;
+    }
+  }
+  if (lane == 0 && acc != 0u) atomicAdd(&s_acc, acc);
+  __syncthreads();
+  if (threadIdx.x == 0 && s_acc != 0u) atomicAdd(accepted, (unsigned long long)s_acc);
+}
+
+template <bool ACC>
+int launch_merge_generic(const Store& s, const Staged& in, const int* vax, const long long* ids,
+                         unsigned long long* accepted, uint8_t* lanes, long long rows,
+                         int bv_log2, int K, long long nb, int do_resample, int trigger,
+                         cudaStream_t stream) {
+  constexpr long long WARPS = GEN_NT / 32;  // voxels a block
+  const unsigned grid = (unsigned)(((rows << bv_log2) + WARPS - 1) / WARPS);
+  static CUfunction fn = nullptr;
+  return dsp::launch(merge_generic_kernel<ACC>, fn, grid, GEN_NT, 0, stream, s, in.px, in.py,
+                     in.pz, in.w, in.stamp, in.meta, vax, ids, accepted, lanes, rows, bv_log2, K,
+                     nb, do_resample, trigger, 1.0f / (float)trigger);
+}
+
 template <int K, bool ACC>
 int launch_merge(const Store& s, const Staged& in, const int* vax, const long long* ids,
                  unsigned long long* accepted, uint8_t* lanes, long long rows, int bv_log2,
@@ -415,7 +593,9 @@ int merge_blocks(float* px, float* py, float* pz, float* weight, uint8_t* label,
     case 7: return launch_merge<7, ACC>(s, in, vax, ids, acc, lanes, rows, bv_log2, nb, do_resample, trigger, wide, st);
     case 15: return launch_merge<15, ACC>(s, in, vax, ids, acc, lanes, rows, bv_log2, nb, do_resample, trigger, wide, st);
     case 31: return launch_merge<31, ACC>(s, in, vax, ids, acc, lanes, rows, bv_log2, nb, do_resample, trigger, wide, st);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (K <= 0) return (int)cudaErrorInvalidValue;
+      return launch_merge_generic<ACC>(s, in, vax, ids, acc, lanes, rows, bv_log2, K, nb, do_resample, trigger, st);
   }
 }
 

@@ -77,6 +77,13 @@
 // out tiles with many and few of them only if no tile is long; a tile with
 // several entries per pixel still takes few rounds.  The division: see
 // div_term.
+//
+// Every R and S runs: pass A's kernel where one plane of the halo fits its
+// list (R <= 13) and a pixel's window holds at most 8,192 entries, pass B's
+// where its halo and a tile's list fit the card's shared memory; past
+// those, the wide instances (pass_a_wide_kernel, pass_b_wide_kernel, below)
+// stage the halo in pieces and pass B's list in rounds, pass B's terms
+// still in the plain version's order, pass A's sum compensated.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,9 +96,7 @@ namespace {
 constexpr int A_TW = 32;
 constexpr int A_TH = 8;
 constexpr int A_NT = A_TW * A_TH;
-constexpr int A_CAP = 2048;
-constexpr int A_MAX_R = 8;  // the list must hold one plane of the halo
-static_assert(A_CAP >= (A_TW + 2 * A_MAX_R) * (A_TH + 2 * A_MAX_R), "a sub-group needs a plane");
+constexpr int A_CAP = 2048;  // holds one plane of the halo up to R = 13 (pass_a_wide_kernel past it)
 
 // Exclusive prefix sums of popc(s_mask[i] & sel), i < n, into s_start[0..n];
 // returns the total.  Every thread of the block calls it.
@@ -404,16 +409,386 @@ __global__ void __launch_bounds__(B_NT, 6) pass_b_kernel(
   }
 }
 
+// The wide instances: every R and S the config takes.  pass_a_kernel lists
+// one plane group of the whole halo at a time, so one plane of the halo must
+// fit its list ((A_TW + 2R) * (A_TH + 2R) <= A_CAP: R <= 13), and
+// pass_b_kernel holds the whole halo and a whole tile's work list in shared
+// memory (20 B a halo pixel and 4 * B_PIX * S bytes: at R = 5 no more than
+// about S = 430 fit the card's 227 KB).  Past those the launch goes to these,
+// which keep everything but the order of staging:
+//
+// Pass A wide: the halo is cut into chunks of at most A_CAP pixels (whole
+// halo rows, or pieces of one row where a row is longer), and each chunk
+// runs as the whole halo runs in pass_a_kernel: live bits, the block's
+// prefix scan, the list in plane sub-groups, and every pixel's terms from
+// the rows and columns of its window that lie in the chunk, each such row's
+// entries one contiguous range of the list.  A chunk wholly outside the
+// image is skipped (it has no live entry).  The sum runs chunk by chunk,
+// then as in pass_a_kernel, and is compensated (Kahan): one accumulator
+// added to term by term drifts from the plain version by about the square
+// root of its term count in ulps, and a pixel of a full table at S = 512
+// and R = 5 has 61,952 terms (measured on an H100: 5.1e-5 relative, past
+// the rtol 2e-5 of the check).  pass_a_kernel runs where a pixel's window
+// holds at most A_MAX_TERMS = 8,192 entries (S (2R+1)^2: the presets' 1,452
+// at R = 5, S = 12); every other shape runs here.  Like pass_a_kernel its
+// sum depends on the data alone and agrees with the plain version at rtol
+// 2e-5.
+//
+// Pass B wide: the work list is staged in rounds of BW_LIST entries of the
+// tile (the scan of pass_b_kernel over that many entries: one plane group
+// after another), each thread holding BW_EPT entries' sums in registers, and
+// the observation halo in pieces of at most BW_PIECE pixels: bands of whole
+// halo rows, or, where a row is longer, pieces of one row.  The pieces are
+// visited in row-major order and each entry adds, piece after piece, the
+// terms of its window that lie in the piece in the plain version's order
+// (offset rows ascending, columns ascending within a row), so the sequence
+// of additions, and with it every bit, is pass_b_kernel's.  A halo that fits
+// one piece is staged once for all rounds.  A piece wholly outside the image
+// is skipped (its terms are all skipped terms).
+constexpr long long A_MAX_TERMS = 8192;   // a pixel's window entries for pass_a_kernel
+constexpr int BW_EPT = 4;                 // list entries a thread holds
+constexpr int BW_LIST = B_NT * BW_EPT;    // list entries a round
+constexpr int BW_PIECE = 4096;            // halo pixels a piece
+
+// The halo in chunks of at most `cap` pixels: `*cw` columns by `*ch` rows,
+// whole rows where a row fits, else one row.
+void halo_chunks(int hw, int hh, int cap, int* cw, int* ch) {
+  *cw = hw < cap ? hw : cap;
+  *ch = cap / *cw < hh ? cap / *cw : hh;
+}
+
+__global__ void __launch_bounds__(A_NT, 4) pass_a_wide_kernel(
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ pz, const float* __restrict__ weff,
+    const int* __restrict__ trk,
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ isg,
+    const int* __restrict__ otrk,
+    float* __restrict__ ck,
+    int S, int H, int W, int R, float coef3, float id_p, int independent, int cw, int ch) {
+  extern __shared__ float4 smem_aw[];
+  __shared__ int s_warp[A_NT / 32];
+  float4* s_ent = smem_aw;                                         // px, py, pz, w_eff
+  int* s_trk = reinterpret_cast<int*>(s_ent + A_CAP);              // track (first: entry code)
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_trk + A_CAP);   // live bits per chunk pixel
+  int* s_start = reinterpret_cast<int*>(s_mask + cw * ch);         // list positions
+
+  const int tid = threadIdx.x;
+  const int tx = tid & (A_TW - 1), ty = tid / A_TW;
+  const int x0 = blockIdx.x * A_TW, y0 = blockIdx.y * A_TH;
+  const int x = x0 + tx, y = y0 + ty;
+  const bool inside = x < W && y < H;
+  const long long HW = (long long)H * W;
+  const int hw = A_TW + 2 * R, hh = A_TH + 2 * R;
+
+  float qx = 0.f, qy = 0.f, qz = 0.f, qs = 0.f;
+  int qt = -1;
+  if (inside) {
+    const long long q = (long long)y * W + x;
+    qx = ox[q]; qy = oy[q]; qz = oz[q]; qs = isg[q]; qt = otrk[q];
+  }
+  float acc = 0.f, comp = 0.f;  // the sum and its running compensation
+  auto add = [&](float term) {
+    const float y = term - comp;
+    const float t = acc + y;
+    comp = (t - acc) - y;
+    acc = t;
+  };
+
+  for (int r0 = 0; r0 < hh; r0 += ch) {
+    const int rh = min(ch, hh - r0);
+    if (y0 + r0 + rh - 1 - R < 0 || y0 + r0 - R >= H) continue;  // uniform
+    for (int c0 = 0; c0 < hw; c0 += cw) {
+      const int rw = min(cw, hw - c0);
+      if (x0 + c0 + rw - 1 - R < 0 || x0 + c0 - R >= W) continue;
+      const int n = rw * rh;
+      // this pixel's window in the chunk: halo rows ra..rb, columns lo..hi
+      const int ra = max(ty, r0), rb = min(ty + 2 * R, r0 + rh - 1);
+      const int lo = max(tx, c0), hi = min(tx + 2 * R, c0 + rw - 1);
+
+      // The planes of ``sel`` (bits relative to plane s_lo), ``total`` > 0
+      // live entries: list them and add every pixel's terms.
+      auto run = [&](int s_lo, unsigned sel, int total) {
+        for (int i = tid; i < n; i += A_NT) {
+          unsigned m = s_mask[i] & sel;
+          int pos = s_start[i];
+          while (m != 0u) {
+            const int b = __ffs(m) - 1;
+            m &= m - 1u;
+            s_trk[pos++] = (b << 16) | i;
+          }
+        }
+        __syncthreads();
+        for (int k = tid; k < total; k += A_NT) {
+          const int code = s_trk[k];
+          const int i = code & 0xffff, b = code >> 16;
+          const int iy = i / rw, ix = i - iy * rw;
+          const long long g = (long long)(s_lo + b) * HW + (long long)(y0 + r0 + iy - R) * W +
+                              (x0 + c0 + ix - R);
+          s_ent[k] = make_float4(px[g], py[g], pz[g], weff[g]);
+          s_trk[k] = trk[g];
+        }
+        __syncthreads();
+        if (inside && lo <= hi) {
+          for (int row = ra; row <= rb; ++row) {
+            const int first = (row - r0) * rw + (lo - c0);
+            const int end = s_start[first + (hi - lo) + 1];
+            for (int k = s_start[first]; k < end; ++k) {
+              const float4 e = s_ent[k];
+              const int t = s_trk[k];
+              const float zx = (e.x - qx) * qs;
+              const float zy = (e.y - qy) * qs;
+              const float zz = (e.z - qz) * qs;
+              const float s2 = zx * zx + zy * zy + zz * zz;
+              float gk = coef3 * expf(-0.5f * s2);
+              if (independent) {
+                if (t == qt) add(e.w * gk);
+              } else {
+                if (t != qt) gk = gk * id_p;
+                add(e.w * gk);
+              }
+            }
+          }
+        }
+        __syncthreads();  // the list and the positions are reused
+      };
+
+      for (int s_lo = 0; s_lo < S; s_lo += 32) {
+        const int planes = min(32, S - s_lo);
+        for (int i = tid; i < n; i += A_NT) {
+          const int iy = i / rw, ix = i - iy * rw;
+          const int gy = y0 + r0 + iy - R, gx = x0 + c0 + ix - R;
+          unsigned m = 0u;
+          if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+            const float* p = weff + s_lo * HW + (long long)gy * W + gx;
+#pragma unroll 4
+            for (int b = 0; b < planes; ++b)
+              if (p[b * HW] != 0.f) m |= 1u << b;
+          }
+          s_mask[i] = m;
+        }
+        __syncthreads();
+        const unsigned all = planes == 32 ? 0xffffffffu : (1u << planes) - 1u;
+        const int total = scan_live(s_mask, all, s_start, s_warp, n, tid);
+        if (total == 0) continue;
+        if (total <= A_CAP) {
+          run(s_lo, all, total);
+        } else {
+          const int step = A_CAP / n;  // n <= A_CAP: at least one plane
+          for (int b0 = 0; b0 < planes; b0 += step) {
+            const int b1 = min(b0 + step, planes);
+            const unsigned sel = (b1 == 32 ? 0xffffffffu : (1u << b1) - 1u) & ~((1u << b0) - 1u);
+            const int part = scan_live(s_mask, sel, s_start, s_warp, n, tid);
+            if (part != 0) run(s_lo, sel, part);
+          }
+        }
+      }
+    }
+  }
+  if (inside) ck[(long long)y * W + x] = acc;
+}
+
+__global__ void __launch_bounds__(B_NT) pass_b_wide_kernel(
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ pz, const int* __restrict__ trk_eff,
+    const float* __restrict__ ff_eff, const float* __restrict__ isg_p,
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const uint8_t* __restrict__ ovalid,
+    const int* __restrict__ otrk, const float* __restrict__ ck_kappa,
+    float* __restrict__ acc_out, uint8_t* __restrict__ right_out,
+    int S, int H, int W, int R, float coef3, float id_p, float thr_right,
+    int independent, int pw, int pr) {
+  extern __shared__ float4 smem_bw[];
+  __shared__ int s_count;
+  float4* s_obs = smem_bw;                                   // ox, oy, oz, ck_kappa
+  int* s_ot = reinterpret_cast<int*>(s_obs + pw * pr);       // track, -1 = skip
+  int* s_list = s_ot + pw * pr;                              // occupied entries of a round
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int x0 = blockIdx.x * B_TW, y0 = blockIdx.y * B_TH;
+  const long long HW = (long long)H * W;
+  const int sw = B_TW + 2 * R, hh = B_TH + 2 * R;
+  const bool one_piece = pw >= sw && pr >= hh;
+
+  // Stages the piece of halo rows r0.. and columns c0.. (rh x rw pixels).
+  auto stage = [&](int r0, int c0, int rh, int rw) {
+    for (int i = tid; i < rh * rw; i += B_NT) {
+      const int iy = i / rw, ix = i - iy * rw;
+      const int gy = y0 + r0 + iy - R, gx = x0 + c0 + ix - R;
+      float4 o = make_float4(0.f, 0.f, 0.f, 1.f);
+      int t = -1;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const long long q = (long long)gy * W + gx;
+        const bool valid = ovalid[q] != 0;
+        const float4 v = make_float4(ox[q], oy[q], oz[q], ck_kappa[q]);
+        const int vt = otrk[q];
+        if (valid) {
+          o = v;
+          t = vt;
+        }
+      }
+      s_obs[i] = o;
+      s_ot[i] = t;
+    }
+  };
+  if (one_piece) stage(0, 0, hh, sw);  // read by every round below
+
+  const int total = B_PIX * S;
+  for (int e0 = 0; e0 < total; e0 += BW_LIST) {
+    if (tid == 0) s_count = 0;
+    __syncthreads();
+    // The round's scan: entries e0 .. e0 + BW_LIST - 1 (entry e of the tile
+    // is slot e / B_PIX of tile pixel e % B_PIX), as in pass_b_kernel.
+#pragma unroll
+    for (int u = 0; u < BW_EPT; ++u) {
+      const int e = e0 + u * B_NT + tid;
+      const int s = e / B_PIX, p = e - s * B_PIX;
+      const int x = x0 + p % B_TW, y = y0 + p / B_TW;
+      long long gs = -1;
+      int t = -2;
+      if (e < total && x < W && y < H) {
+        gs = s * HW + (long long)y * W + x;
+        t = trk_eff[gs];
+      }
+      const bool occupied = t != -2;
+      if (!occupied && gs >= 0) {
+        acc_out[gs] = 0.f;
+        right_out[gs] = 0;
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, occupied);
+      int base = 0;
+      if (lane == 0 && m != 0u) base = atomicAdd(&s_count, __popc(m));
+      base = __shfl_sync(0xffffffffu, base, 0);
+      if (occupied) s_list[base + __popc(m & ((1u << lane) - 1u))] = e;
+    }
+    __syncthreads();
+    const int n_work = s_count;
+    if (n_work == 0) continue;  // uniform
+
+    // This thread's entries: their particle, their window's place, their sums.
+    int et[BW_EPT], etx[BW_EPT], ety[BW_EPT];
+    long long eg[BW_EPT];
+    float ex[BW_EPT], ey[BW_EPT], ez[BW_EPT], eff[BW_EPT], esg[BW_EPT], eacc[BW_EPT];
+    bool eright[BW_EPT];
+#pragma unroll
+    for (int i = 0; i < BW_EPT; ++i) {
+      const int k = tid + i * B_NT;
+      eacc[i] = 0.f;
+      eright[i] = false;
+      eg[i] = -1;
+      et[i] = etx[i] = ety[i] = 0;
+      ex[i] = ey[i] = ez[i] = eff[i] = esg[i] = 0.f;
+      if (k < n_work) {
+        const int e = s_list[k];
+        const int s = e / B_PIX, p = e - s * B_PIX;
+        etx[i] = p % B_TW;
+        ety[i] = p / B_TW;
+        const long long q = (long long)(y0 + ety[i]) * W + (x0 + etx[i]);
+        eg[i] = s * HW + q;
+        et[i] = trk_eff[eg[i]];
+        ex[i] = px[eg[i]]; ey[i] = py[eg[i]]; ez[i] = pz[eg[i]]; eff[i] = ff_eff[eg[i]];
+        esg[i] = isg_p[q];
+      }
+    }
+
+    for (int r0 = 0; r0 < hh; r0 += pr) {
+      const int rh = min(pr, hh - r0);
+      if (y0 + r0 + rh - 1 - R < 0 || y0 + r0 - R >= H) continue;  // uniform
+      for (int c0 = 0; c0 < sw; c0 += pw) {
+        const int rw = min(pw, sw - c0);
+        if (x0 + c0 + rw - 1 - R < 0 || x0 + c0 - R >= W) continue;
+        if (!one_piece) {
+          __syncthreads();  // the last piece's readers are done
+          stage(r0, c0, rh, rw);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < BW_EPT; ++i) {
+          if (eg[i] < 0) continue;
+          const int ra = max(ety[i], r0), rb = min(ety[i] + 2 * R, r0 + rh - 1);
+          const int lo = max(etx[i], c0), hi = min(etx[i] + 2 * R, c0 + rw - 1);
+          float acc = eacc[i];
+          bool right = eright[i];
+          for (int row = ra; row <= rb; ++row) {
+            for (int col = lo; col <= hi; ++col) {
+              const int j = (row - r0) * rw + (col - c0);
+              const int ot = s_ot[j];
+              if (ot == -1) continue;
+              const float4 o = s_obs[j];
+              const float zx = (ex[i] - o.x) * esg[i];
+              const float zy = (ey[i] - o.y) * esg[i];
+              const float zz = (ez[i] - o.z) * esg[i];
+              const float s2 = zx * zx + zy * zy + zz * zz;
+              const float g_raw = coef3 * expf(-0.5f * s2);
+              const bool same = ot == et[i];
+              float gk;
+              if (independent) {
+                gk = same ? g_raw : 0.f;
+              } else {
+                if (same && g_raw > thr_right) right = true;
+                gk = same ? g_raw : g_raw * id_p;
+                gk = gk * eff[i];
+              }
+              acc = acc + div_term(gk, o.w);
+            }
+          }
+          eacc[i] = acc;
+          eright[i] = right;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BW_EPT; ++i) {
+      if (eg[i] < 0) continue;
+      acc_out[eg[i]] = eacc[i];
+      right_out[eg[i]] = eright[i] ? 1 : 0;
+    }
+    __syncthreads();  // the list is reused
+  }
+}
+
 // Pass A: the list (20 bytes an entry), a word of live bits and a list
-// position per halo pixel.
-size_t pass_a_smem_bytes(int R) {
-  const size_t n = size_t(A_TW + 2 * R) * (A_TH + 2 * R);
-  return size_t(20) * A_CAP + sizeof(int) * (2 * n + 1);
+// position per halo pixel (per chunk pixel in the wide instance).
+size_t pass_a_smem_bytes(int n) {
+  return size_t(20) * A_CAP + sizeof(int) * (2 * size_t(n) + 1);
 }
 
 // Pass B: the packed halo (20 bytes a pixel) and a list of a whole tile.
 size_t pass_b_smem_bytes(int R, int S) {
   return size_t(20) * (B_TW + 2 * R) * (B_TH + 2 * R) + sizeof(int) * B_PIX * S;
+}
+
+// Pass B wide: a piece of the halo and a round's list.
+size_t pass_b_wide_smem_bytes(int pixels) {
+  return size_t(20) * pixels + sizeof(int) * BW_LIST;
+}
+
+// The most shared memory a block of the current device may ask for.
+int max_block_smem() {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&cached, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess)
+      cached = 48 * 1024;
+  }
+  return cached;
+}
+
+// Launches `kernel` with `smem` bytes of dynamic shared memory, asked for
+// first where it passes 48 KB (a request beyond what the card has fails
+// there).
+template <typename... P, typename... A>
+int launch_smem(void (*kernel)(P...), CUfunction& fn, dim3 grid, int threads, size_t smem,
+                void* stream, A... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return dsp::launch(kernel, fn, grid, threads, (unsigned)smem, (cudaStream_t)stream, args...);
 }
 
 }  // namespace
@@ -424,18 +799,23 @@ extern "C" int dsp_pass_a(
     const float* isg, const int* otrk, float* ck,
     int S, int H, int W, int R, float coef3, float id_p, int independent,
     void* stream) {
-  if (R < 0 || R > A_MAX_R) return (int)cudaErrorInvalidValue;
-  const size_t smem = pass_a_smem_bytes(R);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pass_a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (R < 0) return (int)cudaErrorInvalidValue;
   dim3 grid((W + A_TW - 1) / A_TW, (H + A_TH - 1) / A_TH);
-  static CUfunction fn = nullptr;
-  return dsp::launch(pass_a_kernel, fn, grid, A_NT, (unsigned)smem,
-                     (cudaStream_t)stream, px, py, pz, weff, trk, ox, oy, oz,
-                     isg, otrk, ck, S, H, W, R, coef3, id_p, independent);
+  const int hw = A_TW + 2 * R, hh = A_TH + 2 * R;
+  const long long side = 2 * R + 1;
+  // one plane of the halo fits the list, and a pixel's sum is short
+  if ((long long)hw * hh <= A_CAP && S * side * side <= A_MAX_TERMS) {
+    static CUfunction fn = nullptr;
+    return launch_smem(pass_a_kernel, fn, grid, A_NT, pass_a_smem_bytes(hw * hh), stream, px,
+                       py, pz, weff, trk, ox, oy, oz, isg, otrk, ck, S, H, W, R, coef3, id_p,
+                       independent);
+  }
+  int cw = 0, ch = 0;
+  halo_chunks(hw, hh, A_CAP, &cw, &ch);
+  static CUfunction fn_wide = nullptr;
+  return launch_smem(pass_a_wide_kernel, fn_wide, grid, A_NT, pass_a_smem_bytes(cw * ch), stream,
+                     px, py, pz, weff, trk, ox, oy, oz, isg, otrk, ck, S, H, W, R, coef3, id_p,
+                     independent, cw, ch);
 }
 
 extern "C" int dsp_pass_b(
@@ -445,18 +825,20 @@ extern "C" int dsp_pass_b(
     const float* ck_kappa, float* acc, uint8_t* right,
     int S, int H, int W, int R, float coef3, float id_p, float thr_right,
     int independent, void* stream) {
-  const size_t smem = pass_b_smem_bytes(R, S);
-  if (smem > 48 * 1024) {
-    // Above 48 KB a block's shared memory has to be asked for; a request
-    // beyond what the card has fails here.
-    const cudaError_t e = cudaFuncSetAttribute(
-        pass_b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (R < 0) return (int)cudaErrorInvalidValue;
   dim3 grid((W + B_TW - 1) / B_TW, (H + B_TH - 1) / B_TH);
-  static CUfunction fn = nullptr;
-  return dsp::launch(pass_b_kernel, fn, grid, B_NT, (unsigned)smem,
-                     (cudaStream_t)stream, px, py, pz, trk_eff, ff_eff, isg_p,
-                     ox, oy, oz, ovalid, otrk, ck_kappa, acc, right, S, H, W, R,
-                     coef3, id_p, thr_right, independent);
+  const size_t smem = pass_b_smem_bytes(R, S);
+  if (smem <= (size_t)max_block_smem()) {  // the whole halo and a tile's list fit
+    static CUfunction fn = nullptr;
+    return launch_smem(pass_b_kernel, fn, grid, B_NT, smem, stream, px, py, pz, trk_eff, ff_eff,
+                       isg_p, ox, oy, oz, ovalid, otrk, ck_kappa, acc, right, S, H, W, R, coef3,
+                       id_p, thr_right, independent);
+  }
+  int pw = 0, pr = 0;
+  halo_chunks(B_TW + 2 * R, B_TH + 2 * R, BW_PIECE, &pw, &pr);
+  static CUfunction fn_wide = nullptr;
+  return launch_smem(pass_b_wide_kernel, fn_wide, grid, B_NT, pass_b_wide_smem_bytes(pw * pr),
+                     stream, px, py, pz, trk_eff, ff_eff, isg_p, ox, oy, oz, ovalid, otrk,
+                     ck_kappa, acc, right, S, H, W, R, coef3, id_p, thr_right, independent, pw,
+                     pr);
 }

@@ -52,6 +52,12 @@
 // own contribution and adds slots (d+1 .. d+K-1) mod K, the plain version's
 // order, so the results match it bit for bit (ties in the argmax are
 // decided by ==, so the order matters).
+//
+// Instances: K = 1, 3, 7, 15 and 31 (render_kernel<K>, the presets' and
+// the main path's), and one generic instance for every other K
+// (render_generic_kernel, below): a thread's K slots in registers stop
+// scaling past K = 31, so there a warp shares a voxel, a slot a lane, in
+// chunks of 32, with the same sums in the same order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -244,6 +250,222 @@ __global__ void __launch_bounds__(RENDER_NT, K <= 7 ? 3 : 2) render_kernel(
   }
 }
 
+// The generic instance, for every K past 31 (63 slots a voxel and more; the
+// config allows up to 2^31 slots in all).  The design above holds a voxel's
+// K slots in one thread's registers and a span's status in shared memory,
+// SPAN * K bytes: at K = 31 that already takes 128 registers and spills,
+// and at K = 127 the static array passes 48 KB.  Here the lanes of a warp
+// share a voxel instead, a slot a lane, and walk its slots in chunks of 32,
+// so no array grows with K, in registers or in shared memory (none is
+// used):
+//   1. a warp owns GEN_SPAN neighbouring voxels, one contiguous run of
+//      GEN_SPAN * K status bytes that starts on a 16-byte boundary, and
+//      reads it in 16-byte loads, neighbouring lanes on neighbouring
+//      addresses; a span without a status set writes its voxels' results
+//      from their stamps, as most of a map;
+//   2. else the warp takes the span's voxels one after another, each in
+//      three passes over its chunks, a slot a lane, neighbouring lanes on
+//      neighbouring words (a voxel's run is not 16-byte aligned for odd K):
+//        a. liveness, the pre-clamp and guessed-weight sums, accumulated
+//           in slot order: every lane adds the chunk's 32 terms one after
+//           another, each broadcast by a shuffle, so every lane holds the
+//           same sums, with the plain version's bits;
+//        b. the same-track sums: the lane that owns slot d adds slots
+//           d+1 .. d+K-1 mod K in that order, the rest of its own chunk
+//           (by shuffle), then the other chunks in turn from d's on,
+//           wrapping (each read again, a slot a lane, and broadcast), then
+//           the head of its own chunk; then the argmax with the
+//           lowest-track tie-break, kept as a running (sum, track) pair a
+//           lane and reduced across the warp: the order it decides by is
+//           total, so any reduction order gives the same pair;
+//        c. the last-writer label (the highest slot index of the winning
+//           track, a max over the warp) and the write-back in place of what
+//           changes, each slot by the lane that read it.
+// The K^2 work of (b) is spread over the lanes without moving a bit.  Slot
+// offsets are 64-bit (v * K passes 2^31 on a full grid at K = 255).  What
+// bounds it is the same as above, device memory: on an H100 at the full
+// VKITTI2 grid at K = 63 (a real store, 0.2% of its slots with a status)
+// it took 0.49 ms against a bound of 0.22 ms.
+constexpr int GEN_NT = 256;
+constexpr int GEN_SPAN = 16;  // voxels a warp; GEN_SPAN * K is a multiple of 16
+
+// One slot's view for the render: what (a) to (c) compute from it.
+struct Slot {
+  bool in, alive, gc, cmask;
+  uint8_t st;
+  float w, wc, contrib;
+  int tk;
+};
+
+__device__ __forceinline__ Slot load_slot(
+    const float* __restrict__ weight, const int* __restrict__ stamp,
+    const uint8_t* __restrict__ status, const int* __restrict__ track, long long base, int k,
+    int K, int va, float init_w) {
+  Slot s;
+  s.in = k < K;
+  s.st = s.in ? status[base + k] : STATUS_INVALID;
+  s.alive = s.st != STATUS_INVALID && stamp[base + k] >= va;
+  s.w = s.alive ? weight[base + k] : 0.f;
+  s.tk = s.alive ? track[base + k] : 0;
+  s.wc = s.w > 1.f ? 1.f : s.w;
+  s.gc = s.alive && s.st == STATUS_UPDATED && s.wc < init_w;
+  s.cmask = s.alive && !s.gc;
+  s.contrib = s.cmask ? s.wc : 0.f;
+  return s;
+}
+
+__global__ void __launch_bounds__(GEN_NT) render_generic_kernel(
+    float* __restrict__ weight, const int* __restrict__ stamp,
+    uint8_t* __restrict__ status, const int* __restrict__ track,
+    const uint8_t* __restrict__ label, const int* __restrict__ vax,
+    const int* __restrict__ vst,
+    int* __restrict__ occ_out, int* __restrict__ label_out,
+    int* __restrict__ track_out, float* __restrict__ ws_out,
+    long long V, int K, float thr, float init_w) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long v0 = ((long long)blockIdx.x * (GEN_NT / 32) + threadIdx.x / 32) * GEN_SPAN;
+  if (v0 >= V) return;  // a whole warp
+  const int nv = (int)(V - v0 < GEN_SPAN ? V - v0 : GEN_SPAN);
+  const int C = (K + 31) / 32;  // chunks of a voxel
+
+  // 1. the span's status, 16 bytes a lane (v0 * K is a multiple of 16)
+  const long long slot0 = v0 * K;
+  const long long nslots = (long long)nv * K;
+  unsigned any = 0u;
+  for (long long li = 16LL * lane; li < nslots; li += 16 * 32) {
+    if (li + 15 < nslots) {
+      const uint4 q = *reinterpret_cast<const uint4*>(status + slot0 + li);
+      any |= q.x | q.y | q.z | q.w;
+    } else {
+      for (long long j = li; j < nslots; ++j) any |= status[slot0 + j];
+    }
+  }
+  const int va_l = lane < nv ? vax[v0 + lane] : 0;
+  const int vs_l = lane < nv ? vst[v0 + lane] : 0;
+  if (!__any_sync(ALL, any != 0u)) {
+    if (lane < nv) write_empty(v0 + lane, va_l, vs_l, thr, init_w, occ_out, label_out, track_out, ws_out);
+    return;
+  }
+
+  // 2. the span's voxels in turn, the warp on one voxel
+  for (int i = 0; i < nv; ++i) {
+    const long long v = v0 + i;
+    const int va = __shfl_sync(ALL, va_l, i);
+    const int vs = __shfl_sync(ALL, vs_l, i);
+    const long long base = v * K;
+    // a. liveness and the two sums in slot order
+    float wsum = 0.f, gsum = 0.f;
+    bool any_alive = false;
+    for (int c0 = 0; c0 < K; c0 += 32) {
+      const Slot s = load_slot(weight, stamp, status, track, base, c0 + lane, K, va, init_w);
+      const float wt = s.alive ? s.w : 0.f;
+      const float gt = s.alive && s.st == STATUS_GUESSED_BORN ? s.wc : 0.f;
+      const int n = K - c0 < 32 ? K - c0 : 32;
+      for (int j = 0; j < n; ++j) {
+        wsum = wsum + __shfl_sync(ALL, wt, j);
+        gsum = gsum + __shfl_sync(ALL, gt, j);
+      }
+      any_alive = __any_sync(ALL, s.alive) || any_alive;
+    }
+    if (!any_alive) {
+      if (lane == 0) write_empty(v, va, vs, thr, init_w, occ_out, label_out, track_out, ws_out);
+      continue;
+    }
+    const bool vvalid = vs != 0 && vs >= va;
+
+    // b. per-slot same-track sums and the running argmax
+    float best_w = -1.f;
+    int best_tk = 1 << 30;
+    for (int c = 0; c < C; ++c) {
+      const int c0 = 32 * c;
+      const Slot own = load_slot(weight, stamp, status, track, base, c0 + lane, K, va, init_w);
+      const int n_own = K - c0 < 32 ? K - c0 : 32;
+      float acc = own.contrib;
+      for (int j = 0; j < n_own; ++j) {  // the rest of the own chunk: d+1 ..
+        const int t = __shfl_sync(ALL, own.tk, j);
+        const float cj = __shfl_sync(ALL, own.contrib, j);
+        if (j > lane) acc = acc + (own.tk == t ? cj : 0.f);
+      }
+      for (int m = 1; m < C; ++m) {  // the other chunks, from the own one's next on
+        const int o0 = 32 * ((c + m) % C);
+        const Slot o = load_slot(weight, stamp, status, track, base, o0 + lane, K, va, init_w);
+        const int n = K - o0 < 32 ? K - o0 : 32;
+        for (int j = 0; j < n; ++j) {
+          const int t = __shfl_sync(ALL, o.tk, j);
+          const float cj = __shfl_sync(ALL, o.contrib, j);
+          acc = acc + (own.tk == t ? cj : 0.f);
+        }
+      }
+      for (int j = 0; j < n_own; ++j) {  // the head of the own chunk: .. d-1
+        const int t = __shfl_sync(ALL, own.tk, j);
+        const float cj = __shfl_sync(ALL, own.contrib, j);
+        if (j < lane) acc = acc + (own.tk == t ? cj : 0.f);
+      }
+      if (own.in && own.cmask && acc > 0.f) {
+        if (acc > best_w) {
+          best_w = acc;
+          best_tk = own.tk;
+        } else if (acc == best_w && own.tk < best_tk) {
+          best_tk = own.tk;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ow = __shfl_xor_sync(ALL, best_w, off);
+      const int ot = __shfl_xor_sync(ALL, best_tk, off);
+      if (ow > best_w || (ow == best_w && ot < best_tk)) {
+        best_w = ow;
+        best_tk = ot;
+      }
+    }
+    const bool found = best_w > 0.f;
+
+    // c. the winning track's last writer, and the write-back
+    int pick = -1;
+    for (int c0 = 0; c0 < K; c0 += 32) {
+      const int k = c0 + lane;
+      const Slot s = load_slot(weight, stamp, status, track, base, k, K, va, init_w);
+      if (s.in && s.cmask && s.tk == best_tk) {
+        const int code = (k << 8) | label[base + k];
+        if (code > pick) pick = code;
+      }
+      if (vvalid) {
+        if (s.alive && s.w > 1.f) weight[base + k] = s.wc;
+        if (s.gc) status[base + k] = STATUS_INVALID;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) pick = max(pick, __shfl_xor_sync(ALL, pick, off));
+    if (lane == 0) {
+      int best_track = best_tk;
+      int best_label = pick >= 0 ? (pick & 0xFF) : 0;
+      if (!(found && vvalid)) {
+        best_track = 0;
+        best_label = 0;
+      }
+      const float ws = vvalid ? wsum : -1.f;
+      const float gw = vvalid ? gsum : 0.f;
+      occ_out[v] = ws > thr ? 1 : (ws < 0.f ? -1 : (gw >= init_w ? 2 : 0));
+      label_out[v] = best_label;
+      track_out[v] = best_track;
+      ws_out[v] = ws;
+    }
+  }
+}
+
+int launch_generic(float* weight, const int* stamp, uint8_t* status, const int* track,
+                   const uint8_t* label, const int* vax, const int* vst, int* occ, int* lab,
+                   int* trk, float* ws, long long V, int K, float thr, float init_w,
+                   cudaStream_t stream) {
+  constexpr long long VOX = (GEN_NT / 32) * GEN_SPAN;  // voxels a block
+  const long long grid = (V + VOX - 1) / VOX;
+  static CUfunction fn = nullptr;
+  return dsp::launch(render_generic_kernel, fn, (unsigned)grid, GEN_NT, 0, stream, weight, stamp,
+                     status, track, label, vax, vst, occ, lab, trk, ws, V, K, thr, init_w);
+}
+
 template <int K>
 int launch(float* weight, const int* stamp, uint8_t* status, const int* track,
            const uint8_t* label, const int* vax, const int* vst, int* occ,
@@ -276,7 +498,9 @@ extern "C" int dsp_render(
     case 7: return launch<7>(weight, stamp, status, track, label, vax, vst, occ, lab, trk, ws, V, thr, init_w, s);
     case 15: return launch<15>(weight, stamp, status, track, label, vax, vst, occ, lab, trk, ws, V, thr, init_w, s);
     case 31: return launch<31>(weight, stamp, status, track, label, vax, vst, occ, lab, trk, ws, V, thr, init_w, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (K <= 0) return (int)cudaErrorInvalidValue;
+      return launch_generic(weight, stamp, status, track, label, vax, vst, occ, lab, trk, ws, V, K, thr, init_w, s);
   }
 }
 

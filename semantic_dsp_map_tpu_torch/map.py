@@ -34,7 +34,7 @@ from .objects import (
     object_level_update,
     ransac_draw_shape,
 )
-from .ops import codecs, cuda_lib
+from .ops import codecs
 from .ops.birth import Candidates, _insert_core, birth_and_resample
 from .ops.blocks import (
     block_layout,
@@ -451,8 +451,8 @@ class SemanticDSPMap:
 
     ``device=None`` means the card; without a CUDA device it raises, and
     ``device="cpu"`` asks for the CPU by name (state.resolve_device).  The
-    card's kernels take up to 31 slots a voxel: a larger store raises
-    ValueError there (``ops.cuda_lib.check_slots``).  On the
+    card's kernels take every K the config accepts (a store the card's
+    memory cannot hold fails in the allocator).  On the
     card the step is captured into CUDA graphs from the second frame on and
     replayed after (``step_graph``), template mode included (each template
     slot is a conditional node of graph "finish").
@@ -475,7 +475,6 @@ class SemanticDSPMap:
         self.params = params or FilterParams()
         self.registry = registry or LabelRegistry.default()
         self.device = resolve_device(device)
-        cuda_lib.check_slots(cfg, self.device)
         self.state = init_map_state(cfg, seed, self.device)
         self.log_diagnostics = log_diagnostics
         self._static_table = torch.from_numpy(static_label_table(self.registry)).to(self.device)

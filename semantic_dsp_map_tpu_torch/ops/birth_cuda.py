@@ -44,7 +44,6 @@ def _merge_args(cfg: MapConfig, flat: Particles, blocks: ActiveBlocks, vox_axis:
     index = flat.px.get_device()
     if index < 0:
         raise ValueError(f"px: expected a CUDA tensor, got {flat.px.device}")
-    cuda_lib.check_slots(cfg, flat.px.device)
     K = cfg.slots_per_voxel
     n = flat.px.shape
     V = n[0] // K

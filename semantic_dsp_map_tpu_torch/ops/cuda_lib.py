@@ -195,27 +195,6 @@ def error(err: int, name: str) -> RuntimeError:
     return RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-#: The largest K (slots a voxel) the per-voxel kernels take: the render,
-#: the front and movable scans and birth's merge are built for K = 1, 3, 7,
-#: 15 and 31 (``max_particle_num_per_voxel_n`` 1 to 5).  At K = 63 the front
-#: scan's shared memory would pass 48 KB; no preset goes above K = 7.
-MAX_SLOTS = 31
-
-
-def check_slots(cfg, device) -> None:
-    """Raise ValueError if ``cfg``'s store has more slots a voxel than the
-    kernels take and ``device`` is a CUDA device.  The CPU runs every K
-    through the plain versions.  The map and the sharded step call this
-    when they are built, and the kernel wrappers before a launch."""
-    K = cfg.slots_per_voxel
-    if K > MAX_SLOTS and torch.device(device).type == "cuda":
-        raise ValueError(
-            f"K = {K} slots a voxel (max_particle_num_per_voxel_n = "
-            f"{cfg.max_particle_num_per_voxel_n}): the CUDA kernels take K <= {MAX_SLOTS} "
-            f"(max_particle_num_per_voxel_n <= {MAX_SLOTS.bit_length()}); run this store on "
-            f"the CPU")
-
-
 #: Every kernel wrapper whose module has been imported (``counted``).
 WRAPPERS: list = []
 

@@ -35,7 +35,6 @@ def front_candidates_cuda(cfg: MapConfig, px, py, pz, status, stamp, vox_axis, r
     index = px.get_device()
     if index < 0:  # the CPU: the plain version
         return front_candidates_plain(cfg, px, py, pz, status, stamp, vox_axis, r_cw, t_cw)
-    cuda_lib.check_slots(cfg, px.device)
     V, K, n = _slots(cfg, vox_axis)
     f32 = torch.float32
     pose = torch.cat([r_cw.reshape(-1), t_cw.reshape(-1)])
@@ -66,7 +65,6 @@ def movable_voxels_cuda(cfg: MapConfig, track, status, stamp, vox_axis, max_mova
     index = track.get_device()
     if index < 0:  # the CPU: the plain version
         return movable_voxels_plain(cfg, track, status, stamp, vox_axis, max_movable)
-    cuda_lib.check_slots(cfg, track.device)
     V, K, n = _slots(cfg, vox_axis)
     track_p, stamp_p = cuda_lib.pointers(index, torch.int32, n, (track, stamp), ("track", "stamp"))
     (status_p,) = cuda_lib.pointers(index, torch.uint8, n, (status,), ("status",))

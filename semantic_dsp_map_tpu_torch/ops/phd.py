@@ -99,6 +99,16 @@ def table_from_entries(
     )
 
 
+def window_half(R: int, H: int, W: int) -> int:
+    """The stencils' half-width on an H x W image: ``R``, or max(H, W) - 1
+    where ``R`` is larger.  From there on every window covers the whole
+    image, and the offsets beyond it only meet the halo, whose terms are
+    exact zeros (pass A: no weight; pass B: no valid observation), which
+    change no sum: the result is the same bit for bit, for the plain
+    stencils and the CUDA kernels alike."""
+    return min(R, max(H, W) - 1)
+
+
 def _pad_hw(a, r, fill):
     """Halo pad on the trailing (H, W) dims."""
     if a.dtype == torch.bool:
@@ -115,7 +125,7 @@ def pass_a_raw(
     """Raw per-pixel ck (before the valid mask, P_d and kappa), f32[H, W].
     Empty slots carry zero ``weff``."""
     S, H, W = px.shape
-    R = cfg.neighbor_half
+    R = window_half(cfg.neighbor_half, H, W)
     side = 2 * R + 1
     independent = params.if_use_independent_filter
     pad_px, pad_py, pad_pz = (_pad_hw(a, R, 0.0) for a in (px, py, pz))
@@ -157,7 +167,7 @@ def pass_b_raw(
     the independent filter).  Sigma is taken at the particle's own pixel
     (semantic_dsp_map.h:1047)."""
     S, H, W = px.shape
-    R = cfg.neighbor_half
+    R = window_half(cfg.neighbor_half, H, W)
     side = 2 * R + 1
     independent = params.if_use_independent_filter
     occupied = trk_eff != -2

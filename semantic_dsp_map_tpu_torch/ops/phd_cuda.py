@@ -4,8 +4,11 @@ They replace ``pass_a_pallas`` / ``pass_b_pallas`` of
 ``semantic_dsp_map_tpu/ops/phd_pallas.py`` (the TPU kernels
 ``_pass_a_kernel`` / ``_pass_b_kernel``) and take the same arguments.  On a
 CUDA tensor they launch the kernel; on a CPU tensor they run the plain
-stencils of ops/phd.py, their oracle.  Bound and design: see the note at
-the top of csrc/phd.cu.
+stencils of ops/phd.py, their oracle.  Every half-width R and table depth
+S runs on the card: past what the main instances' shared memory holds, the
+launch goes to the kernels' wide instances (``ops.phd.window_half`` caps R
+at max(H, W) - 1, where every window covers the image).  Bound and design:
+see the note at the top of csrc/phd.cu.
 
 ``pass_a_cuda.launches`` / ``pass_b_cuda.launches`` count kernel launches.
 """
@@ -16,7 +19,7 @@ import torch
 
 from ..config import FilterParams, GAUSSIAN_PDF_COEF, MIN_RIGHTLY_UPDATED_PDF, MapConfig
 from . import cuda_lib
-from .phd import pass_a_raw, pass_b_raw
+from .phd import pass_a_raw, pass_b_raw, window_half
 
 _COEF3 = GAUSSIAN_PDF_COEF ** 3
 
@@ -25,16 +28,6 @@ _A_PLANES = ("px", "py", "pz", "weff")
 _A_OBS = ("obs_x", "obs_y", "obs_z", "inv_sigma")
 _B_PLANES = ("px", "py", "pz", "ff_eff")
 _B_OBS = ("inv_sigma_p", "obs_x", "obs_y", "obs_z", "ck_kappa")
-
-#: Largest stencil half-width the kernels' shared-memory tile is sized for.
-MAX_R = 8
-
-
-def _check_r(cfg: MapConfig) -> int:
-    R = cfg.neighbor_half
-    if not 0 <= R <= MAX_R:
-        raise ValueError(f"PHD kernels take a neighbourhood half-width <= {MAX_R}, got {R}")
-    return R
 
 
 @cuda_lib.counted
@@ -50,7 +43,7 @@ def pass_a_cuda(
         return pass_a_raw(cfg, params, px, py, pz, weff, trk,
                           obs_x, obs_y, obs_z, inv_sigma, obs_trk)
     S, H, W = shape = px.shape
-    R = _check_r(cfg)
+    R = window_half(cfg.neighbor_half, H, W)
     f32, i32 = torch.float32, torch.int32
     ptrs = cuda_lib.pointers(index, f32, shape, (px, py, pz, weff), _A_PLANES)
     ptrs += cuda_lib.pointers(index, i32, shape, (trk,), ("trk",))
@@ -86,7 +79,7 @@ def pass_b_cuda(
         return pass_b_raw(cfg, params, px, py, pz, trk_eff, ff_eff, inv_sigma_p,
                           obs_x, obs_y, obs_z, obs_valid, obs_trk, ck_kappa)
     S, H, W = shape = px.shape
-    R = _check_r(cfg)
+    R = window_half(cfg.neighbor_half, H, W)
     f32, i32 = torch.float32, torch.int32
     *planes, ff = cuda_lib.pointers(index, f32, shape, (px, py, pz, ff_eff), _B_PLANES)
     *obs, ck = cuda_lib.pointers(index, f32, (H, W),

@@ -33,7 +33,6 @@ def render_core_cuda(cfg: MapConfig, p, voxel_stamp, vax, occupancy_threshold: f
         p.weight.copy_(new.weight)
         p.status.copy_(new.status)
         return p, res
-    cuda_lib.check_slots(cfg, p.weight.device)
     n = (V * K,)
     (weight_p,) = cuda_lib.pointers(index, torch.float32, n, (p.weight,), ("weight",))
     stamp_p, track_p = cuda_lib.pointers(index, torch.int32, n, (p.stamp, p.track),

@@ -70,7 +70,7 @@ from ..map import (
     FrameStages, StepDiagnostics, build_frame_stages, rigid_move, unpack_frame, unpack_objects,
 )
 from ..objects import expire_objects
-from ..ops import codecs, cuda_lib
+from ..ops import codecs
 from ..ops.birth import Candidates, _insert_core, newborn_candidates
 from ..ops.blocks import (
     block_layout,
@@ -706,8 +706,5 @@ def build_shard_step(cfg: MapConfig, params: FilterParams, registry: LabelRegist
     the replicated object tables stay equal.  The birth noise and the move
     jitter come from a generator of this rank's own (:class:`RankGenerator`);
     both are registered with each graph.  :func:`build_shard_step_eager` is
-    the oracle: the same bits, frame for frame.  On the card (an NCCL
-    group) a store of more slots a voxel than the kernels take raises
-    ValueError here (``cuda_lib.check_slots``)."""
-    cuda_lib.check_slots(cfg, "cuda" if dist.get_backend(group) == "nccl" else "cpu")
+    the oracle: the same bits, frame for frame."""
     return ShardStep(cfg, registry, build_shard_stages(cfg, params, registry, group), packed)

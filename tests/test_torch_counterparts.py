@@ -28,15 +28,15 @@ NOT_PORTED = {
         "renamed", "ops/render_cuda.py:render_core_cuda"),
     ("ops/render_pallas.py", "render_occupancy_pallas"): ("renamed", "ops/render.py:render_any"),
     ("ops/render_pallas.py", "render_pallas_supported"): (
-        "no torch analog", "the CUDA render takes every shape; ops/cuda_lib.check_slots refuses "
-        "K > 31 on the card"),
+        "no torch analog", "the CUDA render takes every shape and every K (a generic instance "
+        "past K = 31)"),
     ("ops/observe_pallas.py", "front_candidates"): (
         "renamed", "ops/observe_cuda.py:front_candidates_cuda"),
     ("ops/observe_pallas.py", "movable_voxels"): (
         "renamed", "ops/observe_cuda.py:movable_voxels_cuda"),
     ("ops/observe_pallas.py", "front_pallas_supported"): (
-        "no torch analog", "the CUDA scan takes every shape; ops/cuda_lib.check_slots refuses "
-        "K > 31 on the card"),
+        "no torch analog", "the CUDA scan takes every shape and every K (a generic instance "
+        "past K = 31)"),
     # the XLA render and its chunking
     ("ops/render.py", "render_core_xla"): ("renamed", "ops/render.py:render_core_plain"),
     ("ops/render.py", "render_occupancy_xla"): ("renamed", "ops/render.py:render_core_plain"),

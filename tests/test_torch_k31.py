@@ -1,15 +1,16 @@
-"""Stores of 31 slots a voxel (``max_particle_num_per_voxel_n = 5``), the
-largest K the port's CUDA kernels take, and the refusal above it.
+"""Stores of 31 slots a voxel (``max_particle_num_per_voxel_n = 5``) and
+more: every K the config accepts runs on the card, and on the CPU through
+the plain versions.
 
-- ``ops.cuda_lib.check_slots``: K <= 31 passes on every device; K = 63
-  (n = 6, which the config accepts) raises a ValueError that names K, the
-  limit and the config field on a CUDA device and passes on the CPU;
-- ``SemanticDSPMap`` and ``build_shard_step`` call it when they are built
-  (tested here without a card: the device, or the group's backend, is
-  made to read as the card's), and a CPU map still runs K = 63;
+- ``SemanticDSPMap`` and ``build_shard_step`` built for the card (tested
+  here without one: the device, or the group's backend, is made to read as
+  the card's) at K = 63, 127 and 255 take the store as it is: the map goes
+  on to allocate it, the sharded step is built;
+- a CPU map runs K = 63;
 - three frames of the dynamic scene at K = 31 through the JAX map and the
-  port's CPU map: every counter, ``occ``, ``label`` and ``track`` equal,
-  the state within the parity tolerances.
+  port's CPU map: every counter, ``occ``, ``label`` and ``track`` equal, the
+  state within the parity tolerances (K = 63 and 127:
+  tests/test_torch_wide_k.py).
 """
 
 import numpy as np
@@ -21,7 +22,6 @@ import semantic_dsp_map_tpu as J
 
 import semantic_dsp_map_tpu_torch as T
 from semantic_dsp_map_tpu_torch import map as map_module
-from semantic_dsp_map_tpu_torch.ops import cuda_lib
 from semantic_dsp_map_tpu_torch.parallel import distributed, shard_step
 
 from torch_parity import dynamic_scene, hold_scene_against_jax
@@ -36,50 +36,41 @@ SCENE_PARAMS = dict(
 )
 
 
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("slots_n", [1, 2, 3, 4, 5, 6])
-def test_check_slots(slots_n, device):
-    """K = 2^n - 1: the kernels take K = 1 to 31; K = 63 raises on a CUDA
-    device only, naming K, the limit and the config field."""
-    cfg = T.tiny_test_config(max_particle_num_per_voxel_n=slots_n)
-    K = cfg.slots_per_voxel
-    assert cuda_lib.MAX_SLOTS == 31
-    if K <= cuda_lib.MAX_SLOTS or device == "cpu":
-        cuda_lib.check_slots(cfg, device)
-        cuda_lib.check_slots(cfg, torch.device(device))
-        return
-    for dev in (device, torch.device("cuda", 0)):
-        with pytest.raises(ValueError) as err:
-            cuda_lib.check_slots(cfg, dev)
-        msg = str(err.value)
-        assert "K = 63" in msg and "K <= 31" in msg, msg
-        assert "max_particle_num_per_voxel_n = 6" in msg and "<= 5" in msg, msg
+class _Allocating(Exception):
+    """Raised in place of the store's allocation on a card this host lacks."""
 
 
-def test_map_refuses_k63_on_the_card(monkeypatch):
-    """The map checks K as it is built, before it allocates anything: with
-    the device resolved to the card, K = 63 raises."""
+@pytest.mark.parametrize("slots_n", [6, 7, 8])  # K = 63, 127, 255
+def test_map_takes_a_wide_store_on_the_card(monkeypatch, slots_n):
+    """With the device resolved to the card, the map goes on to allocate a
+    store of K = 63, 127 or 255 slots a voxel: nothing refuses it by K (a
+    store the card cannot hold fails in the allocator, as any tensor)."""
     allocated = []
+
+    def allocate(cfg, seed, device):
+        allocated.append((cfg.slots_per_voxel, device))
+        raise _Allocating
+
     monkeypatch.setattr(map_module, "resolve_device", lambda device: torch.device("cuda", 0))
-    monkeypatch.setattr(map_module, "init_map_state", lambda *a: allocated.append(a))
-    with pytest.raises(ValueError, match="K <= 31"):
-        T.SemanticDSPMap(T.tiny_test_config(max_particle_num_per_voxel_n=6))
-    assert not allocated
+    monkeypatch.setattr(map_module, "init_map_state", allocate)
+    with pytest.raises(_Allocating):
+        T.SemanticDSPMap(T.tiny_test_config(max_particle_num_per_voxel_n=slots_n))
+    assert allocated == [((1 << slots_n) - 1, torch.device("cuda", 0))]
 
 
-def test_shard_step_refuses_k63_in_an_nccl_group(monkeypatch):
-    """``build_shard_step`` checks K against the group's backend: NCCL (the
-    ranks are cards) refuses K = 63, gloo (the CPU) builds it."""
+@pytest.mark.parametrize("slots_n", [6, 7, 8])  # K = 63, 127, 255
+def test_shard_step_takes_a_wide_store_in_an_nccl_group(monkeypatch, slots_n):
+    """``build_shard_step`` in a group whose backend reads as NCCL (the
+    ranks are cards) builds the step for K = 63, 127 and 255, as gloo (the
+    CPU) does."""
     distributed.initialize(device="cpu")
     try:
-        cfg = T.tiny_test_config(max_particle_num_per_voxel_n=6)
+        cfg = T.tiny_test_config(max_particle_num_per_voxel_n=slots_n)
         params, registry = T.FilterParams(), T.LabelRegistry.default()
         assert shard_step.build_shard_step(cfg, params, registry).static is None
         monkeypatch.setattr(shard_step.dist, "get_backend", lambda group=None: "nccl")
-        with pytest.raises(ValueError, match="max_particle_num_per_voxel_n = 6"):
-            shard_step.build_shard_step(cfg, params, registry)
-        shard_step.build_shard_step(T.tiny_test_config(max_particle_num_per_voxel_n=5), params,
-                                    registry)
+        step = shard_step.build_shard_step(cfg, params, registry)
+        assert step.static is None and step.cfg.slots_per_voxel == (1 << slots_n) - 1
     finally:
         dist.destroy_process_group()
 

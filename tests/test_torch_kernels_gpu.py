@@ -135,7 +135,7 @@ def test_pass_a_kernel_at_the_edges(cuda, kind, independent, R):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,R,h,w", [(12, 5, 40, 70), (12, phd_cuda.MAX_R, 40, 70), (40, 5, 19, 40),
+@pytest.mark.parametrize("S,R,h,w", [(12, 5, 40, 70), (12, 8, 40, 70), (40, 5, 19, 40),
                                       (12, 0, 9, 33)])
 @pytest.mark.parametrize("kind", ["full", None])
 def test_pass_a_kernel_list_capacity(cuda, kind, S, R, h, w):
@@ -157,13 +157,30 @@ def test_pass_a_kernel_list_capacity(cuda, kind, S, R, h, w):
     assert (ck > 0).any()
 
 
+#: Stencils and tables past the main instances: pass A lists one plane of
+#: the halo up to R = 13 and sums at most 8,192 window entries a pixel, and
+#: runs its wide instance (the halo in chunks, a compensated sum) past
+#: either; pass B holds the halo and a tile's work list up to what the
+#: card's 227 KB take (at R = 5, S = 431) and runs its wide instance (the
+#: list in rounds, the halo in pieces) above.  (S, R, h, w).
+WIDE_STENCILS = [(4, 9, 40, 70), (4, 16, 40, 70), (4, 24, 37, 53), (512, 5, 19, 40),
+                 (3, 60, 20, 70)]
+
+
 @pytest.mark.gpu
-def test_pass_a_kernel_refuses_a_wide_stencil(cuda):
-    cfg = tiny_test_config(phd_pixel_table_slots=4, phd_neighbor_half=phd_cuda.MAX_R + 1)
-    params = FilterParams()
-    t, c = _phd_inputs(cfg, cuda)
-    with pytest.raises(ValueError):
-        phd_cuda.pass_a_cuda(*_pass_a_args(cfg, params, t, c))
+@pytest.mark.parametrize("S,R,h,w", WIDE_STENCILS)
+@pytest.mark.parametrize("kind", ["full", None])
+def test_pass_a_kernel_wide_stencils(cuda, kind, S, R, h, w):
+    """Pass A at R = 9, 16, 24 and 60 (a halo of many chunks, most outside
+    the image) and at S = 512: within rtol 2e-5 of the plain stencils, a
+    second launch with the first one's bits."""
+    cfg = tiny_test_config(image_width=w, image_height=h, phd_pixel_table_slots=S,
+                           phd_neighbor_half=R)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True,
+                          max_forget_count=7)
+    t, c = _phd_inputs(cfg, cuda, seed=6, fill=0.3 if S > 100 else 0.5, front_fill=True, kind=kind)
+    ck = _check_pass_a(_pass_a_args(cfg, params, t, c))
+    assert (ck > 0).any()
 
 
 @pytest.mark.gpu
@@ -248,24 +265,51 @@ def test_pass_b_kernel_tiny_terms_bit_equal(cuda, R):
 
 
 @pytest.mark.gpu
-def test_pass_b_kernel_large_shared_memory(cuda):
-    """The widest stencil the kernels take (R = 8) with 40 slots needs more
-    than 48 KB of shared memory for the halo and the work list; a wider
-    stencil raises."""
-    cfg = tiny_test_config(image_width=53, image_height=37, phd_pixel_table_slots=40,
-                           phd_neighbor_half=phd_cuda.MAX_R)
-    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True)
+@pytest.mark.parametrize("S,R,h,w", [(40, 8, 37, 53), *WIDE_STENCILS])
+@pytest.mark.parametrize("independent", [False, True])
+def test_pass_b_kernel_large_shared_memory(cuda, independent, S, R, h, w):
+    """Pass B where a block's halo and work list pass 48 KB of shared memory
+    (R = 8 with 40 slots), and past what the main instance takes: R = 9, 16,
+    24 and 60, and S = 512, which its wide instance runs.  acc within rtol
+    2e-5 / atol 1e-6, flags equal; a second launch gives the same bits (each
+    entry's terms in the plain version's order, whatever the staging)."""
+    cfg = tiny_test_config(image_width=w, image_height=h, phd_pixel_table_slots=S,
+                           phd_neighbor_half=R)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1,
+                          if_use_independent_filter=independent, if_consider_depth_noise=True)
     t, c = _phd_inputs(cfg, cuda, seed=6, fill=0.1, front_fill=True)
     _, args = _pass_b_args(cfg, params, t, c)
     acc_p, right_p = phd.pass_b_raw(*args)
+    before = phd_cuda.pass_b_cuda.launches
     acc_k, right_k = phd_cuda.pass_b_cuda(*args)
     torch.cuda.synchronize()
+    assert phd_cuda.pass_b_cuda.launches == before + 1
     torch.testing.assert_close(acc_k, acc_p, rtol=2e-5, atol=1e-6)
     assert torch.equal(right_k, right_p)
-    wide = tiny_test_config(image_width=53, image_height=37, phd_pixel_table_slots=40,
-                            phd_neighbor_half=phd_cuda.MAX_R + 1)
-    with pytest.raises(ValueError):
-        phd_cuda.pass_b_cuda(wide, *args[1:])
+    assert independent or right_k.any()
+    again, _ = phd_cuda.pass_b_cuda(*args)
+    assert torch.equal(again.view(torch.int32), acc_k.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_pass_b_wide_instance_has_the_main_instances_bits(cuda):
+    """At S = 431 and R = 5 the main instance of pass B still fits (232,432
+    bytes of shared memory); one slot plane more goes to the wide instance.
+    Both give every entry the same bits: the planes the two tables share
+    are compared bit for bit."""
+    base = dict(image_width=1242 // 6, image_height=375 // 6, phd_neighbor_half=5)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True)
+    cfg = tiny_test_config(phd_pixel_table_slots=432, **base)
+    t, c = _phd_inputs(cfg, cuda, seed=3, fill=0.02, front_fill=True)
+    _, args = _pass_b_args(cfg, params, t, c)
+    acc_wide, right_wide = phd_cuda.pass_b_cuda(*args)
+    cut = tiny_test_config(phd_pixel_table_slots=431, **base)
+    sub = [a[:431].contiguous() if isinstance(a, torch.Tensor) and a.dim() == 3 else a
+           for a in (cut, *args[1:])]
+    acc_main, right_main = phd_cuda.pass_b_cuda(*sub)
+    torch.cuda.synchronize()
+    assert torch.equal(acc_wide[:431].view(torch.int32), acc_main.view(torch.int32))
+    assert torch.equal(right_wide[:431], right_main) and right_main.any()
 
 
 def _render_state(cfg, device, seed):
@@ -326,7 +370,7 @@ def _render_edge_store(V, K, device, seed, kind):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("V", [1, 1023, 4099, 3 * 1024 + 1])
-@pytest.mark.parametrize("slots_n", [1, 2, 3, 4, 5])  # K = 1, 3, 7, 15, 31
+@pytest.mark.parametrize("slots_n", [1, 2, 3, 4, 5, 6, 7, 8, 10])  # K = 1 ... 31, 63 ... 1023
 @pytest.mark.parametrize("kind", STORE_EDGES)
 def test_render_kernel_at_the_edges(cuda, kind, slots_n, V):
     """The render with every K it is built for, voxel counts that are no
@@ -436,7 +480,7 @@ def test_observe_kernels_match_plain(cuda, quat, slots_n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("V", [1, 1023, 4099, 3 * 1024 + 1])
-@pytest.mark.parametrize("slots_n", [1, 2, 3, 4, 5])  # K = 1, 3, 7, 15, 31
+@pytest.mark.parametrize("slots_n", [1, 2, 3, 4, 5, 6, 7, 8, 10])  # K = 1 ... 31, 63 ... 1023
 @pytest.mark.parametrize("kind", STORE_EDGES)
 def test_front_kernel_at_the_edges(cuda, kind, slots_n, V):
     """The candidate scan with every K it is built for, voxel counts that
@@ -468,12 +512,13 @@ def test_front_kernel_at_the_edges(cuda, kind, slots_n, V):
         assert 0 < int(want[0].sum()) < V // 20
     if V > 1000 and kind in ("mixed", "all_alive"):
         # 31 live slots a voxel put a candidate in every voxel of these stores
-        assert 0 < int(want[1].sum()) < V or (K == 31 and kind == "all_alive" and want[1].all())
+        assert (0 < int(want[1].sum()) < V or (K == 31 and kind == "all_alive" and want[1].all())
+                or (K > 31 and want[1].any()))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("V", [1, 1023, 4099, 3 * 1024 + 1])
-@pytest.mark.parametrize("slots_n", [1, 2, 3, 4, 5])  # K = 1, 3, 7, 15, 31
+@pytest.mark.parametrize("slots_n", [1, 2, 3, 4, 5, 6, 7, 8, 10])  # K = 1 ... 31, 63 ... 1023
 @pytest.mark.parametrize("kind", STORE_EDGES)
 def test_movable_kernel_at_the_edges(cuda, kind, slots_n, V):
     """The movable scan with every K it is built for, voxel counts that are
@@ -497,7 +542,8 @@ def test_movable_kernel_at_the_edges(cuda, kind, slots_n, V):
         assert not want.any()
     elif V > 1000:
         # 31 live slots a voxel hold a movable track in nearly every voxel
-        assert 0 < int(want.sum()) < V or (K == 31 and kind == "all_alive" and want.all())
+        assert 0 < int(want.sum()) < V or (K == 31 and kind == "all_alive" and want.all()) or (
+            K > 31 and want.any())
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         captured = movable_voxels_cuda(*args)
@@ -521,30 +567,98 @@ def test_movable_kernel_refuses_a_misaligned_store(cuda):
 
 
 @pytest.mark.gpu
-def test_a_store_above_the_kernels_k_raises_on_the_card(cuda):
-    """K = 63 (max_particle_num_per_voxel_n = 6) passes the config's check
-    but not the kernels': the map and every per-voxel wrapper raise a
-    ValueError that names the limit, and nothing is launched."""
+@pytest.mark.parametrize("slots_n", [6, 7])  # K = 63, 127
+def test_a_wide_store_runs_on_the_card(cuda, slots_n):
+    """K = 63 and 127 (max_particle_num_per_voxel_n = 6, 7) on the card:
+    the map runs the tiny dynamic scene through every kernel (each per-voxel
+    kernel once a frame, birth's merge twice), and on its store the four
+    per-voxel kernels give their plain versions' bytes."""
     from semantic_dsp_map_tpu_torch.ops.birth_cuda import merge_blocks_cuda
+    from torch_parity import dynamic_scene
 
-    cfg = tiny_test_config(max_particle_num_per_voxel_n=6)
-    assert cfg.slots_per_voxel == 63
-    with pytest.raises(ValueError, match="K <= 31"):
-        SemanticDSPMap(cfg, device=cuda)
-    s = init_map_state(cfg, 0, cuda)
+    cfg = tiny_test_config(max_particle_num_per_voxel_n=slots_n)
+    params = FilterParams(if_consider_depth_noise=True, nb_ptc_num_per_point=1,
+                          depth_noise_model_zero_order=0.2, prediction_stddev=0.0)
+    dsp = SemanticDSPMap(cfg, params, device=cuda)
+    fns = (render_core_cuda, front_candidates_cuda, movable_voxels_cuda, merge_blocks_cuda)
+    before = [kernel_runs(fn) for fn in fns]
+    frames = 4
+    for t in range(frames):
+        res, diag = dsp.update(*dynamic_scene(cfg, t, MaskKpts))
+    assert int(diag.born_count) > 0 and bool((res.occ == 1).any())
+    assert [kernel_runs(fn) - b for fn, b in zip(fns, before)] == [frames] * 3 + [2 * frames]
+    s = dsp.state
     p = s.particles
     vax = codecs.axis_stamps_per_voxel(cfg, s.scroll)
+    assert int((p.status.view(-1, cfg.slots_per_voxel) != 0).sum(1).max()) > 1
+    new, want = render_core_plain(cfg, p, s.voxel_stamp, vax, 0.4)
+    pk = dataclasses.replace(p, weight=p.weight.clone(), status=p.status.clone())
+    pk, got = render_core_cuda(cfg, pk, s.voxel_stamp, vax, 0.4)
+    for name in ("occ", "label", "track", "weight_sum"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(pk.status, new.status) and torch.equal(pk.weight, new.weight)
     r_cw, t_cw = torch.eye(3, device=cuda), torch.zeros(3, device=cuda)
-    calls = [(render_core_cuda, (cfg, p, s.voxel_stamp, vax, 0.4)),
-             (front_candidates_cuda, (cfg, p.px, p.py, p.pz, p.status, p.stamp, vax, r_cw, t_cw)),
-             (movable_voxels_cuda, (cfg, p.track, p.status, p.stamp, vax, 2)),
-             (merge_blocks_cuda, (cfg, p, *_merge_inputs(cuda, "tiny", seed=1)[2:], True))]
-    for fn, args in calls:
-        before = fn.launches
-        with pytest.raises(ValueError, match="max_particle_num_per_voxel_n = 6"):
-            fn(*args)
-        assert fn.launches == before
-    assert SemanticDSPMap(cfg, device="cpu").device.type == "cpu"
+    fargs = (cfg, p.px, p.py, p.pz, p.status, p.stamp, vax, r_cw, t_cw)
+    for g, w in zip(front_candidates_cuda(*fargs), front_candidates_plain(*fargs)):
+        assert torch.equal(g, w)
+    margs = (cfg, p.track, p.status, p.stamp, vax, dsp.registry.max_movable_instance_id)
+    assert torch.equal(movable_voxels_cuda(*margs), movable_voxels_plain(*margs))
+
+
+#: ptxas's registers and static shared memory of the main instances (K <= 31
+#: and the PHD passes' main kernels), as ptxas printed them on an H100
+#: (nvcc -O3 -fmad=false, sm_90a) before the generic and wide instances were
+#: added beside them: these must not move.
+MAIN_INSTANCES = {
+    "pass_a_kernel": (56, 32), "pass_b_kernel": (40, 16),
+    **{f"render_kernel<{k}>": v for k, v in
+       {31: (128, 15880), 15: (128, 7688), 7: (80, 7184), 3: (45, 3088), 1: (48, 1040)}.items()},
+    **{f"front_kernel<{k}>": v for k, v in
+       {31: (78, 35840), 15: (64, 19456), 7: (62, 11264), 3: (48, 7168), 1: (47, 5120)}.items()},
+    **{f"movable_kernel<{k}>": v for k, v in
+       {31: (255, 31744), 15: (178, 15360), 7: (80, 7168), 3: (48, 3072), 1: (48, 1024)}.items()},
+    **{f"merge_kernel<{k},true>": v for k, v in
+       {31: (222, 26308), 15: (128, 25988), 7: (80, 12676), 3: (48, 6020), 1: (32, 10756)}.items()},
+    **{f"merge_kernel<{k},false>": v for k, v in
+       {31: (220, 26308), 15: (128, 25988), 7: (80, 12676), 3: (40, 6020), 1: (30, 10756)}.items()},
+}
+
+
+def ptxas_instances(log: str) -> dict:
+    """{kernel<template arguments>: (registers, static shared bytes)} of the
+    main instances in nvcc's -Xptxas -v output."""
+    import re
+
+    main = r"(13pass_a_kernel|13pass_b_kernel|13render_kernel|12front_kernel|14movable_kernel" \
+        r"|12merge_kernel)(I(?:L[ib]\d+E)+E)?"
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(main, line)
+            current = None
+            if m:
+                args = re.findall(r"L([ib])(\d+)E", m.group(2) or "")
+                text = ",".join(v if t == "i" else ("true" if v == "1" else "false")
+                                for t, v in args)
+                current = m.group(1).lstrip("0123456789") + (f"<{text}>" if text else "")
+            continue
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
+        if m and current is not None:
+            out[current] = (int(m.group(1)), int(m.group(2) or 0))
+            current = None
+    return out
+
+
+@pytest.mark.gpu
+def test_main_instances_keep_their_registers_and_shared_memory(cuda):
+    """The K <= 31 instances and the PHD passes' main kernels have the
+    registers and shared memory ptxas gave them before the generic and wide
+    instances were added (MAIN_INSTANCES): those sit beside them and change
+    none of their code."""
+    from semantic_dsp_map_tpu_torch.ops import cuda_lib
+
+    _, _, log = cuda_lib.build()
+    assert ptxas_instances(log) == MAIN_INSTANCES
 
 
 @pytest.mark.gpu
@@ -1144,10 +1258,14 @@ def test_segment_scans_match_cummax(cuda, n, captured):
 #: birth; vkitti2: max_birth_blocks = 1536 rows of 64 voxels, K = 7; the
 #: moving-object cleanup at VKITTI2 (2 x max_moving_blocks = 256 rows);
 #: zed2: 1024 rows of 128 voxels, K = 3; k31: a store of 31 slots a voxel
-#: (max_particle_num_per_voxel_n = 5), rows of 16 voxels.
+#: (max_particle_num_per_voxel_n = 5), rows of 16 voxels; k63 to k1023: the
+#: generic instance (a warp a voxel) with rows of 8, 4, 2 and 1 voxels, real
+#: rows no multiple of a block's eight voxels.
 MERGE_SHAPES = {"tiny": (2, 128, 16, 11, 16), "vkitti2": (3, 64, 1536, 1400, 4096),
                 "vkitti2_move": (3, 64, 256, 200, 4096), "zed2": (2, 128, 1024, 1000, 2048),
-                "k31": (5, 16, 256, 201, 4096)}
+                "k31": (5, 16, 256, 201, 4096), "k63": (6, 8, 256, 201, 4096),
+                "k127": (7, 4, 300, 233, 4096), "k255": (8, 2, 256, 201, 4096),
+                "k1023": (10, 1, 77, 50, 1024)}
 
 
 def _merge_inputs(device, shape, seed):

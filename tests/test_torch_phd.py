@@ -97,7 +97,13 @@ def test_pass_a_plain_matches_pallas_at_the_edges(kind, independent, R):
     """pass_a_raw against the Pallas pass A (interpret mode) on the arguments
     ops.phd._pass_a makes: ck at rtol 2e-5 / atol 1e-6 (the Pallas kernel
     folds COEF^3 into the weight plane and sums in slot groups)."""
-    shape = dict(image_width=53, image_height=37, phd_pixel_table_slots=5, phd_neighbor_half=R)
+    _pass_a_at_the_edges(kind, independent, R)
+
+
+def _pass_a_at_the_edges(kind, independent, R, S=5, h=37, w=53):
+    """The body of test_pass_a_plain_matches_pallas_at_the_edges on an
+    h x w image with S slot planes."""
+    shape = dict(image_width=w, image_height=h, phd_pixel_table_slots=S, phd_neighbor_half=R)
     cfg_j, cfg_t = j_tiny(**shape), tiny_test_config(**shape)
     pj, pt = _params(independent)
     table, cloud = _inputs(cfg_t, seed=4, fill=0.3, front_fill=True, kind=kind)
@@ -113,7 +119,7 @@ def test_pass_a_plain_matches_pallas_at_the_edges(kind, independent, R):
                          interpret=True, th=8, tw=32)
 
     np.testing.assert_allclose(ck_t.numpy(), np.asarray(ck_j), rtol=2e-5, atol=1e-6)
-    assert ck_t.shape == (37, 53) and bool(torch.isfinite(ck_t).all())
+    assert ck_t.shape == (h, w) and bool(torch.isfinite(ck_t).all())
     live = weff != 0
     if kind == "empty":
         assert not live.any() and not ck_t.any()
@@ -136,7 +142,13 @@ def test_pass_b_plain_matches_pallas_at_the_edges(kind, independent, R):
     """pass_b_raw against the Pallas pass B (interpret mode) on identical
     inputs: acc at rtol 2e-5 / atol 1e-6 (the Pallas kernel multiplies by a
     reciprocal and folds COEF^3 into the forgetting plane), flags equal."""
-    shape = dict(image_width=53, image_height=37, phd_pixel_table_slots=5, phd_neighbor_half=R)
+    _pass_b_at_the_edges(kind, independent, R)
+
+
+def _pass_b_at_the_edges(kind, independent, R, S=5, h=37, w=53):
+    """The body of test_pass_b_plain_matches_pallas_at_the_edges on an
+    h x w image with S slot planes."""
+    shape = dict(image_width=w, image_height=h, phd_pixel_table_slots=S, phd_neighbor_half=R)
     cfg_j, cfg_t = j_tiny(**shape), tiny_test_config(**shape)
     pj, pt = _params(independent)
     table, cloud = _inputs(cfg_t, seed=4, fill=0.3, front_fill=True, kind=kind)
