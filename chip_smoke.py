@@ -67,8 +67,14 @@ Phases (any failure raises, and the script exits nonzero):
      frames bit-equal.  (c) A real VKITTI2 frame's pixel table through
      passes A and B at R = 9, 12 and 16, and a VKITTI2 map's at S = 512,
      against the plain stencils (floats within rtol 2e-5 / atol 1e-6, flags
-     equal away from the threshold), each timed with its bound; then 4
-     VKITTI2 frames at R = 12 through update();
+     equal away from the threshold), each timed with its bound; at S = 512
+     the two live-plane passes that run before a wide instance, against
+     ops.phd.live_planes; pass A wide on a full S = 512 table; each pass's
+     first wide shape beside the main one just below it (S = 67 / 68 and
+     R = 12 / 13 for pass A, S = 431 / 432 for pass B, whose shared planes
+     must be bit-equal), timed a term; the S = 512 map through update()
+     against the eager step, 4 frames bit-equal, each PHD kernel once a
+     frame; then 4 VKITTI2 frames at R = 12 through update();
   3a. [expected]: hold the card to the full-size files data/bench_expected/:
      8 frames each of the hostile and the vkitti2 scene, and of the hostile
      scene with its cars off the voxel boundaries, at the VKITTI2 preset
@@ -1965,11 +1971,201 @@ def wide_pass(tag, a_args, b_args, card):
     return out
 
 
+def sliced(args, S, R=None):
+    """A pass's arguments with the table cut to its first ``S`` planes (a
+    real table never fills a pixel past slot 12, so what is cut is empty)
+    and, given ``R``, that half-width."""
+    import dataclasses
+
+    import torch
+
+    cfg = dataclasses.replace(args[0], phd_pixel_table_slots=S,
+                              **({} if R is None else {"phd_neighbor_half": R}))
+    return (cfg, args[1], *(a[:S].contiguous() if isinstance(a, torch.Tensor) and a.dim() == 3
+                            else a for a in args[2:]))
+
+
+def switch_pair(tag, key, main_args, wide_args, card):
+    """[wide]: one pass at a shape its main instance runs and at the first
+    shape its wide one runs, each against the plain stencil (``check_pass_a``
+    / ``check_pass_b``) and timed beside its bound, and the device-only time
+    per term of each (a cliff at the switch shows as a jump in it).  Pass B's
+    two shapes share their planes, whose sums and flags must be bit-equal.
+    Returns the numbers."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import phd_cuda
+
+    out, held = {}, {}
+    for label, args in (("main", main_args), ("wide", wide_args)):
+        if key == "pass_a":
+            ck, (err, _) = check_pass_a(f"{tag} {label}", args)
+            census = pass_a_census(args)
+            b, _, _ = pass_a_bound(args, ck, census)
+            terms = census["terms"]
+            run = lambda: phd_cuda.pass_a_cuda(*args)
+        else:
+            acc, right, (err, _), _ = check_pass_b(f"{tag} {label}", args)
+            held[label] = (acc, right)
+            b, _, terms = pass_b_bound(args, acc, right)
+            run = lambda: phd_cuda.pass_b_cuda(*args)
+        dev = cuda_ms(run, 10, queued=True)
+        out[label] = {"S": args[2].shape[0], "R": args[0].neighbor_half, "ms": cuda_ms(run, 10),
+                      "device_only_ms": dev, "terms": terms, "ns_per_term": dev * 1e6 / terms,
+                      "max_abs_err": err, **b}
+    if key == "pass_b":
+        (acc_m, right_m), (acc_w, right_w) = held["main"], held["wide"]
+        S = acc_m.shape[0]
+        assert_equal(f"[wide] {tag}: pass B's sums on the shared planes",
+                     acc_w[:S].view(torch.int32), acc_m.view(torch.int32))
+        assert_equal(f"[wide] {tag}: pass B's flags on the shared planes", right_w[:S], right_m)
+    out["per_term_ratio"] = out["wide"]["ns_per_term"] / out["main"]["ns_per_term"]
+    m, w = out["main"], out["wide"]
+    print(f"[wide] {tag} {key}: main instance at S={m['S']} R={m['R']} {m['device_only_ms']:.4f} ms "
+          f"device-only ({m['ms']:.4f}), {m['terms']} terms, {m['ns_per_term']:.6f} ns a term, bound "
+          f"{m['bound_ms']:.4f} ms by {m['bound_by']} (share {m['bound_ms'] / m['device_only_ms']:.3f}); "
+          f"wide at S={w['S']} R={w['R']} {w['device_only_ms']:.4f} ms ({w['ms']:.4f}), {w['terms']} "
+          f"terms, {w['ns_per_term']:.6f} ns a term, bound {w['bound_ms']:.4f} ms by {w['bound_by']} "
+          f"(share {w['bound_ms'] / w['device_only_ms']:.3f}); wide / main a term "
+          f"{out['per_term_ratio']:.3f}" + ("; sums and flags bit-equal on the shared planes"
+                                              if key == "pass_b" else "") + f" ({card})")
+    return out
+
+
+def live_plane_kernels(a_args, b_args, card):
+    """[wide]: the two live-plane passes (``live_weights_cuda``,
+    ``live_tracks_cuda``) on a real frame's pass arguments against
+    ``ops.phd.live_planes`` (words equal; pass B's acc and right zeroed at
+    the empty entries, the rest untouched), timed beside their bound: the
+    table's deciding plane read once, the words written once, and for pass B
+    acc and right written at every empty entry.  Returns the numbers."""
+    import torch
+    from semantic_dsp_map_tpu_torch.ops import phd, phd_cuda
+
+    weff, trk = a_args[5], b_args[5]
+    S, H, W = weff.shape
+    words = -(-S // 32) * H * W * 4
+    out = {}
+    live = phd_cuda.live_weights_cuda(weff)
+    assert_equal("[wide] live_weights words", live, phd.live_planes(weff != 0))
+    occupied = trk != -2
+    acc = torch.full(trk.shape, 7.0, device=trk.device)
+    right = torch.ones(trk.shape, dtype=torch.bool, device=trk.device)
+    live = phd_cuda.live_tracks_cuda(trk, acc, right)
+    assert_equal("[wide] live_tracks words", live, phd.live_planes(occupied))
+    assert_equal("[wide] live_tracks acc", acc, torch.where(occupied, 7.0, 0.0))
+    assert_equal("[wide] live_tracks right", right, occupied)
+    empty = int((~occupied).sum())
+    for key, run, plain, n in (
+            ("phd_live_weights", lambda: phd_cuda.live_weights_cuda(weff),
+             lambda: phd.live_planes(weff != 0), nbytes(weff) + words),
+            ("phd_live_tracks", lambda: phd_cuda.live_tracks_cuda(trk, acc, right),
+             lambda: phd.live_planes(trk != -2), nbytes(trk) + words + 5 * empty)):
+        dev = cuda_ms(run, 10, queued=True)
+        out[key] = {"ms": cuda_ms(run, 10), "device_only_ms": dev, "plain_ms": cuda_ms(plain, 3),
+                    "max_abs_err": 0.0, "bytes": n, **bound(n)}
+        o = out[key]
+        print(f"[wide] {key} (S={S}, {H}x{W}, real frame): words equal to the plain version; "
+              f"kernel {o['ms']:.4f} ms ({dev:.4f} device-only), plain {o['plain_ms']:.3f} ms; "
+              f"{n} bytes, bound {o['bound_ms']:.4f} ms by {o['bound_by']}, share "
+              f"{o['bound_ms'] / dev:.3f} ({card})")
+    return out
+
+
+def full_table_pass_a(card, S=512, R=5, H=94, W=311):
+    """[wide]: pass A wide on a table with every entry of its S = 512 planes
+    live (61,952 terms a pixel at R = 5, the shape where one accumulator
+    parted by 5.1e-5) against the plain stencil, two launches bit-equal.
+    Returns (max abs, max rel) error."""
+    import torch
+    from semantic_dsp_map_tpu_torch import FilterParams, tiny_test_config
+
+    cfg = tiny_test_config(image_width=W, image_height=H, phd_pixel_table_slots=S,
+                           phd_neighbor_half=R)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True)
+    t, cloud, fill = phd_inputs(cfg, seed=2, fill=4.0)
+    weff = torch.where(t.meta >= 0, t.weight, 0.0)
+    if fill != 1.0 or not bool((weff != 0).all()):
+        raise AssertionError(f"[wide] full table: occupied share {fill}")
+    _, err = check_pass_a(f"full table S={S}", pass_a_inputs(cfg, params, t, cloud, weff))
+    print(f"[wide] pass A wide on a full table (S={S}, R={R}, {H}x{W}, "
+          f"{S * (2 * R + 1) ** 2} terms a pixel): within rtol {RTOL} of the plain stencil, max abs "
+          f"{err[0]:.3e}, max rel {err[1]:.3e}; two launches bit-equal ({card})")
+    return err
+
+
+def drive_wide_map(cfg, params, counters, card, frames=4):
+    """[wide]: a VKITTI2 map at ``cfg`` through ``update()`` (frame 0 eager,
+    frame 1 captured, replays after) and, on the same frames of the vkitti2
+    scene with its noise on, the eager step (``build_frame_stages``' parts)
+    on a state of its own: state (the generator too), render and counters
+    bit-equal every frame.  Each kernel of ``counters`` must run once a frame
+    in the map.  Returns the map's launches and its last frame's counters."""
+    import torch
+    from semantic_dsp_map_tpu_torch import MaskKpts, SemanticDSPMap, step_graph
+    from semantic_dsp_map_tpu_torch.frontend import pack_frame
+    from semantic_dsp_map_tpu_torch.map import build_frame_stages, unpack_frame
+    from semantic_dsp_map_tpu_torch.objects import refit_svd
+    from semantic_dsp_map_tpu_torch.state import init_map_state
+
+    synth = bench_scenes().synth_vkitti2_frame
+    dsp = SemanticDSPMap(cfg, params, device="cuda")
+    stages = build_frame_stages(cfg, params, dsp.registry)
+    state = init_map_state(cfg, 0, "cuda")
+    split = step_graph.split_at_refit(cfg)
+    reset_launches(counters)
+    runs = {fn.__name__: 0 for fn in counters}
+    for t in range(frames):
+        scene = synth(cfg, t, MaskKpts)
+        before = read_launches(counters)
+        result, diag = dsp.update(*scene, 0.1 * t)
+        torch.cuda.synchronize()
+        after = read_launches(counters)
+        ran = {k: after[k] - before[k] for k in after}
+        if set(ran.values()) != {1}:
+            raise AssertionError(f"[wide] S={cfg.phd_pixel_table_slots} map frame {t}: kernel runs "
+                                 f"{ran}")
+        runs = {k: runs[k] + ran[k] for k in runs}
+        f = unpack_frame(cfg, dsp._static_table,
+                         torch.from_numpy(pack_frame(cfg, dsp.registry, *scene, 0.1 * t)).cuda())
+        if split:
+            fit = stages.objects_fit(state, f)
+            objects = stages.objects_finish(fit, *refit_svd(fit))
+        else:
+            objects = stages.objects(state, f)
+        state, result_e, diag_e = stages.rest(state, f, objects)
+        torch.cuda.synchronize()
+        parted = states_differ(dsp.state, state)
+        parted += [n for n in result._fields if not torch.equal(getattr(result, n),
+                                                                getattr(result_e, n))]
+        counts = {k: int(v) for k, v in diag._asdict().items()}
+        if counts != {k: int(v) for k, v in diag_e._asdict().items()}:
+            parted.append("diagnostics")
+        if parted:
+            raise AssertionError(f"[wide] S={cfg.phd_pixel_table_slots} map frame {t}: the map "
+                                 f"parts from the eager step in {parted}")
+    graphs = sorted(dsp._static.graphs)
+    if not graphs or counts["visible_count"] == 0:
+        raise AssertionError(f"[wide] S={cfg.phd_pixel_table_slots} map: graphs {graphs}, "
+                             f"counters {counts}")
+    print(f"[wide] S={cfg.phd_pixel_table_slots}: {frames} VKITTI2 frames through update() "
+          f"(graphs {graphs}), each frame's state, render and counters bit-equal to the eager "
+          f"step's; the map's kernel runs {runs}; last frame {counts} ({card})")
+    del dsp, state
+    torch.cuda.empty_cache()
+    return {"frames": frames, "launches": runs, "diag": counts,
+            "graphs": [list(g) for g in graphs]}
+
+
 def wide_stencils(counters, card, r12_frames=4):
     """[wide] (c): a real VKITTI2 frame's pixel table (the default preset,
     S = 12) through passes A and B at R = 9, 12 and 16 against the plain
     stencils (``wide_pass``); a VKITTI2 map at S = 512 (the table of a real
-    frame, R = 5) likewise; then ``r12_frames`` VKITTI2 frames at
+    frame, R = 5) likewise, its live-plane passes (``live_plane_kernels``),
+    and pass A wide on a full S = 512 table (``full_table_pass_a``); each
+    pass's first wide shape beside the main one just below it
+    (``switch_pair``: pass A at S = 67 / 68 and R = 12 / 13, pass B at
+    S = 431 / 432, all real frames); the S = 512 map captured against eager,
+    4 frames (``drive_wide_map``); then ``r12_frames`` VKITTI2 frames at
     ``phd_neighbor_half=12`` through ``update()``, both passes counted once
     a frame.  Returns the numbers."""
     import dataclasses
@@ -1978,6 +2174,7 @@ def wide_stencils(counters, card, r12_frames=4):
     from semantic_dsp_map_tpu_torch import (
         FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config,
     )
+    from semantic_dsp_map_tpu_torch.ops import phd_cuda
 
     scenes = bench_scenes()
     params = FilterParams(**scenes.VK_PARAMS)
@@ -1986,12 +2183,25 @@ def wide_stencils(counters, card, r12_frames=4):
     for R in WIDE_R:
         cfg = dataclasses.replace(a_args[0], phd_neighbor_half=R)
         out[f"R{R}"] = wide_pass(f"real frame R={R}", (cfg, *a_args[1:]), (cfg, *b_args[1:]), card)
+    out["switch_a_r13"] = switch_pair("real frame S=12, R=12 / 13", "pass_a",
+                                      sliced(a_args, 12, 12), sliced(a_args, 12, 13), card)
     del a_args, b_args
     torch.cuda.empty_cache()
     a_args, b_args = recorded_passes(virtual_kitti2_config(phd_pixel_table_slots=WIDE_S), params)
     out[f"S{WIDE_S}"] = wide_pass(f"real frame S={WIDE_S}", a_args, b_args, card)
+    out["live_planes"] = live_plane_kernels(a_args, b_args, card)
+    out["switch_a_s68"] = switch_pair("real frame R=5, S=67 / 68", "pass_a", sliced(a_args, 67),
+                                      sliced(a_args, 68), card)
+    out["switch_b_s432"] = switch_pair("real frame R=5, S=431 / 432", "pass_b",
+                                       sliced(b_args, 431), sliced(b_args, 432), card)
     del a_args, b_args
     torch.cuda.empty_cache()
+    out["full_table_a"] = full_table_pass_a(card)
+    torch.cuda.empty_cache()
+    wide_fns = [fn for fn in counters if fn.__name__.startswith("pass_")]
+    wide_fns += [phd_cuda.live_weights_cuda, phd_cuda.live_tracks_cuda]
+    out["s512_map"] = drive_wide_map(virtual_kitti2_config(phd_pixel_table_slots=WIDE_S), params,
+                                     wide_fns, card)
 
     cfg = virtual_kitti2_config(phd_neighbor_half=12)
     dsp = SemanticDSPMap(cfg, params, device="cuda")
@@ -4810,10 +5020,16 @@ def main() -> int:
         "merge_blocks_accepted": dict(name="merge_blocks_accepted", route="cuda",
                                       source=source + "birth.cu",
                                       replaces="semantic_dsp_map_tpu/ops/birth.py:404"),
+        # the first launch of a PHD pass past its main instance: the table's
+        # live planes, read once ([wide])
+        "phd_live_weights": dict(name="phd_live_weights", route="cuda", source=source + "phd.cu",
+                                 replaces="semantic_dsp_map_tpu/ops/phd_pallas.py:119"),
+        "phd_live_tracks": dict(name="phd_live_tracks", route="cuda", source=source + "phd.cu",
+                                replaces="semantic_dsp_map_tpu/ops/phd_pallas.py:269"),
     }
     # No single PyTorch call computes a frame kernel's function.
     for key in ("phd_pass_a", "phd_pass_b", "render", "front_candidates", "movable_voxels",
-                "merge_blocks", "merge_blocks_accepted"):
+                "merge_blocks", "merge_blocks_accepted", "phd_live_weights", "phd_live_tracks"):
         report[key]["library_ms"] = None
     # ms / plain_ms / max_abs_err at VKITTI2 shapes, zed2_* at ZED2 shapes,
     # coda_* at the coda preset's (960 x 540, K = 3 at 8.4M voxels)
@@ -4871,11 +5087,25 @@ def main() -> int:
         report[key]["wide_k63"] = full[key]
     report["merge_blocks"]["wide_k63"] = full["merge"]
     report["merge_blocks_accepted"]["wide_k63"] = full["merge_accepted"]
+    stencils = wide["stencils"]
     for key in ("pass_a", "pass_b"):
-        report["phd_" + key]["wide"] = {**{k: v[key] for k, v in wide["stencils"].items()
-                                           if k != "r12_map"}, "k63_frame": full["phd"][key]}
-        report["phd_" + key]["launches_by_path"]["wide_r12"] = (
-            wide["stencils"]["r12_map"]["launches"][key + "_cuda"])
+        report["phd_" + key]["wide"] = {**{k: v[key] for k, v in stencils.items()
+                                           if k.startswith(("R", "S"))},
+                                        "k63_frame": full["phd"][key]}
+        by_path = report["phd_" + key]["launches_by_path"]
+        by_path["wide_r12"] = stencils["r12_map"]["launches"][key + "_cuda"]
+        by_path["wide_s512"] = stencils["s512_map"]["launches"][key + "_cuda"]
+    report["phd_pass_a"]["wide"].update(
+        first_wide_s68=stencils["switch_a_s68"], first_wide_r13=stencils["switch_a_r13"],
+        full_table_max_abs_err=stencils["full_table_a"][0])
+    report["phd_pass_b"]["wide"]["first_wide_s432"] = stencils["switch_b_s432"]
+    # the live-plane passes run only where a pass runs its wide instance:
+    # their launches are the S = 512 map's, their numbers its real frame's
+    for key, fname in (("phd_live_weights", "live_weights_cuda"),
+                       ("phd_live_tracks", "live_tracks_cuda")):
+        n = stencils["s512_map"]["launches"][fname]
+        report[key].update(stencils["live_planes"][key], launches=n,
+                           launches_by_path={"wide_s512": n})
     smoothed_ms = {"vkitti2": check_smoothed_render(vk_cfg, "vkitti2", against_cpu=False),
                    "zed2": check_smoothed_render(zed2_cfg, "zed2")}
     torch.cuda.empty_cache()

@@ -81,9 +81,10 @@
 // Every R and S runs: pass A's kernel where one plane of the halo fits its
 // list (R <= 13) and a pixel's window holds at most 8,192 entries, pass B's
 // where its halo and a tile's list fit the card's shared memory; past
-// those, the wide instances (pass_a_wide_kernel, pass_b_wide_kernel, below)
-// stage the halo in pieces and pass B's list in rounds, pass B's terms
-// still in the plain version's order, pass A's sum compensated.
+// those, a streaming pass finds each pixel's live planes once
+// (live_planes_kernel) and the wide instances (pass_a_wide_kernel,
+// pass_b_wide_kernel, below) work from its bits: pass B's terms still in
+// the plain version's order, pass A's sum a partial a window row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -414,41 +415,74 @@ __global__ void __launch_bounds__(B_NT, 6) pass_b_kernel(
 // fit its list ((A_TW + 2R) * (A_TH + 2R) <= A_CAP: R <= 13), and
 // pass_b_kernel holds the whole halo and a whole tile's work list in shared
 // memory (20 B a halo pixel and 4 * B_PIX * S bytes: at R = 5 no more than
-// about S = 430 fit the card's 227 KB).  Past those the launch goes to these,
-// which keep everything but the order of staging:
+// about S = 430 fit the card's 227 KB).  Past those the wrappers run two
+// launches: first live_planes_kernel, then the wide instance.
+//
+// What bounds them.  A wide table is deep and almost empty: a real store
+// never fills a pixel past slot 12, so at S = 512 some 500 of the 512 planes
+// hold nothing.  Pass B's least time is a stream (trk_eff read, acc and right
+// written: 2.15 GB at S = 512, 0.64 ms at 3.35 TB/s) and pass A's is w_eff
+// read once (0.95 GB); the terms of the few occupied entries come after.  So
+// the deciding plane of each table is read once, by a pass built to stream:
+//
+// live_planes_kernel: the words, u32 [ceil(S / 32), H, W] (29.8 MB at
+// S = 512 and 1242 x 375, which stays in the 50 MB L2 for the wide instance
+// that reads them), hold bit b of word (g, pixel) where plane 32g + b of
+// the pixel is live (pass A: w_eff != 0; pass B: trk_eff != -2).  They are
+// cleared, then the table is streamed as one flat array: a thread has four
+// 16-byte loads in flight and sets the bits of its live entries by atomic OR
+// (a few in a hundred; neighbouring lanes hit neighbouring words).  For pass
+// B it also writes acc = 0 and right = 0 at every empty entry, 16 and 4
+// bytes a vector where all four entries are empty, so every output is still
+// written exactly once.  Not a thread per pixel and plane group: its 4-byte
+// accesses along the planes (whose bases are off 16-byte bounds at VKITTI2,
+// H * W * 4 = 1,863,000 B) ran pass B's stream at 56% of its bound.
 //
 // Pass A wide: the halo is cut into chunks of at most A_CAP pixels (whole
-// halo rows, or pieces of one row where a row is longer), and each chunk
-// runs as the whole halo runs in pass_a_kernel: live bits, the block's
-// prefix scan, the list in plane sub-groups, and every pixel's terms from
-// the rows and columns of its window that lie in the chunk, each such row's
-// entries one contiguous range of the list.  A chunk wholly outside the
-// image is skipped (it has no live entry).  The sum runs chunk by chunk,
-// then as in pass_a_kernel, and is compensated (Kahan): one accumulator
-// added to term by term drifts from the plain version by about the square
-// root of its term count in ulps, and a pixel of a full table at S = 512
-// and R = 5 has 61,952 terms (measured on an H100: 5.1e-5 relative, past
-// the rtol 2e-5 of the check).  pass_a_kernel runs where a pixel's window
-// holds at most A_MAX_TERMS = 8,192 entries (S (2R+1)^2: the presets' 1,452
-// at R = 5, S = 12); every other shape runs here.  Like pass_a_kernel its
-// sum depends on the data alone and agrees with the plain version at rtol
-// 2e-5.
+// halo rows, or pieces of one row where a row is longer).  For each chunk
+// the block reads the live words of every plane group at once and ORs them
+// into the set of groups with a live entry there; a group without one costs
+// nothing more, and a tile with none writes its zeros.  Each live group runs
+// as the whole halo runs in pass_a_kernel, its bits now read from the words
+// instead of from w_eff: the block's prefix scan, the list in plane
+// sub-groups, and every pixel's terms from the rows and columns of its
+// window that lie in the chunk, each such row's entries one contiguous range
+// of the list.  A chunk wholly outside the image is skipped.  The sum: each
+// window row's range into a partial of its own, the partial added to the
+// pixel's total (chunk by chunk, group by group, sub-group by sub-group,
+// row by row).  One accumulator added to term by term drifts from the plain
+// version by about the square root of its term count in ulps, and a pixel of
+// a full table at S = 512 and R = 5 has 61,952 terms (5.1e-5 relative on an
+// H100 with one accumulator, past the rtol 2e-5 of the check); with a
+// partial a row the total takes a few thousand additions and each partial a
+// few dozen (tests/test_torch_phd_wide_sum.py replays this order on the
+// CPU).  pass_a_kernel runs where a pixel's window holds at most
+// A_MAX_TERMS = 8,192 entries (S (2R+1)^2: the presets' 1,452 at R = 5,
+// S = 12); every other shape runs here.  The order depends on the data
+// alone, so two launches give the same bits; it agrees with the plain
+// version at rtol 2e-5.
 //
-// Pass B wide: the work list is staged in rounds of BW_LIST entries of the
-// tile (the scan of pass_b_kernel over that many entries: one plane group
-// after another), each thread holding BW_EPT entries' sums in registers, and
-// the observation halo in pieces of at most BW_PIECE pixels: bands of whole
-// halo rows, or, where a row is longer, pieces of one row.  The pieces are
-// visited in row-major order and each entry adds, piece after piece, the
-// terms of its window that lie in the piece in the plain version's order
-// (offset rows ascending, columns ascending within a row), so the sequence
-// of additions, and with it every bit, is pass_b_kernel's.  A halo that fits
-// one piece is staged once for all rounds.  A piece wholly outside the image
-// is skipped (its terms are all skipped terms).
+// Pass B wide: the tile's live words, up to BW_WORDS at a time (16 plane
+// groups of its 128 pixels), are turned into list positions by the block's
+// prefix scan of their bit counts, and the occupied entries are handed out
+// in rounds of BW_LIST: no round visits an empty plane.  Where the halo fits
+// one piece of BW_PIECE pixels (R <= 23) it is staged once and each entry,
+// one a thread, walks its whole window as in pass_b_kernel
+// (pass_b_wide_kernel<true>).  Past that the halo is staged in pieces (bands
+// of whole halo rows, or pieces of one row) and each thread holds BW_EPT
+// entries' sums across them (<false>).  Either way each entry adds its
+// terms in the plain version's order (offset rows ascending, columns
+// ascending within a row), so the sequence of additions, and with it every
+// bit, is pass_b_kernel's.
 constexpr long long A_MAX_TERMS = 8192;   // a pixel's window entries for pass_a_kernel
-constexpr int BW_EPT = 4;                 // list entries a thread holds
+constexpr int L_NT = 256;                 // live_planes_kernel: threads a block
+constexpr int L_VEC = 4;                  // and 4-entry vectors a thread
+constexpr int BW_EPT = 4;                 // list entries a thread holds (pieces)
 constexpr int BW_LIST = B_NT * BW_EPT;    // list entries a round
 constexpr int BW_PIECE = 4096;            // halo pixels a piece
+constexpr int BW_WORDS = 2048;            // live words a block scans at once
+static_assert(BW_WORDS % B_PIX == 0 && BW_WORDS / B_PIX <= 32, "whole plane groups");
+static_assert(B_NT == A_NT, "pass B wide scans with scan_live");
 
 // The halo in chunks of at most `cap` pixels: `*cw` columns by `*ch` rows,
 // whole rows where a row fits, else one row.
@@ -457,17 +491,84 @@ void halo_chunks(int hw, int hh, int cap, int* cw, int* ch) {
   *ch = cap / *cw < hh ? cap / *cw : hh;
 }
 
+template <bool TRACKS>
+__global__ void __launch_bounds__(L_NT) live_planes_kernel(
+    const int* __restrict__ plane, unsigned* __restrict__ live, float* __restrict__ acc_out,
+    uint8_t* __restrict__ right_out, long long n, long long HW, double inv_hw, int aligned) {
+  // entry bits: a weight is live unless it is +0 or -0, a track unless it is -2
+  auto is_live = [](int v) { return TRACKS ? v != -2 : (v & 0x7fffffff) != 0; };
+  // entry e is plane s = e / HW of pixel e - s * HW; the quotient by the
+  // reciprocal (off by at most one, then set right) keeps the 64-bit
+  // division's subroutine call, and the registers it saves, out of the kernel
+  auto mark = [&](long long e) {
+    long long s = (long long)((double)e * inv_hw);
+    if (s * HW > e) {
+      --s;
+    } else if ((s + 1) * HW <= e) {
+      ++s;
+    }
+    atomicOr(&live[(s >> 5) * HW + (e - s * HW)], 1u << (s & 31));
+  };
+  const long long first = (long long)blockIdx.x * (L_NT * L_VEC) + threadIdx.x;  // a 4-entry vector
+  int4 v[L_VEC];
+#pragma unroll
+  for (int k = 0; k < L_VEC; ++k) {
+    const long long j = first + k * L_NT;
+    v[k] = aligned && 4 * j + 3 < n ? reinterpret_cast<const int4*>(plane)[j]
+                                    : make_int4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int k = 0; k < L_VEC; ++k) {
+    const long long j = first + k * L_NT;
+    if (!aligned || 4 * j + 3 >= n) {
+      // one entry at a time: past the last whole vector, or off 16-byte bounds
+      for (long long e = 4 * j; e < n && e < 4 * j + 4; ++e) {
+        if (is_live(plane[e])) {
+          mark(e);
+        } else if (TRACKS) {
+          acc_out[e] = 0.f;
+          right_out[e] = 0;
+        }
+      }
+      continue;
+    }
+    const int w[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (is_live(w[i])) {
+        any = true;
+        mark(4 * j + i);
+      }
+    }
+    if (!TRACKS) continue;
+    if (!any) {
+      reinterpret_cast<float4*>(acc_out)[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<unsigned*>(right_out)[j] = 0u;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!is_live(w[i])) {
+          acc_out[4 * j + i] = 0.f;
+          right_out[4 * j + i] = 0;
+        }
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(A_NT, 4) pass_a_wide_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ weff,
     const int* __restrict__ trk,
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ isg,
-    const int* __restrict__ otrk,
+    const int* __restrict__ otrk, const unsigned* __restrict__ live,
     float* __restrict__ ck,
     int S, int H, int W, int R, float coef3, float id_p, int independent, int cw, int ch) {
   extern __shared__ float4 smem_aw[];
   __shared__ int s_warp[A_NT / 32];
+  __shared__ unsigned s_groups;
   float4* s_ent = smem_aw;                                         // px, py, pz, w_eff
   int* s_trk = reinterpret_cast<int*>(s_ent + A_CAP);              // track (first: entry code)
   unsigned* s_mask = reinterpret_cast<unsigned*>(s_trk + A_CAP);   // live bits per chunk pixel
@@ -480,6 +581,7 @@ __global__ void __launch_bounds__(A_NT, 4) pass_a_wide_kernel(
   const bool inside = x < W && y < H;
   const long long HW = (long long)H * W;
   const int hw = A_TW + 2 * R, hh = A_TH + 2 * R;
+  const int G = (S + 31) >> 5;
 
   float qx = 0.f, qy = 0.f, qz = 0.f, qs = 0.f;
   int qt = -1;
@@ -487,13 +589,7 @@ __global__ void __launch_bounds__(A_NT, 4) pass_a_wide_kernel(
     const long long q = (long long)y * W + x;
     qx = ox[q]; qy = oy[q]; qz = oz[q]; qs = isg[q]; qt = otrk[q];
   }
-  float acc = 0.f, comp = 0.f;  // the sum and its running compensation
-  auto add = [&](float term) {
-    const float y = term - comp;
-    const float t = acc + y;
-    comp = (t - acc) - y;
-    acc = t;
-  };
+  float acc = 0.f;
 
   for (int r0 = 0; r0 < hh; r0 += ch) {
     const int rh = min(ch, hh - r0);
@@ -505,6 +601,13 @@ __global__ void __launch_bounds__(A_NT, 4) pass_a_wide_kernel(
       // this pixel's window in the chunk: halo rows ra..rb, columns lo..hi
       const int ra = max(ty, r0), rb = min(ty + 2 * R, r0 + rh - 1);
       const int lo = max(tx, c0), hi = min(tx + 2 * R, c0 + rw - 1);
+      // The chunk pixel i in the image: the offset of its (row, column) in a
+      // plane, else -1.
+      auto pixel = [&](int i) -> long long {
+        const int iy = i / rw, ix = i - iy * rw;
+        const int gy = y0 + r0 + iy - R, gx = x0 + c0 + ix - R;
+        return gy >= 0 && gy < H && gx >= 0 && gx < W ? (long long)gy * W + gx : -1;
+      };
 
       // The planes of ``sel`` (bits relative to plane s_lo), ``total`` > 0
       // live entries: list them and add every pixel's terms.
@@ -522,9 +625,7 @@ __global__ void __launch_bounds__(A_NT, 4) pass_a_wide_kernel(
         for (int k = tid; k < total; k += A_NT) {
           const int code = s_trk[k];
           const int i = code & 0xffff, b = code >> 16;
-          const int iy = i / rw, ix = i - iy * rw;
-          const long long g = (long long)(s_lo + b) * HW + (long long)(y0 + r0 + iy - R) * W +
-                              (x0 + c0 + ix - R);
+          const long long g = (long long)(s_lo + b) * HW + pixel(i);
           s_ent[k] = make_float4(px[g], py[g], pz[g], weff[g]);
           s_trk[k] = trk[g];
         }
@@ -533,6 +634,7 @@ __global__ void __launch_bounds__(A_NT, 4) pass_a_wide_kernel(
           for (int row = ra; row <= rb; ++row) {
             const int first = (row - r0) * rw + (lo - c0);
             const int end = s_start[first + (hi - lo) + 1];
+            float part = 0.f;  // this window row's terms
             for (int k = s_start[first]; k < end; ++k) {
               const float4 e = s_ent[k];
               const int t = s_trk[k];
@@ -542,44 +644,55 @@ __global__ void __launch_bounds__(A_NT, 4) pass_a_wide_kernel(
               const float s2 = zx * zx + zy * zy + zz * zz;
               float gk = coef3 * expf(-0.5f * s2);
               if (independent) {
-                if (t == qt) add(e.w * gk);
+                if (t == qt) part += e.w * gk;
               } else {
                 if (t != qt) gk = gk * id_p;
-                add(e.w * gk);
+                part += e.w * gk;
               }
             }
+            acc += part;
           }
         }
         __syncthreads();  // the list and the positions are reused
       };
 
-      for (int s_lo = 0; s_lo < S; s_lo += 32) {
-        const int planes = min(32, S - s_lo);
+      for (int g0 = 0; g0 < G; g0 += 32) {
+        // the groups g0 .. g0 + 31 with a live entry in the chunk, read at once
+        const int ng = min(32, G - g0);
+        unsigned seen = 0u;
         for (int i = tid; i < n; i += A_NT) {
-          const int iy = i / rw, ix = i - iy * rw;
-          const int gy = y0 + r0 + iy - R, gx = x0 + c0 + ix - R;
-          unsigned m = 0u;
-          if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-            const float* p = weff + s_lo * HW + (long long)gy * W + gx;
-#pragma unroll 4
-            for (int b = 0; b < planes; ++b)
-              if (p[b * HW] != 0.f) m |= 1u << b;
-          }
-          s_mask[i] = m;
+          const long long q = pixel(i);
+          if (q < 0) continue;
+          const unsigned* w = live + (long long)g0 * HW + q;
+          for (int k = 0; k < ng; ++k)
+            if (w[k * HW] != 0u) seen |= 1u << k;
         }
+        seen = __reduce_or_sync(0xffffffffu, seen);
+        __syncthreads();  // the last readers of s_groups are done
+        if (tid == 0) s_groups = 0u;
         __syncthreads();
-        const unsigned all = planes == 32 ? 0xffffffffu : (1u << planes) - 1u;
-        const int total = scan_live(s_mask, all, s_start, s_warp, n, tid);
-        if (total == 0) continue;
-        if (total <= A_CAP) {
-          run(s_lo, all, total);
-        } else {
-          const int step = A_CAP / n;  // n <= A_CAP: at least one plane
-          for (int b0 = 0; b0 < planes; b0 += step) {
-            const int b1 = min(b0 + step, planes);
-            const unsigned sel = (b1 == 32 ? 0xffffffffu : (1u << b1) - 1u) & ~((1u << b0) - 1u);
-            const int part = scan_live(s_mask, sel, s_start, s_warp, n, tid);
-            if (part != 0) run(s_lo, sel, part);
+        if ((tid & 31) == 0 && seen != 0u) atomicOr(&s_groups, seen);
+        __syncthreads();
+        for (unsigned groups = s_groups; groups != 0u; groups &= groups - 1u) {
+          const int g = g0 + __ffs(groups) - 1;
+          const int planes = min(32, S - 32 * g);
+          for (int i = tid; i < n; i += A_NT) {
+            const long long q = pixel(i);
+            s_mask[i] = q < 0 ? 0u : live[(long long)g * HW + q];
+          }
+          __syncthreads();
+          const unsigned all = planes == 32 ? 0xffffffffu : (1u << planes) - 1u;
+          const int total = scan_live(s_mask, all, s_start, s_warp, n, tid);
+          if (total <= A_CAP) {
+            run(32 * g, all, total);
+          } else {
+            const int step = A_CAP / n;  // n <= A_CAP: at least one plane
+            for (int b0 = 0; b0 < planes; b0 += step) {
+              const int b1 = min(b0 + step, planes);
+              const unsigned sel = (b1 == 32 ? 0xffffffffu : (1u << b1) - 1u) & ~((1u << b0) - 1u);
+              const int part = scan_live(s_mask, sel, s_start, s_warp, n, tid);
+              if (part != 0) run(32 * g, sel, part);
+            }
           }
         }
       }
@@ -588,28 +701,32 @@ __global__ void __launch_bounds__(A_NT, 4) pass_a_wide_kernel(
   if (inside) ck[(long long)y * W + x] = acc;
 }
 
-__global__ void __launch_bounds__(B_NT) pass_b_wide_kernel(
+template <bool ONE_PIECE>
+__global__ void __launch_bounds__(B_NT, ONE_PIECE ? 4 : 2) pass_b_wide_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const int* __restrict__ trk_eff,
     const float* __restrict__ ff_eff, const float* __restrict__ isg_p,
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const uint8_t* __restrict__ ovalid,
     const int* __restrict__ otrk, const float* __restrict__ ck_kappa,
+    const unsigned* __restrict__ live,
     float* __restrict__ acc_out, uint8_t* __restrict__ right_out,
     int S, int H, int W, int R, float coef3, float id_p, float thr_right,
     int independent, int pw, int pr) {
   extern __shared__ float4 smem_bw[];
-  __shared__ int s_count;
-  float4* s_obs = smem_bw;                                   // ox, oy, oz, ck_kappa
-  int* s_ot = reinterpret_cast<int*>(s_obs + pw * pr);       // track, -1 = skip
-  int* s_list = s_ot + pw * pr;                              // occupied entries of a round
+  __shared__ int s_warp[B_NT / 32];
+  float4* s_obs = smem_bw;                                      // ox, oy, oz, ck_kappa
+  int* s_ot = reinterpret_cast<int*>(s_obs + pw * pr);          // track, -1 = skip
+  int* s_list = s_ot + pw * pr;                                 // occupied entries of a round
+  unsigned* s_word = reinterpret_cast<unsigned*>(s_list + BW_LIST);  // the tile's live words
+  int* s_start = reinterpret_cast<int*>(s_word + BW_WORDS);     // their list positions
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int x0 = blockIdx.x * B_TW, y0 = blockIdx.y * B_TH;
   const long long HW = (long long)H * W;
   const int sw = B_TW + 2 * R, hh = B_TH + 2 * R;
-  const bool one_piece = pw >= sw && pr >= hh;
+  const int G = (S + 31) >> 5;
+  constexpr int GPW = BW_WORDS / B_PIX;  // plane groups a scan
 
   // Stages the piece of halo rows r0.. and columns c0.. (rh x rw pixels).
   auto stage = [&](int r0, int c0, int rh, int rw) {
@@ -632,119 +749,153 @@ __global__ void __launch_bounds__(B_NT) pass_b_wide_kernel(
       s_ot[i] = t;
     }
   };
-  if (one_piece) stage(0, 0, hh, sw);  // read by every round below
+  if (ONE_PIECE) stage(0, 0, hh, sw);  // read by every round below
 
-  const int total = B_PIX * S;
-  for (int e0 = 0; e0 < total; e0 += BW_LIST) {
-    if (tid == 0) s_count = 0;
-    __syncthreads();
-    // The round's scan: entries e0 .. e0 + BW_LIST - 1 (entry e of the tile
-    // is slot e / B_PIX of tile pixel e % B_PIX), as in pass_b_kernel.
-#pragma unroll
-    for (int u = 0; u < BW_EPT; ++u) {
-      const int e = e0 + u * B_NT + tid;
-      const int s = e / B_PIX, p = e - s * B_PIX;
+  for (int g0 = 0; g0 < G; g0 += GPW) {
+    // word i = k * B_PIX + p: plane group g0 + k of tile pixel p
+    const int nw = min(GPW, G - g0) * B_PIX;
+    for (int i = tid; i < nw; i += B_NT) {
+      const int k = i / B_PIX, p = i - k * B_PIX;
       const int x = x0 + p % B_TW, y = y0 + p / B_TW;
-      long long gs = -1;
-      int t = -2;
-      if (e < total && x < W && y < H) {
-        gs = s * HW + (long long)y * W + x;
-        t = trk_eff[gs];
-      }
-      const bool occupied = t != -2;
-      if (!occupied && gs >= 0) {
-        acc_out[gs] = 0.f;
-        right_out[gs] = 0;
-      }
-      const unsigned m = __ballot_sync(0xffffffffu, occupied);
-      int base = 0;
-      if (lane == 0 && m != 0u) base = atomicAdd(&s_count, __popc(m));
-      base = __shfl_sync(0xffffffffu, base, 0);
-      if (occupied) s_list[base + __popc(m & ((1u << lane) - 1u))] = e;
+      s_word[i] = x < W && y < H ? live[(long long)(g0 + k) * HW + (long long)y * W + x] : 0u;
     }
     __syncthreads();
-    const int n_work = s_count;
-    if (n_work == 0) continue;  // uniform
-
-    // This thread's entries: their particle, their window's place, their sums.
-    int et[BW_EPT], etx[BW_EPT], ety[BW_EPT];
-    long long eg[BW_EPT];
-    float ex[BW_EPT], ey[BW_EPT], ez[BW_EPT], eff[BW_EPT], esg[BW_EPT], eacc[BW_EPT];
-    bool eright[BW_EPT];
-#pragma unroll
-    for (int i = 0; i < BW_EPT; ++i) {
-      const int k = tid + i * B_NT;
-      eacc[i] = 0.f;
-      eright[i] = false;
-      eg[i] = -1;
-      et[i] = etx[i] = ety[i] = 0;
-      ex[i] = ey[i] = ez[i] = eff[i] = esg[i] = 0.f;
-      if (k < n_work) {
-        const int e = s_list[k];
-        const int s = e / B_PIX, p = e - s * B_PIX;
-        etx[i] = p % B_TW;
-        ety[i] = p / B_TW;
-        const long long q = (long long)(y0 + ety[i]) * W + (x0 + etx[i]);
-        eg[i] = s * HW + q;
-        et[i] = trk_eff[eg[i]];
-        ex[i] = px[eg[i]]; ey[i] = py[eg[i]]; ez[i] = pz[eg[i]]; eff[i] = ff_eff[eg[i]];
-        esg[i] = isg_p[q];
+    const int total = scan_live(s_word, 0xffffffffu, s_start, s_warp, nw, tid);
+    for (int base = 0; base < total; base += BW_LIST) {
+      // the round's list: the occupied entries at positions base .. base + BW_LIST - 1
+      for (int i = tid; i < nw; i += B_NT) {
+        int pos = s_start[i];
+        if (s_start[i + 1] <= base || pos >= base + BW_LIST) continue;
+        for (unsigned m = s_word[i]; m != 0u; m &= m - 1u, ++pos)
+          if (pos >= base && pos < base + BW_LIST) s_list[pos - base] = (i << 5) | (__ffs(m) - 1);
       }
-    }
-
-    for (int r0 = 0; r0 < hh; r0 += pr) {
-      const int rh = min(pr, hh - r0);
-      if (y0 + r0 + rh - 1 - R < 0 || y0 + r0 - R >= H) continue;  // uniform
-      for (int c0 = 0; c0 < sw; c0 += pw) {
-        const int rw = min(pw, sw - c0);
-        if (x0 + c0 + rw - 1 - R < 0 || x0 + c0 - R >= W) continue;
-        if (!one_piece) {
-          __syncthreads();  // the last piece's readers are done
-          stage(r0, c0, rh, rw);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < BW_EPT; ++i) {
-          if (eg[i] < 0) continue;
-          const int ra = max(ety[i], r0), rb = min(ety[i] + 2 * R, r0 + rh - 1);
-          const int lo = max(etx[i], c0), hi = min(etx[i] + 2 * R, c0 + rw - 1);
-          float acc = eacc[i];
-          bool right = eright[i];
-          for (int row = ra; row <= rb; ++row) {
-            for (int col = lo; col <= hi; ++col) {
-              const int j = (row - r0) * rw + (col - c0);
-              const int ot = s_ot[j];
+      __syncthreads();
+      const int n_work = min(BW_LIST, total - base);
+      // list entry -> (slot, tile pixel)
+      auto entry = [&](int k, int* s, int* p) {
+        const int e = s_list[k], i = e >> 5;
+        *s = 32 * (g0 + i / B_PIX) + (e & 31);
+        *p = i % B_PIX;
+      };
+      if (ONE_PIECE) {
+        // One entry per thread; the whole window in the plain version's order.
+        for (int k = tid; k < n_work; k += B_NT) {
+          int s, p;
+          entry(k, &s, &p);
+          const int tx = p % B_TW, ty = p / B_TW;
+          const long long q = (long long)(y0 + ty) * W + (x0 + tx);
+          const long long g = s * HW + q;
+          const int t = trk_eff[g];
+          const float ppx = px[g], ppy = py[g], ppz = pz[g], ff = ff_eff[g];
+          const float sg = isg_p[q];
+          float acc = 0.f;
+          bool right = false;
+          for (int dm = 0; dm <= 2 * R; ++dm) {
+            const int row = (ty + dm) * sw + tx;
+            for (int dn = 0; dn <= 2 * R; ++dn) {
+              const int i = row + dn;
+              const int ot = s_ot[i];
               if (ot == -1) continue;
-              const float4 o = s_obs[j];
-              const float zx = (ex[i] - o.x) * esg[i];
-              const float zy = (ey[i] - o.y) * esg[i];
-              const float zz = (ez[i] - o.z) * esg[i];
+              const float4 o = s_obs[i];
+              const float zx = (ppx - o.x) * sg;
+              const float zy = (ppy - o.y) * sg;
+              const float zz = (ppz - o.z) * sg;
               const float s2 = zx * zx + zy * zy + zz * zz;
               const float g_raw = coef3 * expf(-0.5f * s2);
-              const bool same = ot == et[i];
+              const bool same = ot == t;
               float gk;
               if (independent) {
                 gk = same ? g_raw : 0.f;
               } else {
                 if (same && g_raw > thr_right) right = true;
                 gk = same ? g_raw : g_raw * id_p;
-                gk = gk * eff[i];
+                gk = gk * ff;
               }
               acc = acc + div_term(gk, o.w);
             }
           }
-          eacc[i] = acc;
-          eright[i] = right;
+          acc_out[g] = acc;
+          right_out[g] = right ? 1 : 0;
+        }
+      } else {
+        // This thread's entries: their particle, their window's place, their sums.
+        int et[BW_EPT], etx[BW_EPT], ety[BW_EPT];
+        long long eg[BW_EPT];
+        float ex[BW_EPT], ey[BW_EPT], ez[BW_EPT], eff[BW_EPT], esg[BW_EPT], eacc[BW_EPT];
+        bool eright[BW_EPT];
+#pragma unroll
+        for (int i = 0; i < BW_EPT; ++i) {
+          const int k = tid + i * B_NT;
+          eacc[i] = 0.f;
+          eright[i] = false;
+          eg[i] = -1;
+          et[i] = etx[i] = ety[i] = 0;
+          ex[i] = ey[i] = ez[i] = eff[i] = esg[i] = 0.f;
+          if (k < n_work) {
+            int s, p;
+            entry(k, &s, &p);
+            etx[i] = p % B_TW;
+            ety[i] = p / B_TW;
+            const long long q = (long long)(y0 + ety[i]) * W + (x0 + etx[i]);
+            eg[i] = s * HW + q;
+            et[i] = trk_eff[eg[i]];
+            ex[i] = px[eg[i]]; ey[i] = py[eg[i]]; ez[i] = pz[eg[i]]; eff[i] = ff_eff[eg[i]];
+            esg[i] = isg_p[q];
+          }
+        }
+        for (int r0 = 0; r0 < hh; r0 += pr) {
+          const int rh = min(pr, hh - r0);
+          if (y0 + r0 + rh - 1 - R < 0 || y0 + r0 - R >= H) continue;  // uniform
+          for (int c0 = 0; c0 < sw; c0 += pw) {
+            const int rw = min(pw, sw - c0);
+            if (x0 + c0 + rw - 1 - R < 0 || x0 + c0 - R >= W) continue;
+            __syncthreads();  // the last piece's readers are done
+            stage(r0, c0, rh, rw);
+            __syncthreads();
+#pragma unroll
+            for (int i = 0; i < BW_EPT; ++i) {
+              if (eg[i] < 0) continue;
+              const int ra = max(ety[i], r0), rb = min(ety[i] + 2 * R, r0 + rh - 1);
+              const int lo = max(etx[i], c0), hi = min(etx[i] + 2 * R, c0 + rw - 1);
+              float acc = eacc[i];
+              bool right = eright[i];
+              for (int row = ra; row <= rb; ++row) {
+                for (int col = lo; col <= hi; ++col) {
+                  const int j = (row - r0) * rw + (col - c0);
+                  const int ot = s_ot[j];
+                  if (ot == -1) continue;
+                  const float4 o = s_obs[j];
+                  const float zx = (ex[i] - o.x) * esg[i];
+                  const float zy = (ey[i] - o.y) * esg[i];
+                  const float zz = (ez[i] - o.z) * esg[i];
+                  const float s2 = zx * zx + zy * zy + zz * zz;
+                  const float g_raw = coef3 * expf(-0.5f * s2);
+                  const bool same = ot == et[i];
+                  float gk;
+                  if (independent) {
+                    gk = same ? g_raw : 0.f;
+                  } else {
+                    if (same && g_raw > thr_right) right = true;
+                    gk = same ? g_raw : g_raw * id_p;
+                    gk = gk * eff[i];
+                  }
+                  acc = acc + div_term(gk, o.w);
+                }
+              }
+              eacc[i] = acc;
+              eright[i] = right;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < BW_EPT; ++i) {
+          if (eg[i] < 0) continue;
+          acc_out[eg[i]] = eacc[i];
+          right_out[eg[i]] = eright[i] ? 1 : 0;
         }
       }
+      __syncthreads();  // the list is reused
     }
-#pragma unroll
-    for (int i = 0; i < BW_EPT; ++i) {
-      if (eg[i] < 0) continue;
-      acc_out[eg[i]] = eacc[i];
-      right_out[eg[i]] = eright[i] ? 1 : 0;
-    }
-    __syncthreads();  // the list is reused
   }
 }
 
@@ -759,9 +910,10 @@ size_t pass_b_smem_bytes(int R, int S) {
   return size_t(20) * (B_TW + 2 * R) * (B_TH + 2 * R) + sizeof(int) * B_PIX * S;
 }
 
-// Pass B wide: a piece of the halo and a round's list.
+// Pass B wide: a piece of the halo, a round's list, the live words and
+// their list positions.
 size_t pass_b_wide_smem_bytes(int pixels) {
-  return size_t(20) * pixels + sizeof(int) * BW_LIST;
+  return size_t(20) * pixels + sizeof(int) * (BW_LIST + 2 * BW_WORDS + 1);
 }
 
 // The most shared memory a block of the current device may ask for.
@@ -791,7 +943,59 @@ int launch_smem(void (*kernel)(P...), CUfunction& fn, dim3 grid, int threads, si
   return dsp::launch(kernel, fn, grid, threads, (unsigned)smem, (cudaStream_t)stream, args...);
 }
 
+// Where each pass runs its main instance: pass A where one plane of the halo
+// fits the list and a pixel's sum is short, pass B where the whole halo and
+// a tile's list fit the card's shared memory.
+bool pass_a_main(int S, int R) {
+  const long long side = 2 * R + 1;
+  return (long long)(A_TW + 2 * R) * (A_TH + 2 * R) <= A_CAP && S * side * side <= A_MAX_TERMS;
+}
+
+bool pass_b_main(int S, int R) { return pass_b_smem_bytes(R, S) <= (size_t)max_block_smem(); }
+
 }  // namespace
+
+// Every shape runs: dsp_pass_a / dsp_pass_b launch the main instances, and
+// where dsp_pass_a_is_wide / dsp_pass_b_is_wide say 1 the wrapper runs
+// dsp_live_planes, then dsp_pass_a_wide / dsp_pass_b_wide on its words
+// (the entry points of the main instances refuse those shapes).
+extern "C" int dsp_pass_a_is_wide(int S, int H, int W, int R) {
+  (void)H, (void)W;
+  return R >= 0 && !pass_a_main(S, R);
+}
+
+extern "C" int dsp_pass_b_is_wide(int S, int H, int W, int R) {
+  (void)H, (void)W;
+  return R >= 0 && !pass_b_main(S, R);
+}
+
+// The live words of a table (live_planes_kernel): `plane` is w_eff (f32) or,
+// with `tracks`, trk_eff (i32), whose empty entries get acc = 0, right = 0.
+// The words are cleared first.  The entries are read and written 16 bytes
+// at a time where the table and acc start on 16-byte bounds and right on
+// 4-byte ones (PyTorch's allocations do), else one at a time.
+extern "C" int dsp_live_planes(const void* plane, unsigned* live, float* acc, uint8_t* right,
+                               int S, int H, int W, int tracks, void* stream) {
+  if (S <= 0) return (int)cudaErrorInvalidValue;
+  const long long HW = (long long)H * W, n = S * HW;
+  const cudaError_t e =
+      cudaMemsetAsync(live, 0, sizeof(unsigned) * ((S + 31) / 32) * HW, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  const long long vectors = (n + 3) / 4;
+  const unsigned grid = (unsigned)((vectors + L_NT * L_VEC - 1) / (L_NT * L_VEC));
+  if (grid == 0) return 0;
+  const auto at = [](const void* p, unsigned bytes) { return (uintptr_t)p % bytes == 0; };
+  if (tracks) {
+    static CUfunction fn = nullptr;
+    return dsp::launch(live_planes_kernel<true>, fn, grid, L_NT, 0, (cudaStream_t)stream,
+                       static_cast<const int*>(plane), live, acc, right, n, HW, 1.0 / HW,
+                       (int)(at(plane, 16) && at(acc, 16) && at(right, 4)));
+  }
+  static CUfunction fn = nullptr;
+  return dsp::launch(live_planes_kernel<false>, fn, grid, L_NT, 0, (cudaStream_t)stream,
+                     static_cast<const int*>(plane), live, nullptr, nullptr, n, HW, 1.0 / HW,
+                     (int)at(plane, 16));
+}
 
 extern "C" int dsp_pass_a(
     const float* px, const float* py, const float* pz, const float* weff,
@@ -799,22 +1003,27 @@ extern "C" int dsp_pass_a(
     const float* isg, const int* otrk, float* ck,
     int S, int H, int W, int R, float coef3, float id_p, int independent,
     void* stream) {
+  if (R < 0 || !pass_a_main(S, R)) return (int)cudaErrorInvalidValue;
+  dim3 grid((W + A_TW - 1) / A_TW, (H + A_TH - 1) / A_TH);
+  static CUfunction fn = nullptr;
+  return launch_smem(pass_a_kernel, fn, grid, A_NT,
+                     pass_a_smem_bytes((A_TW + 2 * R) * (A_TH + 2 * R)), stream, px, py, pz, weff,
+                     trk, ox, oy, oz, isg, otrk, ck, S, H, W, R, coef3, id_p, independent);
+}
+
+extern "C" int dsp_pass_a_wide(
+    const float* px, const float* py, const float* pz, const float* weff,
+    const int* trk, const float* ox, const float* oy, const float* oz,
+    const float* isg, const int* otrk, const unsigned* live, float* ck,
+    int S, int H, int W, int R, float coef3, float id_p, int independent,
+    void* stream) {
   if (R < 0) return (int)cudaErrorInvalidValue;
   dim3 grid((W + A_TW - 1) / A_TW, (H + A_TH - 1) / A_TH);
-  const int hw = A_TW + 2 * R, hh = A_TH + 2 * R;
-  const long long side = 2 * R + 1;
-  // one plane of the halo fits the list, and a pixel's sum is short
-  if ((long long)hw * hh <= A_CAP && S * side * side <= A_MAX_TERMS) {
-    static CUfunction fn = nullptr;
-    return launch_smem(pass_a_kernel, fn, grid, A_NT, pass_a_smem_bytes(hw * hh), stream, px,
-                       py, pz, weff, trk, ox, oy, oz, isg, otrk, ck, S, H, W, R, coef3, id_p,
-                       independent);
-  }
   int cw = 0, ch = 0;
-  halo_chunks(hw, hh, A_CAP, &cw, &ch);
-  static CUfunction fn_wide = nullptr;
-  return launch_smem(pass_a_wide_kernel, fn_wide, grid, A_NT, pass_a_smem_bytes(cw * ch), stream,
-                     px, py, pz, weff, trk, ox, oy, oz, isg, otrk, ck, S, H, W, R, coef3, id_p,
+  halo_chunks(A_TW + 2 * R, A_TH + 2 * R, A_CAP, &cw, &ch);
+  static CUfunction fn = nullptr;
+  return launch_smem(pass_a_wide_kernel, fn, grid, A_NT, pass_a_smem_bytes(cw * ch), stream, px,
+                     py, pz, weff, trk, ox, oy, oz, isg, otrk, live, ck, S, H, W, R, coef3, id_p,
                      independent, cw, ch);
 }
 
@@ -825,20 +1034,35 @@ extern "C" int dsp_pass_b(
     const float* ck_kappa, float* acc, uint8_t* right,
     int S, int H, int W, int R, float coef3, float id_p, float thr_right,
     int independent, void* stream) {
+  if (R < 0 || !pass_b_main(S, R)) return (int)cudaErrorInvalidValue;
+  dim3 grid((W + B_TW - 1) / B_TW, (H + B_TH - 1) / B_TH);
+  static CUfunction fn = nullptr;
+  return launch_smem(pass_b_kernel, fn, grid, B_NT, pass_b_smem_bytes(R, S), stream, px, py, pz,
+                     trk_eff, ff_eff, isg_p, ox, oy, oz, ovalid, otrk, ck_kappa, acc, right, S, H,
+                     W, R, coef3, id_p, thr_right, independent);
+}
+
+extern "C" int dsp_pass_b_wide(
+    const float* px, const float* py, const float* pz, const int* trk_eff,
+    const float* ff_eff, const float* isg_p, const float* ox, const float* oy,
+    const float* oz, const uint8_t* ovalid, const int* otrk,
+    const float* ck_kappa, const unsigned* live, float* acc, uint8_t* right,
+    int S, int H, int W, int R, float coef3, float id_p, float thr_right,
+    int independent, void* stream) {
   if (R < 0) return (int)cudaErrorInvalidValue;
   dim3 grid((W + B_TW - 1) / B_TW, (H + B_TH - 1) / B_TH);
-  const size_t smem = pass_b_smem_bytes(R, S);
-  if (smem <= (size_t)max_block_smem()) {  // the whole halo and a tile's list fit
-    static CUfunction fn = nullptr;
-    return launch_smem(pass_b_kernel, fn, grid, B_NT, smem, stream, px, py, pz, trk_eff, ff_eff,
-                       isg_p, ox, oy, oz, ovalid, otrk, ck_kappa, acc, right, S, H, W, R, coef3,
-                       id_p, thr_right, independent);
-  }
+  const int sw = B_TW + 2 * R, hh = B_TH + 2 * R;
   int pw = 0, pr = 0;
-  halo_chunks(B_TW + 2 * R, B_TH + 2 * R, BW_PIECE, &pw, &pr);
-  static CUfunction fn_wide = nullptr;
-  return launch_smem(pass_b_wide_kernel, fn_wide, grid, B_NT, pass_b_wide_smem_bytes(pw * pr),
-                     stream, px, py, pz, trk_eff, ff_eff, isg_p, ox, oy, oz, ovalid, otrk,
-                     ck_kappa, acc, right, S, H, W, R, coef3, id_p, thr_right, independent, pw,
-                     pr);
+  halo_chunks(sw, hh, BW_PIECE, &pw, &pr);
+  const size_t smem = pass_b_wide_smem_bytes(pw * pr);
+  if (pw >= sw && pr >= hh) {
+    static CUfunction fn = nullptr;
+    return launch_smem(pass_b_wide_kernel<true>, fn, grid, B_NT, smem, stream, px, py, pz,
+                       trk_eff, ff_eff, isg_p, ox, oy, oz, ovalid, otrk, ck_kappa, live, acc,
+                       right, S, H, W, R, coef3, id_p, thr_right, independent, pw, pr);
+  }
+  static CUfunction fn_pieces = nullptr;
+  return launch_smem(pass_b_wide_kernel<false>, fn_pieces, grid, B_NT, smem, stream, px, py, pz,
+                     trk_eff, ff_eff, isg_p, ox, oy, oz, ovalid, otrk, ck_kappa, live, acc, right,
+                     S, H, W, R, coef3, id_p, thr_right, independent, pw, pr);
 }

@@ -63,6 +63,16 @@ SIGNATURES = {
     # 12 inputs, acc, right; S, H, W, R; coef3, id_p, right threshold;
     # independent; stream
     "dsp_pass_b": [_P] * 14 + [_I] * 4 + [_F, _F, _F, _I, _P],
+    # S, H, W, R: 1 where the pass runs its wide instance (after dsp_live_planes)
+    "dsp_pass_a_is_wide": [_I] * 4,
+    "dsp_pass_b_is_wide": [_I] * 4,
+    # the table's deciding plane, the live words, acc, right (pass B only);
+    # S, H, W, tracks; stream
+    "dsp_live_planes": [_P] * 4 + [_I] * 4 + [_P],
+    # the wide instances: dsp_pass_a's / dsp_pass_b's arguments with the
+    # live words after the inputs
+    "dsp_pass_a_wide": [_P] * 12 + [_I] * 4 + [_F, _F, _I, _P],
+    "dsp_pass_b_wide": [_P] * 15 + [_I] * 4 + [_F, _F, _F, _I, _P],
     # 7 inputs (weight and status updated in place), 4 outputs; V, K;
     # threshold, newborn weight; stream
     "dsp_render": [_P] * 11 + [ctypes.c_longlong, _I, _F, _F, _P],

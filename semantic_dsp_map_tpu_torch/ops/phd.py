@@ -196,6 +196,21 @@ def pass_b_raw(
     return acc, right
 
 
+def live_planes(live: torch.Tensor) -> torch.Tensor:
+    """The live planes of a table, bit-packed: bool[S, H, W] -> i32 words
+    [ceil(S / 32), H, W], bit b of word (g, y, x) set where ``live[32g + b,
+    y, x]`` (bit 31 is the sign bit).  The plain version of the CUDA pass
+    that finds them for the passes' wide instances (ops/phd_cuda.py
+    ``live_weights_cuda``, ``live_tracks_cuda``)."""
+    S, H, W = live.shape
+    G = -(-S // 32)
+    planes = torch.zeros((G * 32, H, W), dtype=torch.int64, device=live.device)
+    planes[:S] = live
+    bit = torch.arange(32, device=live.device).view(1, 32, 1, 1)
+    words = (planes.view(G, 32, H, W) << bit).sum(1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
 def _obs_planes(cloud: LabeledCloud):
     """The observation x, y, z planes as contiguous [H, W] tensors."""
     return tuple(cloud.pos[..., i].contiguous() for i in range(3))

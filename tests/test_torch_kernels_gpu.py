@@ -159,12 +159,15 @@ def test_pass_a_kernel_list_capacity(cuda, kind, S, R, h, w):
 
 #: Stencils and tables past the main instances: pass A lists one plane of
 #: the halo up to R = 13 and sums at most 8,192 window entries a pixel, and
-#: runs its wide instance (the halo in chunks, a compensated sum) past
+#: runs its wide instance (the halo in chunks, a partial a window row) past
 #: either; pass B holds the halo and a tile's work list up to what the
 #: card's 227 KB take (at R = 5, S = 431) and runs its wide instance (the
-#: list in rounds, the halo in pieces) above.  (S, R, h, w).
+#: occupied entries in rounds, the halo in pieces past R = 23) above; both
+#: wide instances work from the live planes a streaming pass finds first.
+#: Pass A's first wide shapes close the list: S = 68 at R = 5 and R = 13 at
+#: S = 12.  (S, R, h, w).
 WIDE_STENCILS = [(4, 9, 40, 70), (4, 16, 40, 70), (4, 24, 37, 53), (512, 5, 19, 40),
-                 (3, 60, 20, 70)]
+                 (3, 60, 20, 70), (68, 5, 19, 40), (12, 13, 40, 70)]
 
 
 @pytest.mark.gpu
@@ -310,6 +313,153 @@ def test_pass_b_wide_instance_has_the_main_instances_bits(cuda):
     torch.cuda.synchronize()
     assert torch.equal(acc_wide[:431].view(torch.int32), acc_main.view(torch.int32))
     assert torch.equal(right_wide[:431], right_main) and right_main.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("main,wide,h,w", [((67, 5), (68, 5), 19, 40), ((12, 12), (12, 13), 40, 70)])
+@pytest.mark.parametrize("kind", ["full", None])
+def test_pass_a_first_wide_shapes_beside_their_main_neighbours(cuda, kind, main, wide, h, w):
+    """Pass A's switch points: (S, R) = (67, 5) and (12, 12) run the main
+    instance (8,107 and 7,500 window entries a pixel), one plane or one R more
+    the wide one (its live-plane pass launched once).  Both within rtol 2e-5
+    / atol 1e-6 of the plain stencil, each with a second launch's bits."""
+    params = FilterParams(detection_probability=0.9, noise_number=0.1, if_consider_depth_noise=True,
+                          max_forget_count=7)
+    for (S, R), is_wide in ((main, False), (wide, True)):
+        cfg = tiny_test_config(image_width=w, image_height=h, phd_pixel_table_slots=S,
+                               phd_neighbor_half=R)
+        t, c = _phd_inputs(cfg, cuda, seed=6, fill=0.3, front_fill=True, kind=kind)
+        before = phd_cuda.live_weights_cuda.launches
+        ck = _check_pass_a(_pass_a_args(cfg, params, t, c))
+        assert phd_cuda.live_weights_cuda.launches - before == (2 if is_wide else 0), (S, R)
+        assert (ck > 0).any()
+
+
+def _empty_groups_table(cfg, device, live_groups):
+    """A table of S = cfg's slots whose plane groups of 32 outside
+    ``live_groups`` are empty, every entry of those inside random."""
+    t, c = _phd_inputs(cfg, device, seed=9, fill=0.15)
+    S = cfg.phd_pixel_table_slots
+    keep = torch.zeros(S, dtype=torch.bool, device=device)
+    for g in live_groups:
+        keep[32 * g: 32 * g + 32] = True
+    return t._replace(meta=torch.where(keep[:, None, None], t.meta, -1)), c, keep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("independent", [False, True])
+def test_wide_instances_skip_empty_plane_groups(cuda, independent):
+    """S = 512 where only the plane groups 0, 3, 7 and 15 hold entries: the
+    live-plane passes find exactly those (against ``ops.phd.live_planes``),
+    pass A wide is within rtol 2e-5 of the plain stencil, and pass B wide
+    gives every entry of the live groups the bits the main instance gives it
+    on a table of those 128 planes alone (an entry's sum is its own),
+    zeros elsewhere, and the plain version's flags."""
+    live_groups = (0, 3, 7, 15)
+    base = dict(image_width=53, image_height=37, phd_neighbor_half=5)
+    cfg = tiny_test_config(phd_pixel_table_slots=512, **base)
+    params = FilterParams(detection_probability=0.9, noise_number=0.1,
+                          if_use_independent_filter=independent, if_consider_depth_noise=True)
+    t, c, keep = _empty_groups_table(cfg, cuda, live_groups)
+    a_args = _pass_a_args(cfg, params, t, c)
+    weff = a_args[5]
+    assert torch.equal(phd_cuda.live_weights_cuda(weff), phd.live_planes(weff != 0))
+    words = phd.live_planes(weff != 0)
+    assert [g for g in range(16) if words[g].any()] == list(live_groups)
+    _check_pass_a(a_args)
+    _, b_args = _pass_b_args(cfg, params, t, c)
+    acc, right = phd_cuda.pass_b_cuda(*b_args)
+    acc_p, right_p = phd.pass_b_raw(*b_args)
+    torch.testing.assert_close(acc, acc_p, rtol=2e-5, atol=1e-6)
+    assert torch.equal(right, right_p)
+    assert not acc[~keep].any() and not right[~keep].any()
+    cut = tiny_test_config(phd_pixel_table_slots=int(keep.sum()), **base)
+    sub = [a[keep].contiguous() if isinstance(a, torch.Tensor) and a.dim() == 3 else a
+           for a in (cut, *b_args[1:])]
+    acc_main, right_main = phd_cuda.pass_b_cuda(*sub)
+    torch.cuda.synchronize()
+    assert torch.equal(acc[keep].view(torch.int32), acc_main.view(torch.int32))
+    assert torch.equal(right[keep], right_main)
+
+
+def _off_bounds(t, off):
+    """``t``'s values in a tensor that starts ``off`` elements past an
+    allocation's start (a contiguous view off 16-byte bounds for off > 0)."""
+    flat = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = flat[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,h,w", [(1, 9, 33), (31, 19, 40), (32, 8, 7), (33, 37, 53),
+                                   (70, 5, 129)])
+@pytest.mark.parametrize("off", [0, 1, 2])
+def test_live_plane_kernels_match_plain(cuda, S, h, w, off):
+    """The live-plane passes against ``ops.phd.live_planes`` at plane counts
+    on both sides of a word, tables whose entries are no multiple of a
+    vector, and tensors on and off 16-byte bounds: w_eff's zeros (-0.0
+    among them) are empty, NaN is live; trk_eff's -2 is empty, and there acc
+    and right are zeroed while the occupied entries keep what they held."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(S)
+    u = torch.rand((S, h, w), generator=g, device=cuda)
+    weff = torch.where(u < 0.5, 0.0, u)
+    weff = torch.where(u < 0.1, -0.0, weff)
+    weff = _off_bounds(torch.where(u > 0.97, float("nan"), weff), off)
+    live = phd_cuda.live_weights_cuda(weff)
+    assert live.dtype == torch.int32 and live.shape == (-(-S // 32), h, w)
+    assert torch.equal(live, phd.live_planes(weff != 0))
+    trk = _off_bounds(torch.where(u < 0.6, -2, (u * 100).int()), off)
+    acc = _off_bounds(torch.full((S, h, w), 7.0, device=cuda), 2 - off)
+    right = _off_bounds(torch.ones((S, h, w), dtype=torch.bool, device=cuda), off)
+    before = phd_cuda.live_tracks_cuda.launches
+    live = phd_cuda.live_tracks_cuda(trk, acc, right)
+    torch.cuda.synchronize()
+    assert phd_cuda.live_tracks_cuda.launches == before + 1
+    occupied = trk != -2
+    assert torch.equal(live, phd.live_planes(occupied))
+    assert torch.equal(acc, torch.where(occupied, 7.0, 0.0)) and torch.equal(right, occupied)
+
+
+def _ptxas_functions(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes)} from nvcc's
+    -Xptxas -v output."""
+    import re
+
+    out, current, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and current is not None:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            out[current] = (int(m.group(1)), spill)
+            current = None
+    return out
+
+
+@pytest.mark.gpu
+def test_wide_instances_fit_their_launch_bounds(cuda):
+    """ptxas fits pass A wide and pass B wide's one-piece instance in 64
+    registers (4 blocks of 256 threads an SM), the many-piece instance in
+    128, with no spill, and the live-plane passes spill nothing."""
+    from semantic_dsp_map_tpu_torch.ops import cuda_lib
+
+    _, _, log = cuda_lib.build()
+    found = _ptxas_functions(log)
+    limits = {"18pass_a_wide_kernel": 64, "18pass_b_wide_kernelILb1E": 64,
+              "18pass_b_wide_kernelILb0E": 128, "18live_planes_kernelILb0E": 255,
+              "18live_planes_kernelILb1E": 255}
+    for key, limit in limits.items():
+        hits = [v for name, v in found.items() if key in name]
+        assert len(hits) == 1, (key, sorted(found))
+        regs, spill = hits[0]
+        assert regs <= limit and spill == 0, (key, regs, spill)
 
 
 def _render_state(cfg, device, seed):
@@ -902,7 +1052,7 @@ def _faulty(t, fault):
 def _wrapper_cases(device):
     """(wrapper, arguments, [(argument name, position or Particles field)],
     {argument: the name a wrong shape of it is reported under}) for each of
-    the seven kernel wrappers at the tiny config: every tensor but the one
+    the eight kernel wrappers at the tiny config: every tensor but the one
     whose device decides between the kernel and the plain version.  The
     voxel count comes from one argument, so a wrong shape of that one is
     reported under the first store array checked against it."""
@@ -939,15 +1089,19 @@ def _wrapper_cases(device):
                     [("status", 2), ("stamp", 3), ("vox_axis", 4)], {"vox_axis": "track"}),
         "gather": (gather_cuda, (depth, rc), [("rc", 1)], {}),
         "scale2": (scale2_cuda, (torch.rand((8, 128), device=device),), [("x", 0)], {}),
+        "live_tracks": (phd_cuda.live_tracks_cuda,
+                        (b_args[5], torch.zeros(b_args[5].shape, device=device),
+                         torch.zeros(b_args[5].shape, dtype=torch.bool, device=device)),
+                        [("acc", 1), ("right", 2)], {}),
     }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["pass_a", "pass_b", "render", "front", "movable", "gather",
-                                    "scale2"])
+                                    "scale2", "live_tracks"])
 @pytest.mark.parametrize("fault", ["dtype", "shape", "strided", "cpu"])
 def test_wrappers_refuse_what_their_kernels_do_not_take(cuda, kernel, fault):
-    """Each of the seven wrappers raises a ValueError that names the
+    """Each of the eight wrappers raises a ValueError that names the
     argument, before any launch, for every tensor argument of another dtype,
     another shape, a strided layout, or on the CPU among CUDA tensors.  The
     gather's table and x2's input take any shape, and x2 has no other tensor
