@@ -57,12 +57,14 @@ Phases (any failure raises, and the script exits nonzero):
      (528,482,304 slots, a 14.3 GB store): 6 frames of the vkitti2 scene
      with its noise on through update(), each kernel's launches counted;
      then on the map's store after one more (eager) frame the render, the
-     front and movable scans, birth's merge in both instances (count-only
-     on the frame's two working sets, the acceptance instance on its
-     birth's) and both PHD passes against their plain versions on the card,
-     each timed with its bound, and the peak memory.  (b) The reduced grid
-     at K = 63 and 127: the two maps of [k31] in turns, bit-equal every
-     frame, and the four kernels on the store; in [sharded]'s process
+     front and movable scans, birth's merge in both instances on the
+     frame's two working sets, and both PHD passes against their plain
+     versions on the card, each timed with its bound and share, and the
+     peak memory.  (b) The reduced grid at K = 63 and 127: the two maps of
+     [k31] in turns, bit-equal every frame, and the four kernels on the
+     store (the merge in both instances), each with its bound and share
+     (the render's census: the valid voxels with a status its generic
+     instance reads, a warp a voxel); in [sharded]'s process
      group, the captured sharded step at K = 63 against the eager one, 3
      frames bit-equal.  (c) A real VKITTI2 frame's pixel table through
      passes A and B at R = 9, 12 and 16, and a VKITTI2 map's at S = 512,
@@ -768,6 +770,14 @@ def render_census(cfg, p, pk, vax, vst, r):
          "clamped": int((pk.weight != p.weight).sum()), "collected": int((pk.status != p.status).sum()),
          "spans": spans.numel(), "spans_without_status": int((~spans).sum()),
          "sub_spans": subs.numel(), "sub_spans_without_alive": int((~subs).sum())}
+    # the generic instance (K past 31) reads the valid voxels with a status
+    # set, a warp a voxel: how many, and their alive slots
+    listed = has_status.view(-1, K).any(1) & (vst != 0) & (vst >= vax)
+    per = alive.view(-1, K).sum(1)[listed]
+    c.update(voxels_with_status=int(has_status.view(-1, K).any(1).sum()),
+             listed_voxels=int(listed.sum()),
+             alive_per_listed_mean=float(per.float().mean()) if per.numel() else 0.0,
+             alive_per_listed_max=int(per.max()) if per.numel() else 0)
     fixed = nbytes(p.status, vax, vst, r.occ, r.label, r.track, r.weight_sum)
     c["bound"] = bound(fixed + 4 * c["with_status"] + 9 * c["alive"] + 4 * c["clamped"] + c["collected"])
     c["bound_every_stamp"] = bound(fixed + nbytes(p.stamp) + 9 * c["alive"] + 4 * c["clamped"]
@@ -779,7 +789,9 @@ def render_census(cfg, p, pk, vax, vst, r):
 
 def census_line(c) -> str:
     return (f"{c['with_status']} of {c['slots']} slots with a status, {c['alive']} alive, {c['clamped']} "
-            f"weights clamped, {c['collected']} slots collected; {c['spans_without_status']} of "
+            f"weights clamped, {c['collected']} slots collected; {c['voxels_with_status']} voxels "
+            f"with a status, {c['listed_voxels']} of them valid ({c['alive_per_listed_mean']:.2f} "
+            f"alive slots each, at most {c['alive_per_listed_max']}); {c['spans_without_status']} of "
             f"{c['spans']} spans of {RENDER_SPAN} voxels without a status, {c['sub_spans_without_alive']} "
             f"of {c['sub_spans']} sub-spans of {RENDER_SUB} without a live slot; bound "
             f"{c['bound']['bound_ms']:.4f} ms by {c['bound']['bound_by']} (every slot's stamp read: "
@@ -1051,7 +1063,8 @@ def check_merge_once(tag, cfg, flat, blocks, vax, staged, resample, card, reps=1
     want_accepted=True)``, the per-candidate mask equal too, its bytes in
     the bound.  Then both timed with CUDA events, each launch on the store
     as it was (restored outside the events), the kernel also with its
-    launch queued (device-only).  Returns the numbers."""
+    launch queued (device-only).  The store ``flat`` is left as it came.
+    Returns the numbers."""
     import dataclasses
 
     import torch
@@ -1092,6 +1105,8 @@ def check_merge_once(tag, cfg, flat, blocks, vax, staged, resample, card, reps=1
     ms, q_ms = cuda_ms(run, reps, setup=restore), cuda_ms(run, reps, queued=True, setup=restore)
     plain_ms = cuda_ms(lambda: plain(work), 3, setup=restore)
     b, n_real = merge_bound(cfg, blocks, staged, keep, flat, resample, acc_p)
+    for k in fields:  # the inputs as they came: a second instance may run on them
+        getattr(flat, k).copy_(keep[k])
     if accepted:
         b = bound(b["bound_ms"] * 1e-3 * HBM_BYTES_PER_S + mask_bytes)
     share = b["bound_ms"] / q_ms
@@ -1690,11 +1705,17 @@ def store_kernels(tag, out, gpu, card):
     if n_set == 0:
         raise AssertionError(f"[{tag}] the map's store holds no particle")
     thr = 0.4
-    _, _, errs, bits = check_render_once(f"[{tag}] the map's store", cfg, p, vst, vax, thr)
+    pk, r_k, errs, bits = check_render_once(f"[{tag}] the map's store", cfg, p, vst, vax, thr)
+    c = render_census(cfg, p, pk, vax, vst, r_k)
+    del pk, r_k
     run, restore = render_runner(cfg, p, vst, vax, thr)
     out["render"] = {"ms": cuda_ms(run, 10, setup=restore),
                      "device_only_ms": cuda_ms(run, 10, queued=True, setup=restore),
-                     "max_abs_err": max(errs), "sums_bit_equal": bits}
+                     "max_abs_err": max(errs), "sums_bit_equal": bits,
+                     **{k: c[k] for k in ("with_status", "alive", "listed_voxels",
+                                          "alive_per_listed_mean", "alive_per_listed_max")},
+                     **c["bound"]}
+    print(f"[{tag}] render census: {census_line(c)}")
     quat = torch.tensor([0.9833, 0.0428, 0.1737, 0.0076], device="cuda")
     _, _, r_cw, t_cw = camera_matrices(torch.tensor([0.3, -0.2, 0.5], device="cuda"),
                                        quat / quat.norm())
@@ -1708,16 +1729,26 @@ def store_kernels(tag, out, gpu, card):
     for key, fn in (("front_candidates", lambda: front_candidates_cuda(*fargs)),
                     ("movable_voxels", lambda: movable_voxels_cuda(*margs))):
         out[key] = {"ms": cuda_ms(fn, 10), "device_only_ms": cuda_ms(fn, 10, queued=True)}
-    out["movable_voxels"]["bound_ms"] = movable_bound(cfg, p.status, p.stamp, vax)[0]["bound_ms"]
-    out["merge_blocks"] = check_merge_once(
-        f"{tag} shape", cfg, *merge_inputs(cfg, cfg.max_birth_blocks, 400), True, card)
+    out["front_candidates"].update(front_bound(fargs, *front_candidates_cuda(*fargs))[0])
+    out["movable_voxels"].update(movable_bound(cfg, p.status, p.stamp, vax)[0])
+    working_set = merge_inputs(cfg, cfg.max_birth_blocks, 400)
+    out["merge_blocks"] = check_merge_once(f"{tag} shape", cfg, *working_set, True, card)
+    out["merge_blocks_accepted"] = check_merge_once(f"{tag} shape", cfg, *working_set, True, card,
+                                                    accepted=True)
+    del working_set
+    share = lambda key: out[key]["bound_ms"] / out[key]["device_only_ms"]
     print(f"[{tag}] K={cfg.slots_per_voxel} at {cfg.num_voxels} voxels, the map's store ({n_set} "
           f"slots with a status): render, front and movable scans equal to their plain versions "
-          f"(render sums bit-equal: {bits}); device-only ms: render "
-          f"{out['render']['device_only_ms']:.4f}, front {out['front_candidates']['device_only_ms']:.4f}, "
-          f"movable {out['movable_voxels']['device_only_ms']:.4f} (bound "
-          f"{out['movable_voxels']['bound_ms']:.4f}), merge {out['merge_blocks']['device_only_ms']:.4f} "
-          f"({card})")
+          f"(render sums bit-equal: {bits}); device-only ms (bound, share): render "
+          f"{out['render']['device_only_ms']:.4f} ({out['render']['bound_ms']:.4f}, "
+          f"{share('render'):.3f}), front {out['front_candidates']['device_only_ms']:.4f} "
+          f"({out['front_candidates']['bound_ms']:.4f}, {share('front_candidates'):.3f}), movable "
+          f"{out['movable_voxels']['device_only_ms']:.4f} ({out['movable_voxels']['bound_ms']:.4f}, "
+          f"{share('movable_voxels'):.3f}), merge {out['merge_blocks']['device_only_ms']:.4f} "
+          f"({out['merge_blocks']['bound_ms']:.4f}, {out['merge_blocks']['share']:.3f}), its "
+          f"acceptance instance {out['merge_blocks_accepted']['device_only_ms']:.4f} "
+          f"({out['merge_blocks_accepted']['bound_ms']:.4f}, "
+          f"{out['merge_blocks_accepted']['share']:.3f}) ({card})")
     del p
 
 
@@ -1855,7 +1886,10 @@ def wide_k63(counters, card, frames=6):
                      "device_only_ms": cuda_ms(run, 5, queued=True, setup=restore),
                      "plain_ms": cuda_ms(lambda: render_core_plain(cfg, p, vst, vax, thr), 1),
                      "max_abs_err": max(e1, e2), "sums_bit_equal": bits,
-                     "with_status": c["with_status"], "alive": c["alive"], **c["bound"]}
+                     **{k: c[k] for k in ("with_status", "alive", "listed_voxels",
+                                          "alive_per_listed_mean", "alive_per_listed_max")},
+                     **c["bound"]}
+    print(f"[wide] wide_k63 render census: {census_line(c)}")
     del run, restore
     torch.cuda.empty_cache()
 
@@ -1897,6 +1931,8 @@ def wide_k63(counters, card, frames=6):
     out["merge"] = {"move_cleanup": check_merge_once("wide_k63 move cleanup", *move, card),
                     "birth": check_merge_once("wide_k63 birth", *birth_set, card)}
     out["merge_accepted"] = check_merge_once("wide_k63 birth", *birth_set, card, accepted=True)
+    out["merge_accepted_cleanup"] = check_merge_once("wide_k63 move cleanup", *move, card,
+                                                     accepted=True)
     out["phd"] = wide_pass(f"wide_k63 frame {t}", rec_a.calls[0], rec_b.calls[0], card)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     print(f"[wide] wide_k63: peak memory {out['peak_bytes'] / 1e9:.2f} GB with the plain "

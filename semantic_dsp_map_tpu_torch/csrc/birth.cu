@@ -90,14 +90,17 @@
 //
 // Both variants have instances for K = 1, 3, 7, 15 and 31 and a generic
 // instance for every other K (merge_generic_kernel, below): past K = 31 a
-// voxel's slots no longer fit a thread's registers or a tile in 48 KB, so
-// a warp shares a voxel and walks it in chunks of 32, the resample walk
-// still sequential in slot order.
+// voxel's slots no longer fit a thread's registers, so a warp shares a
+// voxel and walks it two chunks of 32 a step, the resample walk still
+// sequential in slot order.
 //
 // Bit-equality hazards, each kept as the plain version computes it (the
 // library is built with -fmad=false, so nothing is contracted):
 //   - the walk's sums are sequential f32 additions in slot order, a
-//     not-UPDATED slot adding +0.0 as torch.where does;
+//     not-UPDATED slot adding +0.0 as torch.where does (the generic
+//     instance leaves those terms out: a sum that starts at +0.0 never
+//     becomes -0.0 under round-to-nearest, x + (+0.0) has the bits of
+//     any other number x, and a NaN stays a NaN);
 //   - wpp = min(wsum / trigger, 1): PyTorch's CUDA division of a tensor by
 //     a Python scalar multiplies by the scalar's f32 reciprocal, and this
 //     does the same (trigger is a power of two: both forms are exact);
@@ -379,35 +382,191 @@ __global__ void __launch_bounds__(merge_vox<K>()) merge_kernel(
 }
 
 // The generic instance, for every K past 31, in both variants (count-only
-// and ACC).  The design above holds a voxel's K slots in one thread: st[K],
-// w[K], src[K] and a 32-bit kept mask in registers (220 registers at
-// K = 31) and a tile of K * merge_vox<K>() slots in shared memory.  Here a
-// warp owns a voxel and walks its slots in chunks of 32, a slot a lane,
-// neighbouring lanes on neighbouring words, so nothing grows with K (no
-// shared memory but the tile's count):
-//   a. the prune, the staged flags and, with resample on, the weight sum of
-//      the UPDATED slots in slot order: every lane adds the chunk's 32
-//      terms one after another, each broadcast by a shuffle, so every lane
-//      holds the plain version's sum; their count by ballot;
-//   b. the walk, again in slot order and sequential: each lane runs the
-//      same walk (wpp, the threshold's bounded loop of K + 8 additions, the
-//      wipe below 0.01) on the values broadcast by shuffle, and keeps the
-//      result of its own slot; the walk's state is the same in every lane,
-//      so it is the one walk of resample_slots.  In the same chunk pass the
-//      vacancy ranks (integers: a ballot and a popcount), the taken slots'
-//      staged fields and the writes, each slot by the lane that read it;
-//   c. the accepted count (staged candidates k below the vacancy count) and,
-//      in the ACC variant, each staged slot's acceptance byte.
-// Offsets are 64-bit: a full grid at K = 255 holds 2^31 slots.  Bound as
-// above by device memory, held back by latency (three chunk passes a
-// voxel, the walk's shuffles): on an H100, a real VKITTI2 birth at K = 63
-// (1,536 rows of 8 voxels) took 0.021 ms against a bound of 0.0035 ms.
+// and ACC).  The design above holds a voxel's K slots in one thread:
+// st[K], w[K], src[K] and a 32-bit kept mask in registers (220 registers at
+// K = 31).  Here a warp owns a voxel and walks its slots two chunks of 32 a
+// step, a slot a lane, so nothing grows with K.  What holds the merge back
+// is latency, not bytes (a real VKITTI2 birth at K = 63 moves about 12 MB,
+// 0.0035 ms at the memory rate): the time is the chain of dependent round
+// trips each warp waits on, times the waves of warps the card holds at
+// once.  So every load of a step is asked for at once, and each pass runs
+// only where its result is needed:
+//   1. with resample on: the prune, the staged flag, the UPDATED slots'
+//      count (ballot) and weight sum in slot order (the set bits of each
+//      chunk's ballot, each weight broadcast by a shuffle, so every lane
+//      adds the same terms in the same order).  Without resample nothing
+//      here is needed and the pass is skipped;
+//   2. the step's slots again (the L1 cache's), then the prune, the walk
+//      over the UPDATED slots alone in slot order (each lane runs the same
+//      walk on the broadcast values and keeps the result of its own slot,
+//      so it is the one walk of resample_slots), the vacancy ranks (ballot
+//      + popcount).  A vacant slot of vacant-rank r takes staged candidate
+//      r: its meta comes from the step's lane that loaded it, by shuffle,
+//      where r is in the step (r <= the slot's index), else from device
+//      memory; then the taken slots' five staged fields, all asked for
+//      before any store, and the stores of what changed, each slot by the
+//      lane that owns it;
+//   3. the accepted count (staged candidates k below the vacancy count)
+//      and, in the ACC variant, each staged slot's acceptance byte.
+// Round trips at K <= 64: the block id -> (the scroll stamp, the step's
+// slots) -> the taken slots' staged fields -> stores, besides the re-reads
+// of passes 2 and 3.  Measured on an H100 against it (PERF.md, section 6):
+// a tile of whole rows staged in shared memory by cp.async, as the design
+// above does, lost (it adds a block barrier, and at K = 63 a second voxel
+// a warp, to the chain, and saves no round trip), and so did handing each
+// step's staged fields to the taking lanes by shuffle (74 registers: fewer
+// warps at once).  ptxas, sm_90a: 60 registers in both variants, no spill,
+// 4 bytes of shared memory.
+// Offsets are 64-bit: a full grid at K = 255 holds 2^31 slots.
 constexpr int GEN_NT = 256;
+constexpr int GEN_WARPS = GEN_NT / 32;
 
-__device__ __forceinline__ uint8_t pruned(const Store& s, long long i, int va, uint8_t* raw) {
-  const uint8_t st = s.status[i];
-  *raw = st;
-  return st != STATUS_INVALID && s.stamp[i] < va ? (uint8_t)STATUS_INVALID : st;
+// Passes 1-3 for one voxel of a real row, by one warp; returns the
+// voxel's accepted count (in every lane).  base: the voxel's first slot in
+// the store, sbase: in the staged [A, bv, K] buffers.
+template <bool ACC>
+__device__ __forceinline__ unsigned merge_voxel(
+    const Store& s, const float* __restrict__ in_px, const float* __restrict__ in_py,
+    const float* __restrict__ in_pz, const float* __restrict__ in_w,
+    const int* __restrict__ in_stamp, const int* __restrict__ in_meta, uint8_t* __restrict__ lanes,
+    long long base, long long sbase, int K, int va, int do_resample, int trigger,
+    float inv_trigger) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;  // the lanes below this one
+
+  // 1. prune, staged flag, the UPDATED slots' count and weight sum
+  bool any_staged = false;
+  int count = 0;
+  float wsum = 0.f;
+  if (do_resample) {  // its results decide the resample only
+    for (int c0 = 0; c0 < K; c0 += 64) {
+      int raw[2], sp[2], mk[2];
+      float w[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = c0 + 32 * h + lane;
+        raw[h] = k < K ? s.status[base + k] : STATUS_INVALID;
+        sp[h] = k < K ? s.stamp[base + k] : 0;
+        mk[h] = k < K ? in_meta[sbase + k] : -1;
+        w[h] = k < K ? s.weight[base + k] : 0.f;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int st = raw[h] != STATUS_INVALID && sp[h] < va ? STATUS_INVALID : raw[h];
+        const unsigned um = __ballot_sync(ALL, st == STATUS_UPDATED);
+        any_staged = __any_sync(ALL, mk[h] >= 0) || any_staged;
+        count += __popc(um);
+        for (unsigned m = um; m != 0u; m &= m - 1u)
+          wsum = wsum + __shfl_sync(ALL, w[h], __ffs(m) - 1);
+      }
+    }
+  }
+  const bool resample = do_resample && any_staged && count > trigger;
+  const bool wipe = resample && wsum < 0.01f;
+  const bool walk = resample && !wipe;
+  const float q = wsum * inv_trigger;
+  const float wpp = q != q ? q : fminf(q, 1.f);
+
+  // 2. the walk, the vacancy ranks and the merge, two chunks a step
+  float csum = 0.f, thresh = wpp;
+  int vac = 0;  // vacant slots before the chunk
+  for (int c0 = 0; c0 < K; c0 += 64) {
+    int raw[2], sp[2], mk[2], st[2], src[2], meta[2];
+    float w[2];
+    bool kept[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = c0 + 32 * h + lane;
+      raw[h] = k < K ? s.status[base + k] : STATUS_INVALID;
+      sp[h] = k < K ? s.stamp[base + k] : 0;
+      mk[h] = k < K ? in_meta[sbase + k] : -1;
+      w[h] = k < K && walk ? s.weight[base + k] : 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = c0 + 32 * h + lane;
+      st[h] = raw[h] != STATUS_INVALID && sp[h] < va ? STATUS_INVALID : raw[h];
+      const bool upd = st[h] == STATUS_UPDATED;
+      kept[h] = false;
+      if (wipe && upd) st[h] = STATUS_INVALID;
+      if (walk) {
+        for (unsigned m = __ballot_sync(ALL, upd); m != 0u; m &= m - 1u) {
+          const int j = __ffs(m) - 1;  // neither the sums nor the threshold move elsewhere
+          const float csum_k = csum + __shfl_sync(ALL, w[h], j);
+          if (csum_k < thresh) {
+            if (lane == j) st[h] = STATUS_INVALID;
+          } else {
+            float next = thresh + wpp;
+            for (int i = 0; i < K + 8; ++i) {
+              if (!(csum_k > next)) break;
+              next = next + wpp;
+            }
+            if (lane == j) {
+              w[h] = wpp;
+              kept[h] = true;
+            }
+            thresh = next;
+          }
+          csum = csum_k;
+        }
+      }
+      const bool vacant = k < K && st[h] == STATUS_INVALID;
+      const unsigned vb = __ballot_sync(ALL, vacant);
+      const int r = vac + __popc(vb & lt);  // the slot's vacant-rank, <= k
+      vac += __popc(vb);
+      // staged candidate r's meta: lane r % 32 of this step's chunk
+      // (r - c0) / 32 holds it where r >= c0, else device memory does
+      const int m0 = __shfl_sync(ALL, mk[0], r & 31), m1 = __shfl_sync(ALL, mk[1], r & 31);
+      meta[h] = !vacant ? -1 : (r >= c0 ? (r - c0 >= 32 ? m1 : m0) : in_meta[sbase + r]);
+      src[h] = meta[h] >= 0 ? r : -1;  // the staged candidate the slot takes
+    }
+    float x[2], y[2], z[2], ww[2];
+    int ts[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (src[h] >= 0) {
+        const long long c = sbase + src[h];
+        x[h] = in_px[c];
+        y[h] = in_py[c];
+        z[h] = in_pz[c];
+        ww[h] = in_w[c];
+        ts[h] = in_stamp[c];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = c0 + 32 * h + lane;
+      const long long i = base + k;
+      if (src[h] >= 0) {
+        const int m = meta[h];
+        s.px[i] = x[h];
+        s.py[i] = y[h];
+        s.pz[i] = z[h];
+        s.weight[i] = ww[h];
+        s.stamp[i] = ts[h];
+        s.track[i] = m & 0xFFFF;
+        s.label[i] = (uint8_t)((m >> 16) & 0xFF);
+        s.status[i] = (uint8_t)((m >> 24) & 0x7);
+        s.forget[i] = (uint8_t)((m >> 27) & 0x7);
+      } else if (k < K) {
+        if (st[h] != raw[h]) s.status[i] = (uint8_t)st[h];
+        if (kept[h]) s.weight[i] = w[h];
+      }
+    }
+  }
+
+  // 3. the accepted count and each staged slot's acceptance
+  unsigned acc = 0u;
+  for (int c0 = 0; c0 < K; c0 += 32) {
+    const int k = c0 + lane;
+    const bool ok = k < K && k < vac && in_meta[sbase + k] >= 0;
+    acc += __popc(__ballot_sync(ALL, ok));
+    if constexpr (ACC) {
+      if (k < K) lanes[sbase + k] = (uint8_t)ok;
+    }
+  }
+  return acc;
 }
 
 template <bool ACC>
@@ -418,14 +577,12 @@ __global__ void __launch_bounds__(GEN_NT) merge_generic_kernel(
     const int* __restrict__ vax, const long long* __restrict__ ids,
     unsigned long long* __restrict__ accepted, uint8_t* __restrict__ lanes, long long rows,
     int bv_log2, int K, long long nb, int do_resample, int trigger, float inv_trigger) {
-  constexpr unsigned ALL = 0xffffffffu;
   __shared__ unsigned s_acc;
   const int lane = threadIdx.x & 31;
-  const unsigned lt = (1u << lane) - 1u;  // the lanes below this one
   if (threadIdx.x == 0) s_acc = 0u;
   __syncthreads();
   // this warp's voxel: row a of the staged [A, bv, K] buffers, voxel vi of it
-  const long long wv = (long long)blockIdx.x * (GEN_NT / 32) + threadIdx.x / 32;
+  const long long wv = (long long)blockIdx.x * GEN_WARPS + threadIdx.x / 32;
   const long long a = wv >> bv_log2;
   const long long sbase = wv * K;  // (a * bv + vi) * K
   unsigned acc = 0u;
@@ -433,105 +590,14 @@ __global__ void __launch_bounds__(GEN_NT) merge_generic_kernel(
     const long long id = ids[a];
     if (id < nb) {
       const long long vox = (id << bv_log2) + (wv & ((1LL << bv_log2) - 1));
-      const long long base = vox * K;
-      const int va = vax[vox];
-      // a. prune, staged flags, the UPDATED weights' sum in slot order
-      bool any_staged = false;
-      float wsum = 0.f;
-      int count = 0;
-      for (int c0 = 0; c0 < K; c0 += 32) {
-        const int k = c0 + lane;
-        const bool in = k < K;
-        uint8_t raw = 0;
-        const uint8_t st = in ? pruned(s, base + k, va, &raw) : (uint8_t)STATUS_INVALID;
-        const bool upd = st == STATUS_UPDATED;
-        any_staged = __any_sync(ALL, in && in_meta[sbase + k] >= 0) || any_staged;
-        count += __popc(__ballot_sync(ALL, upd));
-        if (do_resample) {
-          const float wt = upd ? s.weight[base + k] : 0.f;
-          const int n = K - c0 < 32 ? K - c0 : 32;
-          for (int j = 0; j < n; ++j) wsum = wsum + __shfl_sync(ALL, wt, j);
-        }
-      }
-      const bool resample = do_resample && any_staged && count > trigger;
-      const bool wipe = resample && wsum < 0.01f;
-      const bool walk = resample && !wipe;
-      const float q = wsum * inv_trigger;
-      const float wpp = q != q ? q : fminf(q, 1.f);
-      float csum = 0.f, thresh = wpp;
-      // b. the walk, the vacancy ranks, the merge and the writes
-      int vac = 0;  // vacant slots before the chunk
-      for (int c0 = 0; c0 < K; c0 += 32) {
-        const int k = c0 + lane;
-        const bool in = k < K;
-        uint8_t raw = 0;
-        uint8_t st = in ? pruned(s, base + k, va, &raw) : (uint8_t)STATUS_INVALID;
-        const bool upd = st == STATUS_UPDATED;
-        float w = 0.f;
-        bool kept = false;
-        if (wipe && upd) st = STATUS_INVALID;
-        if (walk) {
-          if (upd) w = s.weight[base + k];
-          const int n = K - c0 < 32 ? K - c0 : 32;
-          for (int j = 0; j < n; ++j) {
-            const bool uj = __shfl_sync(ALL, upd, j);
-            const float wj = __shfl_sync(ALL, w, j);
-            if (!uj) continue;  // neither the sums nor the threshold move
-            const float csum_k = csum + wj;
-            if (csum_k < thresh) {
-              if (lane == j) st = STATUS_INVALID;
-            } else {
-              float next = thresh + wpp;
-              for (int i = 0; i < K + 8; ++i) {
-                if (!(csum_k > next)) break;
-                next = next + wpp;
-              }
-              if (lane == j) {
-                w = wpp;
-                kept = true;
-              }
-              thresh = next;
-            }
-            csum = csum_k;
-          }
-        }
-        const bool vacant = in && st == STATUS_INVALID;
-        const unsigned vb = __ballot_sync(ALL, vacant);
-        const int rank = vac + __popc(vb & lt);  // the slot's vacant-rank
-        vac += __popc(vb);
-        const int m = vacant ? in_meta[sbase + rank] : -1;
-        if (m >= 0) {  // the slot takes staged candidate `rank`
-          const long long src = sbase + rank;
-          const float x = in_px[src], y = in_py[src], z = in_pz[src], ww = in_w[src];
-          const int sp = in_stamp[src];
-          s.px[base + k] = x;
-          s.py[base + k] = y;
-          s.pz[base + k] = z;
-          s.weight[base + k] = ww;
-          s.stamp[base + k] = sp;
-          s.track[base + k] = m & 0xFFFF;
-          s.label[base + k] = (uint8_t)((m >> 16) & 0xFF);
-          s.status[base + k] = (uint8_t)((m >> 24) & 0x7);
-          s.forget[base + k] = (uint8_t)((m >> 27) & 0x7);
-        } else if (in) {
-          if (st != raw) s.status[base + k] = st;
-          if (kept) s.weight[base + k] = w;
-        }
-      }
-      // c. the accepted count and each staged slot's acceptance
-      for (int c0 = 0; c0 < K; c0 += 32) {
-        const int k = c0 + lane;
-        const bool ok = k < K && k < vac && in_meta[sbase + k] >= 0;
-        acc += __popc(__ballot_sync(ALL, ok));
-        if constexpr (ACC) {
-          if (k < K) lanes[sbase + k] = (uint8_t)ok;
-        }
-      }
+      acc = merge_voxel<ACC>(s, in_px, in_py, in_pz, in_w, in_stamp, in_meta, lanes, vox * K,
+                             sbase, K, vax[vox], do_resample, trigger, inv_trigger);
     } else if constexpr (ACC) {
       // a padding row of the staged buffers accepts nothing
       for (int k = lane; k < K; k += 32) lanes[sbase + k] = 0;
     }
   }
+  // the accepted count, one global atomic a block
   if (lane == 0 && acc != 0u) atomicAdd(&s_acc, acc);
   __syncthreads();
   if (threadIdx.x == 0 && s_acc != 0u) atomicAdd(accepted, (unsigned long long)s_acc);
@@ -542,8 +608,7 @@ int launch_merge_generic(const Store& s, const Staged& in, const int* vax, const
                          unsigned long long* accepted, uint8_t* lanes, long long rows,
                          int bv_log2, int K, long long nb, int do_resample, int trigger,
                          cudaStream_t stream) {
-  constexpr long long WARPS = GEN_NT / 32;  // voxels a block
-  const unsigned grid = (unsigned)(((rows << bv_log2) + WARPS - 1) / WARPS);
+  const unsigned grid = (unsigned)(((rows << bv_log2) + GEN_WARPS - 1) / GEN_WARPS);
   static CUfunction fn = nullptr;
   return dsp::launch(merge_generic_kernel<ACC>, fn, grid, GEN_NT, 0, stream, s, in.px, in.py,
                      in.pz, in.w, in.stamp, in.meta, vax, ids, accepted, lanes, rows, bv_log2, K,

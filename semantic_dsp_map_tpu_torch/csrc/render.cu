@@ -56,8 +56,9 @@
 // Instances: K = 1, 3, 7, 15 and 31 (render_kernel<K>, the presets' and
 // the main path's), and one generic instance for every other K
 // (render_generic_kernel, below): a thread's K slots in registers stop
-// scaling past K = 31, so there a warp shares a voxel, a slot a lane, in
-// chunks of 32, with the same sums in the same order.
+// scaling past K = 31, so there a block streams a span's status and its
+// warps share the voxels that have one, a warp a voxel and a slot a lane,
+// with the same sums over the slots that add to them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -253,68 +254,270 @@ __global__ void __launch_bounds__(RENDER_NT, K <= 7 ? 3 : 2) render_kernel(
 // The generic instance, for every K past 31 (63 slots a voxel and more; the
 // config allows up to 2^31 slots in all).  The design above holds a voxel's
 // K slots in one thread's registers and a span's status in shared memory,
-// SPAN * K bytes: at K = 31 that already takes 128 registers and spills,
-// and at K = 127 the static array passes 48 KB.  Here the lanes of a warp
-// share a voxel instead, a slot a lane, and walk its slots in chunks of 32,
-// so no array grows with K, in registers or in shared memory (none is
-// used):
-//   1. a warp owns GEN_SPAN neighbouring voxels, one contiguous run of
-//      GEN_SPAN * K status bytes that starts on a 16-byte boundary, and
-//      reads it in 16-byte loads, neighbouring lanes on neighbouring
-//      addresses; a span without a status set writes its voxels' results
-//      from their stamps, as most of a map;
-//   2. else the warp takes the span's voxels one after another, each in
-//      three passes over its chunks, a slot a lane, neighbouring lanes on
-//      neighbouring words (a voxel's run is not 16-byte aligned for odd K):
-//        a. liveness, the pre-clamp and guessed-weight sums, accumulated
-//           in slot order: every lane adds the chunk's 32 terms one after
-//           another, each broadcast by a shuffle, so every lane holds the
-//           same sums, with the plain version's bits;
-//        b. the same-track sums: the lane that owns slot d adds slots
-//           d+1 .. d+K-1 mod K in that order, the rest of its own chunk
-//           (by shuffle), then the other chunks in turn from d's on,
-//           wrapping (each read again, a slot a lane, and broadcast), then
-//           the head of its own chunk; then the argmax with the
-//           lowest-track tie-break, kept as a running (sum, track) pair a
-//           lane and reduced across the warp: the order it decides by is
-//           total, so any reduction order gives the same pair;
-//        c. the last-writer label (the highest slot index of the winning
-//           track, a max over the warp) and the write-back in place of what
-//           changes, each slot by the lane that read it.
-// The K^2 work of (b) is spread over the lanes without moving a bit.  Slot
-// offsets are 64-bit (v * K passes 2^31 on a full grid at K = 255).  What
-// bounds it is the same as above, device memory: on an H100 at the full
-// VKITTI2 grid at K = 63 (a real store, 0.2% of its slots with a status)
-// it took 0.49 ms against a bound of 0.22 ms.
-constexpr int GEN_NT = 256;
-constexpr int GEN_SPAN = 16;  // voxels a warp; GEN_SPAN * K is a multiple of 16
+// SPAN * K bytes: at K = 31 that already takes 128 registers and spills, and
+// at K = 127 the static array passes 48 KB.  Here nothing grows with K:
+//   a. a block of GEN_NT threads owns a span of GEN_SPAN neighbouring
+//      voxels, one contiguous run of GEN_SPAN * K status bytes that starts
+//      on a 16-byte boundary.  Each thread asks for its voxel's two stamps,
+//      then the span's status is streamed in 16-byte pieces, GEN_PIECES a
+//      thread in flight before any is tested (as the generic scans of
+//      observe.cu stream the same array).  A non-zero piece, rare on a real
+//      store, sets the bits of the voxels whose bytes are set in a bitmap
+//      of the span in shared memory (atomicOr);
+//   b. a voxel without a status, or whose stamps make it invalid, is
+//      written from its two stamps alone, a thread a voxel, each result
+//      array in one coalesced store a block: most of a map.  An invalid
+//      voxel's results are its stamps' whatever its slots hold, and the
+//      plain version changes none of its slots;
+//   c. the other voxels, those with a status, are listed in shared memory
+//      (a ballot a warp, a popcount) and the block's warps take them in
+//      turn, so a patch of them does not hold one warp while the others
+//      idle;
+//   d. a warp reads its voxel once, two chunks of 32 slots a step, a slot a
+//      lane, every load of a kind asked for before one is waited on: the
+//      status, the stamp only where a status is set, weight, track and
+//      label only where the slot is alive.  The sums run over the alive
+//      slots in slot order (each broadcast by a shuffle, the set bits of a
+//      ballot, so every lane holds them), the clamped weights and the
+//      collected statuses are written back by the lane that owns the slot,
+//      and the contributing slots (alive and not collected) go to the
+//      warp's buffer in shared memory in slot order (ballot + popcount):
+//      track, clamped weight and (slot << 8 | label).  Then each lane takes
+//      entries d of the buffer and adds, to d's own weight, the entries of
+//      d's track after d in slot order and then those before it: the plain
+//      version's cyclic order d+1 .. K-1, 0 .. d-1 with the other slots
+//      left out, L^2 work for L contributing slots instead of K^2.  Then
+//      the running (sum, lowest track) argmax, reduced over the warp (the
+//      order it decides by is total, so any reduction order gives the same
+//      pair), and the last writer: the largest (slot << 8 | label) of the
+//      winning track.
+// The buffer holds GEN_CAP entries a warp.  A voxel with more contributing
+// slots works in rounds of GEN_CAP: its entries are read again from the
+// store for each round they are needed in (the own entries, those after
+// them, those before them), in the same order, so the sums keep their bits.
+// At K <= 127 no voxel needs a second round; GEN_CAP = 128 keeps the
+// buffers at 12 KB a block, so four blocks of 256 threads fit an SM and
+// keep enough of the status stream in flight (ptxas, sm_90a: 64 registers,
+// no spill, 17,984 bytes of shared memory).
+//
+// Left out and still the plain version's bits: the plain version adds
+// +0.0 for every slot that is not alive (to the weight and guessed sums)
+// and for every slot of another track or outside the contributing mask (to
+// a same-track sum).  x + (+0.0) has the bits of x unless x is -0.0.  The
+// weight and guessed sums start at +0.0, and a sum that starts at +0.0
+// never becomes -0.0 under round-to-nearest, so they keep every bit; a NaN
+// stays a NaN either way.  A same-track sum may start at -0.0 (a
+// contributing slot of weight -0.0), so left without the +0.0 terms it may
+// differ in the sign of a zero; but it is only compared (> 0, >, ==), where
+// -0.0 == +0.0.  A contributing slot of weight zero stays in the buffer: it
+// takes part in the argmax's test and in the last-writer pick.
+// Slot offsets are 64-bit (v * K passes 2^31 on a full grid at K = 255).
+constexpr int GEN_NT = 256;               // threads a block
+constexpr int GEN_SPAN = GEN_NT;          // voxels a block, a thread each
+constexpr int GEN_WARPS = GEN_NT / 32;
+constexpr int GEN_PIECES = 4;             // 16-byte status pieces a thread in flight
+constexpr int GEN_J = 4;                  // a lane's own entries of a round
+constexpr int GEN_CAP = 32 * GEN_J;       // entries of a warp's buffer
 
-// One slot's view for the render: what (a) to (c) compute from it.
-struct Slot {
-  bool in, alive, gc, cmask;
-  uint8_t st;
-  float w, wc, contrib;
-  int tk;
+// A warp's buffer of contributing slots, in slot order.
+struct Entries {
+  int* track;
+  float* contrib;
+  int* code;  // slot << 8 | label
 };
 
-__device__ __forceinline__ Slot load_slot(
-    const float* __restrict__ weight, const int* __restrict__ stamp,
-    const uint8_t* __restrict__ status, const int* __restrict__ track, long long base, int k,
-    int K, int va, float init_w) {
-  Slot s;
-  s.in = k < K;
-  s.st = s.in ? status[base + k] : STATUS_INVALID;
-  s.alive = s.st != STATUS_INVALID && stamp[base + k] >= va;
-  s.w = s.alive ? weight[base + k] : 0.f;
-  s.tk = s.alive ? track[base + k] : 0;
-  s.wc = s.w > 1.f ? 1.f : s.w;
-  s.gc = s.alive && s.st == STATUS_UPDATED && s.wc < init_w;
-  s.cmask = s.alive && !s.gc;
-  s.contrib = s.cmask ? s.wc : 0.f;
-  return s;
+// Sets the bits of the voxels whose status bytes are set in the piece `q`
+// of the span's status, slots li .. li + 15 of the span.
+__device__ __forceinline__ void mark_set(uint4 q, long long li, int K, unsigned* s_set) {
+  const unsigned word[4] = {q.x, q.y, q.z, q.w};
+  int lv = (int)(li / K), r = (int)(li % K), last = -1;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (((word[j >> 2] >> (8 * (j & 3))) & 0xffu) != 0u && lv != last) {
+      atomicOr(&s_set[lv >> 5], 1u << (lv & 31));
+      last = lv;
+    }
+    if (++r == K) {
+      r = 0;
+      ++lv;
+    }
+  }
 }
 
-__global__ void __launch_bounds__(GEN_NT) render_generic_kernel(
+// One pass over the K slots at `base`, two chunks of 32 a step, a slot a
+// lane.  The contributing slots of rank r0 .. r0 + GEN_CAP - 1 go to the
+// warp's buffer (index rank - r0); returns how many contributing slots the
+// voxel has (with FIRST), or at least r0 + GEN_CAP (a refill stops there).
+// FIRST: also the weight and guessed sums in slot order, and the write-back
+// of the clamped weights and the collected statuses (the voxel is valid).
+// A refill reads the written-back store: the collected slots are then no
+// longer alive and the clamped weights clamp to the same bits, so it finds
+// the same entries.
+template <bool FIRST>
+__device__ __forceinline__ int render_scan(
+    float* __restrict__ weight, const int* __restrict__ stamp, uint8_t* __restrict__ status,
+    const int* __restrict__ track, const uint8_t* __restrict__ label, long long base, int K,
+    int va, float init_w, int r0, Entries buf, float& wsum, float& gsum) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  int n = 0;  // contributing slots so far, the same in every lane
+  for (int c0 = 0; c0 < K; c0 += 64) {
+    if (!FIRST && n >= r0 + GEN_CAP) break;
+    int st[2], tk[2], lb[2];
+    bool alive[2];
+    float w[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = c0 + 32 * h + lane;
+      st[h] = k < K ? status[base + k] : STATUS_INVALID;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      alive[h] = st[h] != STATUS_INVALID && stamp[base + c0 + 32 * h + lane] >= va;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long i = base + c0 + 32 * h + lane;
+      w[h] = alive[h] ? weight[i] : 0.f;
+      tk[h] = alive[h] ? track[i] : 0;
+      lb[h] = alive[h] ? label[i] : 0;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = c0 + 32 * h + lane;
+      const float wc = w[h] > 1.f ? 1.f : w[h];
+      const bool guessed = alive[h] && st[h] == STATUS_GUESSED_BORN;
+      const bool gc = alive[h] && st[h] == STATUS_UPDATED && wc < init_w;
+      const bool cmask = alive[h] && !gc;
+      if (FIRST) {
+        for (unsigned m = __ballot_sync(ALL, alive[h]); m != 0u; m &= m - 1u)
+          wsum = wsum + __shfl_sync(ALL, w[h], __ffs(m) - 1);
+        for (unsigned m = __ballot_sync(ALL, guessed); m != 0u; m &= m - 1u)
+          gsum = gsum + __shfl_sync(ALL, wc, __ffs(m) - 1);
+        if (alive[h] && w[h] > 1.f) weight[base + k] = wc;
+        if (gc) status[base + k] = STATUS_INVALID;
+      }
+      const unsigned cm = __ballot_sync(ALL, cmask);
+      const int e = n + __popc(cm & lt) - r0;
+      if (cmask && e >= 0 && e < GEN_CAP) {
+        buf.track[e] = tk[h];
+        buf.contrib[e] = wc;
+        buf.code[e] = (k << 8) | lb[h];
+      }
+      n += __popc(cm);
+    }
+  }
+  return n;
+}
+
+// Adds the buffer's n entries (ranks g0 .. g0 + n - 1) to the same-track
+// sums of the lane's own entries (ranks d0 + 32 j + lane, j < nj): those
+// after an own entry (AFTER) or before it, in slot order.
+template <bool AFTER>
+__device__ __forceinline__ void add_entries(const Entries& buf, int n, int g0, int d0, int nj,
+                                            const int (&t)[GEN_J], float (&acc)[GEN_J]) {
+  const int lane = threadIdx.x & 31;
+  for (int e = 0; e < n; ++e) {
+    const int te = buf.track[e];
+    const float ce = buf.contrib[e];
+    const int g = g0 + e;
+#pragma unroll
+    for (int j = 0; j < GEN_J; ++j) {
+      const int d = d0 + 32 * j + lane;
+      if (j < nj && (AFTER ? g > d : g < d) && te == t[j]) acc[j] = acc[j] + ce;
+    }
+  }
+}
+
+// Steps c-d for one valid voxel with a status, by one warp; the results go
+// to lane 0's references.
+__device__ __forceinline__ void render_voxel(
+    float* __restrict__ weight, const int* __restrict__ stamp, uint8_t* __restrict__ status,
+    const int* __restrict__ track, const uint8_t* __restrict__ label, long long base, int K,
+    int va, float thr, float init_w, Entries buf, int& occ, int& lab, int& trk, float& ws) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float wsum = 0.f, gsum = 0.f;
+  const int L = render_scan<true>(weight, stamp, status, track, label, base, K, va, init_w, 0,
+                                  buf, wsum, gsum);
+  __syncwarp();
+  const int rounds = (L + GEN_CAP - 1) / GEN_CAP;
+  int held = 0;  // the round the buffer holds
+  auto hold = [&](int r) {
+    if (held == r) return;
+    __syncwarp();
+    float unused = 0.f;
+    render_scan<false>(weight, stamp, status, track, label, base, K, va, init_w, r * GEN_CAP, buf,
+                       unused, unused);
+    __syncwarp();
+    held = r;
+  };
+  auto size = [&](int r) { return L - r * GEN_CAP < GEN_CAP ? L - r * GEN_CAP : GEN_CAP; };
+
+  // the same-track sums of each round's entries, and the running argmax
+  float best_w = -1.f;
+  int best_tk = 1 << 30;
+  for (int ro = 0; ro < rounds; ++ro) {
+    hold(ro);
+    const int n_own = size(ro), nj = (n_own + 31) / 32, d0 = ro * GEN_CAP;
+    int t[GEN_J];
+    float acc[GEN_J];
+#pragma unroll
+    for (int j = 0; j < GEN_J; ++j) {
+      const int e = 32 * j + lane;
+      t[j] = e < n_own ? buf.track[e] : 0;
+      acc[j] = e < n_own ? buf.contrib[e] : 0.f;
+    }
+    for (int r = ro; r < rounds; ++r) {  // the entries after an own one
+      hold(r);
+      add_entries<true>(buf, size(r), r * GEN_CAP, d0, nj, t, acc);
+    }
+    for (int r = 0; r <= ro; ++r) {  // then those before it
+      hold(r);
+      add_entries<false>(buf, size(r), r * GEN_CAP, d0, nj, t, acc);
+    }
+#pragma unroll
+    for (int j = 0; j < GEN_J; ++j) {
+      if (32 * j + lane < n_own && acc[j] > 0.f) {
+        if (acc[j] > best_w) {
+          best_w = acc[j];
+          best_tk = t[j];
+        } else if (acc[j] == best_w && t[j] < best_tk) {
+          best_tk = t[j];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ow = __shfl_xor_sync(ALL, best_w, off);
+    const int ot = __shfl_xor_sync(ALL, best_tk, off);
+    if (ow > best_w || (ow == best_w && ot < best_tk)) {
+      best_w = ow;
+      best_tk = ot;
+    }
+  }
+  const bool found = best_w > 0.f;
+
+  // the winning track's last writer
+  int pick = -1;
+  if (found) {
+    for (int r = rounds - 1; r >= 0; --r) {
+      hold(r);
+      for (int e = lane; e < size(r); e += 32)
+        if (buf.track[e] == best_tk && buf.code[e] > pick) pick = buf.code[e];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) pick = max(pick, __shfl_xor_sync(ALL, pick, off));
+  }
+  __syncwarp();  // the buffer is read until here
+  ws = wsum;
+  occ = wsum > thr ? 1 : (wsum < 0.f ? -1 : (gsum >= init_w ? 2 : 0));
+  trk = found ? best_tk : 0;
+  lab = found && pick >= 0 ? (pick & 0xFF) : 0;
+}
+
+__global__ void __launch_bounds__(GEN_NT, 4) render_generic_kernel(
     float* __restrict__ weight, const int* __restrict__ stamp,
     uint8_t* __restrict__ status, const int* __restrict__ track,
     const uint8_t* __restrict__ label, const int* __restrict__ vax,
@@ -323,134 +526,92 @@ __global__ void __launch_bounds__(GEN_NT) render_generic_kernel(
     int* __restrict__ track_out, float* __restrict__ ws_out,
     long long V, int K, float thr, float init_w) {
   constexpr unsigned ALL = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const long long v0 = ((long long)blockIdx.x * (GEN_NT / 32) + threadIdx.x / 32) * GEN_SPAN;
-  if (v0 >= V) return;  // a whole warp
+  __shared__ unsigned s_set[GEN_WARPS];  // a bit a voxel with a status byte set
+  __shared__ int s_count[GEN_WARPS];     // the live voxels of a warp's 32
+  __shared__ short s_list[GEN_SPAN];     // the live voxels, in order
+  __shared__ int s_va[GEN_SPAN];
+  __shared__ int s_occ[GEN_SPAN], s_lab[GEN_SPAN], s_trk[GEN_SPAN];
+  __shared__ float s_ws[GEN_SPAN];
+  __shared__ int s_etrack[GEN_WARPS][GEN_CAP], s_ecode[GEN_WARPS][GEN_CAP];
+  __shared__ float s_econtrib[GEN_WARPS][GEN_CAP];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long v0 = (long long)blockIdx.x * GEN_SPAN;
   const int nv = (int)(V - v0 < GEN_SPAN ? V - v0 : GEN_SPAN);
-  const int C = (K + 31) / 32;  // chunks of a voxel
+  // v0 * K is a multiple of 16: every whole piece is 16-byte aligned.
+  const long long slot0 = v0 * K, nslots = (long long)nv * K;
+  const int va = tid < nv ? vax[v0 + tid] : 0;
+  const int vs = tid < nv ? vst[v0 + tid] : 0;
+  if (tid < GEN_WARPS) s_set[tid] = 0u;
+  __syncthreads();
 
-  // 1. the span's status, 16 bytes a lane (v0 * K is a multiple of 16)
-  const long long slot0 = v0 * K;
-  const long long nslots = (long long)nv * K;
-  unsigned any = 0u;
-  for (long long li = 16LL * lane; li < nslots; li += 16 * 32) {
-    if (li + 15 < nslots) {
-      const uint4 q = *reinterpret_cast<const uint4*>(status + slot0 + li);
-      any |= q.x | q.y | q.z | q.w;
-    } else {
-      for (long long j = li; j < nslots; ++j) any |= status[slot0 + j];
-    }
-  }
-  const int va_l = lane < nv ? vax[v0 + lane] : 0;
-  const int vs_l = lane < nv ? vst[v0 + lane] : 0;
-  if (!__any_sync(ALL, any != 0u)) {
-    if (lane < nv) write_empty(v0 + lane, va_l, vs_l, thr, init_w, occ_out, label_out, track_out, ws_out);
-    return;
-  }
-
-  // 2. the span's voxels in turn, the warp on one voxel
-  for (int i = 0; i < nv; ++i) {
-    const long long v = v0 + i;
-    const int va = __shfl_sync(ALL, va_l, i);
-    const int vs = __shfl_sync(ALL, vs_l, i);
-    const long long base = v * K;
-    // a. liveness and the two sums in slot order
-    float wsum = 0.f, gsum = 0.f;
-    bool any_alive = false;
-    for (int c0 = 0; c0 < K; c0 += 32) {
-      const Slot s = load_slot(weight, stamp, status, track, base, c0 + lane, K, va, init_w);
-      const float wt = s.alive ? s.w : 0.f;
-      const float gt = s.alive && s.st == STATUS_GUESSED_BORN ? s.wc : 0.f;
-      const int n = K - c0 < 32 ? K - c0 : 32;
-      for (int j = 0; j < n; ++j) {
-        wsum = wsum + __shfl_sync(ALL, wt, j);
-        gsum = gsum + __shfl_sync(ALL, gt, j);
-      }
-      any_alive = __any_sync(ALL, s.alive) || any_alive;
-    }
-    if (!any_alive) {
-      if (lane == 0) write_empty(v, va, vs, thr, init_w, occ_out, label_out, track_out, ws_out);
-      continue;
-    }
-    const bool vvalid = vs != 0 && vs >= va;
-
-    // b. per-slot same-track sums and the running argmax
-    float best_w = -1.f;
-    int best_tk = 1 << 30;
-    for (int c = 0; c < C; ++c) {
-      const int c0 = 32 * c;
-      const Slot own = load_slot(weight, stamp, status, track, base, c0 + lane, K, va, init_w);
-      const int n_own = K - c0 < 32 ? K - c0 : 32;
-      float acc = own.contrib;
-      for (int j = 0; j < n_own; ++j) {  // the rest of the own chunk: d+1 ..
-        const int t = __shfl_sync(ALL, own.tk, j);
-        const float cj = __shfl_sync(ALL, own.contrib, j);
-        if (j > lane) acc = acc + (own.tk == t ? cj : 0.f);
-      }
-      for (int m = 1; m < C; ++m) {  // the other chunks, from the own one's next on
-        const int o0 = 32 * ((c + m) % C);
-        const Slot o = load_slot(weight, stamp, status, track, base, o0 + lane, K, va, init_w);
-        const int n = K - o0 < 32 ? K - o0 : 32;
-        for (int j = 0; j < n; ++j) {
-          const int t = __shfl_sync(ALL, o.tk, j);
-          const float cj = __shfl_sync(ALL, o.contrib, j);
-          acc = acc + (own.tk == t ? cj : 0.f);
-        }
-      }
-      for (int j = 0; j < n_own; ++j) {  // the head of the own chunk: .. d-1
-        const int t = __shfl_sync(ALL, own.tk, j);
-        const float cj = __shfl_sync(ALL, own.contrib, j);
-        if (j < lane) acc = acc + (own.tk == t ? cj : 0.f);
-      }
-      if (own.in && own.cmask && acc > 0.f) {
-        if (acc > best_w) {
-          best_w = acc;
-          best_tk = own.tk;
-        } else if (acc == best_w && own.tk < best_tk) {
-          best_tk = own.tk;
-        }
+  // a. the span's status, GEN_PIECES pieces a thread at once (0 = INVALID
+  // beyond the store)
+  const long long pieces = (nslots + 15) / 16;
+  for (long long p0 = tid; p0 < pieces; p0 += (long long)GEN_NT * GEN_PIECES) {
+    uint4 q[GEN_PIECES];
+#pragma unroll
+    for (int u = 0; u < GEN_PIECES; ++u) {
+      const long long li = 16 * (p0 + (long long)u * GEN_NT);
+      q[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (li + 15 < nslots) {
+        q[u] = *reinterpret_cast<const uint4*>(status + slot0 + li);
+      } else if (li < nslots) {
+        unsigned w[4] = {0u, 0u, 0u, 0u};
+        for (int j = 0; li + j < nslots; ++j) w[j / 4] |= (unsigned)status[slot0 + li + j] << (8 * (j % 4));
+        q[u] = make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ow = __shfl_xor_sync(ALL, best_w, off);
-      const int ot = __shfl_xor_sync(ALL, best_tk, off);
-      if (ow > best_w || (ow == best_w && ot < best_tk)) {
-        best_w = ow;
-        best_tk = ot;
-      }
-    }
-    const bool found = best_w > 0.f;
+    for (int u = 0; u < GEN_PIECES; ++u)
+      if ((q[u].x | q[u].y | q[u].z | q[u].w) != 0u)
+        mark_set(q[u], 16 * (p0 + (long long)u * GEN_NT), K, s_set);
+  }
+  __syncthreads();
 
-    // c. the winning track's last writer, and the write-back
-    int pick = -1;
-    for (int c0 = 0; c0 < K; c0 += 32) {
-      const int k = c0 + lane;
-      const Slot s = load_slot(weight, stamp, status, track, base, k, K, va, init_w);
-      if (s.in && s.cmask && s.tk == best_tk) {
-        const int code = (k << 8) | label[base + k];
-        if (code > pick) pick = code;
-      }
-      if (vvalid) {
-        if (s.alive && s.w > 1.f) weight[base + k] = s.wc;
-        if (s.gc) status[base + k] = STATUS_INVALID;
-      }
-    }
+  // b-c. the valid voxels with a status, listed in order
+  const bool vvalid = vs != 0 && vs >= va;
+  const bool live = tid < nv && vvalid && ((s_set[warp] >> lane) & 1u);
+  const unsigned lw = __ballot_sync(ALL, live);
+  if (lane == 0) s_count[warp] = __popc(lw);
+  s_va[tid] = va;
+  __syncthreads();
+  int off = 0, total = 0;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) pick = max(pick, __shfl_xor_sync(ALL, pick, off));
+  for (int w = 0; w < GEN_WARPS; ++w) {
+    off += w < warp ? s_count[w] : 0;
+    total += s_count[w];
+  }
+  if (live) s_list[off + __popc(lw & ((1u << lane) - 1u))] = (short)tid;
+  __syncthreads();
+
+  // d. a warp a listed voxel, the warps in turn
+  const Entries buf{s_etrack[warp], s_econtrib[warp], s_ecode[warp]};
+  for (int i = warp; i < total; i += GEN_WARPS) {
+    const int lv = s_list[i];
+    int occ, lab, trk;
+    float ws;
+    render_voxel(weight, stamp, status, track, label, (v0 + lv) * K, K, s_va[lv], thr, init_w,
+                 buf, occ, lab, trk, ws);
     if (lane == 0) {
-      int best_track = best_tk;
-      int best_label = pick >= 0 ? (pick & 0xFF) : 0;
-      if (!(found && vvalid)) {
-        best_track = 0;
-        best_label = 0;
-      }
-      const float ws = vvalid ? wsum : -1.f;
-      const float gw = vvalid ? gsum : 0.f;
-      occ_out[v] = ws > thr ? 1 : (ws < 0.f ? -1 : (gw >= init_w ? 2 : 0));
-      label_out[v] = best_label;
-      track_out[v] = best_track;
-      ws_out[v] = ws;
+      s_occ[lv] = occ;
+      s_lab[lv] = lab;
+      s_trk[lv] = trk;
+      s_ws[lv] = ws;
+    }
+  }
+  __syncthreads();
+
+  // the results, a thread a voxel
+  if (tid < nv) {
+    const long long v = v0 + tid;
+    if (live) {
+      occ_out[v] = s_occ[tid];
+      label_out[v] = s_lab[tid];
+      track_out[v] = s_trk[tid];
+      ws_out[v] = s_ws[tid];
+    } else {
+      write_empty(v, va, vs, thr, init_w, occ_out, label_out, track_out, ws_out);
     }
   }
 }
@@ -459,8 +620,7 @@ int launch_generic(float* weight, const int* stamp, uint8_t* status, const int* 
                    const uint8_t* label, const int* vax, const int* vst, int* occ, int* lab,
                    int* trk, float* ws, long long V, int K, float thr, float init_w,
                    cudaStream_t stream) {
-  constexpr long long VOX = (GEN_NT / 32) * GEN_SPAN;  // voxels a block
-  const long long grid = (V + VOX - 1) / VOX;
+  const long long grid = (V + GEN_SPAN - 1) / GEN_SPAN;
   static CUfunction fn = nullptr;
   return dsp::launch(render_generic_kernel, fn, (unsigned)grid, GEN_NT, 0, stream, weight, stamp,
                      status, track, label, vax, vst, occ, lab, trk, ws, V, K, thr, init_w);

@@ -8,6 +8,7 @@ module run would import this checkout's package first)::
 
     python3 semantic_dsp_map_tpu_torch/tools/graph_pair.py DIR
     python3 semantic_dsp_map_tpu_torch/tools/graph_pair.py DIR --wide
+    python3 semantic_dsp_map_tpu_torch/tools/graph_pair.py DIR --generic
 
 Prints one line ``PAIR {json}``: each path's device busy ms and kernels of
 a profiled replay, the graph frames' median ms and the five frame kernels'
@@ -15,10 +16,18 @@ device ms in the replay; or with ``--wide`` each case's device-only and
 host-included ms (medians of 10), terms and bound: pass A at R = 16 on a
 real S = 12 frame and at S = 512, pass B at S = 512, and each pass's first
 wide shape beside the main one just below it (pass A at S = 67 / 68 and
-R = 12 / 13, pass B at S = 431 / 432); beside the card's name and power
-limit.  Both modes use only functions that ``chip_smoke.py`` has had since
-the passes' wide instances first ran (``recorded_passes``, ``cuda_ms``, the
-passes' census and bounds), so an older checkout runs them too.
+R = 12 / 13, pass B at S = 431 / 432); or with ``--generic`` the same for
+the render's and birth's merge's generic instances (K past 31): the render
+on the full VKITTI2 grid at K = 63 after 6 frames of the vkitti2 scene
+(each launch on the store as it was before the render) and on the reduced
+grid at K = 63 and 127 after 4 frames of the reduced hostile scene, both
+merge instances on that map's next frame's birth and moving-object
+cleanup working sets (cut to their rows) and on a working set of 400 real
+rows of the reduced grid; beside the card's name and power limit.  The
+modes use only functions that ``chip_smoke.py`` has had since the generic
+and wide instances first ran (``recorded_passes``, ``cuda_ms``,
+``render_runner``, ``MergeRecorder``, the censuses and bounds), so an
+older checkout runs them too.
 """
 
 from __future__ import annotations
@@ -77,11 +86,122 @@ def wide_cases(cs, card) -> dict:
     return out
 
 
+def generic_cases(cs, card) -> dict:
+    """The ``--generic`` cases, timed with ``cs`` (a checkout's chip_smoke):
+    each kernel's device-only and host-included ms (medians of 10), its
+    bound, and the census its bound counts."""
+    import dataclasses
+
+    import torch
+    from semantic_dsp_map_tpu_torch import (
+        FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config,
+    )
+    from semantic_dsp_map_tpu_torch.frontend import pack_frame
+    from semantic_dsp_map_tpu_torch.map import build_frame_step, unpack_frame
+    from semantic_dsp_map_tpu_torch.ops import codecs
+    from semantic_dsp_map_tpu_torch.ops.birth import merge_blocks_plain
+    from semantic_dsp_map_tpu_torch.ops.birth_cuda import (
+        merge_blocks_accepted_cuda, merge_blocks_cuda,
+    )
+    from semantic_dsp_map_tpu_torch.ops.render_cuda import render_core_cuda
+
+    scenes = cs.bench_scenes()
+    params = FilterParams(**scenes.VK_PARAMS)
+
+    def timed(run, restore):
+        return {"device_only_ms": cs.cuda_ms(run, 10, queued=True, setup=restore),
+                "ms": cs.cuda_ms(run, 10, setup=restore)}
+
+    def render_case(name, dsp):
+        cfg, st = dsp.cfg, dsp.state
+        p, vst = st.particles, st.voxel_stamp
+        vax = codecs.axis_stamps_per_voxel(cfg, st.scroll)
+        thr = dsp.params.occupancy_threshold
+        pk = dataclasses.replace(p, weight=p.weight.clone(), status=p.status.clone())
+        pk, r = render_core_cuda(cfg, pk, vst, vax, thr)
+        c = cs.render_census(cfg, p, pk, vax, vst, r)
+        del pk, r
+        out = {**timed(*cs.render_runner(cfg, p, vst, vax, thr)), **c["bound"],
+               "with_status": c["with_status"], "alive": c["alive"]}
+        torch.cuda.empty_cache()
+        return report(name, out)
+
+    def merge_case(name, cfg, flat, blocks, vax, staged, resample, accepted):
+        fields = [f.name for f in dataclasses.fields(flat)]
+        before = {k: getattr(flat, k).clone() for k in fields}
+        after = type(flat)(**{k: v.clone() for k, v in before.items()})
+        _, acc = merge_blocks_plain(cfg, after, blocks, vax, staged, resample)[:2]
+        b, n_real = cs.merge_bound(cfg, blocks, staged, before, after, resample, acc)
+        if accepted:  # the mask's bytes
+            b = cs.bound(b["bound_ms"] * 1e-3 * cs.HBM_BYTES_PER_S + staged.meta.numel())
+        work = type(flat)(**{k: v.clone() for k, v in before.items()})
+
+        def restore():
+            for k in fields:
+                getattr(work, k).copy_(before[k])
+
+        kernel = merge_blocks_accepted_cuda if accepted else merge_blocks_cuda
+        out = {**timed(lambda: kernel(cfg, work, blocks, vax, staged, resample), restore), **b,
+               "rows": blocks.ids.shape[0], "real_rows": n_real, "accepted": int(acc)}
+        del before, after, work
+        return report(name, out)
+
+    def report(name, o):
+        o["share"] = o["bound_ms"] / o["device_only_ms"]
+        print(f"[pair] {name}: {o['device_only_ms']:.4f} ms device-only ({o['ms']:.4f}), bound "
+              f"{o['bound_ms']:.4f} by {o['bound_by']}, share {o['share']:.3f} ({card})", flush=True)
+        return o
+
+    out = {}
+    # the full grid at K = 63: 6 frames, then one eager frame's two merges
+    cfg = virtual_kitti2_config(max_particle_num_per_voxel_n=6)
+    synth = scenes.synth_vkitti2_frame
+    dsp = SemanticDSPMap(cfg, params, device="cuda")
+    frames = 6
+    for t in range(frames):
+        dsp.update(*synth(cfg, t, MaskKpts))
+    out["render_k63_full"] = render_case("render_k63_full", dsp)
+    depth, masks, pos, quat = synth(cfg, frames, MaskKpts)
+    step = build_frame_step(cfg, dsp.params, dsp.registry)
+    buf = pack_frame(cfg, dsp.registry, depth, masks, pos, quat, 0.1 * frames - dsp._time_origin)
+    f = unpack_frame(cfg, dsp._static_table, torch.from_numpy(buf).cuda())
+    with cs.MergeRecorder() as rec:
+        dsp.state, _, _ = step(dsp.state, f)
+    torch.cuda.synchronize()
+    del step, f, dsp
+    torch.cuda.empty_cache()
+    for (label, args), accepted in ((pair, acc) for pair in zip(("cleanup", "birth"), rec.calls)
+                                    for acc in (False, True)):
+        key = f"merge{'_accepted' if accepted else ''}_k63_{label}"
+        out[key] = merge_case(key, *args, accepted)
+    del rec
+    torch.cuda.empty_cache()
+    # the reduced grid at K = 63 and 127: 4 frames of the reduced hostile scene
+    for slots_n in (6, 7):
+        K = (1 << slots_n) - 1
+        cfg = virtual_kitti2_config(**scenes.REDUCED_VKITTI2, max_particle_num_per_voxel_n=slots_n)
+        dsp = SemanticDSPMap(cfg, params, device="cuda")
+        for t in range(4):
+            dsp.update(*cs.reduced_hostile_scene(cfg, t, MaskKpts))
+        out[f"render_k{K}_reduced"] = render_case(f"render_k{K}_reduced", dsp)
+        del dsp
+        args = cs.merge_inputs(cfg, cfg.max_birth_blocks, 400)
+        for accepted in (False, True):
+            key = f"merge{'_accepted' if accepted else ''}_k{K}_reduced"
+            out[key] = merge_case(key, cfg, *args, True, accepted)
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("root", type=Path, help="the checkout whose package and chip_smoke.py run")
     ap.add_argument("--wide", action="store_true",
                     help="time the PHD passes' wide cases instead of the graph paths")
+    ap.add_argument("--generic", action="store_true",
+                    help="time the render's and the merge's generic instances (K past 31) "
+                         "instead of the graph paths")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -102,8 +222,9 @@ def main(argv=None) -> dict:
     card = card_line(torch.device("cuda"))
     lib, seconds, _ = cuda_lib.build()
     print(f"[pair] {root.name}: library {lib} in {seconds:.1f} s ({card})", flush=True)
-    if args.wide:
-        result = {"who": str(root), "card": card, "wide": wide_cases(cs, card)}
+    if args.wide or args.generic:
+        key, cases = ("wide", wide_cases) if args.wide else ("generic", generic_cases)
+        result = {"who": str(root), "card": card, key: cases(cs, card)}
         print("PAIR " + json.dumps(result), flush=True)
         return result
     scenes = cs.bench_scenes()

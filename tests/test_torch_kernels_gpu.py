@@ -28,8 +28,8 @@ from semantic_dsp_map_tpu_torch.state import init_map_state
 from semantic_dsp_map_tpu_torch.step_graph import kernel_runs
 
 from torch_parity import (
-    PHD_EDGE_TABLES, STORE_EDGES, ZERO_FF_ENTRY, particle_store, phd_table_cloud, render_store,
-    zed2_scene,
+    PHD_EDGE_TABLES, RENDER_GENERIC_EDGES, STORE_EDGES, ZERO_FF_ENTRY, particle_store,
+    phd_table_cloud, render_generic_store, render_store, zed2_scene,
 )
 
 CASES = [(False, False, 0.4), (True, False, 0.4), (False, True, 0.12)]
@@ -462,6 +462,24 @@ def test_wide_instances_fit_their_launch_bounds(cuda):
         assert regs <= limit and spill == 0, (key, regs, spill)
 
 
+@pytest.mark.gpu
+def test_generic_instances_spill_nothing(cuda):
+    """ptxas fits the render's generic instance in the 64 registers of its
+    launch bounds (four blocks of 256 threads an SM) and the merge's two
+    generic instances in theirs, with no spill."""
+    from semantic_dsp_map_tpu_torch.ops import cuda_lib
+
+    _, _, log = cuda_lib.build()
+    found = _ptxas_functions(log)
+    limits = {"21render_generic_kernel": 64, "20merge_generic_kernelILb0E": 255,
+              "20merge_generic_kernelILb1E": 255}
+    for key, limit in limits.items():
+        hits = [v for name, v in found.items() if key in name]
+        assert len(hits) == 1, (key, sorted(found))
+        regs, spill = hits[0]
+        assert regs <= limit and spill == 0, (key, regs, spill)
+
+
 def _render_state(cfg, device, seed):
     """Random particles, stamps and scroll stamps (the generator of
     tests/test_render_pallas.py)."""
@@ -508,7 +526,7 @@ def test_render_kernel_matches_plain(cuda, seed, slots_n):
 def _render_edge_store(V, K, device, seed, kind):
     from semantic_dsp_map_tpu_torch.state import Particles
 
-    d = render_store(V, K, seed, kind)
+    d = (render_generic_store if kind in RENDER_GENERIC_EDGES else render_store)(V, K, seed, kind)
     T = lambda a: torch.from_numpy(a).to(device)
     n = V * K
     zeros = torch.zeros(n, device=device)
@@ -555,6 +573,44 @@ def test_render_kernel_at_the_edges(cuda, kind, slots_n, V):
     again, _ = render_core_cuda(cfg, dataclasses.replace(pk, weight=pk.weight.clone(),
                                                          status=pk.status.clone()), vst, vax, 0.4)
     assert torch.equal(again.weight, pk.weight) and torch.equal(again.status, pk.status)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [1, 256, 257, 1029])
+@pytest.mark.parametrize("slots_n", [6, 7, 8, 10])  # K = 63, 127, 255, 1023
+@pytest.mark.parametrize("kind", RENDER_GENERIC_EDGES)
+def test_render_generic_kernel_at_its_edges(cuda, kind, slots_n, V):
+    """The generic render (K past 31: a block streams a span of 256 voxels,
+    its warps share the valid voxels with a status) on the stores its
+    design has to get right: one voxel with a status a span, at its first
+    and at its last voxel; every voxel of a span valid and every slot
+    alive (at K = 255 and 1023 more contributing slots than a warp's buffer
+    holds: rounds); alive slots of weight -0.0, +0.0 and NaN; same-track
+    sums tied across two tracks; voxel counts that are no multiple of the
+    span.  occ, label, track and the new status equal, weight_sum's bits
+    and the new weights' bits equal (NaN for NaN: the plain clamp is
+    torch.minimum, which picks a NaN's bits of its own, where the kernel
+    leaves a NaN weight as it is)."""
+    cfg = tiny_test_config(max_particle_num_per_voxel_n=slots_n)
+    K = cfg.slots_per_voxel
+    p, vst, vax = _render_edge_store(V, K, cuda, seed=V + slots_n, kind=kind)
+    new, want = render_core_plain(cfg, p, vst, vax, 0.4)
+    pk = dataclasses.replace(p, weight=p.weight.clone(), status=p.status.clone())
+    before = render_core_cuda.launches
+    pk, got = render_core_cuda(cfg, pk, vst, vax, 0.4)
+    torch.cuda.synchronize()
+    assert render_core_cuda.launches == before + 1
+    for name in ("occ", "label", "track"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(pk.status, new.status)
+    assert torch.equal(got.weight_sum.view(torch.int32), want.weight_sum.view(torch.int32))
+    nan = torch.isnan(new.weight)
+    assert torch.equal(torch.isnan(pk.weight), nan)
+    assert torch.equal(pk.weight[~nan].view(torch.int32), new.weight[~nan].view(torch.int32))
+    if V > 256:
+        assert (want.occ == 1).any()
+    if kind == "span_all_live":
+        assert (want.occ >= 0).all()
 
 
 @pytest.mark.gpu
@@ -1413,13 +1469,20 @@ def test_segment_scans_match_cummax(cuda, n, captured):
 #: moving-object cleanup at VKITTI2 (2 x max_moving_blocks = 256 rows);
 #: zed2: 1024 rows of 128 voxels, K = 3; k31: a store of 31 slots a voxel
 #: (max_particle_num_per_voxel_n = 5), rows of 16 voxels; k63 to k1023: the
-#: generic instance (a warp a voxel) with rows of 8, 4, 2 and 1 voxels, real
-#: rows no multiple of a block's eight voxels.
+#: generic instance (a warp a voxel, two chunks of 32 slots a step) with
+#: rows of 8, 4, 2 and 1 voxels, real rows no multiple of a block's eight
+#: voxels; *_walk_bound and *_wipe: the working sets of
+#: torch_parity.MERGE_KINDS (every slot UPDATED; the walk's K + 8 loop run
+#: to its bound, and the wipe).
 MERGE_SHAPES = {"tiny": (2, 128, 16, 11, 16), "vkitti2": (3, 64, 1536, 1400, 4096),
                 "vkitti2_move": (3, 64, 256, 200, 4096), "zed2": (2, 128, 1024, 1000, 2048),
                 "k31": (5, 16, 256, 201, 4096), "k63": (6, 8, 256, 201, 4096),
                 "k127": (7, 4, 300, 233, 4096), "k255": (8, 2, 256, 201, 4096),
-                "k1023": (10, 1, 77, 50, 1024)}
+                "k1023": (10, 1, 77, 50, 1024),
+                "k63_walk_bound": (6, 8, 256, 201, 4096, "walk_bound"),
+                "k127_walk_bound": (7, 4, 300, 233, 4096, "walk_bound"),
+                "k63_wipe": (6, 8, 256, 201, 4096, "wipe"),
+                "k127_wipe": (7, 4, 300, 233, 4096, "wipe")}
 
 
 def _merge_inputs(device, shape, seed):
@@ -1431,13 +1494,13 @@ def _merge_inputs(device, shape, seed):
     from semantic_dsp_map_tpu_torch.state import Particles
     from torch_parity import merge_working_set
 
-    slots_n, bv, A, n_real, nb = MERGE_SHAPES[shape]
+    slots_n, bv, A, n_real, nb, *kind = MERGE_SHAPES[shape]
     # a grid of nb * bv voxels whose block layout has bv voxels a block
     cfg = tiny_test_config(max_particle_num_per_voxel_n=slots_n,
                            voxel_num_axis_x_n=(nb * bv).bit_length() - 1 - 8,
                            voxel_num_axis_y_n=4, voxel_num_axis_z_n=4)
     assert block_layout(cfg)[:2] == (bv, nb), block_layout(cfg)
-    d = merge_working_set(cfg.slots_per_voxel, bv, A, n_real, nb, seed)
+    d = merge_working_set(cfg.slots_per_voxel, bv, A, n_real, nb, seed, *kind)
     T = lambda k: torch.from_numpy(d[k]).to(device)
     flat = Particles(**{k: T(k) for k in ("px", "py", "pz", "weight", "label", "track", "status",
                                           "forget", "stamp")})

@@ -344,7 +344,92 @@ def render_store(V, K, seed, kind="mixed"):
     )
 
 
-def merge_working_set(K: int, bv: int, A: int, n_real: int, nb: int, seed: int) -> dict:
+#: The render's stores for its generic instance (K past 31: a block of 256
+#: threads streams a span of 256 voxels, the warps share the voxels with a
+#: status): one voxel with a status per span, at its first and at its last
+#: voxel; every voxel of every span valid and every slot alive; alive slots
+#: of weight -0.0, +0.0 and NaN; two tracks whose same-track sums tie.
+RENDER_GENERIC_EDGES = ("first_of_span", "last_of_span", "span_all_live", "signed_zeros_nan",
+                        "track_ties")
+
+
+def render_generic_store(V, K, seed, kind):
+    """The render's inputs as numpy (``render_store``'s fields) for a kind
+    of ``RENDER_GENERIC_EDGES``."""
+    d = render_store(V, K, seed, "mixed")
+    rng = np.random.RandomState(seed + 2000)
+    n = V * K
+    status, stamp, weight = d["status"], d["stamp"], d["weight"]
+    slots = status.reshape(V, K)
+    if kind in ("first_of_span", "last_of_span"):
+        keep = np.zeros(V, bool)
+        keep[0 if kind == "first_of_span" else 255::256] = True
+        if kind == "last_of_span":
+            keep[V - 1] = True  # the last voxel of a ragged last span
+        slots[~keep] = 0
+        d["voxel_stamp"][keep] = 3  # valid: the scroll stamps are 0-2
+        stamp.reshape(V, K)[keep] = np.where(rng.rand(int(keep.sum()), K) < 0.8, 3, 0)
+    elif kind == "span_all_live":
+        status[:] = rng.randint(1, 4, n)
+        stamp[:] = 2
+        d["voxel_stamp"][:] = 3
+    elif kind == "signed_zeros_nan":
+        d["voxel_stamp"][:] = 3
+        stamp[:] = np.where(rng.rand(n) < 0.9, 3, 0)
+        u = rng.rand(n)
+        weight[u < 0.1] = -0.0
+        weight[(u >= 0.1) & (u < 0.2)] = 0.0
+        # every voxel's first slot contributes with a weight of -0.0: its
+        # same-track sum starts at -0.0; one slot of every third voxel NaN
+        slots[:, 0] = 2
+        w = weight.reshape(V, K)
+        w[:, 0] = -0.0
+        w[::3, 1 + rng.randint(0, K - 1)] = np.nan
+    elif kind == "track_ties":
+        # each voxel: m alive slots, half of track a and half of track b, and
+        # one slot of a third track with less weight.  A third of the voxels:
+        # the same dyadic weights in another order, an exact tie; a third:
+        # b's largest weight raised by 1/16 and its smallest lowered by
+        # 1/16 + 1/1024, so a wins by 1/1024 while b holds the heaviest slot
+        # (a sum that counted a slot twice would pick b); a third: the same
+        # non-dyadic weights in another order, tied or not by the rounding
+        # of the sums in their order.
+        d["voxel_stamp"][:] = 3
+        stamp[:] = 3
+        status[:] = 0
+        trk = d["track"].reshape(V, K)
+        w = weight.reshape(V, K)
+        for v in range(V):
+            m = min(K - 1, 2 * rng.randint(2, 10))
+            pos = rng.choice(K, m + 1, replace=False)
+            if v % 3 == 2:
+                half = rng.rand(m // 2).astype(np.float32) * 0.9 + 0.05
+            else:
+                half = rng.choice([0.125, 0.25, 0.375, 0.5, 0.625, 0.75], m // 2).astype(np.float32)
+            other = rng.permutation(half)
+            if v % 3 == 1:
+                other[np.argmax(other)] += 0.0625
+                other[np.argmin(other)] -= 0.0625 + 1 / 1024
+            a, b = rng.choice(4, 2, replace=False)
+            slots[v, pos] = rng.choice([2, 3], m + 1)
+            trk[v, pos[: m // 2]], w[v, pos[: m // 2]] = a, half
+            trk[v, pos[m // 2: m]], w[v, pos[m // 2: m]] = b, other
+            trk[v, pos[m]], w[v, pos[m]] = 6 - a - b if a + b != 3 else 0, 0.0625
+    else:
+        raise ValueError(kind)
+    return d
+
+
+#: Birth's merge working sets beside the random one: every slot of a real
+#: row UPDATED, all but two a voxel alive (so more than the resample
+#: trigger), with one heavy slot a voxel whose walk advances its threshold
+#: K + 8 times, the bound of the loop; and the same with a weight sum below
+#: 0.01 (the wipe).
+MERGE_KINDS = ("random", "walk_bound", "wipe")
+
+
+def merge_working_set(K: int, bv: int, A: int, n_real: int, nb: int, seed: int,
+                      kind: str = "random") -> dict:
     """Random inputs of birth's merge stage (``ops.birth.merge_blocks_plain``)
     over a store of ``nb`` blocks of ``bv`` voxels of K slots: the store's
     nine fields, the voxels' scroll stamps (some slots stale), ``A`` target
@@ -352,8 +437,8 @@ def merge_working_set(K: int, bv: int, A: int, n_real: int, nb: int, seed: int) 
     then the padding ids nb + row), and the staged candidates [A, bv, K]
     (0 to K a voxel, as a prefix, meta -1 elsewhere).  A tenth of the
     voxels hold weights near 1e-4, whose resample wipes; UPDATED is the
-    likeliest status, so most targeted voxels walk.
-    Returns numpy arrays by name."""
+    likeliest status, so most targeted voxels walk.  ``kind``: one of
+    ``MERGE_KINDS``.  Returns numpy arrays by name."""
     rng = np.random.RandomState(seed)
     V = nb * bv
     n = V * K
@@ -382,4 +467,27 @@ def merge_working_set(K: int, bv: int, A: int, n_real: int, nb: int, seed: int) 
         out[name] = np.where(occupied, rng.randn(*occupied.shape), 0.0).astype(np.float32)
     out["in_w"] = np.where(occupied, rng.rand(*occupied.shape), 0.0).astype(np.float32)
     out["in_stamp"] = np.where(occupied, rng.randint(1, 9, occupied.shape), 0).astype(np.int32)
+    if kind != "random":
+        if kind not in MERGE_KINDS:
+            raise ValueError(kind)
+        # the real rows' slots: all UPDATED, two a voxel stale (pruned, so
+        # vacant even without the resample), each voxel a candidate
+        nv = n_real * bv
+        slots = (ids[:n_real, None] * bv * K + np.arange(bv * K)).reshape(-1)
+        voxels = (ids[:n_real, None] * bv + np.arange(bv)).reshape(-1)
+        order = np.argsort(rng.rand(nv, K), axis=1)
+        rows = np.arange(nv)[:, None]
+        out["status"][slots] = 1
+        out["vox_axis"][voxels] = 1
+        stamp = np.full((nv, K), 8, np.int32)
+        stamp[rows, order[:, :2]] = 0
+        out["stamp"][slots] = stamp.reshape(-1)
+        w = np.full((nv, K), 1e-3 if kind == "walk_bound" else 0.004 / K, np.float32)
+        if kind == "walk_bound":
+            # wpp is 1; the heavy slot's sum passes K + 8 steps of it
+            w[rows[:, 0], order[:, 2]] = 4.0 * K
+        out["weight"][slots] = w.reshape(-1)
+        first = np.zeros_like(occupied)
+        first[:n_real, :, 0] = True
+        out["in_meta"] = np.where(first & (out["in_meta"] < 0), meta, out["in_meta"]).astype(np.int32)
     return out
