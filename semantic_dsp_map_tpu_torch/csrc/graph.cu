@@ -1,5 +1,8 @@
-// A conditional IF node in a CUDA graph under stream capture, plain C
-// interface: the counterpart of XLA's conditional (lax.cond) for the
+// What the captured step needs beside PyTorch's own calls, plain C
+// interface: a conditional IF node in a CUDA graph under stream capture
+// (below), and the frame tracer's stamp (at the end of the file).
+//
+// The IF node is the counterpart of XLA's conditional (lax.cond) for the
 // template stages, whose slots run their sweep only where they have work.
 // Called by step_graph.slot_cond.
 //
@@ -82,4 +85,62 @@ extern "C" int dsp_if_node_begin(void* capture_stream, const bool* pred,
 extern "C" int dsp_if_node_end(void* body_stream) {
   cudaGraph_t body;
   return (int)cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &body);
+}
+
+// The frame tracer's stamp (timing.Tracer, through timing.stamp_cuda): one
+// thread writes the device's %globaltimer (ns) into column `column` of the
+// current frame's row of the stamp ring, int64[capacity, STAMP_COLUMNS].
+// Replaces no TPU kernel: it marks the stage boundaries of the captured
+// step, inside the CUDA graphs, so that a replay records its stages' device
+// times with no host involvement.  The frame's first stamp (`first`)
+// advances the frame cursor (cursor[0] frames begun, cursor[1] the current
+// row) and clears the row's stamps and counters.  Where `counts` is given
+// (nine int64 device scalars, the frame's StepDiagnostics) it also copies
+// them into the row of the counter ring, int64[capacity, STAMP_COLUMNS].
+// Bound: one launch, a few dozen bytes; its cost is the launch.
+
+namespace {
+
+constexpr int STAMP_COLUMNS = 9;
+
+struct Counts {
+  const long long* p[STAMP_COLUMNS];
+};
+
+__global__ void stamp_kernel(long long* cursor, long long* stamps, long long* counters,
+                             int capacity, int column, int first, int with_counts,
+                             Counts counts) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (first) {
+    const long long frame = cursor[0];
+    cursor[0] = frame + 1;
+    cursor[1] = frame % capacity;
+    for (int c = 0; c < STAMP_COLUMNS; ++c) {
+      stamps[cursor[1] * STAMP_COLUMNS + c] = -1;
+      counters[cursor[1] * STAMP_COLUMNS + c] = -1;
+    }
+  }
+  const long long row = cursor[1] * STAMP_COLUMNS;
+  stamps[row + column] = (long long)now;
+  if (with_counts) {
+    for (int c = 0; c < STAMP_COLUMNS; ++c) counters[row + c] = *counts.p[c];
+  }
+}
+
+CUfunction stamp_fn = nullptr;
+
+}  // namespace
+
+// `counts`: a host array of nine device pointers, or null.
+extern "C" int dsp_stamp(void* cursor, void* stamps, void* counters, int capacity, int column,
+                         int first, const void* const* counts, void* stream) {
+  Counts c = {};
+  if (counts != nullptr) {
+    for (int i = 0; i < STAMP_COLUMNS; ++i) c.p[i] = static_cast<const long long*>(counts[i]);
+  }
+  return dsp::launch(stamp_kernel, stamp_fn, dim3(1), dim3(1), 0,
+                     static_cast<cudaStream_t>(stream), static_cast<long long*>(cursor),
+                     static_cast<long long*>(stamps), static_cast<long long*>(counters),
+                     capacity, column, first, counts != nullptr ? 1 : 0, c);
 }

@@ -57,6 +57,7 @@ from .state import (
 )
 from .step_graph import StaticStep, split_at_refit
 from .template_engine import TemplateEngine
+from .timing import NO_SPAN, Tracer
 
 
 #: The stages of the frame step, in order (the reference's VERBOSE_MODE
@@ -284,18 +285,25 @@ class FrameStages(NamedTuple):
     (``parallel.shard_step.build_shard_stages``) also draw from a generator
     of the rank's own, and there it is that generator's keeper
     (``shard_step.RankGenerator``: called with the state it returns the
-    generator, ``reseed(state)`` seeds it anew)."""
+    generator, ``reseed(state)`` seeds it anew).  ``tracer`` is the
+    ``timing.Tracer`` the parts stamp (None: no stamps); ``step_graph``
+    stamps the graphs' starts and the frame's last stamp with it."""
 
     objects: Callable
     rest: Callable
     objects_fit: Optional[Callable]
     objects_finish: Optional[Callable]
     rank_rng: Optional[Callable] = None
+    tracer: Optional[Tracer] = None
 
 
 def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
-                       template_stages=None, stop_after: Optional[int] = None) -> FrameStages:
-    """The two parts of :func:`build_frame_step`'s step (same arguments)."""
+                       template_stages=None, stop_after: Optional[int] = None,
+                       tracer: Optional[Tracer] = None) -> FrameStages:
+    """The two parts of :func:`build_frame_step`'s step (same arguments).
+    With ``tracer`` each stage ends with its stamp (``timing.STAMPS``: the
+    object layer, the labeled cloud, the prediction, observe and update,
+    birth); without it the parts are the eager step's."""
     last = len(STAGES) - 1
     stop_after = last if stop_after is None else stop_after
     if not 0 <= stop_after <= last:
@@ -317,14 +325,17 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
 
     def object_stage(state: MapState, f: FrameInput):
         # 1. Object layer (only with instances, semantic_dsp_map.h:189-191).
-        if not cfg.consider_instance:
-            return state.objects
-        _r_wc, _t_wc, r_cw, t_cw = camera_matrices(f.cam_pos, f.cam_quat)
-        draws = gumbel(ransac_draw_shape(cfg), state.rng, f.cam_pos.device)
-        return object_level_update(
-            cfg, params, state.objects, observed(f), f.cam_pos, r_cw, t_cw, f.time,
-            state.prev_frame_time, state.global_time + 1, draws,
-        )
+        objects = state.objects
+        if cfg.consider_instance:
+            _r_wc, _t_wc, r_cw, t_cw = camera_matrices(f.cam_pos, f.cam_quat)
+            draws = gumbel(ransac_draw_shape(cfg), state.rng, f.cam_pos.device)
+            objects = object_level_update(
+                cfg, params, state.objects, observed(f), f.cam_pos, r_cw, t_cw, f.time,
+                state.prev_frame_time, state.global_time + 1, draws,
+            )
+        if tracer is not None:
+            tracer.stamp("objects")
+        return objects
 
     def objects_fit(state: MapState, f: FrameInput):
         draws = gumbel(ransac_draw_shape(cfg), state.rng, f.cam_pos.device)
@@ -332,7 +343,10 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
                           state.prev_frame_time, state.global_time + 1, draws)
 
     def objects_finish(fit, U, Vt):
-        return object_finish(cfg, params, fit, U, Vt)
+        objects = object_finish(cfg, params, fit, U, Vt)
+        if tracer is not None:
+            tracer.stamp("objects")
+        return objects
 
     def rest(state: MapState, f: FrameInput, objects):
         if stop_after == 0:
@@ -347,6 +361,8 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
             inst_bbox_min=f.inst_bbox_min if bbox3d else None,
             inst_bbox_max=f.inst_bbox_max if bbox3d else None,
         )
+        if tracer is not None:
+            tracer.stamp("cloud")
         if stop_after == 1:
             return dataclasses.replace(state, objects=objects), None, None
 
@@ -366,6 +382,8 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
         state = dataclasses.replace(
             state, particles=particles, scroll=scroll, objects=objects, global_time=gt,
         )
+        if tracer is not None:
+            tracer.stamp("predict")
         if stop_after == 2:
             return state, None, None
 
@@ -374,6 +392,8 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
             cfg, params, particles, scroll, state.voxel_stamp, cloud, f.depth, r_cw, t_cw, gt,
         )
         state = dataclasses.replace(state, particles=particles, voxel_stamp=voxel_stamp)
+        if tracer is not None:
+            tracer.stamp("observe")
         if stop_after == 3:
             return state, None, None
 
@@ -389,6 +409,8 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
         state = dataclasses.replace(
             state, particles=particles, objects=objects, prev_frame_time=f.time,
         )
+        if tracer is not None:
+            tracer.stamp("birth")
         if stop_after == 4:
             return state, None, None
 
@@ -410,8 +432,8 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
         return state, result, diag
 
     if split_at_refit(cfg):
-        return FrameStages(object_stage, rest, objects_fit, objects_finish)
-    return FrameStages(object_stage, rest, None, None)
+        return FrameStages(object_stage, rest, objects_fit, objects_finish, tracer=tracer)
+    return FrameStages(object_stage, rest, None, None, tracer=tracer)
 
 
 def build_frame_step(cfg: MapConfig, params: FilterParams, registry: LabelRegistry,
@@ -460,6 +482,10 @@ class SemanticDSPMap:
     state (a restored checkpoint) is taken over on the next frame.  Every
     frame overwrites them in place: a part of ``state`` held across
     ``update()`` holds the new values, so clone what must stay as it was.
+
+    ``tracer`` (a ``timing.Tracer``, None: off) records each frame's host
+    spans, its stages' device times and its counters in memory, with no
+    host synchronization; ``tracer.collect()`` reads them.
     """
 
     def __init__(
@@ -470,6 +496,7 @@ class SemanticDSPMap:
         seed: int = 0,
         device=None,
         log_diagnostics: bool = False,
+        tracer: Optional[Tracer] = None,
     ):
         self.cfg = cfg
         self.params = params or FilterParams()
@@ -477,6 +504,9 @@ class SemanticDSPMap:
         self.device = resolve_device(device)
         self.state = init_map_state(cfg, seed, self.device)
         self.log_diagnostics = log_diagnostics
+        self.tracer = tracer
+        if tracer is not None:
+            tracer.bind(self.device)
         self._static_table = torch.from_numpy(static_label_table(self.registry)).to(self.device)
         self._time_origin: Optional[float] = None
         self._templates = None
@@ -509,7 +539,8 @@ class SemanticDSPMap:
         if self._static is None:
             templates = self._templates.stages(self.device) if self._templates else None
             self._static = StaticStep(
-                build_frame_stages(self.cfg, self.params, self.registry, templates),
+                build_frame_stages(self.cfg, self.params, self.registry, templates,
+                                   tracer=self.tracer),
                 functools.partial(unpack_frame, self.cfg, self._static_table),
                 functools.partial(unpack_objects, self.cfg), self.state,
                 capture=self.device.type == "cuda",
@@ -524,14 +555,18 @@ class SemanticDSPMap:
         """Run one frame from a FrameInput (frontend.build_frame_input) of
         host arrays or of tensors on the device; returns (RenderResult,
         StepDiagnostics)."""
-        return self._run("frame", frame)
+        with NO_SPAN if self.tracer is None else self.tracer.span("dsp.update"):
+            return self._run("frame", frame)
 
     def update(self, depth: np.ndarray, masks, cam_pos, cam_quat, time: float = 0.0):
         """Reference-parity entry (semantic_dsp_map.h:170): depth image,
         MaskKpts list and camera pose -> (RenderResult, StepDiagnostics).
         The frame travels to the device as one packed buffer."""
-        if self._time_origin is None:
-            self._time_origin = float(time)
-        t = float(time) - self._time_origin
-        return self._run("packed", pack_frame(self.cfg, self.registry, depth, masks, cam_pos,
-                                              cam_quat, t))
+        tracer = self.tracer
+        with NO_SPAN if tracer is None else tracer.span("dsp.update"):
+            with NO_SPAN if tracer is None else tracer.span("dsp.pack"):
+                if self._time_origin is None:
+                    self._time_origin = float(time)
+                t = float(time) - self._time_origin
+                buf = pack_frame(self.cfg, self.registry, depth, masks, cam_pos, cam_quat, t)
+            return self._run("packed", buf)

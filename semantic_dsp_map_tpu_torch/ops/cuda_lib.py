@@ -97,6 +97,10 @@ SIGNATURES = {
     "dsp_if_node_begin": [_P] * 3,
     # the side stream of the body
     "dsp_if_node_end": [_P],
+    # csrc/graph.cu: the frame tracer's stamp (timing.stamp_cuda): cursor,
+    # stamp ring, counter ring; capacity, column, first; the counts (a host
+    # array of nine device pointers, or null); stream
+    "dsp_stamp": [_P] * 3 + [_I] * 3 + [_P, _P],
 }
 
 

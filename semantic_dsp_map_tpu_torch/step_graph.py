@@ -72,6 +72,13 @@ sharded stages also draw from a generator of the rank's own
 state's, and reseeded where a state from outside is taken, as the eager
 sharded step reseeds it.
 
+With a frame tracer (``FrameStages.tracer``, a ``timing.Tracer``) the
+step is traced: host spans around the input copy, each part and the
+bridge, and device stamps at each graph's start, at each stage's end and
+after the state's write-back, the last one with the frame's counters.
+The stamps are kernels captured into the graphs with the rest; without a
+tracer the graphs hold none.
+
 On the CPU nothing is captured: the same static-state parts run eagerly,
 in the same order.  The eager ``map.build_frame_step`` stays the oracle of
 this step, and ``shard_step.build_shard_step_eager`` of the sharded one.
@@ -93,6 +100,7 @@ from .frontend import FrameInput
 from .objects import refit_svd
 from .ops import cuda_lib, observe_cuda, phd_cuda, render_cuda
 from .state import MapState
+from .timing import NO_SPAN
 
 #: Kernel launches over every graph of the process, by wrapper name:
 #: ``captured`` holds those recorded into a graph at its capture (a wrapper
@@ -292,21 +300,27 @@ class StaticStep:
         self.graphs = {}  # (input kind, part) -> _Graph
         self.uv = None    # the bridge's static (U, Vt)
         self.frames = collections.Counter()
+        self.tracer = stages.tracer
 
     def __call__(self, kind: str, frame, state: MapState):
         """One frame (``kind`` "packed": pack_frame's int32 array or tensor;
         "frame": a FrameInput of arrays or tensors), from the host or the
         device, on ``state``, the map's state.  Returns (the static state,
         RenderResult, StepDiagnostics)."""
-        self._take(state)
-        self._put(kind, frame)
+        tracer = self.tracer
+        with NO_SPAN if tracer is None else tracer.span("dsp.input_copy"):
+            self._take(state)
+            self._put(kind, frame)
         if self.split:
-            fit = self._part(kind, "fit", lambda: self._fit(kind))
-            self._bridge(fit)
+            with NO_SPAN if tracer is None else tracer.span("dsp.replay.fit"):
+                fit = self._part(kind, "fit", lambda: self._fit(kind))
+            with NO_SPAN if tracer is None else tracer.span("dsp.bridge"):
+                self._bridge(fit)
             part, body = "finish", lambda: self._body(kind, fit)
         else:
             part, body = "step", lambda: self._body(kind)
-        result, diag = self._part(kind, part, body)
+        with NO_SPAN if tracer is None else tracer.span(f"dsp.replay.{part}"):
+            result, diag = self._part(kind, part, body)
         if (kind, part) in self.graphs:  # the graph's own tensors
             result, diag = _clone(result), _clone(diag)
         self.frames[kind] += 1
@@ -326,9 +340,14 @@ class StaticStep:
     def _fit(self, kind: str):
         """The object layer up to the refit's SVD, on the frame's object
         fields."""
+        if self.tracer is not None:
+            self.tracer.stamp("fit_start", first=True)
         x = self.inputs[kind]
         f = self.unpack_objects(x) if kind == "packed" else x
-        return self.stages.objects_fit(self.state, f)
+        fit = self.stages.objects_fit(self.state, f)
+        if self.tracer is not None:
+            self.tracer.stamp("fit_end")
+        return fit
 
     def _bridge(self, fit) -> None:
         """The refit's SVD, eager, its U and Vt copied into the static pair
@@ -342,7 +361,16 @@ class StaticStep:
     def _body(self, kind: str, fit=None):
         """The object layer (or its part from ``fit`` and the bridge's U and
         Vt on) and stages 1-5 on the static tensors; ends by copying the new
-        state into them."""
+        state into them.  Traced, it starts with the finishing graph's stamp
+        (the step's two first where it is one graph) and ends with the
+        frame's last, which carries the counters."""
+        tracer = self.tracer
+        if tracer is not None:
+            if fit is None:
+                tracer.stamp("fit_start", first=True)
+                tracer.stamp("fit_end")
+            else:
+                tracer.stamp("finish_start")
         f = self._frame(kind)
         if fit is None:
             objects = self.stages.objects(self.state, f)
@@ -350,6 +378,8 @@ class StaticStep:
             objects = self.stages.objects_finish(fit, *self.uv)
         new, result, diag = self.stages.rest(self.state, f, objects)
         copy_into(self.state, new)
+        if tracer is not None:
+            tracer.stamp("render", counts=diag)
         return result, diag
 
     def _take(self, state: MapState) -> None:
