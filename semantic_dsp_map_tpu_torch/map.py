@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .config import FilterParams, KEYPOINTS_BBOX3D, MapConfig
-from .frontend import FrameInput, pack_frame, static_label_table
+from .frontend import FrameInput, PackedFrame, static_label_table
 from .labels import LabelRegistry
 from .objects import (
     ObservedInstances,
@@ -509,6 +509,13 @@ class SemanticDSPMap:
             tracer.bind(self.device)
         self._static_table = torch.from_numpy(static_label_table(self.registry)).to(self.device)
         self._time_origin: Optional[float] = None
+        # The buffer update() packs each frame into (frontend.PackedFrame),
+        # made on the first frame and again only if the frame's shape
+        # changes; the frames packed into the one held and those that made
+        # one.
+        self._packed: Optional[PackedFrame] = None
+        self.packs_in_place = 0
+        self.pack_allocations = 0
         self._templates = None
         # The step (step_graph.StaticStep), built on first use: in template
         # mode the stages close over the bank, which set_template_path loads
@@ -561,12 +568,22 @@ class SemanticDSPMap:
     def update(self, depth: np.ndarray, masks, cam_pos, cam_quat, time: float = 0.0):
         """Reference-parity entry (semantic_dsp_map.h:170): depth image,
         MaskKpts list and camera pose -> (RenderResult, StepDiagnostics).
-        The frame travels to the device as one packed buffer."""
+        The frame travels to the device as one packed buffer, which the map
+        keeps and packs again on the next frame (the step copies it to the
+        device before it returns)."""
         tracer = self.tracer
         with NO_SPAN if tracer is None else tracer.span("dsp.update"):
             with NO_SPAN if tracer is None else tracer.span("dsp.pack"):
                 if self._time_origin is None:
                     self._time_origin = float(time)
                 t = float(time) - self._time_origin
-                buf = pack_frame(self.cfg, self.registry, depth, masks, cam_pos, cam_quat, t)
+                fresh = self._packed is None or not self._packed.fits(self.cfg)
+                if fresh:
+                    self._packed = PackedFrame(self.cfg)
+                self.pack_allocations += fresh
+                self.packs_in_place += not fresh
+                if tracer is not None:
+                    tracer.count("pack_allocated" if fresh else "pack_in_place")
+                buf = self._packed.pack(self.cfg, self.registry, depth, masks, cam_pos,
+                                        cam_quat, t)
             return self._run("packed", buf)

@@ -7,7 +7,7 @@ given one (``SemanticDSPMap(..., tracer=Tracer())``).  It records, for
 every frame from the map's first ``update()`` on:
 
 - **host spans** of ``update()``: ``dsp.update`` (the root, the whole
-  call), ``dsp.pack`` (``frontend.pack_frame``), ``dsp.input_copy`` (the
+  call), ``dsp.pack`` (``frontend.PackedFrame.pack``), ``dsp.input_copy`` (the
   state taken over and the frame copied into the step's static input; the
   pageable copy ends in a stream synchronize), ``dsp.replay.fit``,
   ``dsp.bridge``, ``dsp.replay.finish`` where the step is split at the
@@ -20,7 +20,10 @@ every frame from the map's first ``update()`` on:
   captured into the step's CUDA graphs, so a replay stamps with no host
   call.  On the CPU a stamp is the host clock;
 - **counters**: the frame's StepDiagnostics, copied by the last stamp into
-  a second ring on the device.
+  a second ring on the device;
+- **host counts** of the frame, by name (:meth:`Tracer.count`): the map
+  counts ``pack_in_place`` (the frame packed into the buffer it holds) or
+  ``pack_allocated`` (the frame that made the buffer).
 
 Nothing is read to the host until :meth:`Tracer.collect`, with one
 device-to-host copy.  Both rings hold the last ``capacity`` frames.
@@ -137,13 +140,15 @@ class Trace(NamedTuple):
     (the device's ``%globaltimer`` on the card, the host's
     ``perf_counter_ns`` on the CPU; -1 where the frame set none), one column
     a name of :data:`STAMPS`; counters the StepDiagnostics in field order.
-    ``spans`` holds those frames' host spans."""
+    ``spans`` holds those frames' host spans, ``host_counts`` their host
+    counts (a name's values a row of ``frames``)."""
 
     frames: np.ndarray
     spans: list
     stamps: np.ndarray
     counters: np.ndarray
     lost: int
+    host_counts: Optional[dict] = None
 
     def span_ms(self, name: str) -> np.ndarray:
         """ms a frame (one value a row of ``frames``) in spans named
@@ -182,6 +187,11 @@ class Trace(NamedTuple):
 
         return self.counters[:, StepDiagnostics._fields.index(name)]
 
+    def host_count(self, name: str) -> np.ndarray:
+        """The host count ``name`` a frame (0 where a frame counted none)."""
+        counts = (self.host_counts or {}).get(name)
+        return np.zeros(len(self.frames), np.int64) if counts is None else counts
+
 
 class _NoSpan:
     """The span of a trace site whose map has no tracer: it does nothing."""
@@ -210,7 +220,7 @@ class _Span:
         t = self.tracer
         if not t._stack:  # a root: the next frame
             t.frame += 1
-            t._frames.append((t.frame, []))
+            t._frames.append((t.frame, [], {}))
         records = t._frames[-1][1]
         self.parent = t._stack[-1] if t._stack else -1
         self.index = len(records)
@@ -243,7 +253,7 @@ class Tracer:
             raise ValueError(f"capacity must be at least 1, got {capacity}")
         self.capacity = capacity
         self.frame = -1        # the frame under way (or last), from the map's first update()
-        self._frames = collections.deque(maxlen=capacity)  # (frame, [SpanRecord])
+        self._frames = collections.deque(maxlen=capacity)  # (frame, [SpanRecord], counts)
         self._stack = []       # indices of the open spans in the frame's records
         self.device = None
         self._data = None      # int64 [2 + 2 * capacity * 9] on the device
@@ -267,6 +277,14 @@ class Tracer:
         """A host span of ``name`` (a context manager); one opened while no
         span is open is a frame's root and starts the next frame."""
         return _Span(self, name)
+
+    def count(self, name: str, value: int = 1) -> None:
+        """Add ``value`` to the host count ``name`` of the frame under way
+        (inside its root span)."""
+        if not self._stack:
+            raise ValueError(f"count {name!r}: no frame is under way (no span is open)")
+        counts = self._frames[-1][2]
+        counts[name] = counts.get(name, 0) + value
 
     def stamp(self, name: str, first: bool = False, counts=None) -> None:
         """Stamp the column ``name`` (of :data:`STAMPS`) of the current
@@ -297,13 +315,16 @@ class Tracer:
         n = self.capacity * len(STAMPS)
         stamps = host[2 : 2 + n].reshape(self.capacity, -1)[rows]
         counters = host[2 + n :].reshape(self.capacity, -1)[rows]
-        spans = []
-        for frame, records in self._frames:
+        spans, host_counts = [], {}
+        for frame, records, counts in self._frames:
             if first <= frame < n_begun:
                 base = len(spans)
                 spans += [r._replace(parent=r.parent + base if r.parent >= 0 else -1)
                           for r in records if r is not None]
-        return Trace(frames, spans, stamps, counters, first)
+                for name, value in counts.items():
+                    host_counts.setdefault(name, np.zeros(len(frames), np.int64))
+                    host_counts[name][frame - first] += value
+        return Trace(frames, spans, stamps, counters, first, host_counts)
 
 
 def _count(c: torch.Tensor) -> int:

@@ -2,9 +2,9 @@
 counters of each frame, in memory until ``collect()``.
 
 On the CPU: a map with a tracer gives the bits of one without, every frame
-has one ``dsp.update`` root and its children, the stamps and the counter
-ring follow the step, a map without a tracer never reaches one, and the
-rings wrap.  The tests marked ``gpu`` run the traced step on the card
+has one ``dsp.update`` root and its children, the stamps, the counter ring
+and the host counts of the packed buffer follow the step, a map without a
+tracer never reaches one, and the rings wrap.  The tests marked ``gpu`` run the traced step on the card
 (eager, capturing and replayed frames) and skip here; they import no JAX,
 so on the card they run with
 
@@ -161,6 +161,23 @@ def test_the_counter_ring_holds_each_frames_diagnostics(case):
     assert int(trace.counter("visible_count").sum()) > 0
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_the_map_packs_each_frame_into_the_buffer_it_holds(case):
+    """Through ``update()`` the first frame makes the packed buffer and each
+    later one is packed into it: the map counts N - 1 packs in place and 1
+    allocation, and its tracer reads the same a frame; ``update_from_frame``
+    packs nothing."""
+    n = 4
+    dsp, tracer, _ = _traced(case, n)
+    trace = tracer.collect()
+    packed = CASES[case][3] == "update"
+    assert (dsp.packs_in_place, dsp.pack_allocations) == ((n - 1, 1) if packed else (0, 0))
+    assert list(trace.host_count("pack_allocated")) == [int(packed)] + [0] * (n - 1)
+    assert list(trace.host_count("pack_in_place")) == [0] + [int(packed)] * (n - 1)
+    with pytest.raises(ValueError, match="no frame is under way"):
+        tracer.count("pack_in_place")
+
+
 def test_the_stages_from_the_stamps():
     """``Trace.stage_ms`` on stamps written by hand: a split frame and a
     frame of one graph (``finish_start`` unset)."""
@@ -182,6 +199,7 @@ def test_the_rings_wrap_and_collect_says_what_was_lost():
     trace = tracer.collect()
     assert list(trace.frames) == [2, 3, 4] and trace.lost == 2
     assert sorted({s.frame for s in trace.spans}) == [2, 3, 4]
+    assert list(trace.host_count("pack_in_place")) == [1, 1, 1]
     for i, (row, diag) in enumerate(zip(trace.counters, diags[2:])):
         assert list(row) == [int(v) for v in diag], i
     starts = trace.stamps[:, 0]
@@ -196,7 +214,7 @@ def test_a_map_without_a_tracer_never_reaches_one(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a map without a tracer reached one")
 
-    for name in ("span", "stamp", "bind", "collect"):
+    for name in ("span", "stamp", "count", "bind", "collect"):
         monkeypatch.setattr(Tracer, name, refuse)
     monkeypatch.setattr(timing._Span, "__enter__", refuse)
     monkeypatch.setattr(timing, "stamp_cuda", refuse)
