@@ -5,7 +5,17 @@ Everything that belongs to one cell is found by name: the cell in
 ``BENCHMARK.json`` names its configuration (``configs/<name>.json``) and
 its traffic mix (``traffic/<name>.json``); each metric is read by
 ``metrics/<name>.py``; each cell's limits of the output check are
-``limits/<cell>.json``.
+``limits/<cell>.json``.  A configuration names the reference its output
+check uses (``"reference"``: a module under ``dspbench.``, by default the
+frozen ``dspbench.reference``) and what its set-up loads besides the map
+(``"setup"``: ``{"templates": "<folder relative to the repository
+root>"}``, the template bank); see :func:`reference_module` and
+:func:`cell_setup`.
+
+In a traced run (``--trace 1``) the map is handed the program's own
+tracer (``timing.Tracer``); its records are ``Run.program``, which the
+readers of the program's spans, stage times and counters read
+(``program_trace.READERS``).
 
 The window drives ``SemanticDSPMap.update()`` of the PyTorch port, the
 packed path through its captured step, as a closed loop of one stream of
@@ -22,8 +32,10 @@ been read and the program has been freed; see ``check`` and
 from __future__ import annotations
 
 import gc
+import importlib
 import importlib.util
 import json
+import re
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -48,6 +60,11 @@ TRACE_FIRST = 200
 TRACE_FRAMES = 16
 #: How long ``pack_ms`` times ``pack_frame`` (seconds of the host clock).
 PACK_SECONDS = 0.5
+#: The output check's reference where a configuration names none.
+DEFAULT_REFERENCE = "dspbench.reference"
+_REFERENCE_NAME = re.compile(r"dspbench(\.[A-Za-z_][A-Za-z0-9_]*)+")
+#: The keys a configuration's ``setup`` may hold.
+SETUP_KEYS = ("templates",)
 
 
 class Cell(NamedTuple):
@@ -86,6 +103,59 @@ def load_cell(name: str, bench: Optional[dict] = None, root: Path = ROOT) -> Cel
     )
 
 
+def reference_module(config: dict):
+    """The module the configuration's ``reference`` key names (default
+    :data:`DEFAULT_REFERENCE`), imported.  It provides ``Reference`` and
+    ``state_from_fields`` with the frozen package's signatures.  A name
+    that is not a module under ``dspbench.`` is refused, so that no
+    configuration points the output check at the program."""
+    name = config.get("reference", DEFAULT_REFERENCE)
+    if not isinstance(name, str) or not _REFERENCE_NAME.fullmatch(name):
+        raise ValueError(f"reference {name!r}: the output check's reference is a module under "
+                         f"dspbench. (default {DEFAULT_REFERENCE!r})")
+    module = importlib.import_module(name)
+    missing = [a for a in ("Reference", "state_from_fields") if not hasattr(module, a)]
+    if missing:
+        raise ValueError(f"reference {name!r} provides no {', '.join(missing)}")
+    return module
+
+
+def cell_setup(config: dict, root: Optional[Path] = None) -> dict:
+    """The configuration's ``setup``, checked, as the keywords its
+    reference takes beyond the frozen package's: ``templates``, the
+    template bank's folder (given relative to the repository ``root``,
+    by default the checkout's) made absolute.  Empty where the
+    configuration has no ``setup``.  Refuses an unknown key, a folder that
+    does not exist, lies outside ``root`` or holds no ``.pcd`` file, and
+    template matching without a bank or a bank without template matching
+    (an empty bank silently matches nothing)."""
+    root = ROOT.parent if root is None else root
+    setup = config.get("setup", {})
+    if not isinstance(setup, dict):
+        raise ValueError(f"setup must be an object, got {setup!r}")
+    unknown = sorted(set(setup) - set(SETUP_KEYS))
+    if unknown:
+        raise ValueError(f"setup: unknown key(s) {unknown}; a setup may hold {list(SETUP_KEYS)}")
+    out = {}
+    if "templates" in setup:
+        rel = setup["templates"]
+        folder = (root / rel).resolve() if isinstance(rel, str) else None
+        if folder is None or Path(rel).is_absolute() or not folder.is_relative_to(root.resolve()):
+            raise ValueError(f"setup templates {rel!r}: a folder relative to the repository root")
+        if not folder.is_dir():
+            raise ValueError(f"setup templates {rel!r}: no such folder under {root}")
+        if not any(folder.rglob("*.pcd")):
+            raise ValueError(f"setup templates {rel!r}: no template (.pcd file) in the folder")
+        out["templates"] = str(folder)
+    matching = config["filter_params"].get("if_use_template_matching", False)
+    if matching and "templates" not in out:
+        raise ValueError("if_use_template_matching is true and setup names no templates: an "
+                         "empty bank matches nothing")
+    if "templates" in out and not matching:
+        raise ValueError("setup names templates and if_use_template_matching is false")
+    return out
+
+
 def reader(name: str, root: Path = ROOT):
     """The ``read`` function of ``metrics/<name>.py``."""
     path = root / "metrics" / f"{name}.py"
@@ -119,6 +189,8 @@ class Run:
         self.pack_ms: Optional[float] = None
         self.peak_bytes: int = 0
         self.device_kind: str = ""
+        self.templates: int = 0             # templates the map's bank loaded at set-up
+        self.program = None                 # timing.Trace of the map's tracer, or None
 
 
 class _Pending(NamedTuple):
@@ -293,25 +365,34 @@ class Program(NamedTuple):
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device=None,
-             t_process: Optional[float] = None, control: bool = False) -> dict:
+             t_process: Optional[float] = None, control: bool = False,
+             tracer: Optional[bool] = None, run: Optional[Run] = None) -> dict:
     """One run; returns the result line's dictionary.  ``device`` defaults
     to the card; a test may name the CPU.  ``t_process`` is the host clock
     at the process's start (set-up is counted from it).  With ``control``
     the output check also reads the control (the reference one precision
     step down in the program's place: ``Reference.frame(..., lower=True)``)
-    and the result has its numbers under ``control_checks``."""
+    and the result has its numbers under ``control_checks``.  ``tracer``
+    (default: ``traced``) hands the map the program's tracer, whose records
+    become ``run.program`` after the window.  ``run``, where given, is the
+    Run filled, for a caller that reads more than the result line."""
     t0 = time.perf_counter() if t_process is None else t_process
     device = torch.device("cuda", 0) if device is None else torch.device(device)
+    ref_module, setup = reference_module(cell.config), cell_setup(cell.config)
     from semantic_dsp_map_tpu_torch import FilterParams, MapConfig, SemanticDSPMap
+    from semantic_dsp_map_tpu_torch.timing import Tracer
 
     from .reference import config as ref_config
 
     cfgd, paramsd = cell.config["map_config"], cell.config["filter_params"]
     cfg, params = MapConfig(**cfgd), FilterParams(**paramsd)
     ref_cfg = ref_config.MapConfig(**cfgd)
-    run = Run()
+    run = Run() if run is None else run
     ring = traffic.Ring(cell.mix, traffic.Camera.of(cfgd), seed)
-    dsp = SemanticDSPMap(cfg, params, seed=seed, device=device)
+    map_tracer = Tracer() if (traced if tracer is None else tracer) else None
+    dsp = SemanticDSPMap(cfg, params, seed=seed, device=device, tracer=map_tracer)
+    if "templates" in setup:
+        run.templates = dsp.set_template_path(setup["templates"])
     pipe = Pipe(dsp, ring, device)
 
     # Set-up: the warm-up frames, through the window's own path.
@@ -339,6 +420,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device=None,
 
     nxt = _window(pipe, first, seconds, run, traced, device, ref_cfg)
     run.peak_bytes = max(run.peak_bytes, _peak(device))
+    if map_tracer is not None:
+        run.program = map_tracer.collect()
     if traced:
         run.pack_ms = _time_pack(dsp, pipe, ring)
 
@@ -359,7 +442,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device=None,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    numbers, control_numbers = reference_check(cell, seed, ring, prog, device, control)
+    numbers, control_numbers = reference_check(cell, seed, ring, prog, device, control,
+                                               ref_module, setup)
     ok = (len(outs) == CHECK_FRAMES and check.verdict(numbers, cell.limits))
     attempted = len(run.frames)
     failed = sum(f.failed for f in run.frames)
@@ -384,15 +468,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device=None,
 
 
 def reference_check(cell: Cell, seed: int, ring: traffic.Ring, prog: Program, device,
-                    control: bool):
+                    control: bool, module, setup: dict):
     """The output check's numbers (``check.NUMBERS``, the worst over the
     frames compared) and, with ``control``, the control's (the reference
     one precision step down in the program's place): the set-up frames
     replayed from the seed, then one reference step from the program's
-    state before each check frame."""
-    from .reference import Reference, state_from_fields
-
-    ref = Reference(cell.config["map_config"], cell.config["filter_params"], device)
+    state before each check frame.  ``module`` is the reference the
+    configuration names (:func:`reference_module`); its ``Reference`` is
+    also handed the ``setup`` keywords (:func:`cell_setup`), none where
+    the configuration has no ``setup``."""
+    state_from_fields = module.state_from_fields
+    ref = module.Reference(cell.config["map_config"], cell.config["filter_params"], device,
+                           **setup)
 
     def replay(lower: bool):
         st = ref.init_state(seed)

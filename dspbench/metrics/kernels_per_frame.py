@@ -1,4 +1,5 @@
-"""kernels_per_frame: device kernels a frame in the traced slice."""
+"""kernels_per_frame: device kernels a frame in the traced slice, the
+program's tracer's stamps (``trace.TRACER_KERNELS``) left out."""
 
 
 def read(run):
@@ -6,5 +7,5 @@ def read(run):
     if s is None:
         return None
     lo, hi = s.window
-    n = sum(lo <= e.start_us <= hi for e in s.kernels())
+    n = sum(lo <= e.start_us <= hi for e in s.work_kernels())
     return n / s.frames if n else None

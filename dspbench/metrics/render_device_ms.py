@@ -1,0 +1,9 @@
+"""render_device_ms: device ms a frame of the occupancy render with the
+state's write-back, from the program's stamps, mean over the window's
+frames outside the profiled slice."""
+
+from dspbench.program_trace import read as read_program
+
+
+def read(run):
+    return read_program("render_device_ms", run)

@@ -1,22 +1,22 @@
 """The program's own records of a cell's run (the port's ``timing.Tracer``),
 read beside the harness's outside clocks.
 
+Each reader of :data:`READERS` is the reader of ``metrics/<name>.py``
+(:func:`read`): in a traced run (``--trace 1``) ``harness.run_cell`` hands
+the map a ``Tracer`` and keeps its records as ``Run.program``.
+
     python3 -m dspbench.program_trace --workload vkitti2.drive --seed 7 --seconds 40 --trace 1
 
 runs ``harness.run_cell`` as ``dspbench.run`` does (the allocator held,
-the same window, slice and output check), with one difference: the map is
-handed a ``Tracer`` where the program takes one (``--tracer 0`` hands it
-none), and after the run the tracer's records are read.  The last line of
-standard output is one JSON object: ``result``, the harness's result line;
-``host``, the harness's ``update_host_ms`` and end-to-end metrics of the
-run whatever ``--trace`` is; ``program``, each per-layer number of
-:data:`READERS` (absent where the program recorded nothing, as on a
-program without a tracer); and ``agreement``, the program's records held
+the same window, slice and output check), with the map's tracer set apart
+from the profiled slice: ``--tracer 1`` (the default) hands the map a
+``Tracer`` whatever ``--trace`` is, ``--tracer 0`` hands it none.  The last
+line of standard output is one JSON object: ``result``, the harness's
+result line; ``host``, the harness's ``update_host_ms`` and end-to-end
+metrics of the run whatever ``--trace`` is; ``program``, each per-layer
+number of :data:`READERS` (absent where the program recorded nothing, as
+in a run without a tracer); and ``agreement``, the program's records held
 against the outside clocks.
-
-The harness hands a map no tracer: a number here reaches the benchmark's
-result line once ``harness.run_cell`` hands one in its traced runs and
-each reader below is a file of ``metrics/`` (``PERF.md``, section 7).
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ import time
 
 T_PROCESS = time.perf_counter()
 
-import inspect  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import sys  # noqa: E402
@@ -122,6 +121,14 @@ READERS = {
 }
 
 
+def read(name: str, run) -> Optional[float]:
+    """``READERS[name]`` on ``run`` and the program's records it holds
+    (``run.program``, None where the map had no tracer): None where there
+    is nothing to read."""
+    value = READERS[name](run, run.program)
+    return None if value is None or math.isnan(value) else value
+
+
 def slice_kernel_ms(run) -> Optional[float]:
     """Device ms a frame of every kernel in the profiled slice."""
     s = run.slice
@@ -157,64 +164,20 @@ def agreement(run, trace, program: dict) -> dict:
     return out
 
 
-class _Hooked:
-    """``harness.run_cell`` with the map given a tracer and its Run kept:
-    the port's ``SemanticDSPMap`` and ``harness.Run`` stand in for the
-    call's length."""
-
-    def __init__(self, tracer: bool):
-        self.want_tracer = tracer
-        self.tracer = None
-        self.run = None
-
-    def __enter__(self):
-        import semantic_dsp_map_tpu_torch as port
-
-        self.port, self.map_cls, self.run_cls = port, port.SemanticDSPMap, harness.Run
-        hooked = self
-
-        class Run(self.run_cls):
-            def __init__(self):
-                super().__init__()
-                hooked.run = self
-
-        def make_map(*args, **kwargs):
-            takes = "tracer" in inspect.signature(hooked.map_cls).parameters
-            if hooked.want_tracer and takes:
-                from semantic_dsp_map_tpu_torch.timing import Tracer
-
-                hooked.tracer = kwargs["tracer"] = Tracer()
-            return hooked.map_cls(*args, **kwargs)
-
-        port.SemanticDSPMap = make_map
-        harness.Run = Run
-        return self
-
-    def __exit__(self, *exc):
-        self.port.SemanticDSPMap = self.map_cls
-        harness.Run = self.run_cls
-        return False
-
-
 def traced_run(cell: harness.Cell, seed: int, seconds: float, traced: bool, tracer: bool = True,
                device=None, t_process: Optional[float] = None) -> dict:
     """One run of ``cell`` (``harness.run_cell``) with the program's
-    tracer on where ``tracer`` and the program has one; returns the
-    dictionary the command prints."""
-    with _Hooked(tracer) as hook:
-        result = harness.run_cell(cell, seed, seconds, traced, device=device, t_process=t_process)
-    run = hook.run
-    trace = hook.tracer.collect() if hook.tracer is not None else None
+    tracer on where ``tracer``; returns the dictionary the command
+    prints."""
+    run = harness.Run()
+    result = harness.run_cell(cell, seed, seconds, traced, device=device, t_process=t_process,
+                              tracer=tracer, run=run)
     host = {name: harness.reader(name)(run) for name in
             ("frames_per_s", "frame_ms_p95", "setup_s", "update_host_ms")}
-    program = {}
-    for name, read in READERS.items():
-        value = read(run, trace)
-        if value is not None and not math.isnan(value):
-            program[name] = value
+    program = {name: value for name in READERS if (value := read(name, run)) is not None}
     out = {"result": result, "host": host, "program": program}
-    if trace is not None:
-        out["agreement"] = agreement(run, trace, program)
+    if run.program is not None:
+        out["agreement"] = agreement(run, run.program, program)
     return out
 
 

@@ -69,7 +69,21 @@ def _imports(path: Path) -> set:
     return names
 
 
-@pytest.mark.parametrize("path", sorted((ROOT / "reference").rglob("*.py")), ids=lambda p: p.name)
+def reference_sources() -> list:
+    """The sources of ``dspbench/reference/`` and of every reference module
+    a configuration of ``dspbench/configs/`` names (its ``reference``
+    key): each ``.py`` file of a package, or the module's own file."""
+    names = {"dspbench.reference"}
+    for config in (ROOT / "configs").glob("*.json"):
+        names.add(json.loads(config.read_text()).get("reference", "dspbench.reference"))
+    paths = set()
+    for name in names:
+        where = REPO.joinpath(*name.split("."))
+        paths |= set(where.rglob("*.py")) if where.is_dir() else {where.with_suffix(".py")}
+    return sorted(paths)
+
+
+@pytest.mark.parametrize("path", reference_sources(), ids=lambda p: p.name)
 def test_no_reference_module_names_the_port_or_jax(path):
     assert not _imports(path) & (JAX_SIDE | {PORT})
 

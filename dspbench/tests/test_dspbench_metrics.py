@@ -131,3 +131,14 @@ def test_readers_with_nothing_to_read_return_none():
                  "host_api_calls_per_frame", "kernels_per_frame", "torch_ops_ms_per_frame",
                  "render_roofline_pct", "front_roofline_pct", "device_idle_pct", "peak_mem_gib"):
         assert harness.reader(name)(run) is None, name
+
+
+def test_the_tracers_stamps_are_not_counted_as_the_frames_work():
+    run = fake_run([], (0.0, 1.0))
+    s = fake_slice()
+    stamps = [ev("(anonymous namespace)::stamp_kernel(long long*, long long*, long long*, int)",
+                 "kernel", t, 1) for t in (5, 20, 70)]
+    run.slice = s._replace(device=s.device + stamps)
+    assert harness.reader("kernels_per_frame")(run) == 1.5
+    assert harness.reader("torch_ops_ms_per_frame")(run) == pytest.approx(6 / 1e3 / 2)
+    assert len(run.slice.kernels()) == len(run.slice.work_kernels()) + 3

@@ -1,6 +1,9 @@
 """The readers of the program's own records (``program_trace``) on a
 synthetic run and trace, None where the program recorded nothing (a
-program without a tracer), and a CPU run of a cell with the tracer on."""
+program without a tracer), each a metric file of the benchmark, and CPU
+runs of a cell with the tracer on and off."""
+
+import json
 
 import numpy as np
 import pytest
@@ -103,3 +106,43 @@ def test_a_cpu_run_carries_the_programs_numbers():
                                    tracer=False, device="cpu")
     assert off["program"] == {} and "agreement" not in off
     assert off["host"]["update_host_ms"] > 0
+
+
+def test_each_reader_is_a_metric_of_the_benchmark():
+    bench = json.loads((harness.ROOT.parent / "BENCHMARK.json").read_text())
+    per_layer = {m["name"] for m in bench["per_layer"]}
+    run = fake_run([frame(i) for i in range(3, 7)], traced=range(5, 6))
+    for name, read in program_trace.READERS.items():
+        assert name in per_layer, name
+        run.program = fake_trace()
+        assert harness.reader(name)(run) == read(run, run.program), name
+        run.program = None
+        assert harness.reader(name)(run) is None, name
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_only_a_traced_run_hands_the_map_a_tracer(monkeypatch, traced):
+    import semantic_dsp_map_tpu_torch as port
+    from semantic_dsp_map_tpu_torch.timing import Tracer
+
+    made = []
+
+    class Spy(port.SemanticDSPMap):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(port, "SemanticDSPMap", Spy)
+    torch.set_num_threads(2)
+    cell = small_cell("vkitti2.drive")
+    run = harness.Run()
+    out = harness.run_cell(cell, 2**31 + 13, 0.5, traced, device="cpu", run=run)
+    assert out["correct"], out
+    assert len(made) == 1
+    if traced:
+        assert isinstance(made[0].tracer, Tracer) and run.program is not None
+        missing = set(program_trace.READERS) - set(out["metrics"]) - {"idle_in_pack_pct"}
+        assert not missing, missing  # idle_in_pack_pct needs a slice with device time
+    else:
+        assert made[0].tracer is None and run.program is None
+        assert set(out["metrics"]) == {name for name, _ in cell.end_to_end}

@@ -36,6 +36,11 @@ HAND_WRITTEN = ("front_generic_kernel", "front_kernel", "gather_kernel", "live_p
                 "pass_b_wide_kernel", "render_generic_kernel", "render_kernel",
                 "scale2_kernel", "set_if_condition")
 _HAND = re.compile(r"\b(%s)\b" % "|".join(HAND_WRITTEN))
+#: The kernels of the program's tracer (``timing.Tracer``: ``csrc/graph.cu``'s
+#: ``stamp_kernel``, nine a frame in a traced run): they record the frame
+#: and are none of its work.
+TRACER_KERNELS = ("stamp_kernel",)
+_TRACER = re.compile(r"\b(%s)\b" % "|".join(TRACER_KERNELS))
 
 
 def hand_written(name: str):
@@ -83,6 +88,11 @@ class Slice(NamedTuple):
 
     def kernels(self) -> list:
         return [e for e in self.device if e.cat == "kernel"]
+
+    def work_kernels(self) -> list:
+        """The kernels of the frame's work: the tracer's
+        (:data:`TRACER_KERNELS`) left out."""
+        return [e for e in self.kernels() if not _TRACER.search(e.name)]
 
     def busy_intervals(self) -> list:
         """The merged intervals in which anything ran on the device, cut to
