@@ -89,42 +89,41 @@ extern "C" int dsp_if_node_end(void* body_stream) {
 
 // The frame tracer's stamp (timing.Tracer, through timing.stamp_cuda): one
 // thread writes the device's %globaltimer (ns) into column `column` of the
-// current frame's row of the stamp ring, int64[capacity, STAMP_COLUMNS].
+// current frame's row of the stamp ring, int64[capacity, stamp_width].
 // Replaces no TPU kernel: it marks the stage boundaries of the captured
 // step, inside the CUDA graphs, so that a replay records its stages' device
 // times with no host involvement.  The frame's first stamp (`first`)
 // advances the frame cursor (cursor[0] frames begun, cursor[1] the current
-// row) and clears the row's stamps and counters.  Where `counts` is given
-// (nine int64 device scalars, the frame's StepDiagnostics) it also copies
-// them into the row of the counter ring, int64[capacity, STAMP_COLUMNS].
+// row) and clears the row of both rings.  It also copies `n_counts` int64
+// device scalars (the frame's StepDiagnostics at the last stamp, the
+// template stages' counts at template birth's end) into the columns from
+// `first_count` on of the row of the counter ring, int64[capacity,
+// counter_width].
 // Bound: one launch, a few dozen bytes; its cost is the launch.
 
 namespace {
 
-constexpr int STAMP_COLUMNS = 9;
+constexpr int MAX_COUNTS = 16;
 
 struct Counts {
-  const long long* p[STAMP_COLUMNS];
+  const long long* p[MAX_COUNTS];
 };
 
 __global__ void stamp_kernel(long long* cursor, long long* stamps, long long* counters,
-                             int capacity, int column, int first, int with_counts,
-                             Counts counts) {
+                             int capacity, int stamp_width, int counter_width, int column,
+                             int first, int first_count, int n_counts, Counts counts) {
   unsigned long long now;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
   if (first) {
     const long long frame = cursor[0];
     cursor[0] = frame + 1;
     cursor[1] = frame % capacity;
-    for (int c = 0; c < STAMP_COLUMNS; ++c) {
-      stamps[cursor[1] * STAMP_COLUMNS + c] = -1;
-      counters[cursor[1] * STAMP_COLUMNS + c] = -1;
-    }
+    for (int c = 0; c < stamp_width; ++c) stamps[cursor[1] * stamp_width + c] = -1;
+    for (int c = 0; c < counter_width; ++c) counters[cursor[1] * counter_width + c] = -1;
   }
-  const long long row = cursor[1] * STAMP_COLUMNS;
-  stamps[row + column] = (long long)now;
-  if (with_counts) {
-    for (int c = 0; c < STAMP_COLUMNS; ++c) counters[row + c] = *counts.p[c];
+  stamps[cursor[1] * stamp_width + column] = (long long)now;
+  for (int i = 0; i < n_counts; ++i) {
+    counters[cursor[1] * counter_width + first_count + i] = *counts.p[i];
   }
 }
 
@@ -132,15 +131,20 @@ CUfunction stamp_fn = nullptr;
 
 }  // namespace
 
-// `counts`: a host array of nine device pointers, or null.
-extern "C" int dsp_stamp(void* cursor, void* stamps, void* counters, int capacity, int column,
-                         int first, const void* const* counts, void* stream) {
-  Counts c = {};
-  if (counts != nullptr) {
-    for (int i = 0; i < STAMP_COLUMNS; ++i) c.p[i] = static_cast<const long long*>(counts[i]);
+// `counts`: a host array of `n_counts` device pointers (at most MAX_COUNTS).
+extern "C" int dsp_stamp(void* cursor, void* stamps, void* counters, int capacity,
+                         int stamp_width, int counter_width, int column, int first,
+                         int first_count, int n_counts, const void* const* counts,
+                         void* stream) {
+  if (n_counts < 0 || n_counts > MAX_COUNTS || first_count < 0 ||
+      first_count + n_counts > counter_width) {
+    return (int)cudaErrorInvalidValue;
   }
+  Counts c = {};
+  for (int i = 0; i < n_counts; ++i) c.p[i] = static_cast<const long long*>(counts[i]);
   return dsp::launch(stamp_kernel, stamp_fn, dim3(1), dim3(1), 0,
                      static_cast<cudaStream_t>(stream), static_cast<long long*>(cursor),
                      static_cast<long long*>(stamps), static_cast<long long*>(counters),
-                     capacity, column, first, counts != nullptr ? 1 : 0, c);
+                     capacity, stamp_width, counter_width, column, first, first_count,
+                     n_counts, c);
 }

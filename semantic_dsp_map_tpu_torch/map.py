@@ -303,7 +303,10 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
     """The two parts of :func:`build_frame_step`'s step (same arguments).
     With ``tracer`` each stage ends with its stamp (``timing.STAMPS``: the
     object layer, the labeled cloud, the prediction, observe and update,
-    birth); without it the parts are the eager step's."""
+    birth), the template stages (with ``template_stages``) have a start and
+    an end stamp each, and template birth's end copies their counts
+    (``TemplateStages.counts``); without it the parts are the eager
+    step's."""
     last = len(STAGES) - 1
     stop_after = last if stop_after is None else stop_after
     if not 0 <= stop_after <= last:
@@ -372,10 +375,14 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
         particles = state.particles
         tmpl_overflow = 0
         if template_stages is not None:
+            if tracer is not None:
+                tracer.stamp("rematch_start")
             # Which rows have work, on the device (the slots' branches read it).
             gate = template_stages.gate(objects, cloud)
             particles, rm_ov = template_stages.rematch(particles, scroll, cloud, f.cam_pos, gate, gt)
             tmpl_overflow = tmpl_overflow + rm_ov
+            if tracer is not None:
+                tracer.stamp("rematch_end")
         particles, moved, move_overflow = _move_and_cleanup(
             cfg, params, particles, scroll, objects, state.rng, max_movable
         )
@@ -402,10 +409,14 @@ def build_frame_stages(cfg: MapConfig, params: FilterParams, registry: LabelRegi
             cfg, params, particles, scroll, cloud, gt, state.rng
         )
         if template_stages is not None:
+            if tracer is not None:
+                tracer.stamp("template_birth_start")
             particles, objects, tb_ov = template_stages.birth(
                 particles, scroll, objects, cloud, f.cam_pos, gate, gt, state.rng
             )
             tmpl_overflow = tmpl_overflow + tb_ov
+            if tracer is not None:
+                tracer.stamp("template_birth_end", counts=template_stages.counts())
         state = dataclasses.replace(
             state, particles=particles, objects=objects, prev_frame_time=f.time,
         )

@@ -98,9 +98,10 @@ SIGNATURES = {
     # the side stream of the body
     "dsp_if_node_end": [_P],
     # csrc/graph.cu: the frame tracer's stamp (timing.stamp_cuda): cursor,
-    # stamp ring, counter ring; capacity, column, first; the counts (a host
-    # array of nine device pointers, or null); stream
-    "dsp_stamp": [_P] * 3 + [_I] * 3 + [_P, _P],
+    # stamp ring, counter ring; capacity, the two rings' widths, column,
+    # first, the counts' first column and number; their pointers (a host
+    # array of device pointers); stream
+    "dsp_stamp": [_P] * 3 + [_I] * 7 + [_P, _P],
 }
 
 

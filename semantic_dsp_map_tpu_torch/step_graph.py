@@ -379,7 +379,7 @@ class StaticStep:
         new, result, diag = self.stages.rest(self.state, f, objects)
         copy_into(self.state, new)
         if tracer is not None:
-            tracer.stamp("render", counts=diag)
+            tracer.stamp("render", counts=diag._asdict())
         return result, diag
 
     def _take(self, state: MapState) -> None:

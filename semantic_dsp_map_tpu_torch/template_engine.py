@@ -34,7 +34,9 @@ as the JAX package's (its round-5 design), so that the captured step
   - the guessed-birth normals are drawn every frame, outside the branch, so
     that a replay advances the generator as the eager step does.
 
-Each stage's sweeps are counted on the device (:class:`SweepRecord`).  As in
+Each stage's sweeps are counted on the device (:class:`SweepRecord`), and
+``TemplateStages.counts()`` hands the frame tracer those totals and the
+guessed particles that template birth's last insert accepted.  As in
 the JAX package, at most ``RM_MAX`` rematches and ``TB_MAX`` template births
 run per frame, in ascending object row; eligibility beyond the cap is
 deferred (the ``to_match_*`` flags stay set).  Guessed-birth jitter comes
@@ -256,6 +258,7 @@ class TemplateStages(NamedTuple):
     birth: object    # (particles, scroll, objects, cloud, cam_pos, gate, gt,
                      #  generator=None, draws=None) -> (particles, objects, overflow)
     records: Dict[str, SweepRecord]  # "rematch", "birth"
+    counts: Callable  # () -> {counter name: 0-d int64 device tensor} for timing.Tracer
 
 
 def build_template_stages(
@@ -351,7 +354,9 @@ def build_template_stages(
         advances the generator's offset by the same amount whether a birth
         runs or not, and so does the eager step."""
         if not have_bank:
-            return particles, objects, torch.zeros((), dtype=torch.int64, device=dev)
+            none = torch.zeros((), dtype=torch.int64, device=dev)
+            last["guessed_born"] = none
+            return particles, objects, none
         if draws is None:
             draws = torch.randn((TB_MAX * n_copies, 3), generator=generator, device=dev)
         rows, rvalid = _top_rows(gate[:, 2] == 1, TB_MAX)
@@ -397,15 +402,29 @@ def build_template_stages(
         )
         res = _insert_core(cfg, particles, scroll, cand, resample_targets=False,
                            max_target_blocks=TM_INSERT_BLOCKS)
+        last["guessed_born"] = res.accepted_count
         return res.particles, dataclasses.replace(objects, to_match_templates=flags), res.block_overflow
 
-    return TemplateStages(gate=gate_fn, rematch=rematch, birth=birth, records=records)
+    # The tensors of the last frame built (under capture: the graph's own,
+    # which each replay rewrites in place).
+    last: Dict[str, torch.Tensor] = {}
+
+    def counts():
+        """The tracer's template counters: each stage's running total of
+        sweeps and the guessed particles of the last ``birth``'s insert."""
+        return {"rematch_sweeps": records["rematch"].count,
+                "template_birth_sweeps": records["birth"].count,
+                "guessed_born_count": last["guessed_born"]}
+
+    return TemplateStages(gate=gate_fn, rematch=rematch, birth=birth, records=records,
+                          counts=counts)
 
 
 class TemplateEngine:
     """Template-bank holder behind ``SemanticDSPMap.set_template_path``;
     builds the stages on demand.  ``records`` are the sweep records
-    (:class:`SweepRecord`, by stage) of the stages built last."""
+    (:class:`SweepRecord`, by stage) and ``counts`` the tracer's counts
+    (``TemplateStages.counts``) of the stages built last."""
 
     def __init__(
         self,
@@ -421,6 +440,7 @@ class TemplateEngine:
         self.grid = grid or MatchGridConfig()
         self.bank = bank
         self.records: Optional[Dict[str, SweepRecord]] = None
+        self.counts: Optional[Callable] = None
 
     def set_template_path(self, folder: str) -> int:
         """setTemplatePath (semantic_dsp_map.h:163-166)."""
@@ -430,5 +450,5 @@ class TemplateEngine:
     def stages(self, device=None) -> TemplateStages:
         stages = build_template_stages(self.cfg, self.params, self.registry, self.grid, self.bank,
                                        device)
-        self.records = stages.records
+        self.records, self.counts = stages.records, stages.counts
         return stages

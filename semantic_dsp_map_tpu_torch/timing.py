@@ -19,8 +19,10 @@ every frame from the map's first ``update()`` on:
   on the device at each boundary of :data:`STAMPS`; the stamps are
   captured into the step's CUDA graphs, so a replay stamps with no host
   call.  On the CPU a stamp is the host clock;
-- **counters**: the frame's StepDiagnostics, copied by the last stamp into
-  a second ring on the device;
+- **counters** (:data:`COUNTERS`): the frame's StepDiagnostics, copied by
+  the last stamp into a second ring on the device, and with template
+  matching the template stages' counts, copied by template birth's end
+  stamp;
 - **host counts** of the frame, by name (:meth:`Tracer.count`): the map
   counts ``pack_in_place`` (the frame packed into the buffer it holds) or
   ``pack_allocated`` (the frame that made the buffer).
@@ -102,18 +104,39 @@ def bench(fn, device: torch.device, iters: int = 10) -> dict:
 # The frame tracer
 # ---------------------------------------------------------------------------
 
-#: The columns of a frame's row in the stamp ring, in the order the device
-#: reaches them: graph "fit" start and end, graph "finish" start (each where
-#: the step is split at the refit; where it is one graph "step", its start
-#: stamps ``fit_start`` and ``fit_end`` and ``finish_start`` stays unset),
-#: then the end of each stage: the object layer, the labeled cloud, the
-#: prediction, ``observe_and_update``, birth (template birth included), the
-#: render with the state's write-back.
+#: The columns of a frame's row in the stamp ring: graph "fit" start and
+#: end, graph "finish" start (each where the step is split at the refit;
+#: where it is one graph "step", its start stamps ``fit_start`` and
+#: ``fit_end`` and ``finish_start`` stays unset), then the end of each
+#: stage in the order the device reaches them: the object layer, the
+#: labeled cloud, the prediction, ``observe_and_update``, birth (template
+#: birth included), the render with the state's write-back.  Last, set only
+#: with template matching: the start and end of template rematch (inside
+#: the prediction) and of template birth (inside birth).
 STAMPS = ("fit_start", "fit_end", "finish_start", "objects", "cloud", "predict", "observe",
-          "birth", "render")
+          "birth", "render", "rematch_start", "rematch_end", "template_birth_start",
+          "template_birth_end")
 
 #: The stages a Trace derives from the stamps (``Trace.stage_ms``).
-STAGES = ("objects", "bridge", "cloud", "predict", "observe", "birth", "render")
+#: ``rematch`` and ``template_birth`` nest inside ``predict`` and ``birth``.
+STAGES = ("objects", "bridge", "cloud", "predict", "observe", "birth", "render", "rematch",
+          "template_birth")
+
+#: The stages read from their own start stamp to their end stamp.
+NESTED_STAGES = ("rematch", "template_birth")
+
+#: The columns of a frame's row in the counter ring: the StepDiagnostics in
+#: field order, then the template stages' counts (:data:`TEMPLATE_COUNTERS`).
+COUNTERS = ("visible_count", "born_count", "moved_count", "block_overflow", "entry_overflow",
+            "table_dropped", "corner_overflow", "move_overflow", "birth_overflow",
+            "rematch_sweeps", "template_birth_sweeps", "guessed_born_count")
+
+#: The counters that only template matching sets: the sweeps each template
+#: stage ran (the ring holds each stage's running total, ``SweepRecord.count``;
+#: ``Trace.counter`` reads the frame's share) and the guessed particles that
+#: template birth's insert accepted.
+TEMPLATE_COUNTERS = ("rematch_sweeps", "template_birth_sweeps", "guessed_born_count")
+_RUNNING_TOTALS = ("rematch_sweeps", "template_birth_sweeps")
 
 class SpanRecord(NamedTuple):
     """One host span: its frame, name, the index of its parent in
@@ -139,7 +162,10 @@ class Trace(NamedTuple):
     of ``stamps`` and ``counters`` is frame ``frames[i]``: stamps in ns
     (the device's ``%globaltimer`` on the card, the host's
     ``perf_counter_ns`` on the CPU; -1 where the frame set none), one column
-    a name of :data:`STAMPS`; counters the StepDiagnostics in field order.
+    a name of :data:`STAMPS`; counters one column a name of
+    :data:`COUNTERS` (-1 where the frame set none).  A ring of fewer
+    columns, as one written before the template columns existed, reads as
+    unset in those it lacks.
     ``spans`` holds those frames' host spans, ``host_counts`` their host
     counts (a name's values a row of ``frames``)."""
 
@@ -166,15 +192,20 @@ class Trace(NamedTuple):
         start to the object layer's end; the bridge (NaN where the step is
         one graph) the fit graph's end to the finishing graph's start (the
         refit's SVD and the device's wait while the host reads its flags);
-        each later stage runs from the previous stage's end to its own."""
+        each later stage of the first seven runs from the previous stage's
+        end to its own; ``rematch`` and ``template_birth`` (NaN without
+        template matching) from their start stamp to their end stamp."""
         s = np.where(self.stamps >= 0, self.stamps, np.nan)
-        col = {name: s[:, i] for i, name in enumerate(STAMPS)}
+        unset = np.full(len(s), np.nan)
+        col = {name: s[:, i] if i < s.shape[1] else unset for i, name in enumerate(STAMPS)}
         finish_start = np.where(np.isnan(col["finish_start"]), col["fit_end"],
                                 col["finish_start"])
         if stage == "objects":
             ns = (col["fit_end"] - col["fit_start"]) + (col["objects"] - finish_start)
         elif stage == "bridge":
             ns = col["finish_start"] - col["fit_end"]
+        elif stage in NESTED_STAGES:
+            ns = col[f"{stage}_end"] - col[f"{stage}_start"]
         elif stage in STAGES:
             ns = col[stage] - col[STAMPS[STAMPS.index(stage) - 1]]
         else:
@@ -182,10 +213,25 @@ class Trace(NamedTuple):
         return ns / 1e6
 
     def counter(self, name: str) -> np.ndarray:
-        """The StepDiagnostics counter ``name`` a frame."""
-        from .map import StepDiagnostics
-
-        return self.counters[:, StepDiagnostics._fields.index(name)]
+        """The counter ``name`` (of :data:`COUNTERS`) a frame.  A
+        StepDiagnostics counter reads its column; a template counter reads
+        float64 with NaN on a frame that set none (no template matching),
+        a running total the frame's share of it (NaN on the first frame the
+        rings hold where earlier frames were lost)."""
+        if name not in COUNTERS:
+            raise ValueError(f"no counter {name!r}; the counters are {COUNTERS}")
+        i = COUNTERS.index(name)
+        if name not in TEMPLATE_COUNTERS:
+            return self.counters[:, i]
+        c = self.counters
+        values = (c[:, i] if i < c.shape[1] else np.full(len(c), -1)).astype(np.float64)
+        values[values < 0] = np.nan
+        if name in _RUNNING_TOTALS:
+            before = np.concatenate([[0.0 if self.lost == 0 else np.nan], values[:-1]])
+            # A total that starts anew (stages built again) counts from 0.
+            values = np.where(values >= before, values - before, values)
+            values[np.isnan(before)] = np.nan
+        return values
 
     def host_count(self, name: str) -> np.ndarray:
         """The host count ``name`` a frame (0 where a frame counted none)."""
@@ -256,7 +302,7 @@ class Tracer:
         self._frames = collections.deque(maxlen=capacity)  # (frame, [SpanRecord], counts)
         self._stack = []       # indices of the open spans in the frame's records
         self.device = None
-        self._data = None      # int64 [2 + 2 * capacity * 9] on the device
+        self._data = None      # int64 [2 + capacity * (len(STAMPS) + len(COUNTERS))]
 
     def bind(self, device) -> None:
         """Allocate the rings on ``device`` (once; the map calls this)."""
@@ -264,11 +310,12 @@ class Tracer:
             raise ValueError("a Tracer records one map; this one is bound already")
         self.device = torch.device(device)
         n = self.capacity * len(STAMPS)
-        self._data = torch.full((2 + 2 * n,), -1, dtype=torch.int64, device=self.device)
+        m = self.capacity * len(COUNTERS)
+        self._data = torch.full((2 + n + m,), -1, dtype=torch.int64, device=self.device)
         self._data[0].zero_()
         self._cursor = self._data[:2]          # frames begun, the current row
         self._stamps = self._data[2 : 2 + n].view(self.capacity, len(STAMPS))
-        self._counters = self._data[2 + n :].view(self.capacity, len(STAMPS))
+        self._counters = self._data[2 + n :].view(self.capacity, len(COUNTERS))
         # On the CPU the stamps are written through numpy views of the rings.
         self._host = None if self.device.type == "cuda" else tuple(
             t.numpy() for t in (self._cursor, self._stamps, self._counters))
@@ -288,12 +335,21 @@ class Tracer:
 
     def stamp(self, name: str, first: bool = False, counts=None) -> None:
         """Stamp the column ``name`` (of :data:`STAMPS`) of the current
-        frame's row; ``first`` starts the frame's row; ``counts`` (the
-        frame's StepDiagnostics, 0-d int64 tensors on the map's device) are
-        copied into the counter ring."""
+        frame's row; ``first`` starts the frame's row; ``counts`` (a mapping
+        of names of :data:`COUNTERS` to 0-d int64 tensors on the map's
+        device, a run of consecutive counters in their order) are copied
+        into those columns of the counter ring."""
         column = STAMPS.index(name)
+        counts = dict(counts or {})
+        unknown = sorted(set(counts) - set(COUNTERS))
+        if unknown:
+            raise ValueError(f"no counter(s) {unknown}; the counters are {COUNTERS}")
+        first_count = COUNTERS.index(next(iter(counts))) if counts else 0
+        if tuple(counts) != COUNTERS[first_count:first_count + len(counts)]:
+            raise ValueError(f"counts {tuple(counts)}: not a run of the counters {COUNTERS}")
         if self._host is None:
-            stamp_cuda(self._cursor, self._stamps, self._counters, column, first, counts)
+            stamp_cuda(self._cursor, self._stamps, self._counters, column, first, first_count,
+                       tuple(counts.values()))
             return
         cursor, stamps, counters = self._host
         if first:
@@ -301,8 +357,8 @@ class Tracer:
             cursor[0] += 1
             stamps[cursor[1]] = counters[cursor[1]] = -1
         stamps[cursor[1], column] = time.perf_counter_ns()
-        if counts is not None:
-            counters[cursor[1]] = [_count(c) for c in counts]
+        for i, c in enumerate(counts.values()):
+            counters[cursor[1], first_count + i] = _count(c)
 
     def collect(self) -> Trace:
         """What the tracer holds, read to the host with one device-to-host
@@ -335,31 +391,31 @@ def _count(c: torch.Tensor) -> int:
 
 @cuda_lib.counted
 def stamp_cuda(cursor: torch.Tensor, stamps: torch.Tensor, counters: torch.Tensor, column: int,
-               first: bool, counts=None) -> None:
+               first: bool, first_count: int = 0, counts=()) -> None:
     """Launch ``csrc/graph.cu``'s ``stamp_kernel``: the device's clock into
-    column ``column`` of the current row of ``stamps`` (the row advanced
-    first where ``first``), ``counts`` (nine 0-d int64 device tensors, or
-    None) into the same row of ``counters``.  Card tensors only."""
+    column ``column`` of the current row of ``stamps`` (the row of both
+    rings advanced and cleared first where ``first``), and ``counts`` (0-d
+    int64 device tensors, at most 16) into the columns from ``first_count``
+    on of the same row of ``counters``.  Card tensors only."""
     index = cursor.get_device()
     if index < 0:
         raise ValueError("stamp_cuda: the stamp kernel takes card tensors (a CPU Tracer stamps "
                          "the host clock)")
     capacity, width = stamps.shape
+    counter_width = counters.shape[1]
     ptrs = cuda_lib.pointers(index, torch.int64, (2,), (cursor,), ("cursor",))
-    ptrs += cuda_lib.pointers(index, torch.int64, (capacity, width), (stamps, counters),
-                              ("stamps", "counters"))
+    ptrs += cuda_lib.pointers(index, torch.int64, (capacity, width), (stamps,), ("stamps",))
+    ptrs += cuda_lib.pointers(index, torch.int64, (capacity, counter_width), (counters,),
+                              ("counters",))
     if not 0 <= column < width:
         raise ValueError(f"column must be in [0, {width}), got {column}")
-    array = None
-    if counts is not None:
-        counts = tuple(counts)
-        if len(counts) != width:
-            raise ValueError(f"counts: expected {width} counters, got {len(counts)}")
-        array = (ctypes.c_void_p * width)(*cuda_lib.pointers(
-            index, torch.int64, (), counts, [f"counts[{i}]" for i in range(width)]))
-    err = cuda_lib.entry.dsp_stamp(*ptrs, capacity, column, int(first),
-                                   None if array is None else ctypes.addressof(array),
+    n = len(counts)
+    array = (ctypes.c_void_p * max(n, 1))(*cuda_lib.pointers(
+        index, torch.int64, (), tuple(counts), [f"counts[{i}]" for i in range(n)]))
+    err = cuda_lib.entry.dsp_stamp(*ptrs, capacity, width, counter_width, column, int(first),
+                                   first_count, n, ctypes.addressof(array),
                                    cuda_lib.stream_ptr(index))
     if err:
         raise cuda_lib.error(err, "dsp_stamp")
     stamp_cuda.launches += 1
+
