@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase k31       # build + [k31] only
     python3 chip_smoke.py --phase visible   # build + [visible] only
     python3 chip_smoke.py --phase wide      # build + [wide] only (the sharded K = 63 step too)
+    python3 chip_smoke.py --phase templates # build + [templates] only (the template kernels)
     python3 chip_smoke.py --profile         # all phases + a torch.profiler breakdown
     python3 chip_smoke.py --against DIR     # also time both PHD passes, the render,
                                             # the front scan and the gather built from
@@ -2745,22 +2746,22 @@ def frame_cloud(dsp, synth, t):
 def time_template_parts(dsp, synth, t):
     """The template work that a replayed frame runs whatever its slots do,
     on the map's state after its path and frame ``t``'s cloud, each part
-    alone (CUDA events, device-only, median of 10): the gate over [O, H*W];
-    the two ``_top_rows`` sorts; the delete pass over the store (no slot
-    good, so it changes nothing); the rematch and birth stages' inserts with
-    no valid candidate (which change nothing); the birth's normals.  Then
-    all of it: both stages, on stages of their own, fed a gate with no
-    eligible row, captured into a CUDA graph (their three IF nodes
-    included) and replayed.  Returns {part: ms}."""
+    alone (CUDA events, device-only, median of 10): the two ``_top_rows``
+    sorts; the rematch and birth stages' inserts with no valid candidate
+    (which change nothing); the birth's normals.  The gate's and the delete
+    pass's kernels are timed by [templates] (``check_template_kernels``)
+    alone.  Then all of it: the gate and both stages, on stages of their
+    own, fed a gate with no eligible row, captured into a CUDA graph (their
+    three IF nodes included) and replayed.  Returns {part: ms}."""
     import dataclasses
 
     import torch
     from semantic_dsp_map_tpu_torch import step_graph
     from semantic_dsp_map_tpu_torch.ops.birth import _insert_core
-    from semantic_dsp_map_tpu_torch.state import STATUS_INVALID
+    from semantic_dsp_map_tpu_torch.ops.templates_cuda import template_gate_cuda
     from semantic_dsp_map_tpu_torch.template_engine import (
         GUESSED_BIRTH_COPIES, RM_MAX, TB_MAX, TM_INSERT_BLOCKS, TemplateEngine, _candidates,
-        _top_rows, template_gate,
+        _top_rows,
     )
 
     cfg, eng, state = dsp.cfg, dsp._templates, dsp.state
@@ -2769,17 +2770,9 @@ def time_template_parts(dsp, synth, t):
     car = dsp.registry.label_to_id["Car"]
     no = torch.zeros_like(state.objects.valid)
     objects = dataclasses.replace(state.objects, to_match_previous=no, to_match_templates=no)
-    gate = template_gate(car, objects, cloud)
+    gate = template_gate_cuda(car, objects, cloud)
     Pt = eng.grid.max_template_points
-    tid = gate[0, 3]
-    good = torch.zeros((), dtype=torch.bool, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def delete_pass():
-        del_mask = torch.zeros_like(p.status, dtype=torch.bool)
-        for _ in range(RM_MAX):
-            del_mask |= good & (p.track == tid)
-        p.status.masked_fill_(del_mask, STATUS_INVALID)
 
     def insert(n):
         pos = torch.zeros((n, 3), dtype=torch.float32, device="cuda")
@@ -2791,9 +2784,7 @@ def time_template_parts(dsp, synth, t):
 
     n_birth = TB_MAX * Pt * GUESSED_BIRTH_COPIES
     parts = {
-        "gate": lambda: template_gate(car, objects, cloud),
         "top_rows": lambda: (_top_rows(gate[:, 1] == 1, RM_MAX), _top_rows(gate[:, 2] == 1, TB_MAX)),
-        "delete_pass": delete_pass,
         "rematch_insert": lambda: insert(RM_MAX * Pt),
         "birth_insert": lambda: insert(n_birth),
         "normals": lambda: torch.randn((n_birth, 3), generator=gen, device="cuda"),
@@ -2820,6 +2811,112 @@ def time_template_parts(dsp, synth, t):
     if any(int(r.count) for r in stages.records.values()):
         raise AssertionError("template parts: a branch ran on a gate with no eligible row")
     return ms
+
+
+def gate_bytes(objects, cloud):
+    """(bytes, pixels) of what the template gate has to move: every pixel's
+    track (4 B) and validity (1 B); x and y of each pixel that some valid
+    row takes, as the 32-byte sectors that hold bytes [12 p, 12 p + 8) of
+    the interleaved f32[H*W, 3] positions, each sector counted once over
+    the set of those pixels (a car's pixels are contiguous, so neighbours
+    share sectors: about 12 B a pixel), not once a row; each object row's
+    five flags, track id and label (13 B) and its eight i32 columns written
+    (32 B).  ``pixels`` counts those distinct pixels."""
+    import torch
+
+    ids = objects.track_id[objects.valid]
+    hit = cloud.valid.reshape(-1) & torch.isin(cloud.track.reshape(-1), ids)
+    first = 12 * torch.nonzero(hit).squeeze(1)
+    sectors = torch.unique(torch.cat([first // 32, (first + 7) // 32])).numel()
+    rows = objects.valid.shape[0]
+    return cloud.track.numel() * 5 + 32 * sectors + rows * (13 + 32), int(first.numel())
+
+
+def check_template_kernels(card, frames=4, reps=20):
+    """[templates] (``--phase templates``): the two kernels of
+    csrc/templates.cu at the template cell's shapes, on a VKITTI2 template
+    map after ``frames`` frames of [graph]'s template scene (its object table
+    of 64 rows, frame ``frames``' cloud of 1242 x 375 pixels, its store of
+    58,720,256 slots): each against its plain version on the card, bit for
+    bit, and timed beside it and beside its bound, device-only (the launch
+    queued behind a spin, median of ``reps``) and inside a CUDA graph.  The
+    gate's bound counts the bytes of ``gate_bytes`` and, beside it, every
+    pixel's position too (2.4 us); the delete's, with no slot good, nothing
+    but its launch, with one good, the store's track and a byte of status a
+    slot it deletes.  Returns the report."""
+    import torch
+    from semantic_dsp_map_tpu_torch import (
+        FilterParams, MaskKpts, SemanticDSPMap, virtual_kitti2_config,
+    )
+    from semantic_dsp_map_tpu_torch.ops.templates_cuda import (
+        delete_matched_cuda, template_gate_cuda,
+    )
+    from semantic_dsp_map_tpu_torch.template_engine import delete_matched_plain, template_gate
+
+    cfg = virtual_kitti2_config()
+    dsp = SemanticDSPMap(cfg, FilterParams(**bench_scenes().TPL_PARAMS), device="cuda")
+    dsp.set_template_path(str(TEMPLATES))
+    for t in range(frames):
+        dsp.update(*late_template_frame(cfg, t, MaskKpts), 0.1 * t)
+    _, _, cloud = frame_cloud(dsp, late_template_frame, frames)
+    objects, p = dsp.state.objects, dsp.state.particles
+    car = dsp.registry.label_to_id["Car"]
+    out = {"card": card}
+
+    gate = template_gate_cuda(car, objects, cloud)
+    assert_equal("[templates] gate", gate, template_gate(car, objects, cloud))
+    n_pix = cloud.track.numel()
+    taken = int(gate[:, 5].sum())
+    need, matched = gate_bytes(objects, cloud)
+    row = {"rows": int(gate.shape[0]), "valid_rows": int(gate[:, 0].sum()), "pixels": n_pix,
+           "points_taken": taken, "pixels_matched": matched, "bytes": need,
+           "ms": cuda_ms(lambda: template_gate_cuda(car, objects, cloud), reps, queued=True),
+           "in_graph_ms": graph_ms(lambda: template_gate_cuda(car, objects, cloud)),
+           "plain_ms": cuda_ms(lambda: template_gate(car, objects, cloud), reps, queued=True),
+           "plain_in_graph_ms": graph_ms(lambda: template_gate(car, objects, cloud)),
+           **bound(need),
+           "bound_all_positions_ms": bound(n_pix * (4 + 1 + 12))["bound_ms"]}
+    note = cache_note(row, "", cloud.track, cloud.valid, cloud.pos)
+    print(f"[templates] gate [{row['rows']}, {n_pix}] ({row['valid_rows']} valid rows, "
+          f"{taken} points taken, {matched} distinct pixels, {need} bytes): kernel {row['ms']:.4f} ms device-only, "
+          f"{row['in_graph_ms']:.4f} in a graph; bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_all_positions_ms']:.4f} reading every position); plain "
+          f"{row['plain_ms']:.4f} ms, {row['plain_in_graph_ms']:.4f} in a graph; bit-equal{note}")
+    out["gate"] = row
+
+    valid = gate[:, 0] == 1
+    counts = torch.where(valid, gate[:, 5], -1)
+    tid = torch.stack([gate[int(counts.argmax()), 3],
+                       torch.tensor(2 ** 30, dtype=torch.int32, device="cuda")])
+    status0 = p.status.clone()
+    work = status0.clone()
+    for name, flags in (("none", (False, False)), ("one", (True, False))):
+        good = torch.tensor(flags, device="cuda")
+        delete_matched_cuda(p.track, work, good, tid)
+        plain = status0.clone()
+        delete_matched_plain(p.track, plain, good, tid)
+        assert_equal(f"[templates] delete {name}", work, plain)
+        deleted = int((work != status0).sum())
+        reset = lambda: work.copy_(status0)
+        row = {"slots": p.track.numel(), "slots_of_id": int((p.track == tid[0]).sum()) if flags[0]
+               else 0, "changed": deleted,
+               "ms": cuda_ms(lambda: delete_matched_cuda(p.track, work, good, tid), reps,
+                             queued=True, setup=reset),
+               "in_graph_ms": graph_ms(lambda: delete_matched_cuda(p.track, work, good, tid)),
+               "plain_ms": cuda_ms(lambda: delete_matched_plain(p.track, work, good, tid), reps,
+                                   queued=True, setup=reset),
+               "plain_in_graph_ms": graph_ms(
+                   lambda: delete_matched_plain(p.track, work, good, tid)),
+               **bound(nbytes(p.track) + deleted if flags[0] else 0)}
+        reset()
+        print(f"[templates] delete, {name} good ({row['slots_of_id']} slots of the id, "
+              f"{deleted} changed): kernel {row['ms']:.4f} ms device-only, "
+              f"{row['in_graph_ms']:.4f} in a graph; bound {row['bound_ms']:.4f} ms; plain "
+              f"{row['plain_ms']:.4f} ms, {row['plain_in_graph_ms']:.4f} in a graph; bit-equal")
+        out[f"delete_{name}"] = row
+    assert_equal("[templates] the store's status", p.status, status0)
+    print(f"[templates] {card}")
+    return out
 
 
 def time_template_sweep(dsp, synth, t):
@@ -2897,6 +2994,8 @@ def read_launches(counters):
 
 #: The wrapper of birth's merge kernel (ops/birth_cuda.py), by name.
 MERGE_FN = "merge_blocks_cuda"
+#: The wrappers of template mode's every-frame kernels (csrc/templates.cu).
+TEMPLATE_FNS = ("template_gate_cuda", "delete_matched_cuda")
 
 
 def inserts_a_frame(template=False) -> int:
@@ -2910,7 +3009,10 @@ def inserts_a_frame(template=False) -> int:
 
 def runs_a_frame(fname, template=False) -> int:
     """How often the kernel of wrapper ``fname`` runs a frame: a frame
-    kernel once, birth's merge once per ``_insert_core``."""
+    kernel once, birth's merge once per ``_insert_core``, the template
+    gate and rematch's delete once with a template bank and never without."""
+    if fname in TEMPLATE_FNS:
+        return int(template)
     return inserts_a_frame(template) if fname == MERGE_FN else 1
 
 
@@ -3153,11 +3255,9 @@ def run_bench(counters, card):
 
     if list(cells) != ["zed2", "vkitti2", "vkitti2_template", "vkitti2_hostile"]:
         raise AssertionError(f"bench: cells {list(cells)}")
-    n_all, merges = 0, 0
+    frames_of = {}
     for name, cell in cells.items():
-        n = cell["warmup"] + len(cell["runs"]) * cell["frames"]
-        n_all += n
-        merges += n * inserts_a_frame(name == "vkitti2_template")
+        n = frames_of[name] = cell["warmup"] + len(cell["runs"]) * cell["frames"]
         if cell["frames"] != (50 if name == "zed2" else 25) or len(cell["runs"]) < 3:
             raise AssertionError(f"bench {name}: {cell['frames']} frames x {len(cell['runs'])} runs")
         for fname, count in cell["kernel_launches"].items():
@@ -3188,9 +3288,10 @@ def run_bench(counters, card):
             if (peak[q] > 0) != (rec[q] > 0):
                 print(f"[bench] {name} FINDING: {q} is {peak[q]} on the card and {rec[q]} in the "
                       "JAX package's record")
-    want = {f: merges if f == MERGE_FN else n_all for f in launches}
+    want = {f: sum(n * runs_a_frame(f, name == "vkitti2_template")
+                   for name, n in frames_of.items()) for f in launches}
     if launches != want:
-        raise AssertionError(f"bench: kernel runs {launches} in {n_all} frames, want {want}")
+        raise AssertionError(f"bench: kernel runs {launches} in {frames_of} frames, want {want}")
     tpl = cells["vkitti2_template"]
     if tpl["template_sweeps"].get("birth", 0) < 1 or tpl["guessed_born_in_warmup"] <= 0:
         raise AssertionError(f"bench vkitti2_template: sweeps {tpl['template_sweeps']}, "
@@ -3218,7 +3319,7 @@ def run_bench(counters, card):
     print(f"[bench] pack_frame alone on the host, median of 7: vkitti2 (2 masks) "
           f"{pack_ms['vkitti2']:.3f} ms, vkitti2_hostile (21 masks) "
           f"{pack_ms['vkitti2_hostile']:.3f} ms")
-    print(f"[bench] four cells, {n_all} frames, launches {launches}; template cell: sweeps "
+    print(f"[bench] four cells, {sum(frames_of.values())} frames, launches {launches}; template cell: sweeps "
           f"{tpl['template_sweeps']}, {tpl['guessed_born_in_warmup']} GUESSED_BORN particles after "
           f"a warm-up frame ({card})")
     return cells, launches
@@ -3482,8 +3583,8 @@ def drive_graph(name, cfg, params, synth, counters, card, frames=10, template_pa
     # the eager step's.
     template = template_path is not None
     hold_runs(f"[graph] {name}", launches, 2 * frames, template)
-    if any(replayed.get(f) != (frames - 1) * runs_a_frame(f, template)
-           or captured.get(f) != runs_a_frame(f, template) for f in launches):
+    if any(replayed.get(f, 0) != (frames - 1) * runs_a_frame(f, template)
+           or captured.get(f, 0) != runs_a_frame(f, template) for f in launches):
         raise AssertionError(f"[graph] {name}: launches {launches} in {frames} frames of each, "
                              f"captured {captured}, replayed {replayed}")
     want = {("packed", "fit"), ("packed", "finish")} if split else {("packed", "step")}
@@ -4914,14 +5015,15 @@ def run_sharded(counters, card) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "graph", "sharded", "scan", "merge",
-                                        "k31", "visible", "wide"),
+                                        "k31", "visible", "wide", "templates"),
                     default="all",
                     help="'kernels' stops after the per-kernel checks; 'graph' runs the build "
                          "and [graph] alone; 'sharded' the build and [sharded]'s vkitti2 and "
                          "zed2 runs alone; 'scan' the build and [scan] alone; 'merge' the "
                          "build and [merge] alone; 'k31' the build and [k31] alone; 'visible' "
                          "the build and [visible] alone; 'wide' the build and [wide] alone (its "
-                         "sharded step in a process group of its own)")
+                         "sharded step in a process group of its own); 'templates' the build "
+                         "and [templates] alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, profile 3 more frames (traces in chiprun_out/)")
     ap.add_argument("--against", metavar="DIR", type=Path,
@@ -4971,8 +5073,13 @@ def main() -> int:
     vk_cfg, zed2_cfg, coda_cfg = virtual_kitti2_config(), zed2_config(), coda_config()
     from semantic_dsp_map_tpu_torch.ops.birth_cuda import merge_blocks_cuda
 
-    # every kernel wrapper of the main path: the frame kernels, birth's merge
-    fns = (*step_graph.FRAME_KERNELS, merge_blocks_cuda)
+    from semantic_dsp_map_tpu_torch.ops.templates_cuda import (
+        delete_matched_cuda, template_gate_cuda,
+    )
+
+    # every kernel wrapper of the main path: the frame kernels, birth's
+    # merge, template mode's gate and delete
+    fns = (*step_graph.FRAME_KERNELS, merge_blocks_cuda, template_gate_cuda, delete_matched_cuda)
     # name -> (config, parameters, scene, keyword arguments of drive_graph)
     graph_paths = {
         "vkitti2": (vk_cfg, scenes.VK_PARAMS, scenes.synth_vkitti2_frame, {}),
@@ -5018,6 +5125,10 @@ def main() -> int:
         with one_rank_group(card):
             wide["sharded_k63"] = check_k63_sharded(card)
         print(json.dumps({"wide": wide, "card": card}))
+        print(f"[card] {card}")
+        return 0
+    if args.phase == "templates":
+        print(json.dumps({"templates": check_template_kernels(card)}))
         print(f"[card] {card}")
         return 0
     if args.phase == "visible":
@@ -5223,6 +5334,9 @@ def main() -> int:
         **{k: ins[k] for k in ("ms", "device_only_ms", "plain_ms", "max_abs_err", "bound_ms",
                                "bound_by")})
 
+    templates = check_template_kernels(card)
+    torch.cuda.empty_cache()
+
     rematch_launches, rematch_frame = drive_rematch(fns, card)
     replay_launches, replay_ms = drive_replay(fns, card)
     soak_launches, soak_report = drive_soak(fns, card)
@@ -5279,7 +5393,8 @@ def main() -> int:
                       "stage_profile": stage_rows, "probes": probe_rows, "bench": bench_cells,
                       "expected": expected, "rematch_frame": rematch_frame, "sharded": sharded,
                       "graph": graph, "scan": scan, "merge": merge, "k31": k31,
-                      "wide": wide, "visible": visible, "card": card}))
+                      "wide": wide, "visible": visible, "templates": templates,
+                      "card": card}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

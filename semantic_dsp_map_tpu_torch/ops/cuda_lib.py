@@ -39,7 +39,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("phd.cu", "render.cu", "observe.cu", "probes.cu", "graph.cu", "birth.cu")
+SOURCES = ("phd.cu", "render.cu", "observe.cu", "probes.cu", "graph.cu", "birth.cu",
+           "templates.cu")
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: Precise math on purpose: pass B's "rightly updated" flag is compared bit
@@ -91,6 +92,13 @@ SIGNATURES = {
     # the same, then the per-lane acceptance (u8 [A, bv, K]) after the count
     "dsp_merge_blocks_accepted": [_P] * 19 + [ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I,
                                               _I, _P],
+    # csrc/templates.cu: the cloud's track, validity, positions; the object
+    # table's five flags, track ids and labels; the scratch, the gate;
+    # pixels, rows, the Car label; stream
+    "dsp_template_gate": [_P] * 12 + [_I] * 3 + [_P],
+    # the store's track and status (in place), the slots' good flags and track
+    # ids; slots, store slots; stream
+    "dsp_delete_matched": [_P] * 4 + [_I, ctypes.c_longlong, _P],
     # csrc/graph.cu: a conditional IF node under capture (step_graph.slot_cond)
     "dsp_if_node_prepare": [],
     # capture stream, the device flag (bool), the side stream of the body

@@ -19,7 +19,8 @@ Both stages run on the device with no host read, structure for structure
 as the JAX package's (its round-5 design), so that the captured step
 (``step_graph``) holds them:
 
-  - the i32[O, 8] gate (``template_gate``) says which objects have work,
+  - the i32[O, 8] gate (``template_gate``; on the card one pass of a kernel
+    over the image, ``ops/templates_cuda.py``) says which objects have work,
     and ``_top_rows`` picks the slots' rows from it on the device; track ids
     and labels are tensors read from it;
   - each slot is one ``step_graph.slot_cond`` (the JAX package's
@@ -27,21 +28,22 @@ as the JAX package's (its round-5 design), so that the captured step
     only where its row has work, and returns small outputs only (the aligned
     cloud, its validity, a flag or the score); the particle store never
     passes through a branch;
-  - then, every frame, whatever the slots did: one masked delete pass and
-    one fixed-capacity ``_insert_core`` per stage, every slot's candidates
-    concatenated (an insert with no valid candidate leaves the store as it
-    was);
+  - then, every frame, whatever the slots did: rematch's delete pass
+    (``delete_matched_plain``, on the card a kernel that returns at once
+    where no match was good) and one fixed-capacity ``_insert_core`` per
+    stage, every slot's candidates concatenated (an insert with no valid
+    candidate leaves the store as it was);
   - the guessed-birth normals are drawn every frame, outside the branch, so
     that a replay advances the generator as the eager step does.
 
 Each stage's sweeps are counted on the device (:class:`SweepRecord`), and
-``TemplateStages.counts()`` hands the frame tracer those totals and the
-guessed particles that template birth's last insert accepted.  As in
-the JAX package, at most ``RM_MAX`` rematches and ``TB_MAX`` template births
-run per frame, in ascending object row; eligibility beyond the cap is
-deferred (the ``to_match_*`` flags stay set).  Guessed-birth jitter comes
-from the map's ``torch.Generator`` unless the caller passes the
-standard-normal draws.
+so are the rematch slots whose match was good; ``TemplateStages.counts()``
+hands the frame tracer those totals and the guessed particles that template
+birth's last insert accepted.  As in the JAX package, at most ``RM_MAX``
+rematches and ``TB_MAX`` template births run per frame, in ascending object
+row; eligibility beyond the cap is deferred (the ``to_match_*`` flags stay
+set).  Guessed-birth jitter comes from the map's ``torch.Generator`` unless
+the caller passes the standard-normal draws.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ import torch
 
 from .config import FilterParams, MapConfig, PARTICLE_OCC_INIT_WEIGHT
 from .labels import LabelRegistry
-from .ops import codecs
+from .ops import codecs, templates_cuda
 from .ops.birth import Candidates, _insert_core
 from .ops.blocks import block_layout, gather_rows_flat, row_valid, select_blocks
 from .ops.templates import (
@@ -124,6 +126,18 @@ def template_gate(car_label: int, objects, cloud) -> torch.Tensor:
         ],
         dim=1,
     )
+
+
+def delete_matched_plain(track, status, good, tid) -> None:
+    """deleteParticlesInSet (operations.h:125-146) for the rematch slots
+    whose match was good: ``status`` set to STATUS_INVALID, in place,
+    wherever ``track`` is ``tid[i]`` for a slot ``i`` with ``good[i]``
+    (bool[S], i32[S]); one masked pass over the store.  The CPU path and
+    the oracle of ``ops.templates_cuda.delete_matched_cuda``."""
+    del_mask = torch.zeros_like(status, dtype=torch.bool)
+    for i in range(good.shape[0]):
+        del_mask |= good[i] & (track == tid[i])
+    status.masked_fill_(del_mask, STATUS_INVALID)
 
 
 def _top_rows(mask: torch.Tensor, cap: int):
@@ -285,6 +299,8 @@ def build_template_stages(
                            torch.zeros((), dtype=torch.float32, device=dev))
         for stage in ("rematch", "birth")
     }
+    # The rematch slots whose match was good, a running total.
+    matched = torch.zeros((), dtype=torch.int64, device=dev)
 
     have_bank = False
     if bank is not None:
@@ -295,7 +311,7 @@ def build_template_stages(
         tvalids = torch.from_numpy(tvalids_np).to(dev)
 
     def gate_fn(objects, cloud):
-        return template_gate(car_label, objects, cloud)
+        return templates_cuda.template_gate_cuda(car_label, objects, cloud)
 
     def no_sweep():
         return (torch.zeros((Pt, 3), dtype=torch.float32, device=dev),
@@ -328,11 +344,11 @@ def build_template_stages(
                                                      no_match)
             slots.append((aligned, pok, good, tid, row[4]))
 
-        # deleteParticlesInSet for matched objects: one masked pass.
-        del_mask = torch.zeros_like(particles.status, dtype=torch.bool)
-        for _aligned, _pok, good, tid, _label in slots:
-            del_mask |= good & (particles.track == tid)
-        particles.status.masked_fill_(del_mask, STATUS_INVALID)
+        # deleteParticlesInSet for matched objects: one pass over the store.
+        good = torch.stack([s[2] for s in slots])
+        templates_cuda.delete_matched_cuda(particles.track, particles.status, good,
+                                           torch.stack([s[3] for s in slots]))
+        matched.add_(good.sum())
 
         # One fixed-capacity insert of every slot's aligned cloud.
         cand = _candidates(
@@ -406,15 +422,18 @@ def build_template_stages(
         return res.particles, dataclasses.replace(objects, to_match_templates=flags), res.block_overflow
 
     # The tensors of the last frame built (under capture: the graph's own,
-    # which each replay rewrites in place).
-    last: Dict[str, torch.Tensor] = {}
+    # which each replay rewrites in place); none born before the first.
+    last: Dict[str, torch.Tensor] = {
+        "guessed_born": torch.zeros((), dtype=torch.int64, device=dev)}
 
     def counts():
         """The tracer's template counters: each stage's running total of
-        sweeps and the guessed particles of the last ``birth``'s insert."""
+        sweeps, the guessed particles of the last ``birth``'s insert and the
+        running total of rematch slots whose match was good."""
         return {"rematch_sweeps": records["rematch"].count,
                 "template_birth_sweeps": records["birth"].count,
-                "guessed_born_count": last["guessed_born"]}
+                "guessed_born_count": last["guessed_born"],
+                "rematch_matched": matched}
 
     return TemplateStages(gate=gate_fn, rematch=rematch, birth=birth, records=records,
                           counts=counts)

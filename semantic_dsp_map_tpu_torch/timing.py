@@ -129,14 +129,16 @@ NESTED_STAGES = ("rematch", "template_birth")
 #: field order, then the template stages' counts (:data:`TEMPLATE_COUNTERS`).
 COUNTERS = ("visible_count", "born_count", "moved_count", "block_overflow", "entry_overflow",
             "table_dropped", "corner_overflow", "move_overflow", "birth_overflow",
-            "rematch_sweeps", "template_birth_sweeps", "guessed_born_count")
+            "rematch_sweeps", "template_birth_sweeps", "guessed_born_count", "rematch_matched")
 
 #: The counters that only template matching sets: the sweeps each template
 #: stage ran (the ring holds each stage's running total, ``SweepRecord.count``;
-#: ``Trace.counter`` reads the frame's share) and the guessed particles that
-#: template birth's insert accepted.
-TEMPLATE_COUNTERS = ("rematch_sweeps", "template_birth_sweeps", "guessed_born_count")
-_RUNNING_TOTALS = ("rematch_sweeps", "template_birth_sweeps")
+#: ``Trace.counter`` reads the frame's share), the guessed particles that
+#: template birth's insert accepted, and the rematch slots whose match was
+#: good (a running total too: the slots for which the delete pass deletes).
+TEMPLATE_COUNTERS = ("rematch_sweeps", "template_birth_sweeps", "guessed_born_count",
+                     "rematch_matched")
+_RUNNING_TOTALS = ("rematch_sweeps", "template_birth_sweeps", "rematch_matched")
 
 class SpanRecord(NamedTuple):
     """One host span: its frame, name, the index of its parent in

@@ -28,8 +28,9 @@ from semantic_dsp_map_tpu_torch.state import init_map_state
 from semantic_dsp_map_tpu_torch.step_graph import kernel_runs
 
 from torch_parity import (
-    PHD_EDGE_TABLES, RENDER_GENERIC_EDGES, STORE_EDGES, ZERO_FF_ENTRY, particle_store,
-    phd_table_cloud, render_generic_store, render_store, zed2_scene,
+    GATE_CAR, PHD_EDGE_TABLES, RENDER_GENERIC_EDGES, STORE_EDGES, TEMPLATE_DELETE_EDGES,
+    TEMPLATE_GATE_EDGES, ZERO_FF_ENTRY, deleted_as_expected, particle_store, phd_table_cloud,
+    render_generic_store, render_store, template_delete_case, template_gate_tensors, zed2_scene,
 )
 
 CASES = [(False, False, 0.4), (True, False, 0.4), (False, True, 0.12)]
@@ -1718,3 +1719,162 @@ def test_phd_weight_update_kernels_match_plain(cuda, filt):
     for name in ("forget", "status", "stamp", "px", "track"):
         assert torch.equal(getattr(p_k, name), getattr(p_p, name)), name
     assert int((p_k.stamp == 7).sum()) > 100
+
+
+# ---------------------------------------------------------------------------
+# Template mode's gate and delete kernels (csrc/templates.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(375, 1242), (7, 13)])  # VKITTI2's H * W = 465,750; odd
+@pytest.mark.parametrize("O", [64, 8, 300])  # 300: two chunks of rows
+@pytest.mark.parametrize("kind", TEMPLATE_GATE_EDGES)
+def test_template_gate_kernel_matches_plain(cuda, kind, O, shape):
+    """The gate kernel gives ``template_gate``'s i32[O, 8] on the card bit for
+    bit at every edge of ``torch_parity.template_gate_case``: no matching
+    pixel, one, every pixel (no fill in the max) or every valid one, rows
+    sharing an id (one invalid), the -1 rows, NaN / +-0.0 / +-inf
+    coordinates, extents past int32 after * 1000."""
+    from semantic_dsp_map_tpu_torch.ops.templates_cuda import template_gate_cuda
+    from semantic_dsp_map_tpu_torch.template_engine import template_gate
+
+    objects, cloud = template_gate_tensors(kind, O, *shape, cuda)
+    before = template_gate_cuda.launches
+    got = template_gate_cuda(GATE_CAR, objects, cloud)
+    want = template_gate(GATE_CAR, objects, cloud)
+    torch.cuda.synchronize()
+    assert template_gate_cuda.launches == before + 1
+    assert got.shape == want.shape == (O, 8) and got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want), (kind, O, shape, (got != want).nonzero()[:8].tolist())
+    if kind == "every":  # every pixel on row 0: the plain max takes no fill
+        assert int(want[0, 5]) == shape[0] * shape[1]
+
+
+def _delete_inputs(kind, n, device):
+    track, status, good, tid = template_delete_case(kind, n)
+    return track, status, good, tid, tuple(
+        torch.from_numpy(a).to(device) for a in (track, status, good, tid))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [58_720_256, 1001])  # the VKITTI2 store; a ragged tail
+@pytest.mark.parametrize("kind", TEMPLATE_DELETE_EDGES)
+def test_delete_kernel_matches_plain(cuda, kind, n):
+    """The delete kernel leaves the whole status equal to the plain pass's
+    and to its definition, and track untouched: neither slot good, one, both,
+    one id in both, an id absent from the store, an id on every slot."""
+    from semantic_dsp_map_tpu_torch.ops.templates_cuda import delete_matched_cuda
+    from semantic_dsp_map_tpu_torch.template_engine import delete_matched_plain
+
+    track, status, good, tid, (t, s, g, i) = _delete_inputs(kind, n, cuda)
+    plain = s.clone()
+    delete_matched_plain(t, plain, g, i)
+    before = delete_matched_cuda.launches
+    delete_matched_cuda(t, s, g, i)
+    torch.cuda.synchronize()
+    assert delete_matched_cuda.launches == before + 1
+    assert torch.equal(s, plain), kind
+    assert torch.equal(s.cpu(), torch.from_numpy(deleted_as_expected(track, status, good, tid)))
+    assert torch.equal(t.cpu(), torch.from_numpy(track))
+
+
+@pytest.mark.gpu
+def test_template_kernels_in_a_cuda_graph(cuda):
+    """Both kernels captured into a CUDA graph (the gate's scratch zeroed by a
+    memset node): replayed with a good slot and then with none (the flags
+    rewritten in place), each replay gives the plain versions' bits."""
+    from semantic_dsp_map_tpu_torch.ops.templates_cuda import (
+        delete_matched_cuda, template_gate_cuda,
+    )
+    from semantic_dsp_map_tpu_torch.template_engine import delete_matched_plain, template_gate
+
+    objects, cloud = template_gate_tensors("random", 64, 375, 1242, cuda)
+    _, status, _, _, (t, s, g, i) = _delete_inputs("one", 1 << 20, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture asks
+        template_gate_cuda(GATE_CAR, objects, cloud)
+        delete_matched_cuda(t, s.clone(), g, i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gate = template_gate_cuda(GATE_CAR, objects, cloud)
+        delete_matched_cuda(t, s, g, i)
+    original = torch.from_numpy(status).to(cuda)
+    for flags in ((True, False), (False, False)):
+        g.copy_(torch.tensor(flags, device=cuda))
+        s.copy_(original)
+        gate.zero_()
+        graph.replay()
+        plain = original.clone()
+        delete_matched_plain(t, plain, g, i)
+        torch.cuda.synchronize()
+        assert torch.equal(gate, template_gate(GATE_CAR, objects, cloud)), flags
+        assert torch.equal(s, plain), flags
+    assert torch.equal(s, original)  # no slot good: nothing deleted
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["dtype", "shape", "strided", "cpu"])
+def test_template_wrappers_refuse_what_their_kernels_do_not_take(cuda, fault):
+    """Both wrappers raise a ValueError that names the argument, before any
+    launch, for every tensor of another dtype, shape, a strided layout, or on
+    the CPU among CUDA tensors (but the one whose device decides between the
+    kernel and the plain version).  A shape is read from one tensor (the
+    cloud's from its track, the store's from track, the slots' from good),
+    so a wrong one is reported under the next tensor checked against it."""
+    import types
+
+    from semantic_dsp_map_tpu_torch.ops.templates_cuda import (
+        delete_matched_cuda, template_gate_cuda,
+    )
+
+    objects, cloud = template_gate_tensors("random", 8, 7, 13, cuda)
+    sized_by = {"cloud.track": "cloud.valid", "track": "status", "good": "tid"}
+    for name in ("cloud.track", "cloud.valid", "cloud.pos", "objects.valid",
+                 "objects.to_match_previous", "objects.moving", "objects.has_moved_record",
+                 "objects.to_match_templates", "objects.track_id", "objects.label"):
+        if name == "cloud.track" and fault == "cpu":
+            continue
+        part, field = name.split(".")
+        o, c = objects, cloud
+        if part == "cloud":
+            c = cloud._replace(**{field: _faulty(getattr(cloud, field), fault)})
+        else:
+            o = types.SimpleNamespace(**{**vars(objects),
+                                         field: _faulty(getattr(objects, field), fault)})
+        named = sized_by.get(name, name) if fault == "shape" else name
+        before = template_gate_cuda.launches
+        with pytest.raises(ValueError, match=f"^{named}: "):
+            template_gate_cuda(GATE_CAR, o, c)
+        assert template_gate_cuda.launches == before
+    args = list(_delete_inputs("one", 1001, cuda)[4])
+    for k, name in enumerate(("track", "status", "good", "tid")):
+        if name == "track" and fault == "cpu":
+            continue
+        bad = list(args)
+        bad[k] = _faulty(args[k], fault)
+        named = sized_by.get(name, name) if fault == "shape" else name
+        before = delete_matched_cuda.launches
+        with pytest.raises(ValueError, match=f"^{named}: "):
+            delete_matched_cuda(*bad)
+        assert delete_matched_cuda.launches == before
+
+
+@pytest.mark.gpu
+def test_template_kernels_spill_nothing(cuda):
+    """ptxas fits the gate's two kernels and the delete kernel in the
+    registers that let their blocks fill an SM (the gate's four blocks of
+    256 threads, the delete's eight), with no spill."""
+    from semantic_dsp_map_tpu_torch.ops import cuda_lib
+
+    _, _, log = cuda_lib.build()
+    found = _ptxas_functions(log)
+    limits = {"22gate_accumulate_kernel": 64, "18gate_finish_kernel": 64,
+              "21delete_matched_kernel": 32}
+    for key, limit in limits.items():
+        hits = [v for name, v in found.items() if key in name]
+        assert len(hits) == 1, (key, sorted(found))
+        regs, spill = hits[0]
+        assert regs <= limit and spill == 0, (key, regs, spill)

@@ -15,6 +15,7 @@
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,7 @@ from semantic_dsp_map_tpu_torch.ops.geometry import camera_matrices
 from semantic_dsp_map_tpu_torch.ops.projection import generate_labeled_cloud
 from semantic_dsp_map_tpu_torch.state import (
     STATUS_GUESSED_BORN,
+    STATUS_INVALID,
     ObjectTable,
     map_state_from_numpy,
     map_state_to_numpy,
@@ -276,6 +278,47 @@ def test_template_stages_match_jax():
     assert_states_match(jax_state_to_numpy(js), map_state_to_numpy(ts), "after birth")
     assert int((ts.particles.status == STATUS_GUESSED_BORN).sum()) > rematched
     assert not bool(tobj.to_match_templates[0]) and bool(tobj.to_match_templates[1])
+
+
+def test_a_good_rematch_counts_once_and_deletes_its_tracks_slots(monkeypatch):
+    """A forced rematch match on the CPU (the car's particles 0.3 m aside,
+    flagged to_match_previous; the wall eligible but with no particle):
+    ``rematch_matched`` grows by one, and the delete pass sets every slot of
+    the car's track INVALID, as the masked pass over the store did, and
+    touches no other (the insert stubbed out, so the store shows the delete
+    alone).  Run again, the car has no particle left, no match is good and
+    the total stays."""
+    _cfg_j, cfg_t, registry, cloud, st = _stage_setup()
+    params = T.FilterParams(if_use_template_matching=True, match_score_threshold=0.2)
+    tgrid = ttm.MatchGridConfig(**TEMPLATE_SCENE_GRID)
+    tst = tte.build_template_stages(cfg_t, params, registry, tgrid,
+                                    ttm.TemplateBank.from_folder(TEMPLATES, tgrid), device="cpu")
+    ts = dataclasses.replace(map_state_from_numpy(st, device="cpu"),
+                             objects=_to_t_objects(st["objects"]))
+    inserted = []
+
+    def no_insert(cfg, particles, scroll, cand, **kwargs):
+        inserted.append(int(cand.valid.sum()))
+        return types.SimpleNamespace(particles=particles,
+                                     block_overflow=torch.zeros((), dtype=torch.int64))
+
+    monkeypatch.setattr(tte, "_insert_core", no_insert)
+    p = ts.particles
+    gate = tst.gate(ts.objects, cloud)
+    car = int(gate[0, 3])
+    status, track = p.status.clone(), p.track.clone()
+    want = status.clone()
+    want.masked_fill_(track == car, STATUS_INVALID)
+    assert int((want != status).sum()) > 0
+    gt = torch.tensor(2, dtype=torch.int32)
+    assert int(tst.counts()["rematch_matched"]) == 0
+    tst.rematch(p, ts.scroll, cloud, torch.zeros(3), gate, gt)
+    assert int(tst.counts()["rematch_matched"]) == 1 and inserted[0] > 0
+    assert int(tst.records["rematch"].count) == 2  # the car and the wall were swept
+    assert torch.equal(p.status, want) and torch.equal(p.track, track)
+    tst.rematch(p, ts.scroll, cloud, torch.zeros(3), gate, gt)
+    assert int(tst.counts()["rematch_matched"]) == 1 and inserted[1] == 0
+    assert torch.equal(p.status, want)
 
 
 def _mask(kind, O=64, seed=0):

@@ -206,18 +206,35 @@ def test_the_counter_ring_holds_each_frames_diagnostics(case):
         assert (trace.counters[:, nine:] == -1).all()
         for name in TEMPLATE_COUNTERS:
             assert np.isnan(trace.counter(name)).all(), name
+        return
+    # The 13-counter ring's template columns, by name: the car matches its
+    # template on frame 0; no rematch sweeps, so none matches.
+    assert len(COUNTERS) == 13
+    for name, want in (("rematch_sweeps", [0] * 4), ("template_birth_sweeps", [1, 0, 0, 0]),
+                       ("rematch_matched", [0] * 4)):
+        np.testing.assert_array_equal(trace.counter(name), want, err_msg=name)
+        assert list(trace.counters[:, COUNTERS.index(name)]) == list(np.cumsum(want)), name
+    assert trace.counter("guessed_born_count")[0] > 0
+    assert list(trace.counter("guessed_born_count")[1:]) == [0] * 3
 
 
-def test_the_counter_ring_is_sized_by_its_counters():
+def test_the_counter_ring_is_sized_by_its_counters(monkeypatch):
     """The counter ring holds a column a counter, the stamp ring a column a
-    stamp: the two widths differ and neither is read from the other."""
+    stamp, and neither width is read from the other: both are 13 wide, and
+    one counter more widens the counter ring alone."""
     tracer = Tracer(5)
     _map("superpoint", "cpu", tracer)
     assert COUNTERS[:len(StepDiagnostics._fields)] == StepDiagnostics._fields
     assert COUNTERS[len(StepDiagnostics._fields):] == TEMPLATE_COUNTERS
-    assert len(COUNTERS) != len(STAMPS)
+    assert len(COUNTERS) == len(STAMPS) == 13
     assert tracer._stamps.shape == (5, len(STAMPS))
     assert tracer._counters.shape == (5, len(COUNTERS))
+    monkeypatch.setattr(timing, "COUNTERS", COUNTERS + ("one_more",))
+    wider = Tracer(5)
+    wider.bind("cpu")
+    assert wider._stamps.shape == (5, len(STAMPS))
+    assert wider._counters.shape == (5, len(COUNTERS) + 1)
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="no counter"):
         tracer.stamp("render", counts={"nope": torch.zeros((), dtype=torch.int64)})
     with pytest.raises(ValueError, match="not a run"):
@@ -263,11 +280,38 @@ def test_the_running_totals_read_a_frames_share():
     counters = np.full((4, len(COUNTERS)), -1, np.int64)
     counters[:, COUNTERS.index("template_birth_sweeps")] = [1, 3, 1, -1]
     counters[:, COUNTERS.index("guessed_born_count")] = [5, 0, 2, -1]
+    counters[:, COUNTERS.index("rematch_matched")] = [2, 2, 3, -1]
     for lost, first in ((0, 1.0), (6, np.nan)):
         trace = Trace(np.arange(lost, lost + 4), [], stamps, counters, lost)
         np.testing.assert_array_equal(trace.counter("template_birth_sweeps"),
                                       [first, 2, 1, np.nan])
         np.testing.assert_array_equal(trace.counter("guessed_born_count"), [5, 0, 2, np.nan])
+        np.testing.assert_array_equal(trace.counter("rematch_matched"),
+                                      [2 * first, 0, 1, np.nan])
+
+
+def test_the_rematch_matched_metric_reads_the_counter_or_none(monkeypatch):
+    """The benchmark's ``rematch_matched_per_frame`` reads the mean of the
+    frames' shares of ``rematch_matched`` over the window's frames outside
+    the profiled slice; None without the program's records, on frames that
+    set no template counter, or where the program has no such counter."""
+    from dspbench import harness
+
+    read = harness.reader("rematch_matched_per_frame")
+    run = harness.Run()
+    assert read(run) is None
+    counters = np.full((4, len(COUNTERS)), -1, np.int64)
+    counters[:, COUNTERS.index("rematch_matched")] = [0, 1, 1, 3]
+    run.program = Trace(np.arange(4), [], np.full((4, len(STAMPS)), -1, np.int64), counters, 0)
+    run.frames = [harness.Frame(i, 0.0, 0.0, 0.0, False) for i in range(4)]
+    assert read(run) == pytest.approx(0.75)  # shares 0, 1, 0, 2
+    run.traced = range(3, 4)
+    assert read(run) == pytest.approx(1 / 3)
+    monkeypatch.setattr(timing, "COUNTERS", tuple(c for c in COUNTERS if c != "rematch_matched"))
+    assert read(run) is None
+    monkeypatch.undo()
+    counters[:, COUNTERS.index("rematch_matched")] = -1  # no template matching
+    assert read(run) is None
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -491,3 +491,127 @@ def merge_working_set(K: int, bv: int, A: int, n_real: int, nb: int, seed: int,
         first[:n_real, :, 0] = True
         out["in_meta"] = np.where(first & (out["in_meta"] < 0), meta, out["in_meta"]).astype(np.int32)
     return out
+
+
+#: The template gate's edge cases (``template_gate_case``).
+TEMPLATE_GATE_EDGES = ("random", "none", "one", "every", "every_valid", "shared_id", "minus_one",
+                       "specials", "past_int32")
+
+#: The Car label of ``template_gate_case``'s rows.
+GATE_CAR = 3
+
+
+def template_gate_case(kind, O, H, W, seed=0):
+    """The template gate's inputs as numpy: ({object field: [O]}, {cloud
+    field: [H, W] or [H, W, 3]}), the rows' ids distinct unless ``kind``
+    says otherwise, flags and labels (``GATE_CAR`` or 6) at random.
+
+    none: no pixel has a row's id; one: one valid pixel has one; every: every
+    pixel valid and on row 0's id, its x all -inf (no fill joins the max);
+    every_valid: every pixel on row 0's id, a fifth of them invalid;
+    shared_id: two valid rows and an invalid one share an id; minus_one:
+    half the rows invalid with id -1, one valid row with id -1 and many -1
+    pixels; specials: NaN, +-0.0 and +-inf coordinates on valid pixels;
+    past_int32: extents whose mm pass the int32 range."""
+    rng = np.random.RandomState(seed)
+    objects = dict(
+        valid=rng.rand(O) < 0.7,
+        track_id=np.arange(O, dtype=np.int32),
+        label=rng.choice([GATE_CAR, 6], O).astype(np.int32),
+        **{f: rng.rand(O) < 0.6 for f in ("to_match_previous", "moving", "has_moved_record",
+                                           "to_match_templates")},
+    )
+    objects["valid"][0] = True
+    track = rng.randint(-1, O + 4, (H, W)).astype(np.int32)
+    valid = rng.rand(H, W) < 0.8
+    pos = (rng.randn(H, W, 3) * 10).astype(np.float32)
+    row = min(3, O - 1)
+    if kind == "none":
+        track[:] = O + 5
+    elif kind == "one":
+        track[:] = O + 5
+        i, j = rng.randint(H), rng.randint(W)
+        track[i, j], valid[i, j], objects["valid"][row] = row, True, True
+    elif kind in ("every", "every_valid"):
+        track[:] = 0
+        if kind == "every":
+            valid[:] = True
+            pos[..., 0] = -np.inf
+    elif kind == "shared_id":
+        objects["track_id"][:3] = row
+        objects["valid"][:3] = (True, True, False)
+    elif kind == "minus_one":
+        objects["track_id"][O // 2:] = -1
+        objects["valid"][O // 2:] = False
+        objects["track_id"][1], objects["valid"][1] = -1, True
+        track[rng.rand(H, W) < 0.5] = -1
+    elif kind in ("specials", "past_int32"):
+        objects["valid"][:6] = True
+        track = rng.randint(0, 6, (H, W)).astype(np.int32)
+        valid[:] = True
+        xy = pos.reshape(-1, 3)  # a view: rows are pixels
+        at = {r: np.flatnonzero(track.reshape(-1) == r) for r in range(6)}
+        half = {r: np.arange(len(at[r])) % 2 == 1 for r in range(6)}
+        if kind == "specials":
+            xy[at[0][:1], 0] = np.nan                          # row 0: a NaN x
+            xy[at[1], 0] = np.where(half[1], 0.0, -0.0)        # row 1: x all +-0.0
+            xy[at[2][:1], 0], xy[at[2][1:2], 0] = np.inf, -np.inf  # row 2: both infinities
+            xy[at[3], 0] = np.inf                              # row 3: inf - inf
+            xy[at[4][:1], 1] = np.nan                          # row 4: a NaN y
+            xy[at[5], 1] = np.where(half[5], -np.inf, -0.0)    # row 5: y -inf and -0.0
+        else:
+            xy[at[0], 0] = np.where(half[0], 2e6, -2e6)        # 4e9 mm
+            xy[at[1], 1] = np.where(half[1], 3e38, -3e38)      # an infinite extent
+            xy[at[2], 0] = np.where(half[2], 2.2e6, 0.0)       # 2.2e9 mm
+            xy[at[3], 1] = np.where(half[3], 2.1e6, 0.0)       # 2.1e9 mm: inside int32
+    elif kind != "random":
+        raise ValueError(kind)
+    cloud = dict(pos=pos, sigma=np.ones((H, W), np.float32), label=np.zeros((H, W), np.int32),
+                 track=track, valid=valid)
+    return objects, cloud
+
+
+def template_gate_tensors(kind, O, H, W, device):
+    """``template_gate_case`` as the gate takes it, on ``device``: (objects,
+    cloud)."""
+    import types
+
+    import torch
+    from semantic_dsp_map_tpu_torch.ops.projection import LabeledCloud
+
+    objects, cloud = template_gate_case(kind, O, H, W)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (types.SimpleNamespace(**{k: T(v) for k, v in objects.items()}),
+            LabeledCloud(**{k: T(v) for k, v in cloud.items()}))
+
+
+#: Rematch's delete pass's edge cases (``template_delete_case``).
+TEMPLATE_DELETE_EDGES = ("none", "one", "both", "same_tid", "absent", "every")
+
+
+def template_delete_case(kind, n, seed=0):
+    """Rematch's delete pass's inputs as numpy: (track i32[n], status u8[n],
+    good bool[2], tid i32[2]).  none: neither slot good; one: the first
+    (the other's id is in the store too); both; same_tid: both good with one
+    id; absent: the good slot's id is in no slot; every: every slot has the
+    good slot's id."""
+    rng = np.random.RandomState(seed)
+    track = rng.randint(-1, 12, n).astype(np.int32)
+    status = rng.randint(0, 5, n).astype(np.uint8)
+    tid = np.array([3, 5], np.int32)
+    good = {"none": (False, False), "one": (True, False), "both": (True, True),
+            "same_tid": (True, True), "absent": (True, False), "every": (True, False)}[kind]
+    if kind == "same_tid":
+        tid[1] = 3
+    elif kind == "absent":
+        tid[0] = 40
+    elif kind == "every":
+        track[:] = 3
+    return track, status, np.array(good), tid
+
+
+def deleted_as_expected(track, status, good, tid):
+    """What rematch's delete pass leaves of ``status`` (numpy)."""
+    out = status.copy()
+    out[np.isin(track, tid[good])] = 0
+    return out
